@@ -1,0 +1,400 @@
+"""Batched autoregressive inference: prefill + KV-cache decode, dense and
+paged.
+
+Counterpart of ``skypilot_tpu/models/decode.py``, same semantics:
+
+* Dense cache ``{'k','v'} [L, B, max_len, Hkv, hd]`` (+ fp32
+  ``{'k_scale','v_scale'} [L, B, max_len, Hkv]`` when int8), or a paged
+  block pool ``[L, n_blocks, block_k, Hkv, hd]`` whose block 0 the
+  engine keeps as scratch; a sequence's position ``p`` lives in pool
+  block ``table[p // block_k]`` at offset ``p % block_k``.
+* Prefill runs the full forward once (plain GQA attention) and writes
+  the cache; each decode step writes the new token's K/V, then attends
+  over the cache through ``ops/decode_attention`` — the CUDA kernels on
+  the card, their plain twins on the CPU or under
+  ``decode_attention='plain'``.
+* The reference donates its cache to every jitted call so XLA updates it
+  in place; here the cache tensors are simply updated in place (every
+  ``_write_kv``/``copy_block`` below), so callers keep one cache object
+  for the life of the engine.
+* Greedy or temperature sampling; ``generate`` stops per sequence on EOS
+  through a done mask.
+"""
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import decode_attention as decode_attention_ops
+from skypilot_tpu_torch.ops import quant
+
+Params = llama.Params
+Cache = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeConfig:
+    max_len: int = 2048
+    temperature: float = 0.0          # 0 = greedy
+    eos_id: Optional[int] = None
+    # Cached attention: 'kernel' = the CUDA flash-decode kernels (plain
+    # twins for CPU tensors); 'plain' = the plain PyTorch path everywhere
+    # (the reference's 'xla').
+    decode_attention: str = 'kernel'
+    # KV cache storage: 'bf16' (model dtype) or 'int8' (+ fp32 scales).
+    kv_cache_dtype: str = 'bf16'
+    # Paged pool block size in tokens.
+    kernel_block_k: int = decode_attention_ops.DEFAULT_BLOCK_K
+
+
+def _empty_cache(cfg: llama.LlamaConfig, shape, kv_cache_dtype: str,
+                 device) -> Cache:
+    if kv_cache_dtype == 'int8':
+        return {
+            'k': torch.zeros(shape, dtype=torch.int8, device=device),
+            'v': torch.zeros(shape, dtype=torch.int8, device=device),
+            'k_scale': torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device),
+            'v_scale': torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device),
+        }
+    if kv_cache_dtype != 'bf16':
+        raise ValueError(f'kv_cache_dtype must be bf16 or int8, got '
+                         f'{kv_cache_dtype!r}')
+    return {'k': torch.zeros(shape, dtype=cfg.dtype, device=device),
+            'v': torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def init_kv_cache(cfg: llama.LlamaConfig, batch: int, max_len: int,
+                  kv_cache_dtype: str = 'bf16', device='cpu') -> Cache:
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return _empty_cache(cfg, shape, kv_cache_dtype, device)
+
+
+def init_block_pool(cfg: llama.LlamaConfig, num_blocks: int, block_k: int,
+                    kv_cache_dtype: str = 'bf16', device='cpu') -> Cache:
+    """Global paged pool [L, num_blocks, block_k, Hkv, hd] (+ scale
+    planes when int8). Block 0 is the engine's write-off scratch block,
+    so usable capacity is ``num_blocks - 1`` blocks."""
+    shape = (cfg.n_layers, num_blocks, block_k, cfg.n_kv_heads,
+             cfg.head_dim)
+    return _empty_cache(cfg, shape, kv_cache_dtype, device)
+
+
+def _layer_cache(cache: Cache, i: int) -> Cache:
+    return {name: t[i] for name, t in cache.items()}
+
+
+def _write_kv(cache: Cache, idx, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write K/V into ``cache[...]`` at ``idx`` in place (the reference
+    returns a donated copy), quantising on the way in when the cache is
+    int8 — the one copy of the write-side scheme, shared by prefill and
+    decode."""
+    if 'k_scale' in cache:
+        kq, ks = quant.quantize_kv(k)
+        vq, vs = quant.quantize_kv(v)
+        cache['k'][idx] = kq
+        cache['v'][idx] = vq
+        cache['k_scale'][idx] = ks
+        cache['v_scale'][idx] = vs
+    else:
+        cache['k'][idx] = k.to(cache['k'].dtype)
+        cache['v'][idx] = v.to(cache['v'].dtype)
+
+
+def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final hidden rows → fp32 logits (lm_head in the model dtype)."""
+    return (x @ params['lm_head']).float()
+
+
+def _embed(params: Params, tokens: torch.Tensor,
+           cfg: llama.LlamaConfig) -> torch.Tensor:
+    return params['tok_embedding'][tokens.long()].to(cfg.dtype)
+
+
+def _attend_out(cfg: llama.LlamaConfig, x: torch.Tensor,
+                attn: torch.Tensor, layer: Params) -> torch.Tensor:
+    """Attention output projection + residual, then the FFN sublayer."""
+    b, s = x.shape[:2]
+    attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    x = x + (attn @ layer['wo']).to(cfg.dtype)
+    return llama.ffn_sublayer(cfg, x, layer)
+
+
+# ------------------------------------------------------------------ dense
+
+
+def _decode_layers(params: Params, token: torch.Tensor, pos: torch.Tensor,
+                   cfg: llama.LlamaConfig, dcfg: DecodeConfig,
+                   cache: Cache, write_idx,
+                   block_tables: Optional[torch.Tensor]) -> torch.Tensor:
+    """The single-token step shared by the dense and paged caches: per
+    layer, write the new K/V at ``write_idx`` (quantising when int8),
+    then attend over positions < pos + 1 — through the block tables when
+    given. Returns logits [B, vocab]."""
+    cos, sin = llama._rope_freqs(cfg, pos[:, None])  # pylint: disable=protected-access
+    x = _embed(params, token, cfg)[:, None]
+    cur_len = (pos + 1).to(torch.int32)
+    for i in range(cfg.n_layers):
+        layer = llama.layer_params(params, i)
+        lcache = _layer_cache(cache, i)
+        q, k, v = llama.qkv(cfg, x, layer, cos, sin)
+        _write_kv(lcache, write_idx, k[:, 0], v[:, 0])
+        scales = (lcache.get('k_scale'), lcache.get('v_scale'))
+        if block_tables is None:
+            attn = decode_attention_ops.decode_attention(
+                q, lcache['k'], lcache['v'], cur_len, *scales,
+                impl=dcfg.decode_attention)
+        else:
+            attn = decode_attention_ops.paged_decode_attention(
+                q, lcache['k'], lcache['v'], block_tables, cur_len,
+                *scales, impl=dcfg.decode_attention)
+        x = _attend_out(cfg, x, attn, layer)
+    x = llama.rms_norm(x, params['out_norm'], cfg.norm_eps)
+    return _logits(params, x[:, 0])
+
+
+def decode_step(params: Params, token: torch.Tensor, pos: torch.Tensor,
+                cfg: llama.LlamaConfig, dcfg: DecodeConfig,
+                cache: Cache) -> torch.Tensor:
+    """token [B] at positions pos [B] → logits [B, vocab]; the dense cache
+    is updated in place at (row, pos). Counterpart of the reference's
+    ``_decode_step``/``_block_decode``."""
+    pos = pos.long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return _decode_layers(params, token, pos, cfg, dcfg, cache,
+                          (rows, pos), None)
+
+
+def _prefill_forward(params: Params, tokens: torch.Tensor,
+                     cfg: llama.LlamaConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """tokens [B, S] → (final normed hidden [B, S, D], ks, vs [L, B, S,
+    Hkv, hd]). Causal, so a prompt's activations are the same alone in
+    a [1, S_bucket] bucket as in a [B, S] batch. Callers take the
+    logits of only the rows they need."""
+    s = tokens.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    cos, sin = llama._rope_freqs(cfg, positions)  # pylint: disable=protected-access
+    x = _embed(params, tokens, cfg)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        layer = llama.layer_params(params, i)
+        x, k, v = llama.attn_sublayer(cfg, x, layer, cos, sin)
+        x = llama.ffn_sublayer(cfg, x, layer)
+        ks.append(k)
+        vs.append(v)
+    x = llama.rms_norm(x, params['out_norm'], cfg.norm_eps)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: llama.LlamaConfig,
+            cache: Cache, prompt_lens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S_prompt] right-padded → logits at each sequence's
+    last prompt token [B, vocab]; writes the cache prefix in place."""
+    b, s = tokens.shape
+    x, ks, vs = _prefill_forward(params, tokens, cfg)
+    _write_kv(cache, (slice(None), slice(None), slice(0, s)), ks, vs)
+    rows = torch.arange(b, device=tokens.device)
+    return _logits(params, x[rows, prompt_lens.long() - 1])
+
+
+def prefill_into_slot(params: Params, tokens: torch.Tensor,
+                      prompt_len: int, slot: int, cfg: llama.LlamaConfig,
+                      cache: Cache) -> torch.Tensor:
+    """Prefill ONE request ([1, S_bucket] right-padded) into lane
+    ``slot`` of a multi-slot cache, positions [0, S_bucket); other lanes
+    are untouched. Returns the last prompt token's logits [vocab]."""
+    s = tokens.shape[1]
+    x, ks, vs = _prefill_forward(params, tokens, cfg)
+    _write_kv(cache, (slice(None), slot, slice(0, s)), ks[:, 0], vs[:, 0])
+    return _logits(params, x[0, prompt_len - 1])
+
+
+# ------------------------------------------------------------------ paged
+
+
+def paged_decode_step(params: Params, token: torch.Tensor,
+                      pos: torch.Tensor, block_tables: torch.Tensor,
+                      cfg: llama.LlamaConfig, dcfg: DecodeConfig,
+                      pool: Cache) -> torch.Tensor:
+    """token [B] at positions pos [B], tables [B, max_blocks] → logits
+    [B, vocab]; the K/V write goes to (table[pos // block_k], pos %
+    block_k) of the pool, in place. Counterpart of the reference's
+    ``_paged_decode_step``/``_paged_block_decode``."""
+    pos = pos.long()
+    block_k = pool['k'].shape[2]
+    blk = block_tables.long().gather(1, (pos // block_k)[:, None])[:, 0]
+    tables = block_tables.to(torch.int32)
+    return _decode_layers(params, token, pos, cfg, dcfg, pool,
+                          (blk, pos % block_k), tables)
+
+
+def paged_prefill(params: Params, tokens: torch.Tensor, prompt_len: int,
+                  block_row: torch.Tensor, cfg: llama.LlamaConfig,
+                  pool: Cache) -> torch.Tensor:
+    """Prefill ONE request into the pool blocks named by ``block_row``
+    [S_bucket // block_k]: positions [j*block_k, (j+1)*block_k) land in
+    block ``block_row[j]``. Bucket padding writes into whatever block
+    covers it (the engine points rows past the allocation at scratch;
+    attention masks by length). Returns the last prompt logits."""
+    s = tokens.shape[1]
+    block_k = pool['k'].shape[2]
+    x, ks, vs = _prefill_forward(params, tokens, cfg)
+    shp = (ks.shape[0], s // block_k, block_k) + ks.shape[3:]
+    _write_kv(pool, (slice(None), block_row.long()),
+              ks[:, 0].reshape(shp), vs[:, 0].reshape(shp))
+    return _logits(params, x[0, prompt_len - 1])
+
+
+def _prefix_suffix_attention(q: torch.Tensor, pk: torch.Tensor,
+                             pv: torch.Tensor, sk: torch.Tensor,
+                             sv: torch.Tensor,
+                             prefix_len: int) -> torch.Tensor:
+    """Suffix queries attend the gathered prefix K/V (positions <
+    prefix_len) plus the suffix itself (causal). q/sk/sv [1, S, ...],
+    pk/pv [1, P_buf, Hkv, hd]; grouped GQA einsum."""
+    _, s, h, hd = q.shape
+    p_buf = pk.shape[1]
+    hkv = pk.shape[2]
+    g = h // hkv
+    k = torch.cat([pk, sk], dim=1)
+    v = torch.cat([pv, sv], dim=1)
+    qg = q.reshape(1, s, hkv, g, hd)
+    logits = torch.einsum('bskgd,btkd->bkgst', qg.float(),
+                          k.float()) * hd**-0.5
+    t_idx = torch.arange(p_buf + s, device=q.device)[None, :]
+    j_idx = torch.arange(s, device=q.device)[:, None]
+    # [S, P_buf + S]: prefix entries gate on prefix_len, suffix causal.
+    mask = torch.where(t_idx < p_buf, t_idx < prefix_len,
+                       (t_idx - p_buf) <= j_idx)
+    logits = torch.where(mask, logits, decode_attention_ops.NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum('bkgst,btkd->bskgd', probs.float(), v.float())
+    return out.reshape(1, s, h, hd).to(q.dtype)
+
+
+def _gather_prefix_kv(pool: Cache, prefix_blocks: torch.Tensor,
+                      dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pool → contiguous prefix K/V [L, Npb*block_k, Hkv, hd] (int8
+    pools dequantise here; the suffix forward runs in model dtype)."""
+    block_k = pool['k'].shape[2]
+    idx = prefix_blocks.long()
+
+    def flat(x):
+        g = x[:, idx]                          # [L, Npb, block_k, ...]
+        return g.reshape((x.shape[0], idx.shape[0] * block_k) +
+                         x.shape[3:])
+
+    pk, pv = flat(pool['k']), flat(pool['v'])
+    if 'k_scale' in pool:
+        pk = pk.float() * flat(pool['k_scale'])[..., None]
+        pv = pv.float() * flat(pool['v_scale'])[..., None]
+    return pk.to(dtype), pv.to(dtype)
+
+
+def paged_prefill_with_prefix(params: Params, tokens: torch.Tensor,
+                              suffix_len: int, prefix_len: int,
+                              prefix_blocks: torch.Tensor,
+                              block_row: torch.Tensor,
+                              cfg: llama.LlamaConfig,
+                              pool: Cache) -> torch.Tensor:
+    """Prefix-skipping prefill: only the prompt suffix (``tokens`` [1,
+    S_bucket], right-padded) runs through the model, attending over the
+    prefix K/V already in the pool blocks ``prefix_blocks`` (padded
+    entries masked by ``prefix_len``). ``block_row`` [S_bucket // block_k
+    + 1] names the blocks receiving the suffix writes, starting at the
+    block holding position ``prefix_len``. Returns the last suffix
+    token's logits [vocab]."""
+    s = tokens.shape[1]
+    block_k = pool['k'].shape[2]
+    device = tokens.device
+    positions = prefix_len + torch.arange(s, dtype=torch.int32,
+                                          device=device)
+    cos, sin = llama._rope_freqs(cfg, positions)  # pylint: disable=protected-access
+    x = _embed(params, tokens, cfg)
+    pk, pv = _gather_prefix_kv(pool, prefix_blocks, cfg.dtype)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        layer = llama.layer_params(params, i)
+        q, k, v = llama.qkv(cfg, x, layer, cos, sin)
+        attn = _prefix_suffix_attention(q, pk[i][None], pv[i][None], k, v,
+                                        prefix_len)
+        x = _attend_out(cfg, x, attn, layer)
+        ks.append(k[0])
+        vs.append(v[0])
+    x = llama.rms_norm(x, params['out_norm'], cfg.norm_eps)
+    # Token i sits at global position prefix_len + i → block
+    # block_row[(off0 + i) // block_k], offset (off0 + i) % block_k.
+    g = (prefix_len % block_k) + torch.arange(s, device=device)
+    blk = block_row.long()[g // block_k]
+    _write_kv(pool, (slice(None), blk, g % block_k), torch.stack(ks),
+              torch.stack(vs))
+    return _logits(params, x[0, suffix_len - 1])
+
+
+def copy_block(pool: Cache, src: int, dst: int) -> None:
+    """Copy one pool block (all layers, scales included) in place — the
+    device half of copy-on-write."""
+    for t in pool.values():
+        t[:, dst] = t[:, src]
+
+
+# --------------------------------------------------------------- sampling
+
+
+def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
+           temperature: float) -> torch.Tensor:
+    """[B, vocab] → [B] int64: argmax when greedy, else a draw from
+    softmax(logits / T) with ``generator``."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def generate(params: Params, prompt: torch.Tensor,
+             prompt_lens: torch.Tensor, cfg: llama.LlamaConfig,
+             dcfg: DecodeConfig, max_new_tokens: int,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """prompt [B, S_prompt] right-padded → generated tokens [B,
+    max_new_tokens] (post-EOS positions hold eos_id)."""
+    b, s_prompt = prompt.shape
+    if s_prompt + max_new_tokens > dcfg.max_len:
+        raise ValueError(
+            f'prompt ({s_prompt}) + max_new_tokens ({max_new_tokens}) '
+            f'exceeds max_len {dcfg.max_len}')
+    device = prompt.device
+    cache = init_kv_cache(cfg, b, dcfg.max_len, dcfg.kv_cache_dtype,
+                          device)
+    lens = prompt_lens.to(device).long()
+    last = prefill(params, prompt, cfg, cache, lens)
+    token = sample(last, generator, dcfg.temperature)
+    eos = dcfg.eos_id
+    done = (token == eos if eos is not None else
+            torch.zeros(b, dtype=torch.bool, device=device))
+    out = [token]
+    pos = lens
+    for _ in range(max_new_tokens - 1):
+        logits = decode_step(params, token, pos, cfg, dcfg, cache)
+        nxt = sample(logits, generator, dcfg.temperature)
+        if eos is not None:
+            nxt = torch.where(done, eos, nxt)
+            done = done | (nxt == eos)
+        token, pos = nxt, pos + 1
+        out.append(nxt)
+    return torch.stack(out, dim=1)
+
+
+def completed_token_counts(tokens, eos_id: Optional[int]) -> np.ndarray:
+    """Per-sequence GENERATED token counts of a [B, T] generation: the
+    EOS token counts, the post-EOS padding does not."""
+    t = np.asarray(tokens)
+    b, n = t.shape
+    if eos_id is None:
+        return np.full((b,), n, dtype=np.int64)
+    is_eos = t == eos_id
+    return np.where(is_eos.any(axis=1), is_eos.argmax(axis=1) + 1,
+                    n).astype(np.int64)

@@ -1,0 +1,887 @@
+"""Continuous-batching decode engine: slot-scheduled serving on one cache.
+
+Counterpart of ``skypilot_tpu/models/engine.py``'s ``DecodeEngine`` for
+this slice: dense and paged modes, greedy and sampled decoding, radix
+prefix reuse, per-tenant round-robin admission, clamp/reject of
+over-budget requests. Speculative decoding, chunked prefill, tensor
+parallelism, prefix fetch/store/handoff, telemetry and the crash
+supervisor belong to later slices.
+
+* **One persistent cache** of ``num_slots`` lanes (dense) or one block
+  pool (paged), updated in place for the life of the engine.
+* **insert()** prefills one request ([1, S_bucket]; prompt lengths round
+  up to bucket shapes) into a free lane; the first token samples from
+  the prefill logits.
+* **step()** runs ``step_chunk`` single-token decode steps across every
+  slot with per-slot positions — a Python loop on the device, one host
+  fetch per ``step()``. The step semantics are exactly the reference's
+  ``_scan_engine_steps``: sample → EOS-force → done-fold, one budget
+  unit per live step, done lanes freeze their position. Greedy engine
+  output is therefore token-identical to ``decode.generate``.
+* Finished slots are evicted and refilled from the admission queue.
+
+**Paged mode**: a host-side :class:`BlockAllocator` (refcounts,
+copy-on-write) and :class:`RadixPrefixCache` (radix tree over block-
+sized token runs) decide which pool blocks a request reads; admission
+reserves the request's worst case so decoding never runs out of blocks,
+prefills only the suffix a cached prefix does not cover, and publishes
+the prompt's full blocks. Evicted lanes repoint their table rows at
+scratch block 0 so their frozen writes never land in a reused block.
+
+The allocator, radix cache and :class:`Request` are this package's own
+copies of the reference's pure-Python classes.
+"""
+import collections
+import heapq
+import itertools
+import logging
+import os
+import threading
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from skypilot_tpu_torch.models import decode, llama
+
+logger = logging.getLogger(__name__)
+
+IDLE_SLEEP_ENV = 'SKYTPU_ENGINE_IDLE_SLEEP_SECONDS'
+# The pool's block 0 is engine-owned scratch: freed slots' table rows
+# point at it so frozen lanes write harmlessly, and bucket-padding
+# prefill writes spill into it. The allocator never hands it out.
+SCRATCH_BLOCK = 0
+
+
+class PoolExhausted(RuntimeError):
+    """An admission's block reservation cannot be met (even after
+    prefix-cache eviction); the request stays queued."""
+
+
+class BlockAllocator:
+    """Refcounted free-list allocator over the paged pool's blocks.
+
+    Blocks are ints in [reserved, num_blocks). A block's refcount is its
+    number of owners: each slot whose table references it, plus the
+    radix cache when a tree node holds it. Host-side only."""
+
+    def __init__(self, num_blocks: int, reserved: int = 1):
+        if num_blocks <= reserved:
+            raise ValueError(f'num_blocks must be > {reserved}, got '
+                             f'{num_blocks}')
+        self.num_blocks = num_blocks
+        self._reserved = reserved
+        self._free: List[int] = list(range(num_blocks - 1, reserved - 1,
+                                           -1))
+        self._ref = np.zeros((num_blocks,), np.int32)
+
+    def available(self) -> int:
+        return len(self._free)
+
+    def used(self) -> int:
+        return (self.num_blocks - self._reserved) - len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        """Take ``n`` blocks (refcount 1 each); raises PoolExhausted."""
+        if n > len(self._free):
+            raise PoolExhausted(f'need {n} blocks, {len(self._free)} free')
+        out = [self._free.pop() for _ in range(n)]
+        self._ref[out] = 1
+        return out
+
+    def incref(self, blocks) -> None:
+        for b in blocks:
+            if self._ref[b] <= 0:
+                raise RuntimeError(f'incref of free block {b}')
+            self._ref[b] += 1
+
+    def decref(self, blocks) -> List[int]:
+        """Drop one ref per block; returns the blocks actually freed."""
+        freed = []
+        for b in blocks:
+            if self._ref[b] <= 0:
+                raise RuntimeError(f'decref of free block {b}')
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                self._free.append(b)
+                freed.append(b)
+        return freed
+
+    def refcount(self, block: int) -> int:
+        return int(self._ref[block])
+
+    def cow(self, block: int) -> Tuple[int, bool]:
+        """Copy-on-write for a caller holding one ref and about to write
+        ``block``: sole owner → write in place; shared → a fresh clone
+        target the caller device-copies into. Returns (writable block,
+        needs_copy)."""
+        if self._ref[block] == 1:
+            return block, False
+        return self.alloc(1)[0], True
+
+
+class _RadixNode:
+    """One edge of the prefix tree: a run of whole blocks. ``keys[i]``
+    is the tuple of block_k token ids held by pool block ``blocks[i]``;
+    ``lock`` counts in-flight requests that matched through it."""
+
+    __slots__ = ('keys', 'blocks', 'children', 'parent', 'lock', 'last')
+
+    def __init__(self, keys, blocks, parent):
+        self.keys: List[tuple] = keys
+        self.blocks: List[int] = blocks
+        self.children: dict = {}
+        self.parent = parent
+        self.lock = 0
+        self.last = 0
+
+
+class RadixPrefixCache:
+    """Radix tree mapping prompt-token prefixes → pool blocks, at block
+    granularity: partial blocks are never shared, so shared blocks are
+    immutable and copy-on-write is only needed at the boundary block of
+    a full-prompt hit. The tree owns one allocator ref per held block;
+    ``evict`` LRU-walks unlocked leaves under pool pressure."""
+
+    def __init__(self, block_k: int, allocator: BlockAllocator):
+        self.block_k = block_k
+        self._alloc = allocator
+        self._root = _RadixNode([], [], None)
+        self._clock = 0
+        self._n_blocks = 0
+        self._n_nodes = 0
+
+    def _block_keys(self, tokens) -> List[tuple]:
+        bk = self.block_k
+        return [tuple(tokens[i * bk:(i + 1) * bk])
+                for i in range(len(tokens) // bk)]
+
+    def held_blocks(self) -> int:
+        return self._n_blocks
+
+    def node_count(self) -> int:
+        return self._n_nodes
+
+    def _touch(self, node: _RadixNode) -> None:
+        self._clock += 1
+        node.last = self._clock
+
+    def match(self, tokens) -> Tuple[List[int], List[_RadixNode]]:
+        """Longest cached prefix of ``tokens`` in whole blocks: (blocks,
+        path). The caller gets one allocator ref per matched block and a
+        lock on every path node, returned through decref + release."""
+        keys = self._block_keys(tokens)
+        blocks: List[int] = []
+        path: List[_RadixNode] = []
+        node = self._root
+        i = 0
+        while i < len(keys):
+            child = node.children.get(keys[i])
+            if child is None:
+                break
+            n = 0
+            while (n < len(child.keys) and i + n < len(keys) and
+                   child.keys[n] == keys[i + n]):
+                n += 1
+            if n == 0:
+                break
+            blocks.extend(child.blocks[:n])
+            path.append(child)
+            self._touch(child)
+            i += n
+            if n < len(child.keys):
+                break
+            node = child
+        if blocks:
+            self._alloc.incref(blocks)
+            for p in path:
+                p.lock += 1
+        return blocks, path
+
+    def release(self, path) -> None:
+        for p in path:
+            if p.lock <= 0:
+                raise RuntimeError('radix release of an unlocked node')
+            p.lock -= 1
+
+    def insert(self, tokens, blocks) -> int:
+        """Record that ``blocks[i]`` holds block i of ``tokens`` (a whole
+        number of blocks). Cached prefixes dedupe; only the divergent
+        suffix is adopted. Returns the number of blocks adopted."""
+        keys = self._block_keys(tokens)
+        if len(keys) != len(blocks):
+            raise ValueError(f'{len(keys)} token blocks vs {len(blocks)} '
+                             'pool blocks')
+        node = self._root
+        i = 0
+        while i < len(keys):
+            child = node.children.get(keys[i])
+            if child is None:
+                new = _RadixNode(keys[i:], list(blocks[i:]), node)
+                node.children[keys[i]] = new
+                self._touch(new)
+                self._n_nodes += 1
+                self._alloc.incref(new.blocks)
+                self._n_blocks += len(new.blocks)
+                return len(new.blocks)
+            n = 0
+            while (n < len(child.keys) and i + n < len(keys) and
+                   child.keys[n] == keys[i + n]):
+                n += 1
+            self._touch(child)
+            if n < len(child.keys):
+                if i + n == len(keys):
+                    return 0        # new prompt is a prefix of the edge
+                self._split(child, n)
+            i += n
+            node = child
+        return 0
+
+    def _split(self, node: _RadixNode, at: int) -> None:
+        """Split an edge at block ``at``: the node keeps the prefix (and
+        its locks), a new child takes the tail and the children."""
+        tail = _RadixNode(node.keys[at:], node.blocks[at:], node)
+        tail.children = node.children
+        for c in tail.children.values():
+            c.parent = tail
+        tail.last = node.last
+        node.keys = node.keys[:at]
+        node.blocks = node.blocks[:at]
+        node.children = {tail.keys[0]: tail}
+        self._n_nodes += 1
+
+    def evict(self, need_blocks: int) -> int:
+        """LRU-evict unlocked leaves until ``need_blocks`` blocks came
+        free (or nothing is evictable); skips leaves whose blocks are all
+        pinned by slots (evicting them frees nothing). Returns blocks
+        freed."""
+        freed = 0
+        heap = [(n.last, id(n), n) for n in self._iter_nodes()
+                if not n.children and n is not self._root]
+        heapq.heapify(heap)
+        while freed < need_blocks and heap:
+            _, _, victim = heapq.heappop(heap)
+            if victim.lock != 0 or victim.children:
+                continue
+            if all(self._alloc.refcount(b) > 1 for b in victim.blocks):
+                continue
+            freed += len(self._alloc.decref(victim.blocks))
+            self._n_blocks -= len(victim.blocks)
+            self._n_nodes -= 1
+            parent = victim.parent
+            del parent.children[victim.keys[0]]
+            if parent is not self._root and not parent.children:
+                heapq.heappush(heap, (parent.last, id(parent), parent))
+        return freed
+
+    def _iter_nodes(self):
+        stack = [self._root]
+        while stack:
+            n = stack.pop()
+            yield n
+            stack.extend(n.children.values())
+
+
+class Request:
+    """One generation request tracked through the engine.
+
+    ``on_token(token, done)`` fires from the engine thread per token;
+    ``on_finish()`` fires once at the terminal state, rejections
+    included. ``tokens`` accumulates the generation; ``wait()`` blocks
+    until the request finishes."""
+    _ids = itertools.count()
+
+    def __init__(self, prompt: Sequence[int], max_new_tokens: int,
+                 on_token: Optional[Callable[[int, bool], None]] = None,
+                 tenant: str = 'default'):
+        if max_new_tokens < 1:
+            raise ValueError(f'max_new_tokens must be >= 1, got '
+                             f'{max_new_tokens}')
+        self.prompt = [int(t) for t in prompt]
+        if not self.prompt:
+            raise ValueError('empty prompt')
+        self.max_new_tokens = int(max_new_tokens)
+        self.on_token = on_token
+        self.on_finish: Optional[Callable[[], None]] = None
+        self.tenant = str(tenant)
+        self.id = f'r{next(self._ids)}'
+        self.tokens: List[int] = []
+        self.finish_reason: Optional[str] = None
+        self._done = threading.Event()
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self._done.wait(timeout)
+
+    def _deliver(self, token: int, done: bool) -> None:
+        self.tokens.append(token)
+        if self.on_token is not None:
+            self.on_token(token, done)
+
+    def _finish(self, reason: str) -> None:
+        self.finish_reason = reason
+        self._done.set()
+        if self.on_finish is not None:
+            self.on_finish()
+
+
+def _default_buckets(max_len: int) -> Tuple[int, ...]:
+    """Prompt-length buckets: powers of two from 8 up to max_len."""
+    buckets = []
+    b = 8
+    while b < max_len:
+        buckets.append(min(b, max_len))
+        b *= 2
+    if not buckets or buckets[-1] < max_len:
+        buckets.append(max_len)
+    return tuple(buckets)
+
+
+class DecodeEngine:
+    """Slot-based continuous-batching engine over ``models/decode``.
+
+    ``submit()`` is thread-safe (the server's handlers call it);
+    ``insert()``/``step()``/``run_forever()`` run on ONE engine thread,
+    which owns the cache. The engine runs on the device its params live
+    on."""
+
+    def __init__(self, params, cfg: llama.LlamaConfig,
+                 dcfg: decode.DecodeConfig, num_slots: int,
+                 step_chunk: int = 1,
+                 prefill_buckets: Optional[Sequence[int]] = None,
+                 generator: Optional[torch.Generator] = None,
+                 name: str = 'engine', paged: bool = False,
+                 num_blocks: Optional[int] = None):
+        if num_slots < 1:
+            raise ValueError(f'num_slots must be >= 1, got {num_slots}')
+        if step_chunk < 1:
+            raise ValueError(f'step_chunk must be >= 1, got {step_chunk}')
+        self.params = params
+        self.device = params['tok_embedding'].device
+        self.cfg = cfg
+        self.dcfg = dcfg
+        self.num_slots = num_slots
+        self.step_chunk = step_chunk
+        self.name = name
+        self.paged = paged
+        self._block_k = dcfg.kernel_block_k
+        self._buckets = (tuple(sorted(int(b) for b in prefill_buckets))
+                         if prefill_buckets
+                         else _default_buckets(dcfg.max_len))
+        if self._buckets[-1] > dcfg.max_len:
+            raise ValueError(f'prefill buckets {self._buckets} exceed '
+                             f'max_len {dcfg.max_len}')
+        if paged:
+            bk = self._block_k
+            if dcfg.max_len % bk:
+                raise ValueError(
+                    f'paged mode needs max_len ({dcfg.max_len}) '
+                    f'divisible by block_k ({bk})')
+            # Prefill writes whole blocks: snap buckets to block
+            # multiples.
+            self._buckets = tuple(sorted({
+                min(-(-b // bk) * bk, dcfg.max_len)
+                for b in self._buckets}))
+            self._max_blocks = dcfg.max_len // bk
+            # Default pool: the dense cache's token capacity + scratch.
+            self.num_blocks = (num_blocks if num_blocks is not None
+                               else num_slots * self._max_blocks + 1)
+        else:
+            self.num_blocks = 0
+        self._prompt_tokens_total = 0
+        self._prompt_tokens_saved = 0
+        self._prefix_evictions = 0
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        self._generator = generator
+        self._init_runtime_state()
+        self._queue_lock = threading.Lock()
+        self._queues: 'collections.OrderedDict[str, collections.deque]' \
+            = collections.OrderedDict()
+        self._rr_offset = 0
+        self._decode_steps = 0
+        self._decode_emitted = 0
+        self._admitted = 0
+        self._evicted = 0
+        self._rejected = 0
+        self.failed = False
+        self.fail_reason: Optional[str] = None
+
+    def _init_runtime_state(self) -> None:
+        """The device cache/pool, the allocator + radix cache, block
+        tables and the per-slot host mirrors."""
+        num_slots = self.num_slots
+        if self.paged:
+            self._cache = decode.init_block_pool(
+                self.cfg, self.num_blocks, self._block_k,
+                self.dcfg.kv_cache_dtype, self.device)
+            self._allocator = BlockAllocator(self.num_blocks)
+            self._radix = RadixPrefixCache(self._block_k, self._allocator)
+            # Rows of free slots point at SCRATCH_BLOCK; the device copy
+            # is re-uploaded only after admission/eviction changes it.
+            self._block_table_np = np.zeros(
+                (num_slots, self._max_blocks), np.int32)
+            self._block_table_dev: Optional[torch.Tensor] = None
+            self._slot_refs: List[List[int]] = [[] for _ in
+                                                range(num_slots)]
+            self._slot_nodes: List[list] = [[] for _ in range(num_slots)]
+        else:
+            self._cache = decode.init_kv_cache(self.cfg, num_slots,
+                                               self.dcfg.max_len,
+                                               self.dcfg.kv_cache_dtype,
+                                               self.device)
+        self._slots: List[Optional[Request]] = [None] * num_slots
+        self._token = np.zeros((num_slots,), np.int64)
+        self._pos = np.zeros((num_slots,), np.int64)
+        self._done = np.ones((num_slots,), bool)
+        self._remaining = np.zeros((num_slots,), np.int64)
+
+    # ------------------------------------------------------------ intake
+
+    def submit(self, request: Request) -> Request:
+        """Enqueue a request for admission (thread-safe)."""
+        with self._queue_lock:
+            q = self._queues.get(request.tenant)
+            if q is None:
+                q = self._queues[request.tenant] = collections.deque()
+            q.append(request)
+        return request
+
+    def queue_depth(self) -> int:
+        with self._queue_lock:
+            return sum(len(d) for d in self._queues.values())
+
+    def _pop_next(self) -> Optional[Request]:
+        """Round-robin pop across tenant queues."""
+        with self._queue_lock:
+            tenants = list(self._queues)
+            for i in range(len(tenants)):
+                tenant = tenants[(self._rr_offset + i) % len(tenants)]
+                q = self._queues[tenant]
+                if q:
+                    # The next round starts at the FOLLOWING tenant.
+                    self._rr_offset = \
+                        (self._rr_offset + i + 1) % len(tenants)
+                    req = q.popleft()
+                    if not q:
+                        del self._queues[tenant]
+                    return req
+            return None
+
+    def _requeue_front(self, request: Request) -> None:
+        """Put an un-admittable request back at the head of its tenant
+        queue and park the round-robin pointer on that tenant, so it is
+        retried first and smaller requests cannot starve it."""
+        with self._queue_lock:
+            q = self._queues.get(request.tenant)
+            if q is None:
+                q = self._queues[request.tenant] = collections.deque()
+                self._queues.move_to_end(request.tenant, last=False)
+            q.appendleft(request)
+            self._rr_offset = list(self._queues).index(request.tenant)
+
+    def free_slots(self) -> int:
+        return sum(1 for r in self._slots if r is None)
+
+    def active_slots(self) -> int:
+        return self.num_slots - self.free_slots()
+
+    # --------------------------------------------------------- admission
+
+    def insert(self, request: Request) -> int:
+        """Prefill one request into a free slot; the first token samples
+        from the prefill logits. Returns the slot. Raises RuntimeError
+        when no slot is free, ValueError when the request exceeds
+        max_len, PoolExhausted when the paged pool cannot cover it
+        (nothing mutated; requeue)."""
+        slot = next((i for i, r in enumerate(self._slots) if r is None),
+                    None)
+        if slot is None:
+            raise RuntimeError('no free slot')
+        p = len(request.prompt)
+        if p + request.max_new_tokens > self.dcfg.max_len:
+            raise ValueError(
+                f'prompt ({p}) + max_new_tokens '
+                f'({request.max_new_tokens}) exceeds max_len '
+                f'{self.dcfg.max_len}')
+        if self.paged:
+            first = self._prefill_paged(slot, request)
+        else:
+            bucket = self._bucket_for(p)
+            padded = np.zeros((1, bucket), np.int64)
+            padded[0, :p] = request.prompt
+            last = decode.prefill_into_slot(
+                self.params, torch.as_tensor(padded, device=self.device),
+                p, slot, self.cfg, self._cache)
+            first = self._sample_first(last)
+        self._admitted += 1
+        self._deliver_first(slot, request, first)
+        return slot
+
+    def _deliver_first(self, slot: int, request: Request,
+                       first: int) -> None:
+        """First-token delivery and decode-lane init; a one-token or
+        immediate-EOS request never occupies a decode lane."""
+        hit_eos = (self.dcfg.eos_id is not None and
+                   first == self.dcfg.eos_id)
+        first_done = hit_eos or request.max_new_tokens == 1
+        if first_done:
+            # done=True must never be observable before the reason.
+            request.finish_reason = 'eos' if hit_eos else 'length'
+        request._deliver(first, done=first_done)  # pylint: disable=protected-access
+        self._slots[slot] = request
+        if first_done:
+            self._evict(slot, 'eos' if hit_eos else 'length')
+            return
+        self._token[slot] = first
+        self._pos[slot] = len(request.prompt)
+        self._done[slot] = False
+        self._remaining[slot] = request.max_new_tokens - 1
+
+    def _prefill_paged(self, slot: int, request: Request) -> int:
+        """Paged admission: radix-match the prompt, reserve the worst
+        case, copy-on-write the boundary block of a full-prompt hit,
+        prefill only the un-cached suffix, publish the prompt's full
+        blocks. Returns the first token. Raises PoolExhausted with no
+        state mutated when the reservation cannot be met."""
+        bk = self._block_k
+        p = len(request.prompt)
+        blocks, path = self._radix.match(request.prompt)
+        m_full = len(blocks) * bk
+        # Keep >= 1 suffix token: the first generated token samples from
+        # the last prompt position's logits, which only a forward pass
+        # produces.
+        m = min(m_full, p - 1)
+        first_owned = m // bk
+        n_total = -(-(p + request.max_new_tokens) // bk)
+        need = n_total - first_owned
+        short = need - self._allocator.available()
+        if short > 0:
+            self._prefix_evictions += self._radix.evict(short)
+        cow_dst = cow_src = None
+        try:
+            if m < m_full:
+                # Full-prompt hit snapped back mid-block: the suffix
+                # rewrite lands in a SHARED block (the tree and our match
+                # ref pin it), so copy-on-write always clones here.
+                cow_src = blocks[first_owned]
+                cow_dst, needs_copy = self._allocator.cow(cow_src)
+                if not needs_copy:
+                    raise RuntimeError(f'copy-on-write of pinned block '
+                                       f'{cow_src} granted in place')
+                owned = [cow_dst] + self._allocator.alloc(need - 1)
+            else:
+                needs_copy = False
+                owned = self._allocator.alloc(need)
+        except PoolExhausted:
+            if cow_dst is not None:
+                self._allocator.decref([cow_dst])
+            self._allocator.decref(blocks)
+            self._radix.release(path)
+            raise
+        table = blocks[:first_owned] + owned
+        try:
+            if needs_copy:
+                decode.copy_block(self._cache, cow_src, cow_dst)
+            if m == 0:
+                bucket = self._bucket_for(p)
+                padded = np.zeros((1, bucket), np.int64)
+                padded[0, :p] = request.prompt
+                row = np.full((bucket // bk,), SCRATCH_BLOCK, np.int64)
+                nrow = min(len(table), len(row))
+                row[:nrow] = table[:nrow]
+                last = decode.paged_prefill(
+                    self.params, self._dev(padded), p, self._dev(row),
+                    self.cfg, self._cache)
+            else:
+                suf = p - m
+                bucket = self._bucket_for(suf)
+                padded = np.zeros((1, bucket), np.int64)
+                padded[0, :suf] = request.prompt[m:]
+                # Prefix block count buckets to powers of two (the
+                # reference's compile bound; padding rows point at
+                # scratch and are masked by prefix_len).
+                npb = -(-m // bk)
+                npb_bucket = 1
+                while npb_bucket < npb:
+                    npb_bucket *= 2
+                pref = np.full((npb_bucket,), SCRATCH_BLOCK, np.int64)
+                pref[:npb] = table[:npb]
+                # Suffix writes start inside block m // bk at offset
+                # m % bk (the COW clone on a full hit).
+                start = m // bk
+                row = np.full((bucket // bk + 1,), SCRATCH_BLOCK, np.int64)
+                avail = table[start:start + len(row)]
+                row[:len(avail)] = avail
+                last = decode.paged_prefill_with_prefix(
+                    self.params, self._dev(padded), suf, m,
+                    self._dev(pref), self._dev(row), self.cfg,
+                    self._cache)
+                self._prompt_tokens_saved += m
+            self._prompt_tokens_total += p
+            full = p // bk
+            if full:
+                self._radix.insert(request.prompt[:full * bk],
+                                   table[:full])
+        except Exception:
+            # Any failure past allocation returns the reservation (the
+            # tree keeps the refs it took in insert()).
+            self._allocator.decref(blocks + owned)
+            self._radix.release(path)
+            raise
+        self._slot_refs[slot] = blocks + owned
+        self._slot_nodes[slot] = path
+        self._block_table_np[slot, :] = SCRATCH_BLOCK
+        self._block_table_np[slot, :n_total] = table
+        self._block_table_dev = None
+        return self._sample_first(last)
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _bucket_for(self, n: int) -> int:
+        """Smallest prefill bucket covering ``n`` tokens (ValueError —
+        a journaled reject, not a dead loop — when none does)."""
+        for b in self._buckets:
+            if b >= n:
+                return b
+        raise ValueError(f'no prefill bucket >= {n} '
+                         f'(buckets: {self._buckets})')
+
+    def _sample_first(self, last_logits: torch.Tensor) -> int:
+        return int(decode.sample(last_logits[None], self._generator,
+                                 self.dcfg.temperature)[0])
+
+    def _admit(self) -> int:
+        """Fill free slots from the tenant queues (round-robin); over-
+        budget requests are clamped (budget) or rejected (prompt too
+        long). Returns admissions made."""
+        n = 0
+        while self.free_slots():
+            req = self._pop_next()
+            if req is None:
+                break
+            p = len(req.prompt)
+            budget = self.dcfg.max_len - p
+            if self.paged:
+                # A reservation larger than the whole pool would requeue
+                # forever.
+                budget = min(budget,
+                             (self.num_blocks - 1) * self._block_k - p)
+            if budget < 1:
+                self._reject(req, 'prompt_too_long')
+                continue
+            req.max_new_tokens = min(req.max_new_tokens, budget)
+            try:
+                self.insert(req)
+                n += 1
+            except PoolExhausted:
+                # Blocks are busy: head-of-line waits for an eviction.
+                self._requeue_front(req)
+                break
+            except ValueError as e:
+                self._reject(req, f'error: {e}')
+        return n
+
+    def _reject(self, req: Request, reason: str) -> None:
+        self._rejected += 1
+        req._finish(f'rejected: {reason}')  # pylint: disable=protected-access
+
+    # -------------------------------------------------------------- step
+
+    def step(self) -> int:
+        """Admit, then run ``step_chunk`` decode steps across all slots.
+        Returns the number of active slots (0 = idle)."""
+        self._admit()
+        active = self.active_slots()
+        if active == 0:
+            return 0
+        if not self._done.all():
+            self._decode_round()
+        # Refill freed lanes now so the next chunk runs full.
+        self._admit()
+        return active
+
+    def _tables_dev(self) -> torch.Tensor:
+        if self._block_table_dev is None:
+            self._block_table_dev = self._dev(self._block_table_np)
+        return self._block_table_dev
+
+    def _decode_round(self) -> None:
+        """``step_chunk`` single-token steps over every slot, then one
+        host fetch and delivery. Per-step semantics are the reference's
+        ``_scan_engine_steps``: sample → EOS-force → done-fold, one
+        budget unit per live step, done lanes freeze their position."""
+        eos = self.dcfg.eos_id
+        token = self._dev(self._token)
+        pos = self._dev(self._pos)
+        done = self._dev(self._done)
+        remaining = self._dev(self._remaining)
+        tables = self._tables_dev() if self.paged else None
+        toks = []
+        for _ in range(self.step_chunk):
+            if self.paged:
+                logits = decode.paged_decode_step(
+                    self.params, token, pos, tables, self.cfg, self.dcfg,
+                    self._cache)
+            else:
+                logits = decode.decode_step(self.params, token, pos,
+                                            self.cfg, self.dcfg,
+                                            self._cache)
+            nxt = decode.sample(logits, self._generator,
+                                self.dcfg.temperature)
+            if eos is not None:
+                nxt = torch.where(done, eos, nxt)
+                done_new = done | (nxt == eos)
+            else:
+                nxt = torch.where(done, token, nxt)
+                done_new = done
+            remaining = remaining - (~done).long()
+            done_new = done_new | (remaining <= 0)
+            pos = torch.where(done, pos, pos + 1)
+            token, done = nxt, done_new
+            toks.append(nxt)
+        # One fused host fetch (the step's only sync point).
+        host = torch.cat([torch.stack(toks).flatten(), token, pos,
+                          done.long(), remaining]).cpu().numpy()
+        n, b = self.step_chunk, self.num_slots
+        toks_np = host[:n * b].reshape(n, b)
+        self._token, self._pos, done_np, self._remaining = (
+            host[n * b + i * b:n * b + (i + 1) * b].copy()
+            for i in range(4))
+        self._done = done_np.astype(bool)
+        # Counted before delivery: a client woken by its last token may
+        # read stats() at once.
+        self._decode_steps += n
+        self._deliver_chunk(toks_np)
+
+    def _deliver_run(self, slot: int, req: Request, tokens) -> int:
+        """Deliver a run of tokens to one lane with budget/EOS clipping;
+        evicts on a terminal condition. Returns tokens delivered."""
+        eos = self.dcfg.eos_id
+        budget = req.max_new_tokens - len(req.tokens)
+        reason = None
+        delivered = 0
+        for t in tokens:
+            t = int(t)
+            budget -= 1
+            delivered += 1
+            if eos is not None and t == eos:
+                reason = 'eos'
+            elif budget <= 0:
+                reason = 'length'
+            if reason is not None:
+                # Publish the reason before the terminal token.
+                req.finish_reason = reason
+            req._deliver(t, done=reason is not None)  # pylint: disable=protected-access
+            if reason is not None:
+                break
+        if reason is not None:
+            self._evict(slot, reason)
+        return delivered
+
+    def _deliver_chunk(self, toks_np: np.ndarray) -> None:
+        for slot, req in enumerate(self._slots):
+            if req is not None:
+                self._decode_emitted += self._deliver_run(
+                    slot, req, toks_np[:, slot])
+
+    def _evict(self, slot: int, reason: str) -> None:
+        req = self._slots[slot]
+        self._slots[slot] = None
+        self._done[slot] = True
+        self._remaining[slot] = 0
+        if self.paged:
+            # Drop the request's refs (prefix-cache blocks survive) and
+            # repoint the row at scratch so the frozen lane's writes can
+            # never land in a block reallocated to someone else.
+            self._allocator.decref(self._slot_refs[slot])
+            self._radix.release(self._slot_nodes[slot])
+            self._slot_refs[slot] = []
+            self._slot_nodes[slot] = []
+            self._block_table_np[slot, :] = SCRATCH_BLOCK
+            self._block_table_dev = None
+        self._evicted += 1
+        req._finish(reason)  # pylint: disable=protected-access
+
+    # ------------------------------------------------------------- loop
+
+    def run_forever(self, stop_event: threading.Event) -> None:
+        """Step while there is work, sleep briefly when idle, until
+        ``stop_event``. There is no restart supervisor in this slice: a
+        ``step()`` exception marks the engine failed, finishes every
+        in-flight and queued request with an error, and ends the loop."""
+        try:
+            idle = float(os.environ.get(IDLE_SLEEP_ENV, '0.02'))
+        except ValueError:
+            idle = 0.02
+        while not stop_event.is_set():
+            try:
+                active = self.step()
+            except Exception as exc:  # pylint: disable=broad-except
+                logger.exception('engine %s step failed', self.name)
+                self._fail_all(f'error: engine crashed: {exc}')
+                return
+            if active == 0:
+                time.sleep(idle)
+
+    def _fail_all(self, reason: str) -> None:
+        self.failed = True
+        self.fail_reason = reason
+        for slot, req in enumerate(self._slots):
+            if req is not None:
+                self._slots[slot] = None
+                req._finish(reason)  # pylint: disable=protected-access
+        while True:
+            req = self._pop_next()
+            if req is None:
+                break
+            req._finish(reason)  # pylint: disable=protected-access
+
+    # ------------------------------------------------------------ stats
+
+    def mean_occupancy(self) -> float:
+        """Delivered decode tokens / executed lane-steps."""
+        lane_steps = self._decode_steps * self.num_slots
+        return self._decode_emitted / lane_steps if lane_steps else 0.0
+
+    def prefix_hit_ratio(self) -> float:
+        if not self.paged or not self._prompt_tokens_total:
+            return 0.0
+        return self._prompt_tokens_saved / self._prompt_tokens_total
+
+    def stats(self) -> dict:
+        out = {
+            'num_slots': self.num_slots,
+            'active_slots': self.active_slots(),
+            'queue_depth': self.queue_depth(),
+            'admitted': self._admitted,
+            'evicted': self._evicted,
+            'rejected': self._rejected,
+            'decode_steps': self._decode_steps,
+            'decode_tokens': self._decode_emitted,
+            'mean_occupancy': round(self.mean_occupancy(), 4),
+            'failed': self.failed,
+            'step_chunk': self.step_chunk,
+            'kv_cache_dtype': self.dcfg.kv_cache_dtype,
+            'max_len': self.dcfg.max_len,
+            'paged': self.paged,
+            'device': str(self.device),
+            'decode_attention': self.dcfg.decode_attention,
+        }
+        if self.paged:
+            out.update({
+                'block_k': self._block_k,
+                'blocks_total': self.num_blocks - 1,
+                'blocks_used': self._allocator.used(),
+                'prefix_cache_blocks': self._radix.held_blocks(),
+                'prefix_hit_ratio': round(self.prefix_hit_ratio(), 4),
+                'prefill_tokens_saved': self._prompt_tokens_saved,
+                'prefix_evictions': self._prefix_evictions,
+            })
+        return out

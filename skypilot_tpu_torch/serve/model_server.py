@@ -1,0 +1,462 @@
+"""Model server: HTTP + SSE streaming over the port's decode engine.
+
+Counterpart of ``skypilot_tpu/serve/model_server.py`` for this slice,
+built on the standard library (``http.server.ThreadingHTTPServer``), with
+the engine loop on its own thread. Endpoints:
+
+* ``POST /generate`` — body ``{"prompt": [token ids...]}`` or
+  ``{"text": "..."}`` plus optional ``max_new_tokens``, ``stream``
+  (default true) and ``tenant`` (or header ``X-Tenant``). Streaming
+  replies are Server-Sent Events, one ``data: {"token", "text",
+  "done"}`` event per token, the last one adding ``finish_reason`` and
+  ``generated``; ``stream: false`` returns one JSON object with
+  ``tokens``, ``text``, ``finish_reason`` and ``generated``. Bad bodies
+  answer 400, a failed engine 503 (the reference's 429 queue
+  backpressure and ``/drain`` come with the crash supervisor).
+* ``GET /healthz`` — 200 ``ok ...`` with the engine's stats, 503 when
+  the engine thread died or the engine failed.
+* ``GET /stats`` — the engine's stats as JSON.
+
+Run as ``python -m skypilot_tpu_torch.serve.model_server`` with the
+reference's flag names. The engine runs on CUDA unless ``--device cpu``
+is given; flags of features later slices port (speculative decoding,
+chunked prefill, tensor parallelism, prefix fetch/store/handoff, int8
+weights, checkpoints, roles) are rejected, never ignored.
+
+Tokenizer note: the models are research checkpoints without a shipped
+tokenizer, so ``text`` uses a byte-level demo codec (UTF-8 bytes → ids;
+ids → bytes mod 256). Real deployments send token ids.
+"""
+import argparse
+import http.server
+import json
+import logging
+import os
+import queue
+import threading
+from typing import Optional
+
+import torch
+
+from skypilot_tpu_torch.models import decode
+from skypilot_tpu_torch.models import engine as engine_lib
+from skypilot_tpu_torch.models import llama
+
+logger = logging.getLogger(__name__)
+
+REPLICA_PORT_ENV = 'SKYTPU_REPLICA_PORT'
+REQUEST_TIMEOUT_ENV = 'SKYTPU_MODEL_SERVER_REQUEST_TIMEOUT'
+# Environment knobs of the reference's replica whose features this slice
+# does not port: a non-default value is refused, never ignored.
+UNSUPPORTED_ENVS = {
+    'SKYTPU_SPEC_K': 'speculative decoding',
+    'SKYTPU_PREFILL_CHUNK': 'chunked prefill',
+    'SKYTPU_SERVE_TP': 'tensor parallelism',
+    'SKYTPU_PREFIX_PEERS': 'cross-replica prefix fetch',
+    'SKYTPU_STORE_URL': 'the durable block store',
+}
+_ENV_DEFAULTS = {'SKYTPU_SPEC_K': '0', 'SKYTPU_PREFILL_CHUNK': '0',
+                 'SKYTPU_SERVE_TP': '1'}
+
+
+def encode_text(text: str, vocab_size: int) -> list:
+    """Demo byte-level codec: UTF-8 bytes → token ids (< vocab_size)."""
+    return [b % vocab_size for b in text.encode('utf-8')]
+
+
+def decode_tokens(tokens) -> str:
+    """Inverse demo codec: ids → bytes (mod 256), lossy for vocab>256."""
+    return bytes(t % 256 for t in tokens).decode('utf-8',
+                                                 errors='replace')
+
+
+def resolve_device(device: Optional[str] = None) -> torch.device:
+    """The engine's device: CUDA unless the caller names another. No
+    silent CPU fallback: without a card, only ``device='cpu'`` runs."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' (--device cpu) to run on "
+                               "the CPU")
+        device = 'cuda'
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'{device} requested but CUDA is not available')
+    return device
+
+
+def check_unsupported_env() -> None:
+    for name, feature in UNSUPPORTED_ENVS.items():
+        raw = os.environ.get(name, '').strip()
+        if raw and raw != _ENV_DEFAULTS.get(name, ''):
+            raise ValueError(f'{name}={raw!r}: {feature} is not ported to '
+                             'skypilot_tpu_torch yet')
+
+
+def build_engine(model: str, num_slots: int, max_len: int,
+                 temperature: float = 0.0, eos_id: Optional[int] = None,
+                 kv_int8: bool = False, attn: str = 'kernel',
+                 step_chunk: int = 4, seed: int = 0, paged: bool = False,
+                 num_blocks: Optional[int] = None,
+                 block_k: Optional[int] = None,
+                 device: Optional[str] = None,
+                 params: Optional[llama.Params] = None
+                 ) -> engine_lib.DecodeEngine:
+    """Assemble params + configs into a DecodeEngine (CLI, tests and
+    ``chip_smoke.py``). Params are random from ``seed`` unless given;
+    ``device`` defaults to CUDA and raises without a card."""
+    check_unsupported_env()
+    dev = resolve_device(device)
+    cfg = llama.CONFIGS[model]
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = llama.init_params(cfg, gen, dev)
+    dcfg_kwargs = dict(max_len=max_len, temperature=temperature,
+                       eos_id=eos_id, decode_attention=attn,
+                       kv_cache_dtype='int8' if kv_int8 else 'bf16')
+    if block_k is not None:
+        dcfg_kwargs['kernel_block_k'] = block_k
+    sampler = torch.Generator(device=dev)
+    sampler.manual_seed(seed)
+    return engine_lib.DecodeEngine(params, cfg,
+                                   decode.DecodeConfig(**dcfg_kwargs),
+                                   num_slots, step_chunk=step_chunk,
+                                   generator=sampler, name=model,
+                                   paged=paged, num_blocks=num_blocks)
+
+
+class _HTTPServer(http.server.ThreadingHTTPServer):
+    daemon_threads = True
+
+    def __init__(self, address, model_server: 'ModelServer'):
+        self.model_server = model_server
+        super().__init__(address, _Handler)
+
+
+class _Handler(http.server.BaseHTTPRequestHandler):
+    server_version = 'skypilot-tpu-torch'
+
+    def log_message(self, format, *args):  # pylint: disable=redefined-builtin
+        logger.debug('%s ' + format, self.address_string(), *args)
+
+    def send_json(self, status: int, obj, headers=None) -> None:
+        body = json.dumps(obj).encode()
+        self.send_response(status)
+        self.send_header('Content-Type', 'application/json')
+        self.send_header('Content-Length', str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def send_text(self, status: int, text: str) -> None:
+        body = text.encode()
+        self.send_response(status)
+        self.send_header('Content-Type', 'text/plain; charset=utf-8')
+        self.send_header('Content-Length', str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):  # pylint: disable=invalid-name
+        ms = self.server.model_server
+        path = self.path.split('?', 1)[0]
+        if path == '/healthz':
+            status, text = ms.health()
+            self.send_text(status, text)
+        elif path == '/stats':
+            self.send_json(200, ms.engine.stats())
+        else:
+            self.send_json(404, {'error': f'no route {path}'})
+
+    def do_POST(self):  # pylint: disable=invalid-name
+        path = self.path.split('?', 1)[0]
+        if path == '/generate':
+            self.server.model_server.handle_generate(self)
+        else:
+            self.send_json(404, {'error': f'no route {path}'})
+
+
+class ModelServer:
+    """Threaded HTTP front end + engine loop thread, one per replica."""
+
+    def __init__(self, engine: engine_lib.DecodeEngine, port: int,
+                 host: str = '0.0.0.0',
+                 default_max_new_tokens: int = 128):
+        self.engine = engine
+        self.host = host
+        self.port = port  # rebound to the OS-assigned port when 0
+        self.default_max_new_tokens = default_max_new_tokens
+        try:
+            self.request_timeout = float(
+                os.environ.get(REQUEST_TIMEOUT_ENV, '300'))
+        except ValueError:
+            self.request_timeout = 300.0
+        self._stop = threading.Event()
+        self._engine_thread: Optional[threading.Thread] = None
+        self._http_thread: Optional[threading.Thread] = None
+        self._httpd: Optional[_HTTPServer] = None
+
+    # ---------------------------------------------------------- lifecycle
+
+    def _bind(self) -> None:
+        self._httpd = _HTTPServer((self.host, self.port), self)
+        self.port = self._httpd.server_address[1]
+        self._engine_thread = threading.Thread(
+            target=self.engine.run_forever, args=(self._stop,),
+            daemon=True, name='skytorch-engine')
+        self._engine_thread.start()
+        logger.info('Model server listening on :%d (%d slots, max_len %d, '
+                    '%s).', self.port, self.engine.num_slots,
+                    self.engine.dcfg.max_len, self.engine.device)
+
+    def start(self) -> int:
+        """Serve from a daemon thread (tests, ``chip_smoke.py``);
+        returns the bound port."""
+        self._bind()
+        self._http_thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True,
+            name='skytorch-http')
+        self._http_thread.start()
+        return self.port
+
+    def run_forever(self) -> None:
+        """Standalone mode: serve until interrupted."""
+        self._bind()
+        try:
+            self._httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            self._shutdown_engine()
+            self._httpd.server_close()
+
+    def stop(self) -> None:
+        if self._httpd is not None and self._http_thread is not None:
+            self._httpd.shutdown()
+            self._http_thread.join(timeout=10)
+            self._httpd.server_close()
+        self._shutdown_engine()
+
+    def _shutdown_engine(self) -> None:
+        self._stop.set()
+        if self._engine_thread is not None:
+            self._engine_thread.join(timeout=30)
+            if self._engine_thread.is_alive():
+                logger.error('engine thread did not stop within 30s')
+
+    # ----------------------------------------------------------- handlers
+
+    def health(self):
+        alive = (self._engine_thread is not None and
+                 self._engine_thread.is_alive())
+        line = ' '.join(f'{k}={v}' for k, v in self.engine.stats().items())
+        if self.engine.failed:
+            return 503, (f'engine failed ({self.engine.fail_reason}) '
+                         f'{line}\n')
+        if not alive:
+            return 503, f'engine thread dead {line}\n'
+        return 200, f'ok {line}\n'
+
+    def parse_prompt_body(self, body):
+        """``(tokens, max_new, None)`` or ``(None, 0, (status, error))``,
+        the reference's validation."""
+        vocab = self.engine.cfg.vocab_size
+        if not isinstance(body, dict):
+            return None, 0, (400, 'body must be a JSON object')
+        if 'prompt' in body:
+            try:
+                tokens = [int(t) % vocab for t in body['prompt']]
+            except (TypeError, ValueError):
+                return None, 0, (400, 'prompt must be a list of token ids')
+        elif 'text' in body and isinstance(body['text'], str):
+            tokens = encode_text(body['text'], vocab)
+        else:
+            return None, 0, (400,
+                             'body needs "prompt" (token ids) or "text"')
+        if not tokens:
+            return None, 0, (400, 'empty prompt')
+        try:
+            max_new = int(body.get('max_new_tokens',
+                                   self.default_max_new_tokens))
+        except (TypeError, ValueError):
+            return None, 0, (400, 'max_new_tokens must be an integer')
+        limit = self.engine.dcfg.max_len - len(tokens)
+        if limit < 1:
+            return None, 0, (400, f'prompt too long: {len(tokens)} tokens, '
+                                  f'max_len {self.engine.dcfg.max_len}')
+        return tokens, max(1, min(max_new, limit)), None
+
+    def handle_generate(self, h: _Handler) -> None:
+        if self.engine.failed:
+            h.send_json(503, {'error': f'engine failed: '
+                                       f'{self.engine.fail_reason}'})
+            return
+        try:
+            length = int(h.headers.get('Content-Length') or 0)
+            body = json.loads(h.rfile.read(length))
+        except (ValueError, UnicodeDecodeError):
+            h.send_json(400, {'error': 'invalid JSON body'})
+            return
+        tokens, max_new, err = self.parse_prompt_body(body)
+        if err is not None:
+            h.send_json(err[0], {'error': err[1]})
+            return
+        stream = bool(body.get('stream', True))
+        tenant = h.headers.get('X-Tenant') or body.get('tenant') or 'default'
+        events: queue.Queue = queue.Queue()
+        req = engine_lib.Request(
+            tokens, max_new, tenant=str(tenant),
+            on_token=lambda token, done: events.put((token, done)))
+        # Terminal sentinel: a rejected request finishes without a token.
+        req.on_finish = lambda: events.put((None, True))
+        rid = {'X-Request-Id': h.headers.get('X-Request-Id') or req.id}
+        self.engine.submit(req)
+        try:
+            if stream:
+                self._stream_response(h, req, events, rid)
+            else:
+                self._unary_response(h, req, events, rid)
+        except (BrokenPipeError, ConnectionResetError):
+            logger.info('client of request %s went away', req.id)
+
+    def _stream_response(self, h: _Handler, req: engine_lib.Request,
+                         events: queue.Queue, rid: dict) -> None:
+        h.send_response(200)
+        h.send_header('Content-Type', 'text/event-stream')
+        h.send_header('Cache-Control', 'no-cache')
+        for k, v in rid.items():
+            h.send_header(k, v)
+        h.end_headers()
+
+        def write(event: dict) -> None:
+            h.wfile.write(f'data: {json.dumps(event)}\n\n'.encode())
+            h.wfile.flush()
+
+        while True:
+            try:
+                token, done = events.get(timeout=self.request_timeout)
+            except queue.Empty:
+                write({'error': 'timeout'})
+                return
+            if token is None:
+                # Terminal with no token: engine-side rejection/error.
+                write({'error': req.finish_reason, 'done': True})
+                return
+            event = {'token': token, 'text': decode_tokens([token]),
+                     'done': done}
+            if done:
+                event['finish_reason'] = req.finish_reason
+                event['generated'] = len(req.tokens)
+            write(event)
+            if done:
+                return
+
+    def _unary_response(self, h: _Handler, req: engine_lib.Request,
+                        events: queue.Queue, rid: dict) -> None:
+        token = None
+        try:
+            while True:
+                token, done = events.get(timeout=self.request_timeout)
+                if done:
+                    break
+        except queue.Empty:
+            h.send_json(504, {'error': 'timeout'}, headers=rid)
+            return
+        finish = req.finish_reason or ''
+        if token is None and not req.tokens:
+            # Rejection is the client's fault (422); an engine failure
+            # is ours (500).
+            status = 422 if finish.startswith('rejected') else 500
+            h.send_json(status, {'error': finish}, headers=rid)
+            return
+        if finish.startswith('error'):
+            h.send_json(500, {'error': finish, 'tokens': req.tokens,
+                              'generated': len(req.tokens)}, headers=rid)
+            return
+        h.send_json(200, {'tokens': req.tokens,
+                          'text': decode_tokens(req.tokens),
+                          'finish_reason': finish,
+                          'generated': len(req.tokens)}, headers=rid)
+
+
+# Flags of the reference CLI whose features later slices port:
+# flag → (argparse kwargs, what it would enable).
+_UNSUPPORTED_FLAGS = {
+    '--int8': (dict(action='store_true'), 'int8 weights'),
+    '--spec-k': (dict(type=int), 'speculative decoding'),
+    '--drafter-layers': (dict(type=int), 'speculative decoding'),
+    '--prefill-chunk': (dict(type=int), 'chunked prefill'),
+    '--tp': (dict(type=int), 'tensor parallelism'),
+    '--prefix-peers': (dict(), 'cross-replica prefix fetch'),
+    '--store-url': (dict(), 'the durable block store'),
+    '--store-dir': (dict(), 'the durable block store'),
+    '--role': (dict(), 'disaggregated prefill/decode roles'),
+    '--checkpoint-dir': (dict(), 'checkpoint restore'),
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description='Continuous-batching model server (PyTorch/CUDA).')
+    parser.add_argument('--port', type=int,
+                        default=int(os.environ.get(REPLICA_PORT_ENV,
+                                                   '8000')))
+    parser.add_argument('--host', default='0.0.0.0')
+    parser.add_argument('--model', default='debug',
+                        choices=sorted(llama.CONFIGS))
+    parser.add_argument('--num-slots', type=int, default=8,
+                        help='KV-cache lanes (continuous batch width)')
+    parser.add_argument('--max-len', type=int, default=2048,
+                        help='per-slot KV capacity (prompt + generation)')
+    parser.add_argument('--max-new-tokens', type=int, default=128,
+                        help='default generation budget per request')
+    parser.add_argument('--step-chunk', type=int, default=4,
+                        help='decode steps per engine tick (one host '
+                             'fetch per tick)')
+    parser.add_argument('--temperature', type=float, default=0.0)
+    parser.add_argument('--eos-id', type=int, default=None)
+    parser.add_argument('--kv-int8', action='store_true',
+                        help='int8 KV cache')
+    parser.add_argument('--attn', choices=('kernel', 'plain'),
+                        default='kernel',
+                        help="cached attention: the CUDA kernels or the "
+                             "plain PyTorch path")
+    parser.add_argument('--paged', action='store_true',
+                        help='paged KV cache + radix prefix reuse')
+    parser.add_argument('--num-blocks', type=int, default=None,
+                        help='paged pool size in blocks (default: the '
+                             'dense cache equivalent + 1 scratch)')
+    parser.add_argument('--block-k', type=int, default=None,
+                        help='paged pool block size in tokens '
+                             '(default 128)')
+    parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--device', default=None,
+                        help='torch device (default: cuda; a machine '
+                             'without a card needs --device cpu)')
+    for flag, (kwargs, _) in _UNSUPPORTED_FLAGS.items():
+        parser.add_argument(flag, default=None, help=argparse.SUPPRESS,
+                            **kwargs)
+    args = parser.parse_args(argv)
+    for flag, (_, feature) in _UNSUPPORTED_FLAGS.items():
+        if getattr(args, flag[2:].replace('-', '_')) not in (None, False):
+            parser.error(f'{flag}: {feature} is not ported to '
+                         'skypilot_tpu_torch yet')
+    return args
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    args = parse_args(argv)
+    engine = build_engine(args.model, args.num_slots, args.max_len,
+                          temperature=args.temperature, eos_id=args.eos_id,
+                          kv_int8=args.kv_int8, attn=args.attn,
+                          step_chunk=args.step_chunk, seed=args.seed,
+                          paged=args.paged, num_blocks=args.num_blocks,
+                          block_k=args.block_k, device=args.device)
+    ModelServer(engine, args.port, host=args.host,
+                default_max_new_tokens=args.max_new_tokens).run_forever()
+
+
+if __name__ == '__main__':
+    main()

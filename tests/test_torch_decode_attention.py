@@ -1,0 +1,312 @@
+"""Port decode attention (skypilot_tpu_torch/ops/decode_attention.py)
+against the JAX reference (skypilot_tpu/ops/decode_attention.py).
+
+CPU cases: the port's plain twins of the two CUDA kernels against the
+reference's Pallas kernels (interpret mode) and XLA paths on the same
+numpy inputs, fp32 at atol/rtol 2e-5 (int8 at 1e-4), mirroring
+tests/unit_tests/test_decode_attention.py; ``quantize_kv`` bit for bit.
+
+``cuda`` cases: the CUDA kernels against their plain twins on the card
+(skipped here). The reference is imported inside a fixture, so the card
+host, which has no JAX, runs them with
+``python -m pytest --noconftest -m cuda tests/test_torch_decode_attention.py``.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from skypilot_tpu_torch.ops import attention as t_attention
+from skypilot_tpu_torch.ops import decode_attention as tda
+from skypilot_tpu_torch.ops import quant as tquant
+
+torch.set_num_threads(2)
+
+ATOL = RTOL = 2e-5          # fp32, as the reference's own tests
+INT8_ATOL = INT8_RTOL = 1e-4
+
+
+@pytest.fixture(scope='module')
+def ref():
+    """The JAX reference (imported here, not at module import)."""
+    import jax
+    import jax.numpy as jnp
+    from skypilot_tpu.ops import decode_attention as da
+    from skypilot_tpu.ops import quant
+    return types.SimpleNamespace(jnp=jnp, jax=jax, da=da, quant=quant)
+
+
+def _case(seed, b, t, h, hkv, hd):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, 1, h, hd).astype(np.float32)
+    k = rng.randn(b, t, hkv, hd).astype(np.float32)
+    v = rng.randn(b, t, hkv, hd).astype(np.float32)
+    return q, k, v
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]  # writable copy
+
+
+def _paged_from_dense(dense_arrays, block_k, shuffle_seed=0, n_extra=3):
+    """Scatter dense [B, T, ...] arrays (numpy or torch) into a shuffled
+    block pool; returns (pools, tables [B, T // block_k] int32 numpy) —
+    the layout the serving engine maintains."""
+    b, t = dense_arrays[0].shape[:2]
+    nb_per = t // block_k
+    perm = np.random.RandomState(shuffle_seed).permutation(
+        b * nb_per) + n_extra
+    tables = perm.reshape(b, nb_per).astype(np.int32)
+    pools = []
+    for dense in dense_arrays:
+        tail = tuple(dense.shape[2:])
+        shape = (b * nb_per + n_extra, block_k) + tail
+        # Block j of row bi is row bi * nb_per + j, as tables.reshape(-1).
+        blocks = dense.reshape((b * nb_per, block_k) + tail)
+        if isinstance(dense, torch.Tensor):
+            pool = torch.zeros(shape, dtype=dense.dtype, device=dense.device)
+            pool[torch.from_numpy(perm).to(dense.device)] = blocks
+        else:
+            pool = np.zeros(shape, dense.dtype)
+            pool[perm] = blocks
+        pools.append(pool)
+    return pools, tables
+
+
+def _close(a, b, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize('cur_lens', [(1, 15, 16), (17, 33, 64),
+                                      (16, 31, 48)])
+def test_plain_matches_reference_at_block_boundaries(ref, cur_lens):
+    q, k, v = _case(0, b=3, t=64, h=8, hkv=2, hd=32)
+    cur = np.array(cur_lens, np.int32)
+    out = tda.decode_attention_plain(*_t(q, k, v, cur))
+    jq, jk, jv, jc = (ref.jnp.asarray(a) for a in (q, k, v, cur))
+    _close(out, ref.da.decode_attention_xla(jq, jk, jv, jc))
+    _close(out, ref.da.decode_attention_kernel(jq, jk, jv, jc, block_k=16,
+                                               interpret=True))
+
+
+def test_plain_gqa_head_grouping_matches_naive_repeat(ref):
+    """Query head kv*G + r reads kv head kv (the repeat_kv fan-out)."""
+    q, k, v = _case(2, b=2, t=32, h=8, hkv=4, hd=16)
+    cur = np.array([9, 23], np.int32)
+    tq, tk, tv, tc = _t(q, k, v, cur)
+    out = tda.decode_attention_plain(tq, tk, tv, tc)
+    kr = t_attention.repeat_kv(tk, 2)
+    vr = t_attention.repeat_kv(tv, 2)
+    logits = torch.einsum('bshd,bthd->bhst', tq, kr) * 16**-0.5
+    mask = torch.arange(32)[None, :] < tc[:, None].long()
+    logits = torch.where(mask[:, None, None, :], logits, tda.NEG_INF)
+    naive = torch.einsum('bhst,bthd->bshd', torch.softmax(logits, -1), vr)
+    _close(out, naive)
+    _close(out, ref.da.decode_attention_kernel(
+        *(ref.jnp.asarray(a) for a in (q, k, v, cur)), block_k=16,
+        interpret=True))
+
+
+def test_quantize_kv_bit_exact(ref):
+    rng = np.random.RandomState(4)
+    x = (rng.randn(3, 5, 2, 32) * rng.uniform(0.01, 10, (3, 5, 2, 1))
+         ).astype(np.float32)
+    x[0, 0, 0] = 0.0                         # amax floor
+    x[1, 1, 1, :4] = [0.5, -0.5, 1.5, -2.5]  # round-half-to-even ties
+    tq, ts = tquant.quantize_kv(torch.from_numpy(x))
+    jq, js = ref.quant.quantize_kv(ref.jnp.asarray(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy().view(np.uint32),
+                                  np.asarray(js).view(np.uint32))
+    # bf16 input quantises identically too (the cache-write path).
+    xb = torch.from_numpy(x).bfloat16()
+    jb = ref.jnp.asarray(xb.float().numpy()).astype(ref.jnp.bfloat16)
+    np.testing.assert_array_equal(tquant.quantize_kv(xb)[0].numpy(),
+                                  np.asarray(ref.quant.quantize_kv(jb)[0]))
+
+
+def test_plain_int8_matches_reference(ref):
+    q, k, v = _case(3, b=2, t=64, h=4, hkv=2, hd=32)
+    cur = np.array([31, 49], np.int32)
+    kq, ks = ref.quant.quantize_kv(ref.jnp.asarray(k))
+    vq, vs = ref.quant.quantize_kv(ref.jnp.asarray(v))
+    arrays = [np.asarray(a) for a in (kq, vq, ks, vs)]
+    tq, tk, tv, tks, tvs, tc = _t(q, *arrays, cur)
+    out = tda.decode_attention_plain(tq, tk, tv, tc, tks, tvs)
+    jq, jc = ref.jnp.asarray(q), ref.jnp.asarray(cur)
+    _close(out, ref.da.decode_attention_xla(jq, kq, vq, jc, ks, vs),
+           INT8_ATOL, INT8_RTOL)
+    _close(out, ref.da.decode_attention_kernel(jq, kq, vq, jc, ks, vs,
+                                               block_k=16, interpret=True),
+           INT8_ATOL, INT8_RTOL)
+
+
+def test_cur_len_zero_rows_are_zero(ref):
+    q, k, v = _case(7, b=2, t=32, h=4, hkv=2, hd=16)
+    cur = np.array([0, 20], np.int32)
+    out = tda.decode_attention_plain(*_t(q, k, v, cur))
+    assert float(out[0].abs().max()) == 0.0
+    _close(out, ref.da.decode_attention_xla(
+        *(ref.jnp.asarray(a) for a in (q, k, v, cur))))
+
+
+@pytest.mark.parametrize('cur_lens', [(1, 15, 16), (17, 33, 64),
+                                      (0, 31, 48)])
+def test_paged_plain_matches_reference(ref, cur_lens):
+    """Through a SHUFFLED table the paged twin equals the reference's
+    paged kernel and dense attention on the same logical cache."""
+    q, k, v = _case(8, b=3, t=64, h=8, hkv=2, hd=32)
+    cur = np.array(cur_lens, np.int32)
+    (kp, vp), bt = _paged_from_dense([k, v], block_k=16)
+    out = tda.paged_decode_attention_plain(*_t(q, kp, vp, bt, cur))
+    jq, jkp, jvp, jbt, jc = (ref.jnp.asarray(a)
+                             for a in (q, kp, vp, bt, cur))
+    _close(out, ref.da.paged_decode_attention_kernel(
+        jq, jkp, jvp, jbt, jc, interpret=True))
+    _close(out, ref.da.decode_attention_xla(
+        jq, ref.jnp.asarray(k), ref.jnp.asarray(v), jc))
+
+
+def test_paged_plain_int8_matches_reference(ref):
+    q, k, v = _case(9, b=2, t=64, h=4, hkv=2, hd=32)
+    cur = np.array([31, 49], np.int32)
+    kq, ks = (np.asarray(a) for a in ref.quant.quantize_kv(
+        ref.jnp.asarray(k)))
+    vq, vs = (np.asarray(a) for a in ref.quant.quantize_kv(
+        ref.jnp.asarray(v)))
+    (kp, vp, ksp, vsp), bt = _paged_from_dense([kq, vq, ks, vs], 16)
+    out = tda.paged_decode_attention_plain(*_t(q, kp, vp, bt, cur, ksp,
+                                               vsp))
+    jargs = [ref.jnp.asarray(a) for a in (q, kp, vp, bt, cur, ksp, vsp)]
+    _close(out, ref.da.paged_decode_attention_kernel(*jargs,
+                                                     interpret=True),
+           INT8_ATOL, INT8_RTOL)
+
+
+def test_paged_shared_blocks_read_identically():
+    """Two rows whose tables name the SAME blocks read identical K/V."""
+    q, k, v = _case(10, b=1, t=32, h=4, hkv=2, hd=16)
+    (kp, vp), bt = _paged_from_dense([k, v], block_k=16)
+    tq, tkp, tvp, tbt = _t(np.concatenate([q, q]), kp, vp,
+                           np.concatenate([bt, bt]))
+    out = tda.paged_decode_attention_plain(tq, tkp, tvp, tbt,
+                                           torch.tensor([20, 20]))
+    assert torch.equal(out[0], out[1])
+    _close(out[:1], tda.decode_attention_plain(*_t(q, k, v),
+                                               torch.tensor([20])))
+    k_g, v_g, _, _ = tda.gather_paged_kv(tkp, tvp, tbt)
+    assert torch.equal(k_g[0], torch.from_numpy(k[0]))
+
+
+def test_dispatch_resolves_plain_on_cpu():
+    assert tda.resolved_path('cpu') == 'plain'
+    assert tda.resolved_path('cpu', 'plain') == 'plain'
+    assert tda.resolved_path('cuda', 'kernel') == 'kernel'
+    assert tda.resolved_path('cuda', 'plain') == 'plain'
+    with pytest.raises(ValueError):
+        tda.resolved_path('cpu', 'xla')
+    q, k, v = _case(11, b=1, t=16, h=2, hkv=2, hd=8)
+    cur = torch.tensor([7])
+    before = tda.decode_attention_kernel.launches
+    out = tda.decode_attention(*_t(q, k, v), cur)
+    assert torch.equal(out, tda.decode_attention_plain(*_t(q, k, v), cur))
+    # The plain path is not a kernel launch.
+    assert tda.decode_attention_kernel.launches == before
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The CUDA wrapper never falls back: CPU tensors are an error."""
+    q, k, v = _case(12, b=1, t=16, h=2, hkv=2, hd=8)
+    with pytest.raises(ValueError, match='CUDA'):
+        tda.decode_attention_kernel(*_t(q, k, v), torch.tensor([3]))
+
+
+# ------------------------------------------------------------------- cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU: the CUDA kernels run only there')
+    return torch.device('cuda')
+
+
+def _cuda_case(dev, seed, b, t, h, hkv, hd, dtype):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, 1, h, hd), (b, t, hkv, hd),
+                             (b, t, hkv, hd)))
+    return q, k, v
+
+
+# fp32 kernel vs fp32 plain: only the summation order differs. bf16:
+# the plain twin rounds probabilities to bf16 before PV, the kernel does
+# not, so they differ by a few bf16 ulps of outputs of magnitude <~ 4.
+_CUDA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('int8', [False, True])
+@pytest.mark.parametrize('hd', [64, 36])   # 36: rows not 16-byte aligned
+def test_cuda_dense_kernel_matches_plain(cuda, dtype, int8, hd):
+    q, k, v = _cuda_case(cuda, 0, b=6, t=256, h=8, hkv=2, hd=hd,
+                         dtype=dtype)
+    cur = torch.tensor([0, 1, 63, 64, 65, 256], device=cuda)
+    scales = ()
+    if int8:
+        k, ks = tquant.quantize_kv(k)
+        v, vs = tquant.quantize_kv(v)
+        scales = (ks, vs)
+    before = tda.decode_attention_kernel.launches
+    out = tda.decode_attention_kernel(q, k, v, cur, *scales)
+    torch.cuda.synchronize()
+    assert tda.decode_attention_kernel.launches == before + 1
+    ref_out = tda.decode_attention_plain(q, k, v, cur, *scales)
+    assert float(out[0].abs().max()) == 0.0
+    tol = max(_CUDA_TOL[dtype], INT8_ATOL if int8 else 0.0)
+    _close(out.float().cpu(), ref_out.float().cpu(), tol, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('int8', [False, True])
+def test_cuda_paged_kernel_matches_plain(cuda, int8):
+    """Shuffled tables, and two rows naming the same blocks."""
+    q, k, v = _cuda_case(cuda, 1, b=4, t=128, h=16, hkv=4, hd=128,
+                         dtype=torch.bfloat16)
+    cur = torch.tensor([128, 17, 100, 0], device=cuda)
+    dense = [k, v]
+    if int8:
+        k8, ks = tquant.quantize_kv(k)
+        v8, vs = tquant.quantize_kv(v)
+        dense = [k8, v8, ks, vs]
+    pools, tables = _paged_from_dense(dense, block_k=32)
+    tables[2] = tables[0]                     # rows 0 and 2 share blocks
+    tables = torch.from_numpy(tables).to(cuda)
+    out = tda.paged_decode_attention_kernel(q, pools[0], pools[1], tables,
+                                            cur, *pools[2:])
+    torch.cuda.synchronize()
+    ref_out = tda.paged_decode_attention_plain(q, pools[0], pools[1],
+                                               tables, cur, *pools[2:])
+    _close(out.float().cpu(), ref_out.float().cpu(),
+           _CUDA_TOL[torch.bfloat16], _CUDA_TOL[torch.bfloat16])
+    assert float(out[3].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _cuda_case(cuda, 2, b=1, t=16, h=2, hkv=1, hd=320,
+                         dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='hd <='):
+        tda.decode_attention_kernel(q, k, v, torch.tensor([3], device=cuda))
+    q, k, v = _cuda_case(cuda, 2, b=1, t=16, h=2, hkv=1, hd=64,
+                         dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='int8'):
+        tda.decode_attention_kernel(q, k, v, torch.tensor([3], device=cuda),
+                                    torch.ones(1, 16, 1, device=cuda),
+                                    torch.ones(1, 16, 1, device=cuda))

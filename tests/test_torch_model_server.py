@@ -1,0 +1,135 @@
+"""Port model server (skypilot_tpu_torch/serve/model_server.py) over HTTP
+on a CPU engine: the reference server's /generate body and reply shapes
+(SSE events and the unary JSON), its 400s, /healthz and /stats, the CLI
+refusing flags of unported features — and served tokens equal to the
+JAX reference's ``decode.generate`` on the same (bridged) weights.
+"""
+import json
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from skypilot_tpu.models import decode as jdecode
+from skypilot_tpu.models import llama as jllama
+from skypilot_tpu_torch.models import convert
+from skypilot_tpu_torch.models import llama as tllama
+from skypilot_tpu_torch.serve import model_server
+
+torch.set_num_threads(2)
+
+JCFG = jllama.CONFIGS['debug']
+
+
+@pytest.fixture(scope='module')
+def served():
+    """One paged port replica on the CPU with the reference's weights."""
+    jparams = jllama.init_params(jax.random.PRNGKey(0), JCFG)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        tllama.CONFIGS['debug'])
+    engine = model_server.build_engine('debug', 2, 64, step_chunk=2,
+                                       paged=True, block_k=8, device='cpu',
+                                       params=tparams)
+    server = model_server.ModelServer(engine, 0, host='127.0.0.1',
+                                      default_max_new_tokens=4)
+    port = server.start()
+    yield jparams, port, engine
+    server.stop()
+
+
+def _post(port, body, raw=None):
+    data = raw if raw is not None else json.dumps(body).encode()
+    req = urllib.request.Request(f'http://127.0.0.1:{port}/generate',
+                                 data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, dict(resp.headers), resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def _reference(jparams, prompt, n):
+    out = jdecode.generate(jparams, jnp.asarray([prompt], jnp.int32),
+                           jnp.asarray([len(prompt)], jnp.int32), JCFG,
+                           jdecode.DecodeConfig(max_len=64), n)
+    return np.asarray(out)[0].tolist()
+
+
+def test_stream_and_unary_replies_match_reference_tokens(served):
+    jparams, port, _ = served
+    prompt = np.random.RandomState(3).randint(0, 256, size=11).tolist()
+    expect = _reference(jparams, prompt, 6)
+
+    status, headers, text = _post(port, {'prompt': prompt,
+                                         'max_new_tokens': 6})
+    assert status == 200
+    assert headers['Content-Type'] == 'text/event-stream'
+    events = [json.loads(line[len('data: '):])
+              for line in text.splitlines() if line.startswith('data: ')]
+    assert [e['token'] for e in events] == expect
+    assert [e['done'] for e in events] == [False] * 5 + [True]
+    assert set(events[0]) == {'token', 'text', 'done'}
+    assert events[-1]['finish_reason'] == 'length'
+    assert events[-1]['generated'] == 6
+    assert events[0]['text'] == model_server.decode_tokens([expect[0]])
+
+    status, headers, text = _post(port, {'prompt': prompt,
+                                         'max_new_tokens': 6,
+                                         'stream': False})
+    body = json.loads(text)
+    assert status == 200 and headers['X-Request-Id']
+    assert body == {'tokens': expect,
+                    'text': model_server.decode_tokens(expect),
+                    'finish_reason': 'length', 'generated': 6}
+
+
+def test_text_prompt_and_default_budget(served):
+    jparams, port, engine = served
+    status, _, text = _post(port, {'text': 'hello', 'stream': False})
+    body = json.loads(text)
+    assert status == 200 and body['generated'] == 4
+    ids = model_server.encode_text('hello', 256)
+    assert body['tokens'] == _reference(jparams, ids, 4)
+    with urllib.request.urlopen(f'http://127.0.0.1:{port}/stats',
+                                timeout=30) as resp:
+        stats = json.loads(resp.read())
+    assert stats['paged'] and stats['admitted'] >= 1
+    assert stats['device'] == 'cpu'
+    with urllib.request.urlopen(f'http://127.0.0.1:{port}/healthz',
+                                timeout=30) as resp:
+        assert resp.status == 200 and resp.read().startswith(b'ok ')
+    assert engine.stats()['failed'] is False
+
+
+@pytest.mark.parametrize('body,raw,needle', [
+    (None, b'{not json', 'invalid JSON'),
+    ({'nothing': 1}, None, 'needs "prompt"'),
+    ({'prompt': 'abc'}, None, 'list of token ids'),
+    ({'prompt': []}, None, 'empty prompt'),
+    ({'prompt': [1], 'max_new_tokens': 'x'}, None, 'must be an integer'),
+    ({'prompt': [1] * 64}, None, 'prompt too long'),
+])
+def test_bad_bodies_answer_400(served, body, raw, needle):
+    _, port, _ = served
+    status, _, text = _post(port, body, raw)
+    assert status == 400
+    assert needle in json.loads(text)['error']
+
+
+def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
+    for argv in (['--spec-k', '2'], ['--tp', '2'], ['--int8'],
+                 ['--prefill-chunk', '64'], ['--prefix-peers', 'http://x'],
+                 ['--role', 'prefill'], ['--checkpoint-dir', '/ckpt']):
+        with pytest.raises(SystemExit) as exc:
+            model_server.parse_args(argv)
+        assert exc.value.code == 2
+    args = model_server.parse_args(['--paged', '--kv-int8', '--attn',
+                                    'plain', '--device', 'cpu'])
+    assert args.paged and args.kv_int8 and args.device == 'cpu'
+    monkeypatch.setenv('SKYTPU_SPEC_K', '4')
+    with pytest.raises(ValueError, match='speculative'):
+        model_server.build_engine('debug', 1, 32, device='cpu')
