@@ -35,11 +35,34 @@ port's package is not beside it. Phases (any failure exits non-zero):
 5. Where a decode step's time goes: the 8-slot dense and paged bf16
    steps timed on the host clock (kernel and plain paths in turns), then
    torch.profiler's device time by kernel over the kernel path.
+6. Flash-attention kernels (forward, dq, dk/dv) against their plain
+   twins at the training shapes (B=12, S=2048, H=16, Hkv=8, D=128,
+   causal) in bf16 and fp32, at an S that does not tile (1000) and a
+   small non-causal case; at the training shapes each kernel's time,
+   the plain twin's, ``library_ms`` (``scaled_dot_product_attention``
+   with ``enable_gqa`` and its autograd backward, a yardstick the port
+   never calls) and the bound with what sets it.
+7. Main path of the trainer: bench-1b at full width and depth (flash
+   attention, remat 'full', ce_chunks 8, batch 12 x seq 2048, warmup
+   10) through ``train.make_train_step`` for 8 steps on one fixed
+   batch. Checks finite, falling losses and that every step launches
+   the forward kernel 2 x n_layers times and each backward kernel
+   n_layers times; prints tokens/s, MFU against 989 TFLOP/s, peak
+   memory and one step's device time by kernel (torch.profiler), with
+   the card's name and power limit. Then ``train.train_loop`` with a
+   checkpoint directory, cut after step 2 and resumed: the resumed
+   step-3 loss must equal the unbroken run's.
+8. Kernel path against plain path on the training loss: bench-1b at
+   batch 2, the same params and batch through the flash kernels and
+   their twins, fp32 and bf16; loss, grad norm and the worst per-tensor
+   grad difference within stated tolerances.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -68,6 +91,39 @@ E2E_REL_TOL = {'fp32': 1e-3, 'bf16': 1e-1}
 
 MODEL = 'llama3-8b'
 N_NEW = 32
+
+DECODE_SOURCES = {
+    'decode_attention_kernel': 'skypilot_tpu/ops/decode_attention.py:80',
+    'paged_decode_attention_kernel':
+        'skypilot_tpu/ops/decode_attention.py:273'}
+FLASH_SOURCES = {
+    'flash_forward_kernel': 'skypilot_tpu/ops/flash_attention.py:37',
+    'flash_bwd_dq_kernel': 'skypilot_tpu/ops/flash_attention.py:145',
+    'flash_bwd_dkv_kernel': 'skypilot_tpu/ops/flash_attention.py:191'}
+# H100 SXM non-tensor fp32 peak (data sheet): the fp32 flash kernels run
+# on the CUDA cores.
+PEAK_FP32_FLOPS = 67e12
+# Phase 6 cases, (B, S, H, Hkv, D, causal): the training shapes, an S
+# that does not tile, a small non-causal case.
+FLASH_CASES = {'train': (12, 2048, 16, 8, 128, True),
+               'S=1000': (2, 1000, 16, 8, 128, True),
+               'full': (2, 256, 4, 2, 64, False)}
+# Kernel vs twin, relative to the twin's largest |value|. fp32: only the
+# summation order differs. bf16: the kernels round P and dS to bf16
+# before the second product, the twins keep fp32 (~2.5 ulps).
+FLASH_REL_TOL = {'fp32': 2e-5, 'bf16': 1e-2}
+# Phases 7-8: bench-1b as bench.py trains it.
+TRAIN_MODEL = 'bench-1b'
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 12, 2048, 8
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                        'chip_smoke_ckpt')
+# A resumed step against the unbroken run: same params, moments and
+# batch, so only run-to-run nondeterminism may differ.
+RESUME_REL_TOL = 1e-6
+# Phase 8, kernel path vs plain path on the bench-1b loss (batch 2),
+# relative: loss, global grad norm, worst per-tensor ||dg|| / ||g||.
+TRAIN_E2E_TOL = {'fp32': dict(loss=1e-5, grad_norm=1e-4, grad=1e-3),
+                 'bf16': dict(loss=1e-2, grad_norm=5e-2, grad=1e-1)}
 # Main-path and end-to-end phases run here (a rehearsal may point them
 # at the CPU and a small model; the kernel phase always needs the card).
 DEVICE = 'cuda'
@@ -87,6 +143,11 @@ def smi_line() -> str:
 def sync(torch) -> None:
     if torch.device(DEVICE).type == 'cuda':
         torch.cuda.synchronize()
+
+
+def empty_cache(torch) -> None:
+    if torch.device(DEVICE).type == 'cuda':
+        torch.cuda.empty_cache()
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -516,13 +577,7 @@ def profile_phase(torch, decode, llama, params, card):
                 step(dcfg)
             sync(torch)
             wall_ms = (time.perf_counter() - t0) * 1e3
-        # Device-side events only: a CPU op's device time repeats its
-        # kernels' time.
-        rows = [(evt.self_device_time_total / 1e3, evt.key, evt.count)
-                for evt in prof.key_averages()
-                if evt.device_type == torch.autograd.DeviceType.CUDA and
-                evt.self_device_time_total > 0]
-        rows.sort(reverse=True)
+        rows = device_time_by_kernel(torch, prof)
         busy_ms = sum(r[0] for r in rows)
         if busy_ms == 0:
             print(f'[profile] {label}: the profiler recorded no device '
@@ -546,6 +601,334 @@ def profile_phase(torch, decode, llama, params, card):
         del cache
 
 
+# --------------------------------------------------------------- phase 6
+
+
+def flash_bounds(b, s, h, hkv, d, causal, elem_bytes, peak_flops):
+    """Least time per flash kernel: max(bytes each input read once and
+    each output written once / HBM rate, operations this mask needs /
+    peak rate). One product over the live (query, key) pairs is 2·d
+    flops per pair: forward 2 products, dq 3, dk/dv 4."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    mac = b * h * d * pairs
+    q_bytes = b * s * h * d * elem_bytes
+    kv_bytes = b * s * hkv * d * elem_bytes
+    row_bytes = b * h * s * 4                    # one fp32 [B,H,S] vector
+    work = {'flash_forward_kernel': (2 * q_bytes + 2 * kv_bytes + row_bytes,
+                                     4 * mac),
+            'flash_bwd_dq_kernel': (3 * q_bytes + 2 * kv_bytes +
+                                    2 * row_bytes, 6 * mac),
+            'flash_bwd_dkv_kernel': (2 * q_bytes + 4 * kv_bytes +
+                                     2 * row_bytes, 8 * mac)}
+    bounds = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak_flops * 1e3
+        bounds[name] = (max(t_bytes, t_ops),
+                        'bytes' if t_bytes >= t_ops else 'operations')
+    return bounds
+
+
+def flash_kernel_phase(torch, fa):
+    """Kernels 4-6 against their plain twins: the training shapes (bf16
+    and fp32), an S that does not tile, a small non-causal case. Times,
+    bounds and the SDPA yardstick at the training shapes. Returns
+    per-kernel rows for the kernels line."""
+    import torch.nn.functional as F
+    dev = torch.device('cuda')
+    rows = {fn.__name__: {} for fn in fa.KERNELS}
+    for label, (b, s, h, hkv, d, causal) in FLASH_CASES.items():
+        for dtype_name, dtype in (('bf16', torch.bfloat16),
+                                  ('fp32', torch.float32)):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(11)
+            q, k, v, g = (torch.randn(shape, generator=gen,
+                                      device=dev).to(dtype)
+                          for shape in ((b, s, h, d), (b, s, hkv, d),
+                                        (b, s, hkv, d), (b, s, h, d)))
+            out, lse = fa.flash_forward_kernel(q, k, v, causal)
+            dsum = fa.row_dot(g, out)
+            dq = fa.flash_bwd_dq_kernel(q, k, v, g, lse, dsum, causal)
+            dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, g, lse, dsum, causal)
+            torch.cuda.synchronize()
+            p_out, p_lse = fa.flash_forward_plain(q, k, v, causal)
+            grads = fa.flash_backward_plain(q, k, v, out, lse, g, causal)
+            tol = FLASH_REL_TOL[dtype_name]
+            checks = {'flash_forward_kernel': [(out, p_out)],
+                      'flash_bwd_dq_kernel': [(dq, grads[0])],
+                      'flash_bwd_dkv_kernel': [(dk, grads[1]),
+                                               (dv, grads[2])]}
+            if not (lse - p_lse).abs().max().item() <= 1e-4:
+                fail(f'flash forward {label} {dtype_name}: LSE differs')
+            errs = {}
+            for name, pairs in checks.items():
+                err = scale = 0.0
+                for got, want in pairs:
+                    if got.shape != want.shape or got.dtype != dtype or (
+                            not torch.isfinite(got).all()):
+                        fail(f'{name} {label} {dtype_name}: bad output')
+                    err = max(err, (got.float() - want.float()).abs().max()
+                              .item())
+                    scale = max(scale, want.float().abs().max().item())
+                print(f'[flash] {name} {label} {dtype_name}: max_abs_err='
+                      f'{err:.3e} (tol {tol} x max|twin| {scale:.3f})',
+                      flush=True)
+                if not err <= tol * scale:
+                    fail(f'{name} {label} {dtype_name}: max abs err {err} '
+                         f'> {tol * scale}')
+                errs[name] = err
+            del p_out, p_lse, grads
+            if label != 'train':
+                continue
+            kernel_ms = {
+                'flash_forward_kernel': cuda_time_ms(
+                    lambda: fa.flash_forward_kernel(q, k, v, causal)),
+                'flash_bwd_dq_kernel': cuda_time_ms(
+                    lambda: fa.flash_bwd_dq_kernel(q, k, v, g, lse, dsum,
+                                                   causal)),
+                'flash_bwd_dkv_kernel': cuda_time_ms(
+                    lambda: fa.flash_bwd_dkv_kernel(q, k, v, g, lse, dsum,
+                                                    causal))}
+            fwd_plain = cuda_time_ms(
+                lambda: fa.flash_forward_plain(q, k, v, causal), iters=3,
+                warmup=1)
+            bwd_plain = cuda_time_ms(
+                lambda: fa.flash_backward_plain(q, k, v, out, lse, g,
+                                                causal), iters=3, warmup=1)
+            # Yardstick, never called by the port: SDPA on [B,H,S,D] with
+            # grouped K/V, and its autograd backward (dq, dk, dv at once).
+            sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=causal, enable_gqa=True)
+            sg = g.transpose(1, 2)
+            lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=causal, enable_gqa=True))
+            lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (sq, sk, sv), sg, retain_graph=True))
+            del sq, sk, sv, sdpa_out
+            bounds = flash_bounds(b, s, h, hkv, d, causal,
+                                  2 if dtype_name == 'bf16' else 4,
+                                  PEAK_BF16_FLOPS if dtype_name == 'bf16'
+                                  else PEAK_FP32_FLOPS)
+            for name, ms in kernel_ms.items():
+                fwd = name == 'flash_forward_kernel'
+                bound_ms, bound_by = bounds[name]
+                row = dict(max_abs_err=errs[name], ms=ms,
+                           plain_ms=fwd_plain if fwd else bwd_plain,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=lib_fwd if fwd else lib_bwd)
+                print(f'[flash] {name} {label} {dtype_name}: ms={ms:.4f} '
+                      f'plain_ms={row["plain_ms"]:.4f} library_ms='
+                      f'{row["library_ms"]:.4f} bound_ms={bound_ms:.4f} '
+                      f'({bound_by})', flush=True)
+                rows[name][dtype_name] = row
+            del q, k, v, g, out, lse, dsum, dq, dk, dv
+            torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------- phase 7
+
+
+def train_config(llama, dtype=None):
+    """bench-1b as bench.py trains it: flash attention, remat 'full',
+    ce_chunks 8 (the config's own)."""
+    import dataclasses
+    cfg = dataclasses.replace(llama.CONFIGS[TRAIN_MODEL],
+                              flash_attention=True, remat=True,
+                              remat_policy='full')
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if cfg.ce_chunks != 8:
+        fail(f'{TRAIN_MODEL} must carry ce_chunks=8, has {cfg.ce_chunks}')
+    return cfg
+
+
+def device_time_by_kernel(torch, prof):
+    """[(ms, name, count)] of device-side events, largest first (a CPU
+    op's device time repeats its kernels' time, so only device events
+    count)."""
+    rows = [(evt.self_device_time_total / 1e3, evt.key, evt.count)
+            for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA and
+            evt.self_device_time_total > 0]
+    return sorted(rows, reverse=True)
+
+
+def train_phase(torch, llama, train, fa, card):
+    """The port's trainer at bench-1b width and depth on one fixed batch:
+    losses finite and falling, exact launch counts per step, tokens/s,
+    MFU, peak memory and the step's device time by kernel; then a
+    checkpointed train_loop cut and resumed. Returns the launch counts of
+    the main-path steps."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    cfg = train_config(llama)
+    tc = train.TrainConfig(warmup_steps=10)
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    state = train.init_train_state(cfg, tc, dev)
+    step = train.make_train_step(cfg, tc)
+    tokens, targets = train.synthetic_batch(cfg.vocab_size, TRAIN_B,
+                                            TRAIN_S, 1, 0)
+    sync(torch)
+    print(f'[train] {TRAIN_MODEL} ({cfg.num_params() / 1e9:.2f}B params, '
+          f'flash, remat {cfg.remat_policy}, ce_chunks {cfg.ce_chunks}, '
+          f'batch {TRAIN_B} x seq {TRAIN_S}) init in '
+          f'{time.perf_counter() - t0:.1f}s', flush=True)
+    sync(torch)
+    if dev.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    expect = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+    losses, secs = [], []
+    fa.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        before = [fn.launches for fn in fa.KERNELS]
+        sync(torch)
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens, targets)
+        loss = float(metrics['loss'])
+        sync(torch)
+        secs.append(time.perf_counter() - t0)
+        grew = [fn.launches - n for fn, n in zip(fa.KERNELS, before)]
+        print(f'[train] step {i + 1}: loss={loss:.5f} grad_norm='
+              f'{float(metrics["grad_norm"]):.4f} {secs[-1]:.3f}s '
+              f'launches +{grew}', flush=True)
+        if grew != expect:
+            fail(f'step {i + 1}: flash kernels launched {grew}, expected '
+                 f'{expect} (2 x n_layers forward with remat, n_layers '
+                 'each backward)')
+        losses.append(loss)
+    counts = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    if not all(math.isfinite(x) for x in losses):
+        fail(f'non-finite losses {losses}')
+    if not losses[-1] < losses[0]:
+        fail(f'loss did not fall on the fixed batch: {losses}')
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == 'cuda' else float('nan'))
+    step_s = statistics.median(secs[1:])
+    tok_s = TRAIN_B * TRAIN_S / step_s
+    mfu = train.tokens_per_second_to_mfu(tok_s, cfg, TRAIN_S,
+                                         PEAK_BF16_FLOPS)
+    print(f'[train] {TRAIN_MODEL} step {step_s:.4f}s (median of steps '
+          f'2-{TRAIN_STEPS}), {tok_s:.1f} tokens/s, MFU {mfu:.4f} '
+          f'(vs 989 TFLOP/s bf16), peak memory {peak_gb:.2f} GB '
+          f'(max_memory_allocated), on {card}', flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync(torch)
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens, targets)
+        float(metrics['loss'])
+        sync(torch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_time_by_kernel(torch, prof)
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        print('[train] the profiler recorded no device time', flush=True)
+    else:
+        groups = {'flash forward': 'flash_fwd_kernel',
+                  'flash dq': 'flash_bwd_dq_kernel',
+                  'flash dk/dv': 'flash_bwd_dkv_kernel'}
+        split = {g: sum(r[0] for r in rows if key in r[1])
+                 for g, key in groups.items()}
+        split['GEMMs'] = sum(r[0] for r in rows if any(
+            key in r[1].lower() for key in ('gemm', 'nvjet', 'cutlass',
+                                            'xmma')))
+        split['other'] = busy - sum(split.values())
+        print(f'[train] one step under torch.profiler: wall {wall_ms:.1f} '
+              f'ms, device busy {busy:.1f} ms ({busy / wall_ms:.3f} of '
+              f'wall), {sum(r[2] for r in rows)} kernels; ' + ', '.join(
+                  f'{g} {ms:.1f} ms ({ms / busy:.3f})'
+                  for g, ms in split.items()) + f'; on {card}', flush=True)
+        for ms, key, count in rows[:8]:
+            print(f'[train]   {ms:9.3f} ms  x{count:<5d} {key[:90]}',
+                  flush=True)
+    del state, metrics
+    empty_cache(torch)
+
+    # Cut and resume: the step after a restore equals the unbroken run's.
+    ckpt_dir = CKPT_DIR
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    runs = {}
+    for label, n, ckpt in (('unbroken', 3, None), ('cut', 2, ckpt_dir),
+                           ('resumed', 3, ckpt_dir)):
+        seen = runs[label] = {}
+        t0 = time.perf_counter()
+        end = train.train_loop(
+            cfg, tc, n, TRAIN_B, TRAIN_S, checkpoint_dir=ckpt,
+            save_every=2, log_every=0, device=dev,
+            on_step=lambda i, m, seen=seen: seen.__setitem__(
+                i, float(m['loss'])))
+        del end
+        empty_cache(torch)
+        print(f'[train] train_loop {label}: losses {seen} in '
+              f'{time.perf_counter() - t0:.1f}s', flush=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if sorted(runs['resumed']) != [3]:
+        fail(f'the resumed run did not start at step 3: {runs}')
+    want, got = runs['unbroken'][3], runs['resumed'][3]
+    print(f'[train] resumed step-3 loss {got!r} vs unbroken {want!r} '
+          f'(diff {got - want:.3e})', flush=True)
+    if not abs(got - want) <= RESUME_REL_TOL * abs(want):
+        fail(f'resumed loss {got} != unbroken {want}')
+    return counts, dict(step_s=step_s, tokens_per_s=tok_s, mfu=mfu,
+                        peak_gb=peak_gb)
+
+
+# --------------------------------------------------------------- phase 8
+
+
+def train_e2e_phase(torch, llama, train):
+    """Kernel path against plain path on the training loss: the same
+    params and batch (bench-1b, batch 2) with the flash kernels and with
+    their plain twins, in fp32 and bf16. Returns the worst numbers."""
+    dev = torch.device(DEVICE)
+    worst = {}
+    for dtype_name, dtype in (('fp32', torch.float32),
+                              ('bf16', torch.bfloat16)):
+        cfg = train_config(llama, dtype)
+        tokens, targets = (torch.from_numpy(a).to(dev) for a in
+                           train.synthetic_batch(cfg.vocab_size, 2, TRAIN_S,
+                                                 5, 0))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        params = llama.init_params(cfg, gen, dev)
+        leaves = train.tree_leaves(params)
+        out = {}
+        for impl in ('kernel', 'plain'):
+            for p in leaves:
+                p.requires_grad_(True)
+            loss = llama.loss_fn(params, tokens, targets, cfg, impl)
+            grads = torch.autograd.grad(loss, leaves)
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            out[impl] = (loss.item(), grads, norm.item())
+        for p in leaves:
+            p.requires_grad_(False)
+        (kl, kg, kn), (pl, pg, pn) = out['kernel'], out['plain']
+        loss_rel = abs(kl - pl) / abs(pl)
+        norm_rel = abs(kn - pn) / pn
+        grad_rel = max(((a.float() - b.float()).norm() /
+                        b.float().norm()).item() for a, b in zip(kg, pg))
+        tol = TRAIN_E2E_TOL[dtype_name]
+        print(f'[train-e2e] {dtype_name}: loss kernel {kl:.6f} plain '
+              f'{pl:.6f} (rel {loss_rel:.3e}, tol {tol["loss"]}); grad norm'
+              f' {kn:.5f} vs {pn:.5f} (rel {norm_rel:.3e}, tol '
+              f'{tol["grad_norm"]}); worst per-tensor grad rel diff '
+              f'{grad_rel:.3e} (tol {tol["grad"]})', flush=True)
+        if not (loss_rel <= tol['loss'] and norm_rel <= tol['grad_norm'] and
+                grad_rel <= tol['grad']):
+            fail(f'training kernel path differs from the plain path in '
+                 f'{dtype_name}')
+        worst[dtype_name] = dict(loss=loss_rel, grad_norm=norm_rel,
+                                 grad=grad_rel)
+        del params, leaves, out, kg, pg
+        empty_cache(torch)
+    return worst
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -554,9 +937,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from skypilot_tpu_torch.models import decode, llama
+        from skypilot_tpu_torch.models import decode, llama, train
         from skypilot_tpu_torch.ops import cuda_build, quant
         from skypilot_tpu_torch.ops import decode_attention as da
+        from skypilot_tpu_torch.ops import flash_attention as fa
         from skypilot_tpu_torch.serve import model_server as ms_lib
     except ImportError as e:
         print(f'chip_smoke: the skypilot_tpu_torch package is not beside '
@@ -576,28 +960,52 @@ def main() -> int:
         log = cuda_build.library_path(lib).with_suffix('.log')
         print(log.read_text(errors='replace').strip(), flush=True)
 
+    def phase_done(label):
+        print(f'[time] {label} done at {time.perf_counter() - t_start:.1f}s',
+              flush=True)
+
     rows = kernel_phase(torch, da, quant)
     params, counts = main_path_phase(torch, ms_lib, da, card)
     worst = e2e_phase(torch, decode, llama, params)
     print(f'[e2e] worst max|dlogit| / max|logit|: {worst}', flush=True)
     profile_phase(torch, decode, llama, params, card)
+    del params
+    torch.cuda.empty_cache()
+    phase_done('serving phases 2-5')
 
-    sources = {'decode_attention_kernel':
-               'skypilot_tpu/ops/decode_attention.py:80',
-               'paged_decode_attention_kernel':
-               'skypilot_tpu/ops/decode_attention.py:273'}
+    flash_rows = flash_kernel_phase(torch, fa)
+    phase_done('phase 6')
+    train_counts, train_stats = train_phase(torch, llama, train, fa, card)
+    phase_done('phase 7')
+    train_worst = train_e2e_phase(torch, llama, train)
+    print(f'[train-e2e] worst relative differences: {train_worst}',
+          flush=True)
+    phase_done('phase 8')
+
     kernels = []
     for kname, row in rows.items():
         main = row['bf16']
         kernels.append({
             'name': kname, 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
-            'replaces': sources[kname], 'launches': counts[kname],
+            'replaces': DECODE_SOURCES[kname], 'launches': counts[kname],
             'max_abs_err': main['max_abs_err'], 'ms': main['ms'],
             'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
             'bound_by': main['bound_by'],
             'library_ms': main['library_ms'], 'int8': row['int8']})
-    print(f'[done] {time.perf_counter() - t_start:.1f}s total', flush=True)
+    for kname, row in flash_rows.items():
+        main = row['bf16']
+        kernels.append({
+            'name': kname, 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/flash_attention.cu',
+            'replaces': FLASH_SOURCES[kname],
+            'launches': train_counts[kname],
+            'max_abs_err': main['max_abs_err'], 'ms': main['ms'],
+            'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
+            'bound_by': main['bound_by'],
+            'library_ms': main['library_ms'], 'fp32': row['fp32']})
+    print(f'[done] {time.perf_counter() - t_start:.1f}s total; train '
+          f'{train_stats}', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

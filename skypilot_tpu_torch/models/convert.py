@@ -5,9 +5,11 @@ restored checkpoint) have the same tree and layout as the port's, so the
 bridge is a copy per leaf. bf16 arrays arrive as ``ml_dtypes.bfloat16``
 numpy arrays, which ``torch.from_numpy`` refuses; they are recognised by
 dtype name and reinterpreted through ``uint16`` — the same 16 bits —
-without importing ``ml_dtypes``.
+without importing ``ml_dtypes``. :func:`train_state_from_numpy` carries
+a reference train state (params and optax Adam moments) across the same
+way, so both trainers can start from one mid-run state.
 """
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -47,3 +49,24 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: llama.LlamaConfig,
         return t
 
     return convert(tree, llama.param_shapes(cfg), '')
+
+
+def train_state_from_numpy(params: Mapping[str, Any], adam_state: Any,
+                           cfg: llama.LlamaConfig,
+                           step: Optional[int] = None, device='cpu'):
+    """A reference train state → the port's ``train.TrainState``.
+
+    ``params`` is the param tree and ``adam_state`` optax's
+    ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) with numpy leaves.
+    Moments keep their dtype (bf16 bit for bit). ``step`` defaults to
+    the Adam count, as both advance once per train step."""
+    from skypilot_tpu_torch.models import train
+
+    count = int(np.asarray(adam_state.count))
+    return train.TrainState(
+        params=params_from_numpy(params, cfg, device),
+        opt_state=train.AdamState(
+            count=count,
+            mu=params_from_numpy(adam_state.mu, cfg, device),
+            nu=params_from_numpy(adam_state.nu, cfg, device)),
+        step=count if step is None else step)

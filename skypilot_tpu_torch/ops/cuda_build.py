@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Optional
 CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 # name → source file under csrc/.
-SOURCES = {'decode_attention': 'decode_attention.cu'}
+SOURCES = {'decode_attention': 'decode_attention.cu',
+           'flash_attention': 'flash_attention.cu'}
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

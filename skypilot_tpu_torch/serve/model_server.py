@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.models import engine as engine_lib
 from skypilot_tpu_torch.models import llama
@@ -68,21 +69,6 @@ def decode_tokens(tokens) -> str:
     """Inverse demo codec: ids → bytes (mod 256), lossy for vocab>256."""
     return bytes(t % 256 for t in tokens).decode('utf-8',
                                                  errors='replace')
-
-
-def resolve_device(device: Optional[str] = None) -> torch.device:
-    """The engine's device: CUDA unless the caller names another. No
-    silent CPU fallback: without a card, only ``device='cpu'`` runs."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' (--device cpu) to run on "
-                               "the CPU")
-        device = 'cuda'
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(f'{device} requested but CUDA is not available')
-    return device
 
 
 def check_unsupported_env() -> None:

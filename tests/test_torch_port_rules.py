@@ -10,6 +10,7 @@ import sys
 import pytest
 import torch
 
+from skypilot_tpu_torch.models import llama, train
 from skypilot_tpu_torch.serve import model_server
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,8 +48,9 @@ def test_importing_the_port_leaves_jax_out_of_the_process():
     code = ('import sys\n'
             'import chip_smoke\n'
             'from skypilot_tpu_torch.serve import model_server\n'
-            'from skypilot_tpu_torch.models import convert, decode, engine\n'
-            'from skypilot_tpu_torch.ops import cuda_build\n'
+            'from skypilot_tpu_torch.models import checkpoint, convert, data\n'
+            'from skypilot_tpu_torch.models import decode, engine, train\n'
+            'from skypilot_tpu_torch.ops import cuda_build, flash_attention\n'
             'bad = sorted(m for m in sys.modules\n'
             "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
             "                                    'skypilot_tpu'))\n"
@@ -66,6 +68,9 @@ def test_entry_points_default_to_cuda():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model_server.build_engine('debug', 1, 32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.train_loop(llama.CONFIGS['debug'], train.TrainConfig(), 1, 1,
+                         8)
     with pytest.raises(RuntimeError, match='CUDA'):
         model_server.resolve_device('cuda')
     assert model_server.resolve_device('cpu').type == 'cpu'
