@@ -38,7 +38,9 @@ port's package is not beside it. Phases (any failure exits non-zero):
 6. Flash-attention kernels (forward, dq, dk/dv) against their plain
    twins at the training shapes (B=12, S=2048, H=16, Hkv=8, D=128,
    causal) in bf16 and fp32, at an S that does not tile (1000) and a
-   small non-causal case; at the training shapes each kernel's time,
+   small non-causal case (fp32 within 2e-5 of the twin's largest value;
+   bf16 per element within one ulp plus 2e-2 of its row's rms, and
+   within 5e-3 in relative norm); at the training shapes each kernel's time,
    the plain twin's, ``library_ms`` (``scaled_dot_product_attention``
    with ``enable_gqa`` and its autograd backward, a yardstick the port
    never calls) and the bound with what sets it.
@@ -53,9 +55,11 @@ port's package is not beside it. Phases (any failure exits non-zero):
    checkpoint directory, cut after step 2 and resumed: the resumed
    step-3 loss must equal the unbroken run's.
 8. Kernel path against plain path on the training loss: bench-1b at
-   batch 2, the same params and batch through the flash kernels and
-   their twins, fp32 and bf16; loss, grad norm and the worst per-tensor
-   grad difference within stated tolerances.
+   batch 2, one set of bf16 params (and the same upcast to fp32) and one
+   batch through the flash kernels and their twins. fp32: loss, grad
+   norm and every grad tensor within stated tolerances. bf16: loss and
+   grad norm likewise, and each grad tensor no further from the fp32
+   plain path than 1.2 times the plain bf16 path is.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -108,10 +112,19 @@ PEAK_FP32_FLOPS = 67e12
 FLASH_CASES = {'train': (12, 2048, 16, 8, 128, True),
                'S=1000': (2, 1000, 16, 8, 128, True),
                'full': (2, 256, 4, 2, 64, False)}
-# Kernel vs twin, relative to the twin's largest |value|. fp32: only the
+# Kernel vs twin. fp32, relative to the twin's largest |value|: only the
 # summation order differs. bf16: the kernels round P and dS to bf16
-# before the second product, the twins keep fp32 (~2.5 ulps).
-FLASH_REL_TOL = {'fp32': 2e-5, 'bf16': 1e-2}
+# before the second product, the twins keep fp32, and both round the
+# result to bf16. So every element must hold |got - want| <= rtol·|want|
+# + atol·row_scale(want) (rtol: one bf16 ulp at the top of a binade;
+# atol: the P/dS rounding carried through a row's sum, ~1e-3 of that
+# row's rms, which does not shrink with an element that cancels to ~0),
+# and the whole tensor ||got - want|| <= fro·||want||. Set at about
+# twice the largest values read on an H100 (700 W) with the bounds
+# opened, at the phase-6 and cuda-test shapes; phase 6 prints both
+# statistics on every run.
+FLASH_FP32_REL_TOL = 2e-5
+FLASH_BF16_TOL = dict(rtol=2.0**-7, atol=2e-2, fro=5e-3)
 # Phases 7-8: bench-1b as bench.py trains it.
 TRAIN_MODEL = 'bench-1b'
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 12, 2048, 8
@@ -121,9 +134,14 @@ CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
 # batch, so only run-to-run nondeterminism may differ.
 RESUME_REL_TOL = 1e-6
 # Phase 8, kernel path vs plain path on the bench-1b loss (batch 2),
-# relative: loss, global grad norm, worst per-tensor ||dg|| / ||g||.
-TRAIN_E2E_TOL = {'fp32': dict(loss=1e-5, grad_norm=1e-4, grad=1e-3),
-                 'bf16': dict(loss=1e-2, grad_norm=5e-2, grad=1e-1)}
+# relative: loss, global grad norm, and in fp32 the worst per-tensor
+# ||dg|| / ||g||. In bf16 each grad tensor's distance from the fp32
+# plain path may be at most TRAIN_BF16_GRAD_RATIO times the plain bf16
+# path's. Set from a reading on an H100 (700 W) with the bounds opened
+# (phase 8 prints every one of these numbers on every run).
+TRAIN_E2E_TOL = {'fp32': dict(loss=1e-5, grad_norm=1e-4, grad=1e-4),
+                 'bf16': dict(loss=1e-4, grad_norm=1e-3)}
+TRAIN_BF16_GRAD_RATIO = 1.2
 # Main-path and end-to-end phases run here (a rehearsal may point them
 # at the CPU and a small model; the kernel phase always needs the card).
 DEVICE = 'cuda'
@@ -629,6 +647,43 @@ def flash_bounds(b, s, h, hkv, d, causal, elem_bytes, peak_flops):
     return bounds
 
 
+def row_scale(want):
+    """Per row (the last axis, D): its rms, plus 1e-2 of the tensor's
+    rms for rows that are ~0 (causal dq of query 0: dS = 0)."""
+    return (want.square().mean(-1, keepdim=True).sqrt() +
+            1e-2 * want.square().mean().sqrt())
+
+
+def twin_error(got, want, dtype_name):
+    """(None or why it fails, a report line) for a kernel's output
+    against its plain twin under FLASH_FP32_REL_TOL / FLASH_BF16_TOL."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    max_err = diff.max().item()
+    scale = want.abs().max().item()
+    if dtype_name == 'fp32':
+        bound = FLASH_FP32_REL_TOL * scale
+        return (None if max_err <= bound else
+                f'max abs err {max_err} > {bound}'), (
+                    f'max_abs_err={max_err:.3e} (tol {bound:.3e} = '
+                    f'{FLASH_FP32_REL_TOL} x max|twin|)')
+    tol = FLASH_BF16_TOL
+    fro = (diff.norm() / want.norm()).item()
+    # The least atol, in units of the element's row scale, that every
+    # element needs.
+    atol = ((diff - tol['rtol'] * want.abs()) /
+            row_scale(want)).max().item()
+    msg = (f'max_abs_err={max_err:.3e} max|twin|={scale:.3f}; per element '
+           f'needs atol {atol:.3e} x row scale at rtol {tol["rtol"]:.4g} '
+           f'(tol {tol["atol"]}); ||d||/||twin|| {fro:.3e} (tol '
+           f'{tol["fro"]})')
+    if not atol <= tol['atol']:
+        return 'an element is off by more than the per-element bound', msg
+    if not fro <= tol['fro']:
+        return f'relative Frobenius error {fro} > {tol["fro"]}', msg
+    return None, msg
+
+
 def flash_kernel_phase(torch, fa):
     """Kernels 4-6 against their plain twins: the training shapes (bf16
     and fp32), an S that does not tile, a small non-causal case. Times,
@@ -653,30 +708,26 @@ def flash_kernel_phase(torch, fa):
             torch.cuda.synchronize()
             p_out, p_lse = fa.flash_forward_plain(q, k, v, causal)
             grads = fa.flash_backward_plain(q, k, v, out, lse, g, causal)
-            tol = FLASH_REL_TOL[dtype_name]
-            checks = {'flash_forward_kernel': [(out, p_out)],
-                      'flash_bwd_dq_kernel': [(dq, grads[0])],
-                      'flash_bwd_dkv_kernel': [(dk, grads[1]),
-                                               (dv, grads[2])]}
+            checks = {'flash_forward_kernel': [('out', out, p_out)],
+                      'flash_bwd_dq_kernel': [('dq', dq, grads[0])],
+                      'flash_bwd_dkv_kernel': [('dk', dk, grads[1]),
+                                               ('dv', dv, grads[2])]}
             if not (lse - p_lse).abs().max().item() <= 1e-4:
                 fail(f'flash forward {label} {dtype_name}: LSE differs')
             errs = {}
             for name, pairs in checks.items():
-                err = scale = 0.0
-                for got, want in pairs:
+                errs[name] = 0.0
+                for what, got, want in pairs:
                     if got.shape != want.shape or got.dtype != dtype or (
                             not torch.isfinite(got).all()):
                         fail(f'{name} {label} {dtype_name}: bad output')
-                    err = max(err, (got.float() - want.float()).abs().max()
-                              .item())
-                    scale = max(scale, want.float().abs().max().item())
-                print(f'[flash] {name} {label} {dtype_name}: max_abs_err='
-                      f'{err:.3e} (tol {tol} x max|twin| {scale:.3f})',
-                      flush=True)
-                if not err <= tol * scale:
-                    fail(f'{name} {label} {dtype_name}: max abs err {err} '
-                         f'> {tol * scale}')
-                errs[name] = err
+                    err, msg = twin_error(got, want, dtype_name)
+                    print(f'[flash] {name} {label} {dtype_name} {what}: '
+                          f'{msg}', flush=True)
+                    if err is not None:
+                        fail(f'{name} {label} {dtype_name} {what}: {err}')
+                    errs[name] = max(errs[name], (got.float() - want.float())
+                                     .abs().max().item())
             del p_out, p_lse, grads
             if label != 'train':
                 continue
@@ -881,51 +932,90 @@ def train_phase(torch, llama, train, fa, card):
 # --------------------------------------------------------------- phase 8
 
 
+def leaf_names(tree, prefix=''):
+    """Dotted names of ``train.tree_leaves(tree)``, in its order."""
+    if isinstance(tree, dict):
+        return [name for key in sorted(tree)
+                for name in leaf_names(tree[key], f'{prefix}{key}.')]
+    return [prefix[:-1]]
+
+
 def train_e2e_phase(torch, llama, train):
-    """Kernel path against plain path on the training loss: the same
-    params and batch (bench-1b, batch 2) with the flash kernels and with
-    their plain twins, in fp32 and bf16. Returns the worst numbers."""
+    """Kernel path against plain path on the training loss (bench-1b,
+    batch 2): one set of bf16 params from a seed, run in bf16 and,
+    upcast, in fp32, each through the flash kernels and their plain
+    twins. fp32: kernel against plain directly. bf16: loss and grad norm
+    against the plain bf16 path; each grad tensor's distance from the
+    fp32 plain path must be at most TRAIN_BF16_GRAD_RATIO times the
+    plain bf16 path's own distance from it (the kernels round P and dS
+    to bf16, the twins do not; every other rounding is shared). Returns
+    the worst numbers."""
     dev = torch.device(DEVICE)
-    worst = {}
-    for dtype_name, dtype in (('fp32', torch.float32),
-                              ('bf16', torch.bfloat16)):
-        cfg = train_config(llama, dtype)
-        tokens, targets = (torch.from_numpy(a).to(dev) for a in
-                           train.synthetic_batch(cfg.vocab_size, 2, TRAIN_S,
-                                                 5, 0))
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(3)
-        params = llama.init_params(cfg, gen, dev)
+    cfg16 = train_config(llama)
+    tokens, targets = (torch.from_numpy(a).to(dev) for a in
+                       train.synthetic_batch(cfg16.vocab_size, 2, TRAIN_S,
+                                             5, 0))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    params16 = llama.init_params(cfg16, gen, dev)
+    params32 = train.tree_map(lambda p: p.float(), params16)
+    names = leaf_names(params16)
+    runs = {}
+    for dtype_name, params in (('fp32', params32), ('bf16', params16)):
+        cfg = train_config(llama, torch.float32 if dtype_name == 'fp32'
+                           else None)
         leaves = train.tree_leaves(params)
-        out = {}
         for impl in ('kernel', 'plain'):
             for p in leaves:
                 p.requires_grad_(True)
             loss = llama.loss_fn(params, tokens, targets, cfg, impl)
-            grads = torch.autograd.grad(loss, leaves)
-            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-            out[impl] = (loss.item(), grads, norm.item())
-        for p in leaves:
-            p.requires_grad_(False)
-        (kl, kg, kn), (pl, pg, pn) = out['kernel'], out['plain']
+            grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
+            norm = torch.sqrt(sum(g.square().sum() for g in grads))
+            runs[dtype_name, impl] = (loss.item(), grads, norm.item())
+            for p in leaves:
+                p.requires_grad_(False)
+            del loss
+        empty_cache(torch)
+
+    def rel(a, b):
+        return [((x - y).norm() / y.norm()).item() for x, y in zip(a, b)]
+
+    worst = {}
+    for dtype_name in ('fp32', 'bf16'):
+        (kl, kg, kn), (pl, pg, pn) = (runs[dtype_name, 'kernel'],
+                                      runs[dtype_name, 'plain'])
+        tol = TRAIN_E2E_TOL[dtype_name]
         loss_rel = abs(kl - pl) / abs(pl)
         norm_rel = abs(kn - pn) / pn
-        grad_rel = max(((a.float() - b.float()).norm() /
-                        b.float().norm()).item() for a, b in zip(kg, pg))
-        tol = TRAIN_E2E_TOL[dtype_name]
+        grad_rel = rel(kg, pg)
+        i_max = max(range(len(names)), key=grad_rel.__getitem__)
         print(f'[train-e2e] {dtype_name}: loss kernel {kl:.6f} plain '
               f'{pl:.6f} (rel {loss_rel:.3e}, tol {tol["loss"]}); grad norm'
               f' {kn:.5f} vs {pn:.5f} (rel {norm_rel:.3e}, tol '
-              f'{tol["grad_norm"]}); worst per-tensor grad rel diff '
-              f'{grad_rel:.3e} (tol {tol["grad"]})', flush=True)
-        if not (loss_rel <= tol['loss'] and norm_rel <= tol['grad_norm'] and
-                grad_rel <= tol['grad']):
+              f'{tol["grad_norm"]}); worst per-tensor ||dg||/||g|| kernel vs'
+              f' plain {grad_rel[i_max]:.3e} ({names[i_max]}, tol '
+              f'{tol.get("grad", "none: see below")})', flush=True)
+        ok = loss_rel <= tol['loss'] and norm_rel <= tol['grad_norm']
+        worst[dtype_name] = dict(loss=loss_rel, grad_norm=norm_rel,
+                                 grad=grad_rel[i_max])
+        if dtype_name == 'fp32':
+            ok = ok and grad_rel[i_max] <= tol['grad']
+        else:
+            ref = runs['fp32', 'plain'][1]
+            k_ref, p_ref = rel(kg, ref), rel(pg, ref)
+            ratio = [a / b for a, b in zip(k_ref, p_ref)]
+            for i in sorted(range(len(names)), key=lambda i: -ratio[i])[:4]:
+                print(f'[train-e2e] bf16 {names[i]}: from fp32, kernel path '
+                      f'{k_ref[i]:.3e}, plain path {p_ref[i]:.3e} (ratio '
+                      f'{ratio[i]:.3f}, tol {TRAIN_BF16_GRAD_RATIO}); kernel '
+                      f'vs plain {grad_rel[i]:.3e}', flush=True)
+            ok = ok and max(ratio) <= TRAIN_BF16_GRAD_RATIO
+            worst['bf16'].update(ratio=max(ratio), from_fp32=max(k_ref))
+        if not ok:
             fail(f'training kernel path differs from the plain path in '
                  f'{dtype_name}')
-        worst[dtype_name] = dict(loss=loss_rel, grad_norm=norm_rel,
-                                 grad=grad_rel)
-        del params, leaves, out, kg, pg
-        empty_cache(torch)
+    del runs, params16, params32
+    empty_cache(torch)
     return worst
 
 

@@ -16,6 +16,8 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
+from skypilot_tpu_torch.device import resolve_device
+
 STEP_PREFIX = 'step_'
 STATE_FILE = 'state.pt'
 COMMIT_FILE = 'commit.json'
@@ -74,9 +76,11 @@ def _prune(root: str, keep: int) -> None:
         shutil.rmtree(_ckpt_dir(root, step), ignore_errors=True)
 
 
-def restore(root: str, step: int, device='cpu') -> Any:
-    """The ``train.TrainState`` saved at ``step``, on ``device``."""
+def restore(root: str, step: int, device=None) -> Any:
+    """The ``train.TrainState`` saved at ``step``, on ``device``
+    (default CUDA; without a card only ``device='cpu'`` runs)."""
     from skypilot_tpu_torch.models import train
+    device = resolve_device(device)
     path = _ckpt_dir(_root(root), step)
     if not _is_complete(path):
         raise FileNotFoundError(f'no complete checkpoint at {path}')
@@ -89,7 +93,7 @@ def restore(root: str, step: int, device='cpu') -> Any:
         step=saved['step'])
 
 
-def restore_latest(root: str, device='cpu') -> Optional[Tuple[Any, int]]:
+def restore_latest(root: str, device=None) -> Optional[Tuple[Any, int]]:
     """(state, step) from the newest complete checkpoint, or None."""
     steps = list_steps(root)
     if not steps:

@@ -12,9 +12,9 @@ sampler state in the checkpoint.
 
 Dataset format: a raw little-endian token file (uint16 for vocab
 < 65536, else uint32) with an optional sidecar ``<name>.json`` carrying
-``{"dtype": "uint16", "vocab_size": N}``. ``python -m
-skypilot_tpu_torch.models.data encode <txt> <out.bin>`` builds one from
-whitespace-tokenized text for smoke runs.
+``{"dtype": "uint16", "vocab_size": N}``. Building such a file is left
+to the reference's tooling (``python -m skypilot_tpu.models.data
+encode``).
 """
 import dataclasses
 import json
@@ -80,43 +80,3 @@ class TokenDataset:
         ])
         return rows[:, :-1], rows[:, 1:]
 
-
-def encode_text(src: str, dst: str, vocab_size: int = 32768) -> int:
-    """Whitespace-hash tokenizer → token file (smoke-run tooling, not a
-    real tokenizer). Returns the token count."""
-    import hashlib
-    ids = []
-    with open(os.path.expanduser(src), encoding='utf-8') as f:
-        for line in f:
-            for word in line.split():
-                h = int.from_bytes(
-                    hashlib.blake2b(word.encode(),
-                                    digest_size=4).digest(), 'little')
-                ids.append(h % (vocab_size - 1) + 1)  # 0 reserved
-            ids.append(0)  # newline separator
-    arr = np.asarray(ids, dtype=np.uint16 if vocab_size <= 65536
-                     else np.uint32)
-    dst = os.path.expanduser(dst)
-    arr.tofile(dst)
-    with open(f'{os.path.splitext(dst)[0]}.json', 'w',
-              encoding='utf-8') as f:
-        json.dump({'dtype': str(arr.dtype), 'vocab_size': vocab_size}, f)
-    return arr.size
-
-
-def main() -> None:
-    import argparse
-    parser = argparse.ArgumentParser(description='token file tooling')
-    sub = parser.add_subparsers(dest='cmd', required=True)
-    enc = sub.add_parser('encode', help='text → token file')
-    enc.add_argument('src')
-    enc.add_argument('dst')
-    enc.add_argument('--vocab-size', type=int, default=32768)
-    args = parser.parse_args()
-    if args.cmd == 'encode':
-        n = encode_text(args.src, args.dst, args.vocab_size)
-        print(f'[data] wrote {n} tokens to {args.dst}')
-
-
-if __name__ == '__main__':
-    main()

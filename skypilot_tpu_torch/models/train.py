@@ -175,9 +175,11 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
 
 
 def init_train_state(model_cfg: llama.LlamaConfig, train_cfg: TrainConfig,
-                     device='cpu') -> TrainState:
+                     device=None) -> TrainState:
     """Random params (seed 0, as the reference's PRNGKey(0); the draws
-    differ from ``jax.random``'s) and zero Adam state on ``device``."""
+    differ from ``jax.random``'s) and zero Adam state on ``device``
+    (default CUDA; without a card only ``device='cpu'`` runs)."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = llama.init_params(model_cfg, gen, device)

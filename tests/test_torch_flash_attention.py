@@ -10,7 +10,9 @@ numpy seeds. Tolerances as tests/unit_tests/test_flash_attention.py:
 2e-5 forward, 2e-4 gradients, fp32.
 
 ``cuda`` cases: each CUDA kernel against its plain twin on the card
-(skipped here). The reference is imported inside a fixture, so the card
+(skipped here), under ``chip_smoke.py``'s bounds (its ``twin_error``),
+whose bf16 rule has a CPU test of its own. The reference is imported
+inside a fixture, so the card
 host, which has no JAX, runs them with
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``.
 """
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from skypilot_tpu_torch.ops import attention as t_attention
 from skypilot_tpu_torch.ops import flash_attention as tfa
 
@@ -173,17 +176,32 @@ def _cuda_case(dev, seed, b, s, h, hkv, d, dtype):
                           (b, s, h, d))]
 
 
-# Relative to the twin's largest |value|. fp32: summation order only.
-# bf16: the kernels round P (forward) and dS (backward) to bf16 before
-# the second product, the twins keep fp32; 1e-2 is ~2.5 bf16 ulps of
-# the largest value (one ulp was measured on an H100).
-CUDA_REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+def _check_twin(got, want, dtype):
+    """chip_smoke.py's rule for a kernel against its twin. fp32: within
+    2e-5 of the twin's largest |value|. bf16 (the kernels round P and dS
+    to bf16 before the second product, the twins keep fp32): every
+    element within one bf16 ulp plus 2e-2 of its row's scale, and the
+    tensor within 5e-3 in relative norm."""
+    err, msg = chip_smoke.twin_error(
+        got, want, 'fp32' if dtype == torch.float32 else 'bf16')
+    assert err is None, msg
 
 
-def _check_rel(got, want, dtype):
-    scale = want.float().abs().max().item()
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= CUDA_REL_TOL[dtype] * scale, (err, scale)
+def test_bf16_twin_rule_rejects_a_wrong_softmax_scale():
+    """The bf16 rule passes a correct output computed another way and
+    fails one whose softmax scale is 1% off, which the older rule (max
+    error within 1e-2 of the largest |value|) let through."""
+    q, k, v, _ = (torch.from_numpy(a).bfloat16()
+                  for a in _case(5, 1, 256, 4, 2, 64))
+    want = tfa.flash_forward_plain(q, k, v)[0]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    other = t_attention.gqa_attention(qf, kf, vf, causal=True).bfloat16()
+    _check_twin(other, want, torch.bfloat16)
+    wrong = tfa.flash_forward_plain(qf * 1.01, kf, vf)[0].bfloat16()
+    assert ((wrong.float() - want.float()).abs().max() <=
+            1e-2 * want.float().abs().max())
+    with pytest.raises(AssertionError):
+        _check_twin(wrong, want, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -199,12 +217,12 @@ def test_cuda_kernels_match_plain(cuda, dtype, b, s, h, hkv, d, causal):
     dk, dv = tfa.flash_bwd_dkv_kernel(q, k, v, g, lse, dsum, causal)
     torch.cuda.synchronize()
     p_out, p_lse = tfa.flash_forward_plain(q, k, v, causal)
-    _check_rel(out, p_out, dtype)
+    _check_twin(out, p_out, dtype)
     assert (lse - p_lse).abs().max().item() <= 1e-4
     for got, want in zip((dq, dk, dv), tfa.flash_backward_plain(
             q, k, v, out, lse, g, causal)):
         assert got.dtype == dtype and got.shape == want.shape
-        _check_rel(got, want, dtype)
+        _check_twin(got, want, dtype)
 
 
 @pytest.mark.cuda

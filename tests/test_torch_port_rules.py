@@ -10,7 +10,7 @@ import sys
 import pytest
 import torch
 
-from skypilot_tpu_torch.models import llama, train
+from skypilot_tpu_torch.models import checkpoint, llama, train
 from skypilot_tpu_torch.serve import model_server
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,15 +62,22 @@ def test_importing_the_port_leaves_jax_out_of_the_process():
     assert out.returncode == 0, out.stderr
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         assert model_server.resolve_device().type == 'cuda'
         return
+    cfg, tc = llama.CONFIGS['debug'], train.TrainConfig()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model_server.build_engine('debug', 1, 32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        train.train_loop(llama.CONFIGS['debug'], train.TrainConfig(), 1, 1,
-                         8)
+        train.train_loop(cfg, tc, 1, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.init_train_state(cfg, tc)
+    state = train.init_train_state(cfg, tc, 'cpu')
+    checkpoint.save(str(tmp_path), state, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        checkpoint.restore_latest(str(tmp_path))
+    assert checkpoint.restore_latest(str(tmp_path), 'cpu')[1] == 1
     with pytest.raises(RuntimeError, match='CUDA'):
         model_server.resolve_device('cuda')
     assert model_server.resolve_device('cpu').type == 'cpu'
