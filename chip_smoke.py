@@ -60,6 +60,29 @@ port's package is not beside it. Phases (any failure exits non-zero):
    norm and every grad tensor within stated tolerances. bf16: loss and
    grad norm likewise, and each grad tensor no further from the fp32
    plain path than 1.2 times the plain bf16 path is.
+9. Speculative decoding (kernel 3), run after phase 5 while the
+   llama3-8b weights are loaded. (a) The paged-verify kernel against its
+   twin under phase 6's ``twin_error`` rule at the serving shapes (B 8,
+   H 32, Hkv 8, hd 128, block_k 128, shuffled tables with two rows
+   sharing blocks), S 1/5/9, bf16 and int8 K/V, starts 0 to max_len-2
+   (so 2046 + S runs past the table); S = 1 must be bit-identical to the
+   paged decode kernel, and query i is compared with it at cur_len =
+   start + i + 1. Prints ms, the twin's ms, ``library_ms`` (SDPA over
+   the gathered, expanded K/V with an explicit [S, T] mask) and the
+   bytes bound. (b) The main path: paged llama3-8b replicas of the port's
+   ModelServer with spec_k 4 at drafter depth 1 and 32 (bf16) and depth
+   1 with int8 K/V, answering phase 3's paged requests: token counts,
+   verify launches exactly n_layers x rounds, no decode-kernel launch,
+   prefix reuse; tokens/s, tokens per lane per round and the accept
+   ratio. (c) Parity: bf16 spec tokens against phase 3's paged replica
+   under phase 4's near-tie rule (each divergence printed with its gap,
+   that request compared no further); fp32 at full width and 8 layers,
+   drafter depth 1 and 8, exactly equal to the non-spec paged engine.
+   Then one round's host time and device time split (drafter; verify
+   step: verify kernel, GEMMs, the rest) under torch.profiler.
+
+The whole run took 142 s on an H100 (700 W), well inside its time
+limit, so every phase runs at full depth.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -95,6 +118,13 @@ E2E_REL_TOL = {'fp32': 1e-3, 'bf16': 1e-1}
 
 MODEL = 'llama3-8b'
 N_NEW = 32
+# Phase 9: speculative decoding on the paged replica (kernel 3).
+SPEC_K = 4
+VERIFY_S = (1, SPEC_K + 1, 2 * SPEC_K + 1)
+VERIFY_STARTS = [0, 126, 127, 128, 1000, MAX_LEN - 2, 513, 1500]
+VERIFY_SOURCE = 'skypilot_tpu/ops/decode_attention.py:467 _paged_verify_kernel'
+# The fp32 parity check runs llama3-8b's width at this depth.
+SPEC_PARITY_LAYERS = 8
 
 DECODE_SOURCES = {
     'decode_attention_kernel': 'skypilot_tpu/ops/decode_attention.py:80',
@@ -321,15 +351,18 @@ def post(port: int, body: dict, timeout: float = 600.0):
 
 
 def serve_phase(torch, ms_lib, params, label, engine_kwargs, requests,
-                kernel_fn, card):
+                kernel_fn, card, idle_fns=()):
     """One replica: start the port's server, answer ``requests`` (lists
-    of (body) batches sent concurrently), check counts. Returns stats."""
+    of (body) batches sent concurrently), check counts: ``kernel_fn``
+    launched n_layers times per decode step (a speculative round is one
+    step), each of ``idle_fns`` never. Returns (stats, [(body, reply)])."""
     engine = ms_lib.build_engine(MODEL, 8, MAX_LEN, step_chunk=4,
                                  device=DEVICE, params=params,
                                  **engine_kwargs)
     server = ms_lib.ModelServer(engine, 0, host='127.0.0.1')
     port = server.start()
     before = kernel_fn.launches
+    idle_before = [fn.launches for fn in idle_fns]
     results = []
     t0 = time.perf_counter()
     try:
@@ -380,12 +413,16 @@ def serve_phase(torch, ms_lib, params, label, engine_kwargs, requests,
     if stats['decode_steps'] == 0 or launches != expect:
         fail(f'{label}: {kernel_fn.__name__} launched {launches} times, '
              f'expected n_layers x decode steps = {expect}')
+    for fn, n in zip(idle_fns, idle_before):
+        if fn.launches != n:
+            fail(f'{label}: {fn.__name__} launched {fn.launches - n} times, '
+                 'expected none')
     tok_s = stats['decode_tokens'] / wall
     print(f'[serve] {label}: {len(results)} requests, decode_steps='
           f'{stats["decode_steps"]} decode_tokens={stats["decode_tokens"]} '
           f'{kernel_fn.__name__} launches={launches} wall={wall:.2f}s '
           f'decode tokens/s={tok_s:.1f} on {card}', flush=True)
-    return stats
+    return stats, results
 
 
 def main_path_phase(torch, ms_lib, da, card):
@@ -415,15 +452,18 @@ def main_path_phase(torch, ms_lib, da, card):
                      [body(shared + prompt(90), False)] +
                      [body(prompt(n), i % 2 == 1)
                       for i, n in enumerate(lens[:4])]]
+    decode_kernels = (da.decode_attention_kernel,
+                      da.paged_decode_attention_kernel)
     da.reset_launch_counts()
     serve_phase(torch, ms_lib, params, 'dense bf16', {}, [dense_batch],
                 da.decode_attention_kernel, card)
     serve_phase(torch, ms_lib, params, 'dense int8-KV', {'kv_int8': True},
                 [dense_batch], da.decode_attention_kernel, card)
-    paged = serve_phase(torch, ms_lib, params, 'paged bf16',
-                        {'paged': True}, paged_batches,
-                        da.paged_decode_attention_kernel, card)
-    counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    paged, paged_results = serve_phase(torch, ms_lib, params, 'paged bf16',
+                                       {'paged': True}, paged_batches,
+                                       da.paged_decode_attention_kernel,
+                                       card)
+    counts = {fn.__name__: fn.launches for fn in decode_kernels}
     for name, n in counts.items():
         if n == 0:
             fail(f'{name} was never launched on the main path')
@@ -431,7 +471,7 @@ def main_path_phase(torch, ms_lib, da, card):
         fail(f'paged replica reused no prefix: {paged}')
     print(f'[serve] paged prefix hit tokens={paged["prefill_tokens_saved"]}'
           f' blocks_used={paged["blocks_used"]}', flush=True)
-    return params, counts
+    return params, counts, paged_batches, paged_results
 
 
 # --------------------------------------------------------------- phase 4
@@ -617,6 +657,338 @@ def profile_phase(torch, decode, llama, params, card):
             print(f'[profile] {label}:   {ms / n_prof:8.3f} ms/step  '
                   f'x{count // n_prof:<4d} {key[:80]}', flush=True)
         del cache
+
+
+# --------------------------------------------------------------- phase 9
+
+
+def verify_bound(tables, starts, s, kind):
+    """Least time of one verify call: max(bytes / HBM rate, operations /
+    peak bf16 rate). Bytes: every (pool block, offset) that some query
+    attends, read once (row 7 reads a prefix of row 6's blocks, counted
+    once), K and V (+ fp32 scales when int8), q and out, the live table
+    entries and the starts. Operations: 4 flops per (query head, key
+    position, dim) that each query attends (QK and PV)."""
+    import numpy as np
+    cap = tables.shape[1] * BLOCK_K
+    live = [min(st + s, cap) for st in starts]
+    cells = np.unique(np.concatenate([
+        tables[b, np.arange(n) // BLOCK_K] * BLOCK_K +
+        np.arange(n) % BLOCK_K for b, n in enumerate(live)]))
+    elem = 1 if kind == 'int8' else 2
+    nbytes = cells.size * HKV * HD * 2 * elem
+    if kind == 'int8':
+        nbytes += cells.size * HKV * 2 * 4
+    nbytes += 2 * len(starts) * s * H * HD * 2 + len(starts) * 4
+    nbytes += sum(-(-n // BLOCK_K) for n in live) * 4
+    flops = sum(4 * min(st + i + 1, cap) * H * HD
+                for st in starts for i in range(s))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+def verify_kernel_phase(torch, da, quant):
+    """Kernel 3 against its twin at the serving shapes (B 8, H 32, Hkv 8,
+    hd 128, block_k 128, 16 blocks a row through shuffled tables, rows 6
+    and 7 sharing blocks), S in VERIFY_S, bf16 and int8 K/V, starts
+    VERIFY_STARTS (2046 + S runs past max_len). Checks twin_error, that
+    S = 1 is bit-identical to the paged decode kernel at cur_len =
+    start + 1, and reports how far query i is from the decode kernel at
+    cur_len = start + i + 1. Times the kernel, the twin and SDPA over the
+    gathered, expanded K/V with an explicit [S, T] mask. Returns the rows
+    at S = SPEC_K + 1 for the kernels line."""
+    import torch.nn.functional as F
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    nb = MAX_LEN // BLOCK_K
+    n_pool = B * nb + 1
+    tables = (torch.randperm(B * nb, generator=gen, device=dev) + 1).reshape(
+        B, nb).to(torch.int32)
+    tables[7] = tables[6]
+    k, v = (torch.randn(n_pool, BLOCK_K, HKV, HD, generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    (kq, ks), (vq, vs) = quant.quantize_kv(k), quant.quantize_kv(v)
+    pools = {'bf16': (k, v, None, None), 'int8': (kq, vq, ks, vs)}
+    start = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=dev)
+    tables_np = tables.cpu().numpy()
+    g = H // HKV
+    rows = {}
+    for s in VERIFY_S:
+        q = torch.randn(B, s, H, HD, generator=gen, device=dev).bfloat16()
+        for kind in ('bf16', 'int8'):
+            kk, vv, kss, vss = pools[kind]
+            args = (q, kk, vv, tables, start, kss, vss)
+            out = da.paged_verify_attention_kernel(*args)
+            torch.cuda.synchronize()
+            want = da.paged_verify_attention_plain(*args)
+            if out.shape != want.shape or not torch.isfinite(out).all():
+                fail(f'paged verify S={s} {kind}: bad output')
+            err, msg = twin_error(out, want, 'bf16')
+            label = f'paged_verify_attention_kernel S={s} {kind}'
+            print(f'[verify] {label}: {msg}', flush=True)
+            if err is not None:
+                fail(f'{label}: {err}')
+            dec = [da.paged_decode_attention_kernel(
+                q[:, i:i + 1].contiguous(), kk, vv, tables, start + i + 1,
+                kss, vss) for i in range(s)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(out[:, i:i + 1], d)
+                       for i, d in enumerate(dec))
+            diff = max((out[:, i:i + 1].float() - d.float()).abs().max()
+                       .item() for i, d in enumerate(dec))
+            what = ('S = 1 vs the paged decode kernel at start + 1' if s == 1
+                    else 'query i vs the paged decode kernel at start + i '
+                         '+ 1')
+            print(f'[verify] {label}: {what}: '
+                  f'{"bitwise equal" if same else f"max diff {diff:.3e}"}',
+                  flush=True)
+            if s == 1 and not same:
+                fail(f'{label}: not bit-identical to the paged decode '
+                     'kernel')
+            ms = cuda_time_ms(lambda: da.paged_verify_attention_kernel(*args))
+            plain_ms = cuda_time_ms(
+                lambda: da.paged_verify_attention_plain(*args), iters=5)
+            gk, gv, gks, gvs = da.gather_paged_kv(kk, vv, tables, kss, vss)
+            if gks is not None:
+                gk = (gk.float() * gks[..., None]).bfloat16()
+                gv = (gv.float() * gvs[..., None]).bfloat16()
+            t = gk.shape[1]
+
+            def expand(x):   # [B,T,Hkv,hd] → [B,H,T,hd], head kv*G + r
+                return x[:, :, :, None].expand(B, t, HKV, g, HD).reshape(
+                    B, t, H, HD).transpose(1, 2).contiguous()
+
+            sk, sv = expand(gk), expand(gv)
+            sq = q.transpose(1, 2).contiguous()
+            mask = (torch.arange(t, device=dev)[None, None, :] <=
+                    (start[:, None, None] + torch.arange(s, device=dev)
+                     [None, :, None]))[:, None]          # [B, 1, S, T]
+            library_ms = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                       attn_mask=mask))
+            del gk, gv, sk, sv, sq, mask
+            bound_ms, bound_by = verify_bound(tables_np, VERIFY_STARTS, s,
+                                              kind)
+            print(f'[verify] {label}: ms={ms:.4f} plain_ms={plain_ms:.4f} '
+                  f'library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} '
+                  f'({bound_by})', flush=True)
+            if s == SPEC_K + 1:
+                rows[kind] = dict(
+                    max_abs_err=(out.float() - want.float()).abs().max()
+                    .item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=library_ms,
+                    decode_max_diff=diff)
+            del out, want, dec
+    del pools, k, v, kq, vq, ks, vs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def spec_serve_phase(torch, ms_lib, da, params, paged_batches, card):
+    """The main path of kernel 3: paged llama3-8b replicas of the port's
+    ModelServer with spec_k SPEC_K, drafter depth 1 and full depth
+    (bf16) and depth 1 with int8 K/V, answering phase 3's paged
+    requests. Launch counts are reset just before and read just after.
+    Returns (counts, {label: (stats, results)})."""
+    n_layers = ms_lib.llama.CONFIGS[MODEL].n_layers
+    replicas = [('spec bf16 drafter 1', dict(drafter_layers=1)),
+                (f'spec bf16 drafter {n_layers}',
+                 dict(drafter_layers=n_layers)),
+                ('spec int8-KV drafter 1', dict(drafter_layers=1,
+                                                kv_int8=True))]
+    runs = {}
+    da.reset_launch_counts()
+    for label, kwargs in replicas:
+        stats, results = serve_phase(
+            torch, ms_lib, params, label,
+            dict(paged=True, spec_k=SPEC_K, **kwargs), paged_batches,
+            da.paged_verify_attention_kernel, card,
+            idle_fns=(da.decode_attention_kernel,
+                      da.paged_decode_attention_kernel))
+        if stats['prefill_tokens_saved'] <= 0:
+            fail(f'{label}: no prefix reuse: {stats}')
+        lane_rounds = stats['spec_drafted'] // SPEC_K
+        print(f'[spec] {label}: {stats["decode_steps"]} rounds, '
+              f'{stats["decode_tokens"]} tokens, '
+              f'{stats["decode_tokens"] / lane_rounds:.3f} tokens per lane '
+              f'per round, accept ratio {stats["spec_accept_ratio"]}, '
+              f'prefix hit tokens {stats["prefill_tokens_saved"]}; on {card}',
+              flush=True)
+        runs[label] = (stats, results)
+    counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    if counts['paged_verify_attention_kernel'] == 0:
+        fail('paged_verify_attention_kernel was never launched on the '
+             'speculative path')
+    return counts, runs
+
+
+def first_divergences(torch, llama, params, cfg, pairs, rel_tol, label):
+    """Greedy tokens of a speculative run against the non-speculative
+    run, request by request, compared up to the first difference. At a
+    difference, the top-1/top-2 gap of the plain path's logits there (a
+    full forward over the prompt and the non-speculative tokens before
+    it) must be at most rel_tol x its max |logit| (a near-tie); None
+    demands equality. Returns [(request, position, gap, tol)]."""
+    found = []
+    for n, (prompt, want, got) in enumerate(pairs):
+        j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+                 None)
+        if j is None and len(want) == len(got):
+            continue
+        if j is None:
+            fail(f'{label}: request {n} lengths {len(want)} vs {len(got)}')
+        seq = torch.tensor([prompt + want[:j]], device=DEVICE)
+        with torch.no_grad():
+            x = llama.forward_hidden(params, seq, cfg)[0, -1]
+            logits = (x @ params['lm_head']).float()
+        top2 = logits.topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        tol = (0.0 if rel_tol is None else
+               rel_tol * logits.abs().max().item())
+        print(f'[spec-parity] {label}: request {n} diverges at token {j} '
+              f'({want[j]} vs {got[j]}); plain-path top-1/top-2 gap '
+              f'{gap:.4e}, tol {tol:.4e}; not compared further', flush=True)
+        found.append((n, j, gap, tol))
+        if not gap <= tol:
+            fail(f'{label}: request {n} differs at token {j} with a clear '
+                 f'gap {gap} > {tol}')
+    return found
+
+
+def spec_parity_phase(torch, ms_lib, decode, llama, params, paged_results,
+                      spec_runs):
+    """Speculative tokens against the non-speculative paged path on the
+    same prompts and params: (1) bf16 at full depth, each bf16 spec
+    replica of spec_serve_phase against phase 3's paged replica, under
+    the near-tie rule of phase 4 (E2E_REL_TOL['bf16']); (2) fp32 at full
+    width and SPEC_PARITY_LAYERS layers, spec engines (drafter depth 1
+    and full depth) against a non-spec paged engine, exactly equal."""
+    import dataclasses
+    cfg16 = llama.CONFIGS[MODEL]
+    base = [(body['prompt'], res['tokens']) for body, res in paged_results]
+    for label, (_, results) in spec_runs.items():
+        if 'bf16' not in label:
+            continue
+        pairs = [(p, want, res['tokens'])
+                 for (p, want), (_, res) in zip(base, results)]
+        div = first_divergences(torch, llama, params, cfg16, pairs,
+                                E2E_REL_TOL['bf16'], label)
+        print(f'[spec-parity] {label} vs paged bf16: '
+              f'{len(pairs) - len(div)}/{len(pairs)} requests token-'
+              f'identical, {len(div)} near-tie divergences', flush=True)
+    cfg32 = dataclasses.replace(cfg16, n_layers=SPEC_PARITY_LAYERS,
+                                dtype=torch.float32)
+    p32 = {'layers': {k: w[:SPEC_PARITY_LAYERS].float()
+                      for k, w in params['layers'].items()},
+           **{k: w.float() for k, w in params.items() if k != 'layers'}}
+    # Drafter depth 1 rejects nearly every draft (the rollback path);
+    # full depth accepts most (the multi-token accept path).
+    tokens = {}
+    for spec_k, depth in ((0, 1), (SPEC_K, 1), (SPEC_K, SPEC_PARITY_LAYERS)):
+        dcfg = decode.DecodeConfig(max_len=MAX_LEN, spec_k=spec_k,
+                                   spec_drafter_layers=depth)
+        eng = ms_lib.engine_lib.DecodeEngine(p32, cfg32, dcfg, 8,
+                                             step_chunk=4, paged=True)
+        reqs = [ms_lib.engine_lib.Request(p, N_NEW) for p, _ in base]
+        for r in reqs:
+            eng.submit(r)
+        steps = 0
+        while not all(r.done for r in reqs):
+            eng.step()
+            steps += 1
+            if steps > 10 * N_NEW:
+                fail('fp32 parity engine did not finish')
+        tokens[spec_k, depth] = [r.tokens for r in reqs]
+        st = eng.stats()
+        del eng
+        if not spec_k:
+            continue
+        label = f'fp32 {SPEC_PARITY_LAYERS} layers drafter {depth}'
+        pairs = [(p, want, got) for (p, _), want, got in
+                 zip(base, tokens[0, 1], tokens[spec_k, depth])]
+        first_divergences(torch, llama, p32, cfg32, pairs, None, label)
+        print(f'[spec-parity] {label}: {st["decode_steps"]} rounds, accept '
+              f'ratio {st["spec_accept_ratio"]}; spec tokens equal the '
+              f'non-spec paged tokens in all {len(pairs)} requests',
+              flush=True)
+    del p32
+    empty_cache(torch)
+
+
+def spec_profile_phase(torch, decode, llama, params, card):
+    """Where one speculative round goes (8 lanes at PROFILE_LENS, bf16,
+    spec_k SPEC_K, drafter depth 1): the round on the host clock, then
+    torch.profiler device time of the drafter and of the verify step,
+    each over its own window, split into the verify kernel, GEMMs and
+    the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = llama.CONFIGS[MODEL]
+    dev = torch.device(DEVICE)
+    b = len(PROFILE_LENS)
+    pos = torch.tensor(PROFILE_LENS, device=dev)
+    token = torch.zeros(b, dtype=torch.long, device=dev)
+    nbk = MAX_LEN // BLOCK_K
+    tables = (torch.arange(b * nbk, device=dev) + 1).reshape(b, nbk).to(
+        torch.int32)
+    npb = -(-max(PROFILE_LENS) // BLOCK_K)
+    draft_tables = tables[:, :1 << (npb - 1).bit_length()]
+    pool = decode.init_block_pool(cfg, b * nbk + 1, BLOCK_K, device=dev)
+    dcfg = decode.DecodeConfig(max_len=MAX_LEN, spec_k=SPEC_K,
+                               spec_drafter_layers=1)
+
+    def draft():
+        return decode.spec_draft_tokens(params, token, pos, draft_tables,
+                                        cfg, dcfg, pool)
+
+    seq = torch.cat([token[:, None], draft()], dim=1)
+
+    def verify():
+        return decode.paged_verify_step(params, seq, pos, tables, cfg, dcfg,
+                                        pool)
+
+    for _ in range(3):
+        verify()
+    samples = []
+    for _ in range(10):
+        sync(torch)
+        t0 = time.perf_counter()
+        torch.cat([token[:, None], draft()], dim=1)
+        verify().argmax(-1).cpu()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    print(f'[spec-profile] one round (drafter depth 1, spec_k {SPEC_K}, '
+          f'8 lanes at {PROFILE_LENS}), host clock median '
+          f'{statistics.median(samples):.3f} ms of 10, on {card}',
+          flush=True)
+    n_prof = 3
+    split = {}
+    for name, fn in (('drafter', draft), ('verify', verify)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sync(torch)
+            for _ in range(n_prof):
+                fn()
+            sync(torch)
+        rows = device_time_by_kernel(torch, prof)
+        busy = sum(r[0] for r in rows) / n_prof
+        gemm = sum(r[0] for r in rows if any(
+            key in r[1].lower() for key in ('gemm', 'nvjet', 'cutlass',
+                                            'xmma'))) / n_prof
+        attn = sum(r[0] for r in rows if 'paged_verify' in r[1]) / n_prof
+        split[name] = dict(busy_ms=busy, gemm_ms=gemm, verify_attn_ms=attn,
+                           kernels=sum(r[2] for r in rows) // n_prof)
+        print(f'[spec-profile] {name}: device busy {busy:.3f} ms, GEMMs '
+              f'{gemm:.3f} ms, verify attention {attn:.3f} ms, other '
+              f'{busy - gemm - attn:.3f} ms, {split[name]["kernels"]} '
+              'kernels', flush=True)
+        for ms, key, count in rows[:5]:
+            print(f'[spec-profile] {name}:   {ms / n_prof:8.3f} ms  '
+                  f'x{count // n_prof:<4d} {key[:80]}', flush=True)
+    del pool
+    empty_cache(torch)
+    return split
 
 
 # --------------------------------------------------------------- phase 6
@@ -1055,13 +1427,23 @@ def main() -> int:
               flush=True)
 
     rows = kernel_phase(torch, da, quant)
-    params, counts = main_path_phase(torch, ms_lib, da, card)
+    params, counts, paged_batches, paged_results = main_path_phase(
+        torch, ms_lib, da, card)
     worst = e2e_phase(torch, decode, llama, params)
     print(f'[e2e] worst max|dlogit| / max|logit|: {worst}', flush=True)
     profile_phase(torch, decode, llama, params, card)
-    del params
-    torch.cuda.empty_cache()
     phase_done('serving phases 2-5')
+
+    # Phase 9 (speculative decoding) while the llama3-8b weights are up.
+    verify_rows = verify_kernel_phase(torch, da, quant)
+    spec_counts, spec_runs = spec_serve_phase(torch, ms_lib, da, params,
+                                              paged_batches, card)
+    spec_parity_phase(torch, ms_lib, decode, llama, params, paged_results,
+                      spec_runs)
+    spec_split = spec_profile_phase(torch, decode, llama, params, card)
+    del params, spec_runs, paged_results
+    torch.cuda.empty_cache()
+    phase_done('phase 9')
 
     flash_rows = flash_kernel_phase(torch, fa)
     phase_done('phase 6')
@@ -1083,6 +1465,18 @@ def main() -> int:
             'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
             'bound_by': main['bound_by'],
             'library_ms': main['library_ms'], 'int8': row['int8']})
+    kernels.append({
+        'name': 'paged_verify_attention_kernel', 'route': 'cuda',
+        'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
+        'replaces': VERIFY_SOURCE,
+        'launches': spec_counts['paged_verify_attention_kernel'],
+        'max_abs_err': verify_rows['bf16']['max_abs_err'],
+        'ms': verify_rows['bf16']['ms'],
+        'plain_ms': verify_rows['bf16']['plain_ms'],
+        'bound_ms': verify_rows['bf16']['bound_ms'],
+        'bound_by': verify_rows['bf16']['bound_by'],
+        'library_ms': verify_rows['bf16']['library_ms'],
+        'int8': verify_rows['int8'], 'spec_round': spec_split})
     for kname, row in flash_rows.items():
         main = row['bf16']
         kernels.append({

@@ -1,27 +1,48 @@
-// Flash-decode attention for Hopper (sm_90a): one query token per
+// Flash-decode attention for Hopper (sm_90a): S query tokens per
 // sequence against a dense KV cache or a paged block pool.
 //
 // Replaces the Pallas TPU kernels in skypilot_tpu/ops/decode_attention.py:
-//   * _decode_kernel        (dense cache  [B, max_len, Hkv, hd])
+//   * _decode_kernel        (dense cache  [B, max_len, Hkv, hd], S = 1)
 //   * _paged_decode_kernel  (block pool   [n_blocks, block_k, Hkv, hd]
-//                            read through block_tables [B, max_blocks])
-// One templated body serves both: the paged variant only changes which
-// cache row a position lives in.
+//                            read through block_tables [B, max_blocks],
+//                            S = 1)
+//   * _paged_verify_kernel  (the same pool, S >= 1 queries per sequence:
+//                            speculative-decoding verify)
+// One templated body serves all three: the paged variants only change
+// which cache row a position lives in, and the verify variant widens
+// each (kv head, sequence) CTA's rows from the G query heads to G * S
+// (head, query) rows, row (g, i) masking by its own causal length
+// lens[b] + i. A decode call is the S = 1 case with lens = cur_len; a
+// verify call passes lens = start + 1, so query i attends positions
+// <= start + i.
 //
 // What bounds it: bytes. A decode step reads every live K/V position
 // once (sum_b cur_len_b * Hkv * hd * 2 * bytes/elem, plus 8 B per
 // (position, kv head) of int8 scales) and does ~4 flops per byte read,
-// far below the ~295 flop/byte an H100 needs before compute matters.
+// far below the ~295 flop/byte an H100 needs before compute matters. A
+// verify call does ~4 * S flops per byte: still bytes-bound at S <= 16.
 //
 // Design (simple and right first; see PERF.md for its measured time):
-//   * One CTA per (kv head, batch row). The G = H / Hkv query heads of
-//     that kv head share each K/V tile read (GQA in-kernel, query head
-//     kv*G + r), so the cache is read once per step, not once per head.
-//   * The CTA walks kTile-position tiles only up to cur_len: dead
-//     positions are never read, which is what the TPU kernel's clamped
-//     index map achieves. In paged mode the pool row of position p is
+//   * One CTA per (kv head, batch row, row chunk). The G = H / Hkv query
+//     heads of that kv head (times S queries when verifying) share each
+//     K/V tile read (GQA in-kernel, query head kv*G + r), so the cache is
+//     read once per chunk, not once per head.
+//   * Rows are cut into chunks of at most kMaxRows (the grid's third
+//     axis), each chunk re-reading that kv head's live tiles: G * S rows
+//     exceed what one CTA holds at spec_k >= 4 (G = 4: 20 rows at S = 5),
+//     and the extra CTAs fill more of the 132 SMs.
+//   * The CTA walks kTile-position tiles only up to the longest length
+//     of its rows, capped at the table's width (max_blocks * block_k):
+//     dead positions are never read and tables[b, max_blocks] never is,
+//     which is what the TPU kernel's clamped index map achieves. In paged
+//     mode the pool row of position p is
 //     tables[b, p / block_k] * block_k + p % block_k, looked up only for
-//     p < cur_len.
+//     a live p.
+//   * A row skips a tile that holds none of its positions, and within a
+//     tile masks positions past its length: its m, l and acc are then
+//     what a decode call at that length leaves (the reduction order per
+//     row does not depend on the other rows), so a verify call's query
+//     i is bit-identical to the decode kernel at cur_len = start + i + 1.
 //   * K/V tiles are read with 16-byte vector loads (element loads when a
 //     row is not 16-byte aligned) and dequantised to fp32 in shared
 //     memory (int8 caches multiply by their per-(position, kv head) fp32
@@ -29,10 +50,11 @@
 //     exactly as the Pallas body does it, result acc / max(l, 1e-20)
 //     cast to q's dtype. A row with cur_len == 0 runs no tile and writes
 //     exact zeros.
-//   * Each warp owns query heads g = warp, warp + 4, ...: lanes compute
+//   * Each warp owns chunk rows c = warp, warp + 4, ...: lanes compute
 //     logits for positions lane + 32j, reduce max/sum with shuffles,
 //     then own head-dim columns d = lane + 32i of the PV update.
-//   * With 8 sequences and 8 kv heads there are 64 CTAs for 132 SMs, so
+//   * With 8 sequences and 8 kv heads a decode call has 64 CTAs for 132
+//     SMs (a verify call at S = 5, two chunks of 16 + 4 rows: 128), so
 //     this kernel sits well under its bandwidth bound; splitting the
 //     sequence across CTAs (flash-decoding) is the next step.
 //
@@ -51,7 +73,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;  // cache positions per shared-memory tile
-constexpr int kMaxGroups = 16;
+constexpr int kMaxRows = 16;  // (head, query) rows per CTA
 constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;
 
@@ -59,15 +81,19 @@ constexpr float kNegInf = -1e30f;
 enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 struct Params {
-  const void* q;          // [B, 1, H, hd]
+  const void* q;          // [B, S, H, hd]
   const void* k;          // dense [B, max_len, Hkv, hd] or pool
   const void* v;
   const float* k_scale;   // int8 only: [B, max_len, Hkv] or pool-shaped
   const float* v_scale;
-  const int32_t* cur_len; // [B]
+  const int32_t* lens;    // [B]: row (g, i) attends positions
+                          // < lens[b] + len_offset + i
   const int32_t* tables;  // paged only: [B, max_blocks]
-  void* out;              // [B, 1, H, hd], q's dtype
+  void* out;              // [B, S, H, hd], q's dtype
   int batch;
+  int s_q;                // queries per sequence (decode: 1)
+  int len_offset;         // decode: 0 (lens = cur_len); verify: 1
+                          // (lens = start)
   int n_heads;
   int n_kv_heads;
   int head_dim;
@@ -144,22 +170,28 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-size_t smem_bytes(int groups, int head_dim) {
-  // rows[kTile] (int64) | q[G][hd] | acc[G][hd] | k[kTile][hd+1] |
-  // v[kTile][hd+1] | p[kWarps][kTile] | m[G] | l[G]
+size_t smem_bytes(int rows, int head_dim) {
+  // rows[kTile] (int64) | q[R][hd] | acc[R][hd] | k[kTile][hd+1] |
+  // v[kTile][hd+1] | p[kWarps][kTile] | m[R] | l[R]
   return kTile * sizeof(long long) +
-         (2 * groups * head_dim + 2 * kTile * (head_dim + 1) +
-          kWarps * kTile + 2 * groups) * sizeof(float);
+         (2 * rows * head_dim + 2 * kTile * (head_dim + 1) +
+          kWarps * kTile + 2 * rows) * sizeof(float);
 }
 
+// The body of all three kernels: CTA (kv head kvh, sequence b, row
+// chunk blockIdx.z). Chunk row c is row r = blockIdx.z * kMaxRows + c of
+// the (head, query) order, r = g * S + i: query head kvh * G + g of
+// token i.
 template <typename TQ, typename TKV, bool PAGED>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const Params p) {
+__device__ __forceinline__ void attention_body(const Params& p) {
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int hd = p.head_dim;
   const int G = p.n_heads / p.n_kv_heads;
+  const int S = p.s_q;
+  const int row0 = blockIdx.z * kMaxRows;
+  const int R = min(kMaxRows, G * S - row0);  // rows of this chunk
   const int ld = hd + 1;  // padded tile row: conflict-free column reads
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -168,26 +200,40 @@ decode_attention_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   long long* rows = reinterpret_cast<long long*>(smem_raw);
   float* qs = reinterpret_cast<float*>(rows + kTile);
-  float* acc = qs + G * hd;
-  float* ks = acc + G * hd;
+  float* acc = qs + R * hd;
+  float* ks = acc + R * hd;
   float* vs = ks + kTile * ld;
   float* ps = vs + kTile * ld;
   float* ms = ps + kWarps * kTile;
-  float* ls = ms + G;
+  float* ls = ms + R;
 
-  const size_t head0 = (static_cast<size_t>(b) * p.n_heads +
-                        static_cast<size_t>(kvh) * G) * hd;
-  const TQ* q = static_cast<const TQ*>(p.q) + head0;
-  for (int i = tid; i < G * hd; i += kThreads) {
-    qs[i] = to_f32(q[i]);
+  // Element offset of chunk row c's head vector in q and out.
+  auto head_offset = [&](int c) -> size_t {
+    const int r = row0 + c;
+    const int g = r / S;
+    const int i = r - g * S;
+    return ((static_cast<size_t>(b) * S + i) * p.n_heads +
+            static_cast<size_t>(kvh) * G + g) * hd;
+  };
+  const int capacity = PAGED ? p.max_blocks * p.block_k : p.block_k;
+  const int base = p.lens[b] + p.len_offset;
+  // Chunk row c attends positions < row_len(c), never past the table.
+  auto row_len = [&](int c) -> int {
+    return max(0, min(base + (row0 + c) % S, capacity));
+  };
+
+  const TQ* q = static_cast<const TQ*>(p.q);
+  for (int i = tid; i < R * hd; i += kThreads) {
+    const int c = i / hd;
+    qs[i] = to_f32(q[head_offset(c) + (i - c * hd)]);
     acc[i] = 0.f;
   }
-  for (int g = tid; g < G; g += kThreads) {
-    ms[g] = kNegInf;
-    ls[g] = 0.f;
+  for (int c = tid; c < R; c += kThreads) {
+    ms[c] = kNegInf;
+    ls[c] = 0.f;
   }
-  const int capacity = PAGED ? p.max_blocks * p.block_k : p.block_k;
-  const int cur = max(0, min(p.cur_len[b], capacity));
+  int cur = 0;  // the longest row: tiles past it are never read
+  for (int c = 0; c < R; ++c) cur = max(cur, row_len(c));
   const TKV* kc = static_cast<const TKV*>(p.k);
   const TKV* vc = static_cast<const TKV*>(p.v);
   __syncthreads();
@@ -195,7 +241,7 @@ decode_attention_kernel(const Params p) {
   for (int t0 = 0; t0 < cur; t0 += kTile) {
     const int n = min(kTile, cur - t0);
     // Cache row of each live position in the tile (the only table
-    // reads: positions >= cur_len are never looked up).
+    // reads: positions past every row's length are never looked up).
     for (int t = tid; t < n; t += kThreads) {
       const int pos = t0 + t;
       long long row;
@@ -262,15 +308,19 @@ decode_attention_kernel(const Params p) {
     __syncthreads();
 
     float* pw = ps + warp * kTile;
-    for (int g = warp; g < G; g += kWarps) {
-      const float* qg = qs + g * hd;
+    for (int c = warp; c < R; c += kWarps) {
+      // This row's live positions in the tile. None: its m, l and acc
+      // stay as they are (the update would be correction 1, p 0).
+      const int nr = min(n, row_len(c) - t0);
+      if (nr <= 0) continue;
+      const float* qg = qs + c * hd;
       float s[kTile / 32];
       float m_blk = kNegInf;
 #pragma unroll
       for (int j = 0; j < kTile / 32; ++j) {
         const int t = lane + 32 * j;
-        s[j] = kNegInf;   // rows t >= n hold stale data: masked, unread
-        if (t < n) {
+        s[j] = kNegInf;   // positions t >= nr: masked, unread
+        if (t < nr) {
           const float* kr = ks + t * ld;
           float dot = 0.f;
           for (int d = 0; d < hd; ++d) dot = fmaf(qg[d], kr[d], dot);
@@ -279,73 +329,84 @@ decode_attention_kernel(const Params p) {
         m_blk = fmaxf(m_blk, s[j]);
       }
       m_blk = warp_max(m_blk);
-      const float m_old = ms[g];
-      const float l_old = ls[g];
+      const float m_old = ms[c];
+      const float l_old = ls[c];
       const float m_new = fmaxf(m_old, m_blk);
       const float safe_m = m_new == kNegInf ? 0.f : m_new;
       float p_sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kTile / 32; ++j) {
         const int t = lane + 32 * j;
-        const float e = t < n ? expf(s[j] - safe_m) : 0.f;
+        const float e = t < nr ? expf(s[j] - safe_m) : 0.f;
         pw[t] = e;
         p_sum += e;
       }
       p_sum = warp_sum(p_sum);
       const float corr = m_old == kNegInf ? 0.f : expf(m_old - safe_m);
       __syncwarp();
-      float* ag = acc + g * hd;
+      float* ag = acc + c * hd;
       for (int d = lane; d < hd; d += 32) {
         float a = ag[d] * corr;
-        for (int t = 0; t < n; ++t) a = fmaf(pw[t], vs[t * ld + d], a);
+        for (int t = 0; t < nr; ++t) a = fmaf(pw[t], vs[t * ld + d], a);
         ag[d] = a;
       }
       __syncwarp();  // all lanes done with pw and m/l before reuse
       if (lane == 0) {
-        ms[g] = m_new;
-        ls[g] = l_old * corr + p_sum;
+        ms[c] = m_new;
+        ls[c] = l_old * corr + p_sum;
       }
       __syncwarp();
     }
     __syncthreads();
   }
 
-  TQ* out = static_cast<TQ*>(p.out) + head0;
-  for (int i = tid; i < G * hd; i += kThreads) {
-    const float l = ls[i / hd];
-    store(out + i, acc[i] / fmaxf(l, 1e-20f));
+  TQ* out = static_cast<TQ*>(p.out);
+  for (int i = tid; i < R * hd; i += kThreads) {
+    const int c = i / hd;
+    store(out + head_offset(c) + (i - c * hd), acc[i] / fmaxf(ls[c], 1e-20f));
   }
 }
 
+// Decode: S = 1, lens = cur_len (dense or paged).
 template <typename TQ, typename TKV, bool PAGED>
-int launch(const Params& p, cudaStream_t stream) {
-  const int groups = p.n_heads / p.n_kv_heads;
-  const size_t smem = smem_bytes(groups, p.head_dim);
-  auto kernel = decode_attention_kernel<TQ, TKV, PAGED>;
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(const Params p) {
+  attention_body<TQ, TKV, PAGED>(p);
+}
+
+// Speculative verify: S >= 1 queries, lens = start (len_offset 1), paged.
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(kThreads)
+paged_verify_kernel(const Params p) {
+  attention_body<TQ, TKV, true>(p);
+}
+
+// mode: 0 dense decode, 1 paged decode, 2 paged verify.
+template <typename TQ, typename TKV>
+int launch(const Params& p, int mode, cudaStream_t stream) {
+  const int rows = p.n_heads / p.n_kv_heads * p.s_q;
+  const int chunks = (rows + kMaxRows - 1) / kMaxRows;
+  const size_t smem = smem_bytes(rows < kMaxRows ? rows : kMaxRows,
+                                 p.head_dim);
+  void (*kernel)(const Params) =
+      mode == 2   ? paged_verify_kernel<TQ, TKV>
+      : mode == 1 ? decode_attention_kernel<TQ, TKV, true>
+                  : decode_attention_kernel<TQ, TKV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.n_kv_heads, p.batch);
+  const dim3 grid(p.n_kv_heads, p.batch, chunks);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TQ, bool PAGED>
-int dispatch_kv(const Params& p, int kv_dtype, cudaStream_t s) {
+template <typename TQ>
+int dispatch_kv(const Params& p, int kv_dtype, int mode, cudaStream_t s) {
   switch (kv_dtype) {
-    case kF32: return launch<TQ, float, PAGED>(p, s);
-    case kBF16: return launch<TQ, __nv_bfloat16, PAGED>(p, s);
-    case kI8: return launch<TQ, int8_t, PAGED>(p, s);
-    default: return -1;
-  }
-}
-
-template <bool PAGED>
-int dispatch(const Params& p, int q_dtype, int kv_dtype, cudaStream_t s) {
-  switch (q_dtype) {
-    case kF32: return dispatch_kv<float, PAGED>(p, kv_dtype, s);
-    case kBF16: return dispatch_kv<__nv_bfloat16, PAGED>(p, kv_dtype, s);
+    case kF32: return launch<TQ, float>(p, mode, s);
+    case kBF16: return launch<TQ, __nv_bfloat16>(p, mode, s);
+    case kI8: return launch<TQ, int8_t>(p, mode, s);
     default: return -1;
   }
 }
@@ -354,15 +415,19 @@ int dispatch(const Params& p, int q_dtype, int kv_dtype, cudaStream_t s) {
 
 // tables == nullptr selects the dense cache (block_k = max_len,
 // max_blocks = 1, n_pool_blocks = batch); otherwise the paged pool.
+// verify != 0 (paged only) runs the verify kernel: lens holds each
+// sequence's first query position, and query i attends positions
+// <= lens[b] + i. Otherwise s_q must be 1 and lens holds cur_len.
 extern "C" int skytorch_decode_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, const void* cur_len, const void* tables,
-    void* out, int q_dtype, int kv_dtype, int batch, int n_heads,
+    const void* v_scale, const void* lens, const void* tables,
+    void* out, int q_dtype, int kv_dtype, int batch, int s_q, int n_heads,
     int n_kv_heads, int head_dim, int block_k, int max_blocks,
-    int n_pool_blocks, float scale, void* stream) {
-  if (batch < 1 || n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
-      n_heads / n_kv_heads > kMaxGroups || head_dim < 1 ||
+    int n_pool_blocks, int verify, float scale, void* stream) {
+  if (batch < 1 || batch > 65535 || s_q < 1 || n_kv_heads < 1 ||
+      n_heads % n_kv_heads != 0 || head_dim < 1 ||
       head_dim > kMaxHeadDim || block_k < 1 || max_blocks < 1 ||
+      (verify ? tables == nullptr : s_q != 1) ||
       (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return -1;
   Params p;
@@ -371,10 +436,12 @@ extern "C" int skytorch_decode_attention(
   p.v = v;
   p.k_scale = static_cast<const float*>(k_scale);
   p.v_scale = static_cast<const float*>(v_scale);
-  p.cur_len = static_cast<const int32_t*>(cur_len);
+  p.lens = static_cast<const int32_t*>(lens);
   p.tables = static_cast<const int32_t*>(tables);
   p.out = out;
   p.batch = batch;
+  p.s_q = s_q;
+  p.len_offset = verify ? 1 : 0;
   p.n_heads = n_heads;
   p.n_kv_heads = n_kv_heads;
   p.head_dim = head_dim;
@@ -386,7 +453,11 @@ extern "C" int skytorch_decode_attention(
   p.vec = (head_dim * elem_bytes) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const int mode = verify ? 2 : tables != nullptr ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tables != nullptr ? dispatch<true>(p, q_dtype, kv_dtype, s)
-                           : dispatch<false>(p, q_dtype, kv_dtype, s);
+  switch (q_dtype) {
+    case kF32: return dispatch_kv<float>(p, kv_dtype, mode, s);
+    case kBF16: return dispatch_kv<__nv_bfloat16>(p, kv_dtype, mode, s);
+    default: return -1;
+  }
 }

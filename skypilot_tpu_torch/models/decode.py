@@ -19,6 +19,11 @@ Counterpart of ``skypilot_tpu/models/decode.py``, same semantics:
   for the life of the engine.
 * Greedy or temperature sampling; ``generate`` stops per sequence on EOS
   through a done mask.
+* Speculative decoding (paged, greedy): :func:`spec_draft_tokens` drafts
+  ``spec_k`` tokens with the model's first layers, reading the pool and
+  never writing it; :func:`paged_verify_step` scores the last token and
+  the drafts in one S-token step through the verify kernel
+  (``ops/decode_attention.paged_verify_attention``).
 """
 import dataclasses
 from typing import Dict, Optional, Tuple
@@ -47,6 +52,14 @@ class DecodeConfig:
     kv_cache_dtype: str = 'bf16'
     # Paged pool block size in tokens.
     kernel_block_k: int = decode_attention_ops.DEFAULT_BLOCK_K
+    # Speculative decoding (paged engine only, greedy): a truncated-layer
+    # drafter proposes spec_k tokens per engine step and one batched
+    # multi-token verify scores them against the full model. 0 disables.
+    spec_k: int = 0
+    # The drafter is the served model's first N decoder layers plus its
+    # out-norm + lm_head (no second set of weights); its attention reads
+    # the pool blocks the full model wrote.
+    spec_drafter_layers: int = 1
 
 
 def _empty_cache(cfg: llama.LlamaConfig, shape, kv_cache_dtype: str,
@@ -333,6 +346,141 @@ def paged_prefill_with_prefix(params: Params, tokens: torch.Tensor,
     _write_kv(pool, (slice(None), blk, g % block_k), torch.stack(ks),
               torch.stack(vs))
     return _logits(params, x[0, suffix_len - 1])
+
+
+# --------------------------------------------------- speculative decoding
+
+
+def gather_layer_kv(lpool: Cache, block_tables: torch.Tensor,
+                    dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer's pool → per-sequence contiguous K/V [B, n*block_k, Hkv,
+    hd] through the tables ``[B, n]`` (int8 pools dequantise here): the
+    drafter's attention history. Callers pass the tables narrowed to the
+    live block count, so only the live prefix is gathered."""
+    k, v, ks, vs = decode_attention_ops.gather_paged_kv(
+        lpool['k'], lpool['v'], block_tables, lpool.get('k_scale'),
+        lpool.get('v_scale'))
+    if ks is not None:
+        k = k.float() * ks[..., None]
+        v = v.float() * vs[..., None]
+    return k.to(dtype), v.to(dtype)
+
+
+def draft_attention(q: torch.Tensor, hist_k: torch.Tensor,
+                    hist_v: torch.Tensor, hist_len: torch.Tensor,
+                    buf_k: torch.Tensor, buf_v: torch.Tensor,
+                    n_filled: int) -> torch.Tensor:
+    """Drafter attention: q [B,1,H,hd] against the pool-gathered history
+    (positions < hist_len, per row) plus this round's local K/V buffer
+    ([B, spec_k, Hkv, hd], entries < ``n_filled`` live, the current draft
+    token's own included), in one joint softmax. No pool write happens
+    while drafting, so a rejected tail needs no rollback in the drafter
+    layers. Plain PyTorch, as the reference computes it outside any
+    kernel."""
+    t_hist = hist_k.shape[1]
+    k = torch.cat([hist_k, buf_k], dim=1)
+    v = torch.cat([hist_v, buf_v], dim=1)
+    t_idx = torch.arange(k.shape[1], device=q.device)[None, :]
+    # [B, T+K]: history gates on hist_len, the buffer on the fill count.
+    mask = torch.where(t_idx < t_hist,
+                       t_idx < hist_len.to(q.device)[:, None],
+                       (t_idx - t_hist) < n_filled)
+    return decode_attention_ops.grouped_attention_plain(
+        q, k, v, mask[:, None, :], None, None)
+
+
+def spec_draft_tokens(params: Params, token: torch.Tensor,
+                      pos: torch.Tensor, block_tables: torch.Tensor,
+                      cfg: llama.LlamaConfig, dcfg: DecodeConfig,
+                      pool: Cache) -> torch.Tensor:
+    """Greedy-draft ``spec_k`` tokens per sequence with the truncated-
+    layer drafter. token [B] (the last emitted token, its K/V not yet
+    written) at positions pos [B]. Returns drafts [B, spec_k] int64. The
+    pool is read (one history gather per drafter layer) and never
+    written: verify owns every cache write, which makes rejection
+    rollback purely positional. Counterpart of the reference's
+    ``_spec_draft_tokens``."""
+    k_spec = dcfg.spec_k
+    d = dcfg.spec_drafter_layers
+    if not 1 <= d <= cfg.n_layers:
+        raise ValueError(f'spec_drafter_layers must be in [1, '
+                         f'{cfg.n_layers}], got {d}')
+    b = token.shape[0]
+    pos = pos.long()
+    layers = [llama.layer_params(params, i) for i in range(d)]
+    hist = [gather_layer_kv(_layer_cache(pool, i), block_tables, cfg.dtype)
+            for i in range(d)]
+    buf_shape = (b, k_spec, cfg.n_kv_heads, cfg.head_dim)
+    device = token.device
+    buf_k = [torch.zeros(buf_shape, dtype=cfg.dtype, device=device)
+             for _ in range(d)]
+    buf_v = [torch.zeros(buf_shape, dtype=cfg.dtype, device=device)
+             for _ in range(d)]
+    drafts = []
+    tok = token
+    for j in range(k_spec):
+        cos, sin = llama._rope_freqs(cfg, (pos + j)[:, None])  # pylint: disable=protected-access
+        x = _embed(params, tok, cfg)[:, None]
+        for li, layer in enumerate(layers):
+            q, kx, vx = llama.qkv(cfg, x, layer, cos, sin)
+            buf_k[li][:, j] = kx[:, 0]
+            buf_v[li][:, j] = vx[:, 0]
+            attn = draft_attention(q, hist[li][0], hist[li][1], pos,
+                                   buf_k[li], buf_v[li], j + 1)
+            x = _attend_out(cfg, x, attn, layer)
+        x = llama.rms_norm(x, params['out_norm'], cfg.norm_eps)
+        tok = _logits(params, x[:, 0]).argmax(dim=-1)
+        drafts.append(tok)
+    return torch.stack(drafts, dim=1)
+
+
+def _attend_paged_verify(dcfg: DecodeConfig, q: torch.Tensor,
+                         lpool: Cache, block_tables: torch.Tensor,
+                         start_pos: torch.Tensor) -> torch.Tensor:
+    """q [B,S,H,hd] against one layer's pool; query ``i`` masks by its
+    own causal length ``start_pos + i + 1``."""
+    return decode_attention_ops.paged_verify_attention(
+        q, lpool['k'], lpool['v'], block_tables, start_pos,
+        lpool.get('k_scale'), lpool.get('v_scale'),
+        impl=dcfg.decode_attention)
+
+
+def paged_verify_step(params: Params, tokens: torch.Tensor,
+                      pos: torch.Tensor, block_tables: torch.Tensor,
+                      cfg: llama.LlamaConfig, dcfg: DecodeConfig,
+                      pool: Cache) -> torch.Tensor:
+    """Multi-token full-model step: score tokens [B, S] (the last emitted
+    token followed by S-1 drafts) at positions pos..pos+S-1 → logits [B,
+    S, vocab]. Counterpart of the reference's ``_paged_verify_step``.
+
+    Per layer the K/V of all S positions are written through the tables
+    before attention (the single-token step's write-then-attend order),
+    so the accepted prefix's cache entries are already right when the
+    host commits it; a rejected tail is rolled back by not advancing
+    ``pos`` past it. Positions at or past the table's capacity (a lane
+    that drafted past ``max_len``) write to the scratch block 0 instead
+    of wrapping into a live block."""
+    b, s = tokens.shape
+    block_k = pool['k'].shape[2]
+    max_len = block_tables.shape[1] * block_k
+    pos = pos.long()
+    positions = pos[:, None] + torch.arange(s, device=pos.device)  # [B, S]
+    cos, sin = llama._rope_freqs(cfg, positions)  # pylint: disable=protected-access
+    x = _embed(params, tokens, cfg)
+    pidx = positions.clamp(max=max_len - 1)
+    blk = block_tables.long().gather(1, pidx // block_k)
+    blk = torch.where(positions < max_len, blk, 0)
+    tables = block_tables.to(torch.int32)
+    start = pos.to(torch.int32)
+    for i in range(cfg.n_layers):
+        layer = llama.layer_params(params, i)
+        lcache = _layer_cache(pool, i)
+        q, k, v = llama.qkv(cfg, x, layer, cos, sin)
+        _write_kv(lcache, (blk, pidx % block_k), k, v)
+        attn = _attend_paged_verify(dcfg, q, lcache, tables, start)
+        x = _attend_out(cfg, x, attn, layer)
+    x = llama.rms_norm(x, params['out_norm'], cfg.norm_eps)
+    return _logits(params, x)
 
 
 def copy_block(pool: Cache, src: int, dst: int) -> None:

@@ -1,10 +1,10 @@
 """Continuous-batching decode engine: slot-scheduled serving on one cache.
 
-Counterpart of ``skypilot_tpu/models/engine.py``'s ``DecodeEngine`` for
-this slice: dense and paged modes, greedy and sampled decoding, radix
-prefix reuse, per-tenant round-robin admission, clamp/reject of
-over-budget requests. Speculative decoding, chunked prefill, tensor
-parallelism, prefix fetch/store/handoff, telemetry and the crash
+Counterpart of ``skypilot_tpu/models/engine.py``'s ``DecodeEngine``:
+dense and paged modes, greedy and sampled decoding, radix prefix reuse,
+per-tenant round-robin admission, clamp/reject of over-budget requests,
+and greedy speculative decoding on the paged pool. Chunked prefill,
+tensor parallelism, prefix fetch/store/handoff, telemetry and the crash
 supervisor belong to later slices.
 
 * **One persistent cache** of ``num_slots`` lanes (dense) or one block
@@ -19,6 +19,12 @@ supervisor belong to later slices.
   unit per live step, done lanes freeze their position. Greedy engine
   output is therefore token-identical to ``decode.generate``.
 * Finished slots are evicted and refilled from the admission queue.
+* **Speculative decoding** (``DecodeConfig.spec_k > 0``, paged, greedy):
+  each ``step()`` runs one round instead — the truncated-layer drafter
+  proposes ``spec_k`` tokens per lane, one batched verify scores
+  ``[token, drafts]`` against the full model, and the host accepts the
+  chain-rule prefix plus one correction token, rolling a rejected tail
+  back by position only (:meth:`DecodeEngine._spec_round`).
 
 **Paged mode**: a host-side :class:`BlockAllocator` (refcounts,
 copy-on-write) and :class:`RadixPrefixCache` (radix tree over block-
@@ -329,6 +335,25 @@ class Request:
             self.on_finish()
 
 
+def _spec_step(params, token: torch.Tensor, pos: torch.Tensor,
+               draft_tables: torch.Tensor, block_tables: torch.Tensor,
+               cache, cfg: llama.LlamaConfig, dcfg: decode.DecodeConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One speculative round over every slot: draft ``spec_k`` tokens per
+    lane (pool read-only, through ``draft_tables``, the tables narrowed
+    to the live blocks), then one verify of ``[token, drafts]`` through
+    the full ``block_tables`` (its writes land at pos..pos+spec_k, which
+    may lie past the live prefix). Returns (drafts [B, spec_k], the
+    verify argmax [B, spec_k + 1]). Counterpart of the reference's
+    ``_engine_spec_step_impl``."""
+    drafts = decode.spec_draft_tokens(params, token, pos, draft_tables,
+                                      cfg, dcfg, cache)
+    seq = torch.cat([token[:, None], drafts], dim=1)
+    logits = decode.paged_verify_step(params, seq, pos, block_tables, cfg,
+                                      dcfg, cache)
+    return drafts, logits.argmax(dim=-1)
+
+
 def _default_buckets(max_len: int) -> Tuple[int, ...]:
     """Prompt-length buckets: powers of two from 8 up to max_len."""
     buckets = []
@@ -360,6 +385,21 @@ class DecodeEngine:
             raise ValueError(f'num_slots must be >= 1, got {num_slots}')
         if step_chunk < 1:
             raise ValueError(f'step_chunk must be >= 1, got {step_chunk}')
+        if dcfg.spec_k:
+            # Verify is a multi-token decode over the block tables, and
+            # the round commits the full model's argmax: paged and greedy
+            # by construction.
+            if not paged:
+                raise ValueError('speculative decoding (spec_k > 0) '
+                                 'requires paged=True')
+            if dcfg.temperature != 0.0:
+                raise ValueError(
+                    'speculative decoding is greedy-only; got '
+                    f'temperature={dcfg.temperature}')
+            if not 1 <= dcfg.spec_drafter_layers <= cfg.n_layers:
+                raise ValueError(
+                    f'spec_drafter_layers must be in [1, '
+                    f'{cfg.n_layers}], got {dcfg.spec_drafter_layers}')
         self.params = params
         self.device = params['tok_embedding'].device
         self.cfg = cfg
@@ -406,6 +446,8 @@ class DecodeEngine:
         self._rr_offset = 0
         self._decode_steps = 0
         self._decode_emitted = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self._admitted = 0
         self._evicted = 0
         self._rejected = 0
@@ -695,14 +737,18 @@ class DecodeEngine:
     # -------------------------------------------------------------- step
 
     def step(self) -> int:
-        """Admit, then run ``step_chunk`` decode steps across all slots.
-        Returns the number of active slots (0 = idle)."""
+        """Admit, then run ``step_chunk`` decode steps across all slots, or
+        one speculative round when ``spec_k > 0``. Returns the number of
+        active slots (0 = idle)."""
         self._admit()
         active = self.active_slots()
         if active == 0:
             return 0
         if not self._done.all():
-            self._decode_round()
+            if self.dcfg.spec_k:
+                self._spec_round()
+            else:
+                self._decode_round()
         # Refill freed lanes now so the next chunk runs full.
         self._admit()
         return active
@@ -760,17 +806,77 @@ class DecodeEngine:
         self._decode_steps += n
         self._deliver_chunk(toks_np)
 
-    def _deliver_run(self, slot: int, req: Request, tokens) -> int:
+    def _spec_round(self) -> None:
+        """One speculative draft + batched-verify round across all lanes,
+        with host-side accept and rollback.
+
+        Acceptance is the chain rule: verify token ``i`` is the full
+        model's argmax given the drafted context up to ``i``, which is
+        the true greedy context while every earlier draft was accepted —
+        so delivering the accepted run plus one correction (or bonus)
+        token emits exactly what the non-speculative path would. Rollback
+        is positional: ``pos`` advances by the delivered count only; the
+        rejected tail's cache entries lie past ``pos``, are never
+        attended, and are overwritten when a real token reaches them.
+        Idle lanes run too (their tables are all scratch) and deliver
+        nothing."""
+        tables = self._tables_dev()
+        k = self.dcfg.spec_k
+        # The drafter attends positions < pos only: gather just the live
+        # blocks (power-of-two bucketed, as the reference bounds its
+        # compiles). Verify keeps the full tables.
+        live = ~self._done
+        max_pos = int(self._pos[live].max()) if live.any() else 1
+        npb = max(1, -(-max_pos // self._block_k))
+        nb_bucket = 1
+        while nb_bucket < npb:
+            nb_bucket *= 2
+        nb_bucket = min(nb_bucket, self._max_blocks)
+        drafts, vtok = _spec_step(self.params, self._dev(self._token),
+                                  self._dev(self._pos),
+                                  tables[:, :nb_bucket], tables,
+                                  self._cache, self.cfg, self.dcfg)
+        # One host fetch per round.
+        host = torch.cat([drafts, vtok], dim=1).cpu().numpy()
+        drafts, vtok = host[:, :k], host[:, k:]
+        runs = []
+        for slot, req in enumerate(self._slots):
+            if req is None or self._done[slot]:
+                continue
+            n_acc = 0
+            while n_acc < k and drafts[slot, n_acc] == vtok[slot, n_acc]:
+                n_acc += 1
+            runs.append((slot, req, n_acc))
+        # Counted before delivery: a client woken by its last token may
+        # read stats() at once.
+        self._decode_steps += 1
+        self._spec_drafted += k * len(runs)
+        self._spec_accepted += sum(n for _, _, n in runs)
+        for slot, req, n_acc in runs:
+            delivered, last_tok, evicted = self._deliver_run(
+                slot, req, vtok[slot, :n_acc + 1])
+            self._decode_emitted += delivered
+            if not evicted:
+                self._token[slot] = last_tok
+                self._pos[slot] += delivered
+                self._remaining[slot] -= delivered
+
+    def _deliver_run(self, slot: int, req: Request,
+                     tokens) -> Tuple[int, int, bool]:
         """Deliver a run of tokens to one lane with budget/EOS clipping;
-        evicts on a terminal condition. Returns tokens delivered."""
+        evicts on a terminal condition. The one copy of the finish
+        semantics, shared by the decode round and the speculative accept
+        path. Returns (tokens delivered, the last one, evicted?)."""
         eos = self.dcfg.eos_id
         budget = req.max_new_tokens - len(req.tokens)
         reason = None
         delivered = 0
+        last_tok = 0
         for t in tokens:
             t = int(t)
             budget -= 1
             delivered += 1
+            last_tok = t
             if eos is not None and t == eos:
                 reason = 'eos'
             elif budget <= 0:
@@ -783,13 +889,13 @@ class DecodeEngine:
                 break
         if reason is not None:
             self._evict(slot, reason)
-        return delivered
+        return delivered, last_tok, reason is not None
 
     def _deliver_chunk(self, toks_np: np.ndarray) -> None:
         for slot, req in enumerate(self._slots):
             if req is not None:
                 self._decode_emitted += self._deliver_run(
-                    slot, req, toks_np[:, slot])
+                    slot, req, toks_np[:, slot])[0]
 
     def _evict(self, slot: int, reason: str) -> None:
         req = self._slots[slot]
@@ -850,6 +956,26 @@ class DecodeEngine:
         lane_steps = self._decode_steps * self.num_slots
         return self._decode_emitted / lane_steps if lane_steps else 0.0
 
+    def spec_accept_ratio(self) -> float:
+        """Cumulative accepted/drafted ratio of the speculative path (0.0
+        while nothing was drafted)."""
+        if not self._spec_drafted:
+            return 0.0
+        return self._spec_accepted / self._spec_drafted
+
+    def spec_stats(self) -> dict:
+        """The speculative-decoding counters of this engine (the
+        reference's ``spec_stats`` block; its chunked-prefill fields come
+        with that slice)."""
+        return {
+            'enabled': self.dcfg.spec_k > 0,
+            'spec_k': self.dcfg.spec_k,
+            'drafter_layers': self.dcfg.spec_drafter_layers,
+            'drafted_total': self._spec_drafted,
+            'accepted_total': self._spec_accepted,
+            'accept_ratio': round(self.spec_accept_ratio(), 4),
+        }
+
     def prefix_hit_ratio(self) -> float:
         if not self.paged or not self._prompt_tokens_total:
             return 0.0
@@ -883,5 +1009,12 @@ class DecodeEngine:
                 'prefix_hit_ratio': round(self.prefix_hit_ratio(), 4),
                 'prefill_tokens_saved': self._prompt_tokens_saved,
                 'prefix_evictions': self._prefix_evictions,
+            })
+        if self.dcfg.spec_k:
+            out.update({
+                'spec_k': self.dcfg.spec_k,
+                'spec_drafted': self._spec_drafted,
+                'spec_accepted': self._spec_accepted,
+                'spec_accept_ratio': round(self.spec_accept_ratio(), 4),
             })
         return out

@@ -15,13 +15,16 @@ the engine loop on its own thread. Endpoints:
   backpressure and ``/drain`` come with the crash supervisor).
 * ``GET /healthz`` — 200 ``ok ...`` with the engine's stats, 503 when
   the engine thread died or the engine failed.
-* ``GET /stats`` — the engine's stats as JSON.
+* ``GET /stats`` — the engine's stats as JSON, with the speculative-
+  decoding counters under ``spec``.
 
 Run as ``python -m skypilot_tpu_torch.serve.model_server`` with the
 reference's flag names. The engine runs on CUDA unless ``--device cpu``
-is given; flags of features later slices port (speculative decoding,
-chunked prefill, tensor parallelism, prefix fetch/store/handoff, int8
-weights, checkpoints, roles) are rejected, never ignored.
+is given. Speculative decoding is on with ``--paged --spec-k K
+[--drafter-layers D]`` (or ``SKYTPU_SPEC_K`` / ``SKYTPU_SPEC_DRAFTER_LAYERS``);
+flags of features later slices port (chunked prefill, tensor
+parallelism, prefix fetch/store/handoff, int8 weights, checkpoints,
+roles) are rejected, never ignored.
 
 Tokenizer note: the models are research checkpoints without a shipped
 tokenizer, so ``text`` uses a byte-level demo codec (UTF-8 bytes → ids;
@@ -47,17 +50,19 @@ logger = logging.getLogger(__name__)
 
 REPLICA_PORT_ENV = 'SKYTPU_REPLICA_PORT'
 REQUEST_TIMEOUT_ENV = 'SKYTPU_MODEL_SERVER_REQUEST_TIMEOUT'
-# Environment knobs of the reference's replica whose features this slice
-# does not port: a non-default value is refused, never ignored.
+# Speculative decoding: draft tokens per engine step (0 disables) and the
+# truncated-layer drafter's depth, when the CLI does not give them.
+SPEC_K_ENV = 'SKYTPU_SPEC_K'
+SPEC_DRAFTER_LAYERS_ENV = 'SKYTPU_SPEC_DRAFTER_LAYERS'
+# Environment knobs of the reference's replica whose features the port
+# does not have yet: a non-default value is refused, never ignored.
 UNSUPPORTED_ENVS = {
-    'SKYTPU_SPEC_K': 'speculative decoding',
     'SKYTPU_PREFILL_CHUNK': 'chunked prefill',
     'SKYTPU_SERVE_TP': 'tensor parallelism',
     'SKYTPU_PREFIX_PEERS': 'cross-replica prefix fetch',
     'SKYTPU_STORE_URL': 'the durable block store',
 }
-_ENV_DEFAULTS = {'SKYTPU_SPEC_K': '0', 'SKYTPU_PREFILL_CHUNK': '0',
-                 'SKYTPU_SERVE_TP': '1'}
+_ENV_DEFAULTS = {'SKYTPU_PREFILL_CHUNK': '0', 'SKYTPU_SERVE_TP': '1'}
 
 
 def encode_text(text: str, vocab_size: int) -> list:
@@ -69,6 +74,16 @@ def decode_tokens(tokens) -> str:
     """Inverse demo codec: ids → bytes (mod 256), lossy for vocab>256."""
     return bytes(t % 256 for t in tokens).decode('utf-8',
                                                  errors='replace')
+
+
+def _env_int(name: str, default: int) -> int:
+    """An integer knob; unset, empty or unparseable gives ``default``
+    (the reference's ``common_utils.env_int``)."""
+    raw = os.environ.get(name)
+    try:
+        return int(raw) if raw else default
+    except ValueError:
+        return default
 
 
 def check_unsupported_env() -> None:
@@ -85,12 +100,17 @@ def build_engine(model: str, num_slots: int, max_len: int,
                  step_chunk: int = 4, seed: int = 0, paged: bool = False,
                  num_blocks: Optional[int] = None,
                  block_k: Optional[int] = None,
+                 spec_k: Optional[int] = None,
+                 drafter_layers: Optional[int] = None,
                  device: Optional[str] = None,
                  params: Optional[llama.Params] = None
                  ) -> engine_lib.DecodeEngine:
     """Assemble params + configs into a DecodeEngine (CLI, tests and
     ``chip_smoke.py``). Params are random from ``seed`` unless given;
-    ``device`` defaults to CUDA and raises without a card."""
+    ``device`` defaults to CUDA and raises without a card. ``spec_k`` /
+    ``drafter_layers`` default from ``SKYTPU_SPEC_K`` /
+    ``SKYTPU_SPEC_DRAFTER_LAYERS``; the drafter depth is clamped to the
+    model's layer count, as the reference does."""
     check_unsupported_env()
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
@@ -103,6 +123,14 @@ def build_engine(model: str, num_slots: int, max_len: int,
                        kv_cache_dtype='int8' if kv_int8 else 'bf16')
     if block_k is not None:
         dcfg_kwargs['kernel_block_k'] = block_k
+    if spec_k is None:
+        spec_k = _env_int(SPEC_K_ENV, 0)
+    if drafter_layers is None:
+        drafter_layers = _env_int(SPEC_DRAFTER_LAYERS_ENV, 1)
+    if spec_k:
+        dcfg_kwargs['spec_k'] = spec_k
+        dcfg_kwargs['spec_drafter_layers'] = min(drafter_layers,
+                                                 cfg.n_layers)
     sampler = torch.Generator(device=dev)
     sampler.manual_seed(seed)
     return engine_lib.DecodeEngine(params, cfg,
@@ -151,7 +179,8 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             status, text = ms.health()
             self.send_text(status, text)
         elif path == '/stats':
-            self.send_json(200, ms.engine.stats())
+            self.send_json(200, {**ms.engine.stats(),
+                                 'spec': ms.engine.spec_stats()})
         else:
             self.send_json(404, {'error': f'no route {path}'})
 
@@ -370,8 +399,6 @@ class ModelServer:
 # flag → (argparse kwargs, what it would enable).
 _UNSUPPORTED_FLAGS = {
     '--int8': (dict(action='store_true'), 'int8 weights'),
-    '--spec-k': (dict(type=int), 'speculative decoding'),
-    '--drafter-layers': (dict(type=int), 'speculative decoding'),
     '--prefill-chunk': (dict(type=int), 'chunked prefill'),
     '--tp': (dict(type=int), 'tensor parallelism'),
     '--prefix-peers': (dict(), 'cross-replica prefix fetch'),
@@ -416,6 +443,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--block-k', type=int, default=None,
                         help='paged pool block size in tokens '
                              '(default 128)')
+    parser.add_argument('--spec-k', type=int, default=None,
+                        help='speculative decoding: draft tokens per '
+                             'engine step (paged + greedy only; default '
+                             'SKYTPU_SPEC_K or 0 = off)')
+    parser.add_argument('--drafter-layers', type=int, default=None,
+                        help='truncated-layer drafter depth (default '
+                             'SKYTPU_SPEC_DRAFTER_LAYERS or 1)')
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--device', default=None,
                         help='torch device (default: cuda; a machine '
@@ -439,7 +473,9 @@ def main(argv=None) -> None:
                           kv_int8=args.kv_int8, attn=args.attn,
                           step_chunk=args.step_chunk, seed=args.seed,
                           paged=args.paged, num_blocks=args.num_blocks,
-                          block_k=args.block_k, device=args.device)
+                          block_k=args.block_k, spec_k=args.spec_k,
+                          drafter_layers=args.drafter_layers,
+                          device=args.device)
     ModelServer(engine, args.port, host=args.host,
                 default_max_new_tokens=args.max_new_tokens).run_forever()
 

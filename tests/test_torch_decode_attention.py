@@ -1,13 +1,16 @@
 """Port decode attention (skypilot_tpu_torch/ops/decode_attention.py)
 against the JAX reference (skypilot_tpu/ops/decode_attention.py).
 
-CPU cases: the port's plain twins of the two CUDA kernels against the
-reference's Pallas kernels (interpret mode) and XLA paths on the same
+CPU cases: the port's plain twins of the two CUDA decode kernels against
+the reference's Pallas kernels (interpret mode) and XLA paths on the same
 numpy inputs, fp32 at atol/rtol 2e-5 (int8 at 1e-4), mirroring
 tests/unit_tests/test_decode_attention.py; ``quantize_kv`` bit for bit.
+(The verify twin's CPU cases are in tests/test_torch_spec_decode.py.)
 
 ``cuda`` cases: the CUDA kernels against their plain twins on the card
-(skipped here). The reference is imported inside a fixture, so the card
+(skipped here); the verify kernel under ``chip_smoke.py``'s
+``twin_error`` rule, and bit-identical to the paged decode kernel one
+query at a time. The reference is imported inside a fixture, so the card
 host, which has no JAX, runs them with
 ``python -m pytest --noconftest -m cuda tests/test_torch_decode_attention.py``.
 """
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from skypilot_tpu_torch.ops import attention as t_attention
 from skypilot_tpu_torch.ops import decode_attention as tda
 from skypilot_tpu_torch.ops import quant as tquant
@@ -310,3 +314,75 @@ def test_cuda_kernel_rejects_what_it_does_not_take(cuda):
         tda.decode_attention_kernel(q, k, v, torch.tensor([3], device=cuda),
                                     torch.ones(1, 16, 1, device=cuda),
                                     torch.ones(1, 16, 1, device=cuda))
+
+
+def _verify_cuda_case(dev, seed, b, s, h, hkv, hd, block_k, max_blocks,
+                      dtype, int8):
+    """q [B,S,H,hd] and a shuffled pool covering B x max_blocks blocks
+    (+ scratch block 0); rows 0 and 2 name the same blocks."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n_pool = b * max_blocks + 1
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+    kv = [torch.randn(n_pool, block_k, hkv, hd, generator=gen,
+                      device=dev).to(dtype) for _ in range(2)]
+    pools = kv
+    if int8:
+        (k8, ks), (v8, vs) = (tquant.quantize_kv(x) for x in kv)
+        pools = [k8, v8, ks, vs]
+    tables = (torch.randperm(b * max_blocks, generator=gen, device=dev)
+              + 1).reshape(b, max_blocks).to(torch.int32)
+    tables[2] = tables[0]
+    return q, pools, tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('s', [1, 5, 9])
+@pytest.mark.parametrize('dtype,int8', [(torch.bfloat16, False),
+                                        (torch.bfloat16, True),
+                                        (torch.float32, False)])
+def test_cuda_verify_kernel_matches_plain_and_decode(cuda, s, dtype, int8):
+    """Verify kernel vs its twin (chip_smoke.twin_error), starts at block
+    edges and past the table (126 + S > max_len 128); query i bit-equal
+    to the paged decode kernel at cur_len = start + i + 1."""
+    q, pools, tables = _verify_cuda_case(cuda, 3, b=4, s=s, h=16, hkv=4,
+                                         hd=128, block_k=32, max_blocks=4,
+                                         dtype=dtype, int8=int8)
+    start = torch.tensor([0, 31, 126, 100], dtype=torch.int32, device=cuda)
+    before = tda.paged_verify_attention_kernel.launches
+    out = tda.paged_verify_attention_kernel(q, pools[0], pools[1], tables,
+                                            start, *pools[2:])
+    torch.cuda.synchronize()
+    assert tda.paged_verify_attention_kernel.launches == before + 1
+    want = tda.paged_verify_attention_plain(q, pools[0], pools[1], tables,
+                                            start, *pools[2:])
+    assert out.shape == want.shape and out.dtype == dtype
+    err, msg = chip_smoke.twin_error(
+        out, want, 'fp32' if dtype == torch.float32 else 'bf16')
+    assert err is None, msg
+    for i in range(s):
+        dec = tda.paged_decode_attention_kernel(
+            q[:, i:i + 1].contiguous(), pools[0], pools[1], tables,
+            start + i + 1, *pools[2:])
+        assert torch.equal(out[:, i:i + 1], dec), i
+
+
+@pytest.mark.cuda
+def test_cuda_verify_kernel_rejects_what_it_does_not_take(cuda):
+    q, pools, tables = _verify_cuda_case(cuda, 4, b=3, s=3, h=8, hkv=2,
+                                         hd=64, block_k=16, max_blocks=2,
+                                         dtype=torch.bfloat16, int8=False)
+    start = torch.tensor([3, 9, 0], device=cuda)
+    with pytest.raises(ValueError, match='CUDA'):
+        tda.paged_verify_attention_kernel(q.cpu(), pools[0].cpu(),
+                                          pools[1].cpu(), tables.cpu(),
+                                          start.cpu())
+    with pytest.raises(ValueError, match='dtype'):
+        tda.paged_verify_attention_kernel(q.half(), pools[0], pools[1],
+                                          tables, start)
+    with pytest.raises(ValueError, match='dtypes'):
+        tda.paged_verify_attention_kernel(q, pools[0].half(),
+                                          pools[1].half(), tables, start)
+    with pytest.raises(ValueError, match='block_tables'):
+        tda.paged_verify_attention_kernel(q, pools[0], pools[1],
+                                          tables.cpu(), start)

@@ -121,15 +121,73 @@ def test_bad_bodies_answer_400(served, body, raw, needle):
 
 
 def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
-    for argv in (['--spec-k', '2'], ['--tp', '2'], ['--int8'],
-                 ['--prefill-chunk', '64'], ['--prefix-peers', 'http://x'],
-                 ['--role', 'prefill'], ['--checkpoint-dir', '/ckpt']):
+    for argv in (['--tp', '2'], ['--int8'], ['--prefill-chunk', '64'],
+                 ['--prefix-peers', 'http://x'], ['--role', 'prefill'],
+                 ['--checkpoint-dir', '/ckpt']):
         with pytest.raises(SystemExit) as exc:
             model_server.parse_args(argv)
         assert exc.value.code == 2
     args = model_server.parse_args(['--paged', '--kv-int8', '--attn',
                                     'plain', '--device', 'cpu'])
     assert args.paged and args.kv_int8 and args.device == 'cpu'
-    monkeypatch.setenv('SKYTPU_SPEC_K', '4')
-    with pytest.raises(ValueError, match='speculative'):
+    monkeypatch.setenv('SKYTPU_PREFILL_CHUNK', '64')
+    with pytest.raises(ValueError, match='chunked prefill'):
         model_server.build_engine('debug', 1, 32, device='cpu')
+
+
+def test_spec_flags_and_envs_reach_the_decode_config(monkeypatch):
+    args = model_server.parse_args(['--spec-k', '2', '--drafter-layers',
+                                    '1', '--paged', '--device', 'cpu'])
+    assert (args.spec_k, args.drafter_layers, args.paged) == (2, 1, True)
+    eng = model_server.build_engine('debug', 1, 32, paged=True,
+                                    block_k=8, spec_k=args.spec_k,
+                                    drafter_layers=args.drafter_layers,
+                                    device='cpu')
+    assert (eng.dcfg.spec_k, eng.dcfg.spec_drafter_layers) == (2, 1)
+    monkeypatch.setenv('SKYTPU_SPEC_K', '3')
+    monkeypatch.setenv('SKYTPU_SPEC_DRAFTER_LAYERS', '9')
+    eng = model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                    device='cpu')
+    # The drafter depth clamps to the model's 2 layers, as the reference.
+    assert (eng.dcfg.spec_k, eng.dcfg.spec_drafter_layers) == (3, 2)
+    # An explicit argument wins over the environment.
+    eng = model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                    spec_k=0, device='cpu')
+    assert eng.dcfg.spec_k == 0
+    with pytest.raises(ValueError, match='paged'):
+        model_server.build_engine('debug', 1, 32, device='cpu')
+    with pytest.raises(ValueError, match='greedy'):
+        model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                  temperature=0.5, device='cpu')
+
+
+def test_spec_replica_serves_reference_tokens_and_stats_block():
+    """A speculative CPU replica answers with the reference's greedy
+    tokens and reports its counters under /stats "spec"."""
+    jparams = jllama.init_params(jax.random.PRNGKey(0), JCFG)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        tllama.CONFIGS['debug'])
+    engine = model_server.build_engine('debug', 2, 64, paged=True,
+                                       block_k=8, spec_k=3,
+                                       drafter_layers=1, device='cpu',
+                                       params=tparams)
+    server = model_server.ModelServer(engine, 0, host='127.0.0.1')
+    port = server.start()
+    try:
+        prompt = np.random.RandomState(3).randint(0, 256, size=11).tolist()
+        status, _, text = _post(port, {'prompt': prompt,
+                                       'max_new_tokens': 7,
+                                       'stream': False})
+        assert status == 200
+        assert json.loads(text)['tokens'] == _reference(jparams, prompt, 7)
+        with urllib.request.urlopen(f'http://127.0.0.1:{port}/stats',
+                                    timeout=30) as resp:
+            stats = json.loads(resp.read())
+    finally:
+        server.stop()
+    spec = stats['spec']
+    assert spec['enabled'] and spec['spec_k'] == 3
+    assert spec['drafter_layers'] == 1
+    assert spec['drafted_total'] == 3 * stats['decode_steps'] > 0
+    assert 0 <= spec['accepted_total'] <= spec['drafted_total']
+    assert stats['spec_drafted'] == spec['drafted_total']
