@@ -134,6 +134,12 @@ FLASH_SOURCES = {
     'flash_forward_kernel': 'skypilot_tpu/ops/flash_attention.py:37',
     'flash_bwd_dq_kernel': 'skypilot_tpu/ops/flash_attention.py:145',
     'flash_bwd_dkv_kernel': 'skypilot_tpu/ops/flash_attention.py:191'}
+# The port's source of each (the bf16 forward is the wgmma kernel; the
+# fp32 forward stays in flash_attention.cu).
+FLASH_FILES = {
+    'flash_forward_kernel': 'skypilot_tpu_torch/csrc/flash_forward_wgmma.cu',
+    'flash_bwd_dq_kernel': 'skypilot_tpu_torch/csrc/flash_attention.cu',
+    'flash_bwd_dkv_kernel': 'skypilot_tpu_torch/csrc/flash_attention.cu'}
 # H100 SXM non-tensor fp32 peak (data sheet): the fp32 flash kernels run
 # on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
@@ -179,6 +185,27 @@ DEVICE = 'cuda'
 
 def fail(msg: str) -> None:
     raise SystemExit(f'chip_smoke: FAILED: {msg}')
+
+
+def wgmma_sass_check(cuda_build) -> None:
+    """The bf16 flash forward's products must be wgmma: every kernel in
+    its built library holds HGMMA instructions (cuobjdump, beside
+    nvcc)."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), 'cuobjdump')
+    lib = cuda_build.library_path('flash_forward_wgmma')
+    sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            fn = line.split('Function :')[1].strip()
+            counts[fn] = 0
+        elif fn is not None and 'HGMMA' in line:
+            counts[fn] += 1
+    print(f'[build] HGMMA instructions per kernel of {lib.name}: {counts}',
+          flush=True)
+    if not counts or not all(counts.values()):
+        fail('the bf16 flash forward has a kernel without HGMMA')
 
 
 def smi_line() -> str:
@@ -994,13 +1021,18 @@ def spec_profile_phase(torch, decode, llama, params, card):
 # --------------------------------------------------------------- phase 6
 
 
+def flash_mac(b, s, h, d, causal):
+    """Multiply-adds of one product over the live (query, key) pairs."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return b * h * d * pairs
+
+
 def flash_bounds(b, s, h, hkv, d, causal, elem_bytes, peak_flops):
     """Least time per flash kernel: max(bytes each input read once and
     each output written once / HBM rate, operations this mask needs /
     peak rate). One product over the live (query, key) pairs is 2·d
     flops per pair: forward 2 products, dq 3, dk/dv 4."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    mac = b * h * d * pairs
+    mac = flash_mac(b, s, h, d, causal)
     q_bytes = b * s * h * d * elem_bytes
     kv_bytes = b * s * hkv * d * elem_bytes
     row_bytes = b * h * s * 4                    # one fp32 [B,H,S] vector
@@ -1134,15 +1166,21 @@ def flash_kernel_phase(torch, fa):
                                   2 if dtype_name == 'bf16' else 4,
                                   PEAK_BF16_FLOPS if dtype_name == 'bf16'
                                   else PEAK_FP32_FLOPS)
+            products = {'flash_forward_kernel': 2, 'flash_bwd_dq_kernel': 3,
+                        'flash_bwd_dkv_kernel': 4}
             for name, ms in kernel_ms.items():
                 fwd = name == 'flash_forward_kernel'
                 bound_ms, bound_by = bounds[name]
+                tflops = (2 * products[name] * flash_mac(b, s, h, d, causal)
+                          / ms / 1e9)
                 row = dict(max_abs_err=errs[name], ms=ms,
                            plain_ms=fwd_plain if fwd else bwd_plain,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=lib_fwd if fwd else lib_bwd)
+                           library_ms=lib_fwd if fwd else lib_bwd,
+                           tflops=tflops, bound_fraction=bound_ms / ms)
                 print(f'[flash] {name} {label} {dtype_name}: ms={ms:.4f} '
-                      f'plain_ms={row["plain_ms"]:.4f} library_ms='
+                      f'({tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of the '
+                      f'bound) plain_ms={row["plain_ms"]:.4f} library_ms='
                       f'{row["library_ms"]:.4f} bound_ms={bound_ms:.4f} '
                       f'({bound_by})', flush=True)
                 rows[name][dtype_name] = row
@@ -1252,7 +1290,7 @@ def train_phase(torch, llama, train, fa, card):
     if busy == 0:
         print('[train] the profiler recorded no device time', flush=True)
     else:
-        groups = {'flash forward': 'flash_fwd_kernel',
+        groups = {'flash forward': 'flash_fwd_',
                   'flash dq': 'flash_bwd_dq_kernel',
                   'flash dk/dv': 'flash_bwd_dkv_kernel'}
         split = {g: sum(r[0] for r in rows if key in r[1])
@@ -1421,6 +1459,7 @@ def main() -> int:
         print(f'[build] {lib}: {secs:.1f}s', flush=True)
         log = cuda_build.library_path(lib).with_suffix('.log')
         print(log.read_text(errors='replace').strip(), flush=True)
+    wgmma_sass_check(cuda_build)
 
     def phase_done(label):
         print(f'[time] {label} done at {time.perf_counter() - t_start:.1f}s',
@@ -1481,7 +1520,7 @@ def main() -> int:
         main = row['bf16']
         kernels.append({
             'name': kname, 'route': 'cuda',
-            'source': 'skypilot_tpu_torch/csrc/flash_attention.cu',
+            'source': FLASH_FILES[kname],
             'replaces': FLASH_SOURCES[kname],
             'launches': train_counts[kname],
             'max_abs_err': main['max_abs_err'], 'ms': main['ms'],

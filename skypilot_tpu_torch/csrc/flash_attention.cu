@@ -1,10 +1,12 @@
-// Flash attention for Hopper (sm_90a): the forward pass and the
+// Flash attention for Hopper (sm_90a): the fp32 forward pass and the
 // FlashAttention-2 backward (one kernel for dq, one for dk/dv) over
-// q [B, S, H, D] and grouped k/v [B, S, Hkv, D], causal or full.
+// q [B, S, H, D] and grouped k/v [B, S, Hkv, D], causal or full. The
+// bf16 forward is the wgmma kernel of flash_forward_wgmma.cu.
 //
 // Replaces the Pallas TPU kernels in skypilot_tpu/ops/flash_attention.py:
-//   * _flash_kernel          (forward: out, and the fp32 log-normaliser
-//                             L = m + log(l) per (batch, head, row))
+//   * _flash_kernel          (forward, fp32 here: out, and the fp32
+//                             log-normaliser L = m + log(l) per
+//                             (batch, head, row))
 //   * _flash_bwd_dq_kernel   (dq = scale * sum_j dS_j K_j)
 //   * _flash_bwd_dkv_kernel  (dV = sum_i P_i^T dO_i, dK = scale * sum_i
 //                             dS_i^T Q_i)
@@ -55,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -539,8 +543,13 @@ int run(int pass, const Params& p, cudaStream_t s) {
   const int n_q = (p.seq + kBlockQ - 1) / kBlockQ;
   switch (pass) {
     case kForward:
-      return launch(flash_fwd_kernel<T, D>, dim3(n_q, p.n_heads, p.batch),
-                    fwd_smem<T, D>(), p, s);
+      // bf16 runs the wgmma kernel of flash_forward_wgmma.cu.
+      if constexpr (std::is_same<T, float>::value)
+        return launch(flash_fwd_kernel<T, D>,
+                      dim3(n_q, p.n_heads, p.batch), fwd_smem<T, D>(), p,
+                      s);
+      else
+        return -1;
     case kBwdDq:
       return launch(flash_bwd_dq_kernel<T, D>,
                     dim3(n_q, p.n_heads, p.batch), dq_smem<T, D>(), p, s);

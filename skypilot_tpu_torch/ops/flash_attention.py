@@ -1,15 +1,15 @@
 """Flash attention for training: three CUDA kernels, plain twins, autograd.
 
-Counterpart of ``skypilot_tpu/ops/flash_attention.py``. Three kernels in
-``csrc/flash_attention.cu`` (see its header for the design and what
-bounds them):
+Counterpart of ``skypilot_tpu/ops/flash_attention.py``. Three kernels
+(see each source's header for the design and what bounds it):
 
 * :func:`flash_forward_kernel` replaces the Pallas ``_flash_kernel``:
   q [B,S,H,D], k/v [B,S,Hkv,D] → (out [B,S,H,D] in q's dtype, fp32 LSE
-  [B,H,S]);
+  [B,H,S]). bf16 runs the wgmma kernel of ``csrc/flash_forward_wgmma.cu``,
+  fp32 the CUDA-core body of ``csrc/flash_attention.cu``;
 * :func:`flash_bwd_dq_kernel` replaces ``_flash_bwd_dq_kernel``;
 * :func:`flash_bwd_dkv_kernel` replaces ``_flash_bwd_dkv_kernel``,
-  without expanding K/V to H heads.
+  without expanding K/V to H heads (both in ``csrc/flash_attention.cu``).
 
 Each has a plain PyTorch twin (:func:`flash_forward_plain`,
 :func:`flash_backward_plain`) in fp32 throughout. :class:`FlashAttention`
@@ -138,9 +138,12 @@ def _check(q, k, v, *rest):
 def _entries():
     """The C launchers (built and loaded at first use), typed for ctypes:
     pointers and the stream as c_void_p, sizes as c_int."""
+    cuda_build.build(['flash_attention', 'flash_forward_wgmma'])
     lib = cuda_build.load('flash_attention')
+    wgmma = cuda_build.load('flash_forward_wgmma')
     sizes = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fns = {'forward': (lib.skytorch_flash_forward, 5),
+           'forward_wgmma': (wgmma.skytorch_flash_forward_wgmma, 5),
            'dq': (lib.skytorch_flash_bwd_dq, 7),
            'dkv': (lib.skytorch_flash_bwd_dkv, 8)}
     for fn, n_ptrs in fns.values():
@@ -165,13 +168,15 @@ def flash_forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CUDA flash forward → (out [B,S,H,D], fp32 LSE [B,H,S]). Replaces
-    the Pallas ``_flash_kernel`` (skypilot_tpu/ops/flash_attention.py)."""
+    the Pallas ``_flash_kernel`` (skypilot_tpu/ops/flash_attention.py):
+    the wgmma kernel for bf16, the CUDA-core kernel for fp32."""
     _check(q, k, v)
     q, k, v = _operand(q), _operand(k), _operand(v)
     b, s, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch('forward', (q, k, v, out, lse), q, k, causal)
+    _launch('forward_wgmma' if q.dtype == torch.bfloat16 else 'forward',
+            (q, k, v, out, lse), q, k, causal)
     flash_forward_kernel.launches += 1
     return out, lse
 

@@ -54,15 +54,48 @@ REQUEST_TIMEOUT_ENV = 'SKYTPU_MODEL_SERVER_REQUEST_TIMEOUT'
 # truncated-layer drafter's depth, when the CLI does not give them.
 SPEC_K_ENV = 'SKYTPU_SPEC_K'
 SPEC_DRAFTER_LAYERS_ENV = 'SKYTPU_SPEC_DRAFTER_LAYERS'
+
+
+def _role(raw: str) -> str:
+    """The reference replica's reading of its role: stripped, lowercased,
+    anything unknown degraded to 'mixed'."""
+    role = raw.strip().lower()
+    return role if role in ('prefill', 'decode', 'mixed', 'store') else (
+        'mixed')
+
+
+def _number(cast, default):
+    """The reference's numeric knob (``env_int`` / ``env_float`` /
+    ``env_optional_float``): an unparseable value gives ``default``."""
+    def parse(raw: str):
+        try:
+            return cast(raw)
+        except ValueError:
+            return default
+    return parse
+
+
 # Environment knobs of the reference's replica whose features the port
-# does not have yet: a non-default value is refused, never ignored.
+# does not have yet: name → (feature, the reference's reading of a set
+# value, the reading that leaves the feature as the port runs it). Any
+# other reading is refused, never ignored. SKYTPU_STORE_DIR is read only
+# under the 'store' role, so refusing the role covers it.
 UNSUPPORTED_ENVS = {
-    'SKYTPU_PREFILL_CHUNK': 'chunked prefill',
-    'SKYTPU_SERVE_TP': 'tensor parallelism',
-    'SKYTPU_PREFIX_PEERS': 'cross-replica prefix fetch',
-    'SKYTPU_STORE_URL': 'the durable block store',
+    'SKYTPU_PREFILL_CHUNK': ('chunked prefill', str, '0'),
+    'SKYTPU_SERVE_TP': ('tensor parallelism', str, '1'),
+    'SKYTPU_PREFIX_PEERS': ('cross-replica prefix fetch', str, None),
+    'SKYTPU_STORE_URL': ('the durable block store', str, None),
+    'SKYTPU_REPLICA_ROLE': ('disaggregated serving roles (prefill, '
+                            'decode, store)', _role, 'mixed'),
+    'SKYTPU_SERVE_MAX_QUEUE': ('admission-queue backpressure',
+                               _number(int, 256), 256),
+    'SKYTPU_ENGINE_MAX_RESTARTS': ('the engine crash supervisor',
+                                   _number(int, 3), 3),
+    'SKYTPU_DRAIN_TIMEOUT_SECONDS': ('graceful drain',
+                                     _number(float, 30.0), 30.0),
+    'SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS': (
+        'the /healthz staleness bound', _number(float, None), None),
 }
-_ENV_DEFAULTS = {'SKYTPU_PREFILL_CHUNK': '0', 'SKYTPU_SERVE_TP': '1'}
 
 
 def encode_text(text: str, vocab_size: int) -> list:
@@ -80,16 +113,13 @@ def _env_int(name: str, default: int) -> int:
     """An integer knob; unset, empty or unparseable gives ``default``
     (the reference's ``common_utils.env_int``)."""
     raw = os.environ.get(name)
-    try:
-        return int(raw) if raw else default
-    except ValueError:
-        return default
+    return _number(int, default)(raw) if raw else default
 
 
 def check_unsupported_env() -> None:
-    for name, feature in UNSUPPORTED_ENVS.items():
+    for name, (feature, parse, default) in UNSUPPORTED_ENVS.items():
         raw = os.environ.get(name, '').strip()
-        if raw and raw != _ENV_DEFAULTS.get(name, ''):
+        if raw and parse(raw) != default:
             raise ValueError(f'{name}={raw!r}: {feature} is not ported to '
                              'skypilot_tpu_torch yet')
 

@@ -236,3 +236,40 @@ def test_cuda_function_launches_each_kernel(cuda):
     assert [fn.launches for fn in tfa.KERNELS] == [1, 1, 1]
     with pytest.raises(ValueError, match='head_dim'):
         tfa.flash_forward_kernel(*(x.detach()[..., :32] for x in (q, k, v)))
+
+
+# The bf16 forward's tile edges: its CTAs hold 128 query rows and walk
+# K/V tiles of 128 keys.
+WGMMA_SEQS = (1, 63, 64, 65, 127, 128, 129, 1000, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('g', [1, 2, 8])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('d', [64, 128])
+@pytest.mark.parametrize('s', WGMMA_SEQS)
+def test_cuda_bf16_forward_at_tile_edges(cuda, s, d, causal, g):
+    """The wgmma forward against its twin (out under ``twin_error``, LSE
+    within 1e-4), the same bits on a second launch, and the backward
+    kernels run on its LSE against the backward twin."""
+    q, k, v, dout = _cuda_case(cuda, 7, 2, s, 2 * g, 2, d, torch.bfloat16)
+    out, lse = tfa.flash_forward_kernel(q, k, v, causal)
+    again, lse_again = tfa.flash_forward_kernel(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    p_out, p_lse = tfa.flash_forward_plain(q, k, v, causal)
+    _check_twin(out, p_out, torch.bfloat16)
+    assert (lse - p_lse).abs().max().item() <= 1e-4
+    dsum = tfa.row_dot(dout, out)
+    dq = tfa.flash_bwd_dq_kernel(q, k, v, dout, lse, dsum, causal)
+    dk, dv = tfa.flash_bwd_dkv_kernel(q, k, v, dout, lse, dsum, causal)
+    want = tfa.flash_backward_plain(q, k, v, out, lse, dout, causal)
+    for name, got, ref in zip(('dq', 'dk', 'dv'), (dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        if s == 1 and name != 'dv':
+            # One key: softmax has no gradient, so dq and dk are 0 and
+            # both sides hold only fp32 rounding of dP - D (~1e-6).
+            assert got.float().abs().max().item() <= 1e-4
+            assert ref.float().abs().max().item() <= 1e-4
+        else:
+            _check_twin(got, ref, torch.bfloat16)

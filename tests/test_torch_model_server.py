@@ -5,6 +5,7 @@ refusing flags of unported features — and served tokens equal to the
 JAX reference's ``decode.generate`` on the same (bridged) weights.
 """
 import json
+import re
 import urllib.error
 import urllib.request
 
@@ -133,6 +134,44 @@ def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
     monkeypatch.setenv('SKYTPU_PREFILL_CHUNK', '64')
     with pytest.raises(ValueError, match='chunked prefill'):
         model_server.build_engine('debug', 1, 32, device='cpu')
+
+
+# (knob, value, the feature its refusal names, or None where the value
+# is the reference's default or what the reference degrades to it).
+ENV_KNOB_CASES = [
+    ('SKYTPU_REPLICA_ROLE', 'prefill', 'disaggregated serving roles'),
+    ('SKYTPU_REPLICA_ROLE', 'decode', 'disaggregated serving roles'),
+    ('SKYTPU_REPLICA_ROLE', 'store', 'disaggregated serving roles'),
+    ('SKYTPU_SERVE_MAX_QUEUE', '64', 'admission-queue backpressure'),
+    ('SKYTPU_ENGINE_MAX_RESTARTS', '0', 'the engine crash supervisor'),
+    ('SKYTPU_DRAIN_TIMEOUT_SECONDS', '5', 'graceful drain'),
+    ('SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS', '10',
+     'the /healthz staleness bound'),
+    ('SKYTPU_REPLICA_ROLE', 'mixed', None),
+    ('SKYTPU_REPLICA_ROLE', 'MIXED ', None),
+    ('SKYTPU_REPLICA_ROLE', 'prefil', None),
+    ('SKYTPU_SERVE_MAX_QUEUE', '256', None),
+    ('SKYTPU_SERVE_MAX_QUEUE', 'lots', None),
+    ('SKYTPU_ENGINE_MAX_RESTARTS', '3', None),
+    ('SKYTPU_DRAIN_TIMEOUT_SECONDS', '30', None),
+    ('SKYTPU_DRAIN_TIMEOUT_SECONDS', '30.0', None),
+    ('SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS', 'never', None),
+]
+
+
+@pytest.mark.parametrize('name,value,feature', ENV_KNOB_CASES)
+def test_env_knobs_of_unported_features_are_refused_unless_default(
+        monkeypatch, name, value, feature):
+    """A knob the reference's replica reads is refused at any value that
+    would change the reference's behaviour, and accepted at its default
+    or at what the reference's own parsing degrades to the default."""
+    monkeypatch.setenv(name, value)
+    if feature is None:
+        eng = model_server.build_engine('debug', 1, 32, device='cpu')
+        assert eng.num_slots == 1
+    else:
+        with pytest.raises(ValueError, match=re.escape(feature)):
+            model_server.build_engine('debug', 1, 32, device='cpu')
 
 
 def test_spec_flags_and_envs_reach_the_decode_config(monkeypatch):
