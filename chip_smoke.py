@@ -10,7 +10,9 @@ port's package is not beside it. Phases (any failure exits non-zero):
 
 1. Device: the card's name and power limit (``nvidia-smi``); build every
    CUDA kernel from ``skypilot_tpu_torch/csrc`` (one nvcc per source,
-   started together) and print the build seconds and ptxas report.
+   started together) and print the build seconds and ptxas report; the
+   bf16 flash forward's kernels must hold HGMMA (wgmma) instructions in
+   their SASS (``cuobjdump -sass``).
 2. Kernels against their plain PyTorch versions at the serving path's
    shapes (B=8, H=32, Hkv=8, hd=128, max_len 2048, block_k 128, ragged
    lengths 0/1/127/128/129/2048/...): dense bf16 and int8, paged bf16
@@ -35,13 +37,16 @@ port's package is not beside it. Phases (any failure exits non-zero):
 5. Where a decode step's time goes: the 8-slot dense and paged bf16
    steps timed on the host clock (kernel and plain paths in turns), then
    torch.profiler's device time by kernel over the kernel path.
-6. Flash-attention kernels (forward, dq, dk/dv) against their plain
+6. Flash-attention kernels (forward, dq, dk/dv; the bf16 forward is the
+   wgmma kernel of ``csrc/flash_forward_wgmma.cu``, the fp32 one the
+   CUDA-core body of ``csrc/flash_attention.cu``) against their plain
    twins at the training shapes (B=12, S=2048, H=16, Hkv=8, D=128,
    causal) in bf16 and fp32, at an S that does not tile (1000) and a
    small non-causal case (fp32 within 2e-5 of the twin's largest value;
    bf16 per element within one ulp plus 2e-2 of its row's rms, and
    within 5e-3 in relative norm); at the training shapes each kernel's time,
-   the plain twin's, ``library_ms`` (``scaled_dot_product_attention``
+   achieved TFLOP/s and fraction of its bound, the plain twin's,
+   ``library_ms`` (``scaled_dot_product_attention``
    with ``enable_gqa`` and its autograd backward, a yardstick the port
    never calls) and the bound with what sets it.
 7. Main path of the trainer: bench-1b at full width and depth (flash

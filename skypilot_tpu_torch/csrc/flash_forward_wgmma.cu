@@ -30,9 +30,14 @@
 //   * Shared tiles use the 128-byte swizzle the descriptors name: D/64
 //     column blocks of rows x 128 bytes, each row's 16-byte chunks
 //     XOR-ed with (row % 8), every block 1024-byte aligned.
-//   * K/V tiles of 128 keys arrive through a two-stage cp.async ring
-//     (16-byte copies, rows at or past S zero-filled): the copy of tile
-//     j + 1 is in flight while tile j is computed.
+//   * Warp specialisation: a third warpgroup is the producer. One of
+//     its threads loads Q once and keeps a two-stage ring of 128-key K
+//     and V tiles full with TMA copies, each completing on an mbarrier
+//     ("full"); the consumers free a stage on its "empty" mbarrier once
+//     their P·V product has read it. The producer gives up registers
+//     (setmaxnreg 24) so the consumers can hold 240. The tensor maps
+//     are [B, S, heads, D] with S exact, so rows at or past S of a
+//     (batch, head) come back as zeros.
 //   * Online softmax in the exp2 domain, scale·log2(e) folded into one
 //     FMA per element; the row max and sum reduce over the four lanes
 //     of a fragment row. Only tiles that cross the causal diagonal or
@@ -44,6 +49,7 @@
 // returns cudaGetLastError() after its launch, or -1 for arguments it
 // does not take.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,15 +59,14 @@ namespace {
 
 constexpr int kBlockM = 128;             // query rows per CTA
 constexpr int kBlockN = 128;             // keys per K/V tile
-constexpr int kThreads = 2 * 128;        // two warpgroups of 64 rows
+constexpr int kConsumers = 2;            // warpgroups of 64 query rows
+constexpr int kThreads = (kConsumers + 1) * 128;  // + the producer
 constexpr int kStages = 2;               // K/V ring depth
 constexpr int kRowBytes = 128;           // one swizzled row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 
+// q [B, S, H, D] and k/v [B, S, Hkv, D] come in as tensor maps.
 struct Params {
-  const __nv_bfloat16* q;  // [B, S, H, D]
-  const __nv_bfloat16* k;  // [B, S, Hkv, D]
-  const __nv_bfloat16* v;  // [B, S, Hkv, D]
   __nv_bfloat16* out;      // [B, S, H, D]
   float* lse;              // [B, H, S]
   int seq;
@@ -97,41 +102,66 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead,
          (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// Arrives once and expects `bytes` more of TMA traffic on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
-// Makes this thread's shared-memory writes visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
 }
 
-// Rows [row0, row0 + ROWS) of one head's [S, D] slice (row_stride
-// elements apart) → a swizzled shared tile, rows at or past S zeroed.
+// One TMA box (64 of D x rows) of a [B, S, heads, D] tensor map.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of one head → a swizzled [ROWS][D] tile, one
+// box per 64-column block.
 template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_async(uint32_t dst,
-                                                const __nv_bfloat16* src,
-                                                long long row_stride,
-                                                int row0, int seq) {
-  constexpr int kChunks = D / 8;
-  static_assert(ROWS * kChunks % kThreads == 0, "tile / threads");
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int head, int row0,
+                                         int batch) {
 #pragma unroll
-  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const bool valid = row0 + r < seq;
-    cp_async_16(dst + swizzled<ROWS>(r, c),
-                src + (valid ? (row0 + r) * row_stride : 0) + c * 8, valid);
-  }
+  for (int cb = 0; cb < D / 64; ++cb)
+    tma_load(dst + cb * ROWS * kRowBytes, map, bar, cb * 64, head, row0,
+             batch);
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -276,172 +306,253 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// Shared memory: Q, the K ring, the V ring, then the mbarriers (Q full;
+// per stage K full, V full, K/V empty), 1024 bytes of slack to align.
 template <int D>
 constexpr size_t smem_bytes() {
   return 1024 + tile_bytes<D, kBlockM>() +
-         size_t(kStages) * 2 * tile_bytes<D, kBlockN>();
+         size_t(kStages) * 2 * tile_bytes<D, kBlockN>() +
+         8 * (1 + 3 * kStages);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_wgmma_kernel(const Params p) {
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const Params p) {
   constexpr uint32_t kTile = tile_bytes<D, kBlockN>();
   extern __shared__ unsigned char smem[];
   const uint32_t q_s = (smem_addr(smem) + 1023) & ~1023u;
-  const uint32_t kv_s = q_s + tile_bytes<D, kBlockM>();  // stage: K then V
+  const uint32_t k_s = q_s + tile_bytes<D, kBlockM>();
+  const uint32_t v_s = k_s + kStages * kTile;
+  const uint32_t q_full = v_s + kStages * kTile;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * kStages;
+  const uint32_t kv_empty = v_full + 8 * kStages;
 
   const int S = p.seq, H = p.n_heads;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / p.n_kv_heads);
   const int q0 =
       (p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBlockM;
-  const long long q_stride = (long long)H * D;
-  const long long kv_stride = (long long)p.n_kv_heads * D;
-  const __nv_bfloat16* qg = p.q + b * S * q_stride + h * D;
-  const __nv_bfloat16* kg = p.k + b * S * kv_stride + kvh * D;
-  const __nv_bfloat16* vg = p.v + b * S * kv_stride + kvh * D;
   const int end = p.causal ? min(S, q0 + kBlockM) : S;
   const int n_kt = (end + kBlockN - 1) / kBlockN;
 
-  // Q, then tiles 0 .. kStages-2, one cp.async group each.
-  load_tile_async<D, kBlockM>(q_s, qg, q_stride, q0, S);
-  cp_async_commit();
-  auto load_kv = [&](int j) {
-    if (j < n_kt) {
-      const uint32_t st = kv_s + (j % kStages) * 2 * kTile;
-      load_tile_async<D, kBlockN>(st, kg, kv_stride, j * kBlockN, S);
-      load_tile_async<D, kBlockN>(st + kTile, vg, kv_stride, j * kBlockN,
-                                  S);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(kv_empty + 8 * st, kConsumers * 128);
     }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int j = 0; j < kStages - 1; ++j) load_kv(j);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
-  const int lane = threadIdx.x & 31;
-  const int r0 = q0 + wg * 64;                    // the warpgroup's rows
-  const int row = r0 + warp * 16 + (lane >> 2);   // and row + 8
-  const int col2 = 2 * (lane & 3);
-  const uint32_t q_wg = q_s + wg * 64 * kRowBytes;
-  const float scale_log2 = p.scale * kLog2e;
-
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int j = 0; j < n_kt; ++j) {
-    // Tile j has landed for every thread, and every warpgroup is done
-    // with tile j - 1, whose stage the next copy refills.
-    cp_async_wait<kStages - 2>();
-    fence_async_proxy();
-    __syncthreads();
-    load_kv(j + kStages - 1);
-    const uint32_t ks = kv_s + (j % kStages) * 2 * kTile, vs = ks + kTile;
-    const int k0 = j * kBlockN;
-
-    // S = Q Kᵀ; element i of s is row row + 8·((i >> 1) & 1), key
-    // k0 + 8·(i >> 2) + col2 + (i & 1).
-    float s[kBlockN / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n128(
-          s,
-          smem_desc(q_wg + (kk >> 2) * (kBlockM * kRowBytes) + (kk & 3) * 32,
-                    16, 8 * kRowBytes),
-          smem_desc(ks + (kk >> 2) * (kBlockN * kRowBytes) + (kk & 3) * 32,
-                    16, 8 * kRowBytes),
-          kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    hold(s);
-
-    if (k0 + kBlockN > S || (p.causal && k0 + kBlockN - 1 > r0)) {
-#pragma unroll
-      for (int i = 0; i < kBlockN / 2; ++i) {
-        const int key = k0 + (i >> 2) * 8 + col2 + (i & 1);
-        const int qrow = row + ((i >> 1) & 1) * 8;
-        if (key >= S || (p.causal && key > qrow)) s[i] = -INFINITY;
+  if (threadIdx.x >= kConsumers * 128) {
+    // Producer: Q once, then K/V tile j into stage j % kStages as soon
+    // as the consumers have freed it (the first round's waits pass on
+    // the fresh barriers).
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(q_full, tile_bytes<D, kBlockM>());
+      tma_tile<D, kBlockM>(q_s, &tq, q_full, h, q0, b);
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % kStages;
+        mbar_wait(kv_empty + 8 * st, ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full + 8 * st, kTile);
+        tma_tile<D, kBlockN>(k_s + st * kTile, &tk, k_full + 8 * st, kvh,
+                             j * kBlockN, b);
+        mbar_expect_tx(v_full + 8 * st, kTile);
+        tma_tile<D, kBlockN>(v_s + st * kTile, &tv, v_full + 8 * st, kvh,
+                             j * kBlockN, b);
       }
     }
-    float mx[2] = {m[0], m[1]};
+  } else {
+    setmaxnreg_inc<240>();
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int r0 = q0 + wg * 64;                    // the warpgroup's rows
+    const int row = r0 + warp * 16 + (lane >> 2);   // and row + 8
+    const int col2 = 2 * (lane & 3);
+    const uint32_t q_wg = q_s + wg * 64 * kRowBytes;
+    const float scale_log2 = p.scale * kLog2e;
+
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < kBlockN / 2; ++i)
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    float corr[2], shift[2];
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_kt; ++j) {
+      const int st = j % kStages, parity = (j / kStages) & 1;
+      const uint32_t ks = k_s + st * kTile, vs = v_s + st * kTile;
+      const int k0 = j * kBlockN;
+
+      // S = Q Kᵀ; element i of s is row row + 8·((i >> 1) & 1), key
+      // k0 + 8·(i >> 2) + col2 + (i & 1).
+      float s[kBlockN / 2];
+      mbar_wait(k_full + 8 * st, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n128(
+            s,
+            smem_desc(q_wg + (kk >> 2) * (kBlockM * kRowBytes) +
+                          (kk & 3) * 32,
+                      16, 8 * kRowBytes),
+            smem_desc(ks + (kk >> 2) * (kBlockN * kRowBytes) + (kk & 3) * 32,
+                      16, 8 * kRowBytes),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(s);
+
+      if (k0 + kBlockN > S || (p.causal && k0 + kBlockN - 1 > r0)) {
+#pragma unroll
+        for (int i = 0; i < kBlockN / 2; ++i) {
+          const int key = k0 + (i >> 2) * 8 + col2 + (i & 1);
+          const int qrow = row + ((i >> 1) & 1) * 8;
+          if (key >= S || (p.causal && key > qrow)) s[i] = -INFINITY;
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kBlockN / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float corr[2], shift[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = quad_max(mx[r]);
+        shift[r] = mn == -INFINITY ? 0.f : mn * scale_log2;
+        corr[r] = exp2_approx(m[r] * scale_log2 - shift[r]);
+        m[r] = mn;
+        l[r] *= corr[r];
+      }
+      // P = exp2(s·scale·log2(e) − m·scale·log2(e)), straight into the A
+      // fragments of the P·V product: 16 keys per k-step.
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = kk * 8 + e * 2, r = e & 1;
+          const float p0 = exp2_approx(fmaf(s[i], scale_log2, -shift[r]));
+          const float p1 =
+              exp2_approx(fmaf(s[i + 1], scale_log2, -shift[r]));
+          l[r] += p0 + p1;
+          pa[kk][e] = pack_bf16(p0, p1);
+        }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+      // O += P V: V MN-major, 16 keys (2048 bytes) per k-step; the next
+      // 64 columns of D are a column block (kBlockN rows) further.
+      mbar_wait(v_full + 8 * st, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        wgmma_pv<D>(o, pa[kk],
+                    smem_desc(vs + kk * 16 * kRowBytes, kBlockN * kRowBytes,
+                              8 * kRowBytes));
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(o);
+      mbar_arrive(kv_empty + 8 * st);  // this thread is done with stage st
+    }
+
+    const long long q_stride = (long long)H * D;
+    __nv_bfloat16* og = p.out + b * S * q_stride + h * D;
+    float* lse = p.lse + ((long long)b * H + h) * S;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float mn = quad_max(mx[r]);
-      shift[r] = mn == -INFINITY ? 0.f : mn * scale_log2;
-      corr[r] = exp2_approx(m[r] * scale_log2 - shift[r]);
-      m[r] = mn;
-      l[r] *= corr[r];
+      const int qrow = row + 8 * r;
+      const float sum = quad_sum(l[r]);
+      const float inv = 1.f / fmaxf(sum, 1e-20f);
+      if (qrow >= S) continue;
+      __nv_bfloat16* dst = og + qrow * q_stride + col2;
+#pragma unroll
+      for (int nb = 0; nb < D / 8; ++nb)
+        *reinterpret_cast<uint32_t*>(dst + nb * 8) =
+            pack_bf16(o[4 * nb + 2 * r] * inv, o[4 * nb + 2 * r + 1] * inv);
+      if ((lane & 3) == 0)
+        lse[qrow] = m[r] * p.scale + logf(fmaxf(sum, 1e-20f));
     }
-    // P = exp2(s·scale·log2(e) − m·scale·log2(e)), straight into the A
-    // fragments of the P·V product: 16 keys per k-step.
-    uint32_t pa[kBlockN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = kk * 8 + e * 2, r = e & 1;
-        const float p0 = exp2_approx(fmaf(s[i], scale_log2, -shift[r]));
-        const float p1 = exp2_approx(fmaf(s[i + 1], scale_log2, -shift[r]));
-        l[r] += p0 + p1;
-        pa[kk][e] = pack_bf16(p0, p1);
-      }
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
-
-    // O += P V: V MN-major, 16 keys (2048 bytes) per k-step; the next 64
-    // columns of D are a column block (kBlockN rows) further.
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk)
-      wgmma_pv<D>(o, pa[kk],
-                  smem_desc(vs + kk * 16 * kRowBytes, kBlockN * kRowBytes,
-                            8 * kRowBytes));
-    wgmma_commit();
-    wgmma_wait_all();
-    hold(o);
-  }
-
-  __nv_bfloat16* og = p.out + b * S * q_stride + h * D;
-  float* lse = p.lse + ((long long)b * H + h) * S;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qrow = row + 8 * r;
-    const float sum = quad_sum(l[r]);
-    const float inv = 1.f / fmaxf(sum, 1e-20f);
-    if (qrow >= S) continue;
-    __nv_bfloat16* dst = og + qrow * q_stride + col2;
-#pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb)
-      *reinterpret_cast<uint32_t*>(dst + nb * 8) =
-          pack_bf16(o[4 * nb + 2 * r] * inv, o[4 * nb + 2 * r + 1] * inv);
-    if ((lane & 3) == 0)
-      lse[qrow] = m[r] * p.scale + logf(fmaxf(sum, 1e-20f));
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// nothing more has to be linked.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A [batch, seq, heads, d] bf16 tensor as a 4-d map (d innermost) whose
+// box is 64 of d x one head x `rows` rows, in the 128-byte swizzle.
+// seq is its own dimension, so a box past a sequence's end reads zeros.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base,
+              int batch, int seq, int heads, int d, int rows) {
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(heads),
+                              cuuint64_t(seq), cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(d) * 2,
+                                 cuuint64_t(heads) * d * 2,
+                                 cuuint64_t(seq) * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
-int launch(const Params& p, int batch, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const Params& p,
+           int batch, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -2;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(encode, &tq, q, batch, p.seq, p.n_heads, D, kBlockM) ||
+      !make_map(encode, &tk, k, batch, p.seq, p.n_kv_heads, D, kBlockN) ||
+      !make_map(encode, &tv, v, batch, p.seq, p.n_kv_heads, D, kBlockN))
+    return -3;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.seq + kBlockM - 1) / kBlockM, p.n_heads, batch);
-  flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // bf16 forward (dtype code 1, as flash_attention.cu's); any other dtype
-// or head_dim is refused with -1.
+// or head_dim is refused with -1, a tensor map the driver will not make
+// with -2 or -3.
 extern "C" int skytorch_flash_forward_wgmma(const void* q, const void* k,
                                             const void* v, void* out,
                                             void* lse, int dtype, int batch,
@@ -453,9 +564,6 @@ extern "C" int skytorch_flash_forward_wgmma(const void* q, const void* k,
       n_kv_heads < 1 || n_heads > 65535 || n_heads % n_kv_heads != 0)
     return -1;
   Params p = {};
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = static_cast<float*>(lse);
   p.seq = seq;
@@ -465,8 +573,8 @@ extern "C" int skytorch_flash_forward_wgmma(const void* q, const void* k,
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return launch<64>(p, batch, s);
-    case 128: return launch<128>(p, batch, s);
+    case 64: return launch<64>(q, k, v, p, batch, s);
+    case 128: return launch<128>(q, k, v, p, batch, s);
     default: return -1;
   }
 }
