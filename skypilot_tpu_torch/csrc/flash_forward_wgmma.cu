@@ -33,11 +33,19 @@
 //   * Warp specialisation: a third warpgroup is the producer. One of
 //     its threads loads Q once and keeps a two-stage ring of 128-key K
 //     and V tiles full with TMA copies, each completing on an mbarrier
-//     ("full"); the consumers free a stage on its "empty" mbarrier once
-//     their P·V product has read it. The producer gives up registers
-//     (setmaxnreg 24) so the consumers can hold 240. The tensor maps
-//     are [B, S, heads, D] with S exact, so rows at or past S of a
-//     (batch, head) come back as zeros.
+//     ("full"); the consumers free a K tile once Q·Kᵀ has read it and a
+//     V tile once P·V has, each on its own "empty" mbarrier. The
+//     producer gives up registers (setmaxnreg 24) so the consumers can
+//     hold 240. The tensor maps are [B, S, heads, D] with S exact, so
+//     rows at or past S of a (batch, head) come back as zeros.
+//   * Overlap inside a warpgroup: tile j's Q·Kᵀ and tile j-1's P·V are
+//     issued together and tile j's softmax runs while P·V is on the
+//     tensor cores; P is packed into A fragments, and O rescaled, only
+//     while no product reading them is in flight (else ptxas would
+//     serialise the wgmmas).
+//   * Overlap between warpgroups: two named barriers pass a turn, so
+//     the warpgroups issue their products alternately and one's
+//     softmax runs under the other's products.
 //   * Online softmax in the exp2 domain, scale·log2(e) folded into one
 //     FMA per element; the row max and sum reduce over the four lanes
 //     of a fragment row. Only tiles that cross the causal diagonal or
@@ -155,6 +163,17 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
              batch);
 }
 
+// Named barriers 1 and 2 pass the tensor cores between the two consumer
+// warpgroups: warpgroup w waits on barrier 1 + w (its 128 threads plus
+// the other's 128 arriving) before it issues its wgmma batch, then
+// arrives on the other's.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -170,8 +189,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Waits until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keeps the compiler from moving reads of an accumulator above the
 // wgmma wait that completes it.
@@ -307,12 +328,95 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Shared memory: Q, the K ring, the V ring, then the mbarriers (Q full;
-// per stage K full, V full, K/V empty), 1024 bytes of slack to align.
+// per stage K full, V full, K empty, V empty), 1024 bytes of slack to
+// align.
 template <int D>
 constexpr size_t smem_bytes() {
   return 1024 + tile_bytes<D, kBlockM>() +
          size_t(kStages) * 2 * tile_bytes<D, kBlockN>() +
-         8 * (1 + 3 * kStages);
+         8 * (1 + 4 * kStages);
+}
+
+// S = Q Kᵀ for one warpgroup's 64 rows and a 128-key tile: element i of
+// s is row (lane / 4) + 8·((i >> 1) & 1) of the warp's 16, key
+// 8·(i >> 2) + 2·(lane % 4) + (i & 1) of the tile.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kBlockN / 2],
+                                         uint32_t q_wg, uint32_t ks) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n128(
+        s,
+        smem_desc(q_wg + (kk >> 2) * (kBlockM * kRowBytes) + (kk & 3) * 32,
+                  16, 8 * kRowBytes),
+        smem_desc(ks + (kk >> 2) * (kBlockN * kRowBytes) + (kk & 3) * 32, 16,
+                  8 * kRowBytes),
+        kk > 0);
+}
+
+// O += P V: V MN-major, 16 keys (2048 bytes) per k-step; the next 64
+// columns of D are a column block (kBlockN rows) further.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[kBlockN / 16][4],
+                                         uint32_t vs) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk)
+    wgmma_pv<D>(o, pa[kk],
+                smem_desc(vs + kk * 16 * kRowBytes, kBlockN * kRowBytes,
+                          8 * kRowBytes));
+}
+
+// Online softmax of one tile of S (raw Q·K products, keys from k0), in
+// place: masks where the tile crosses the causal diagonal or the end of
+// S, updates the row max m and this thread's share of the row sum l
+// (both in the exp2 domain), leaves P = exp2(s·scale·log2(e) − m·scale·
+// log2(e)) in s and the factor that rescales O to the new max in corr.
+__device__ __forceinline__ void softmax_tile(float (&s)[kBlockN / 2], int k0,
+                                             int row, int col2, int r0,
+                                             int S, int causal,
+                                             float scale_log2, float (&m)[2],
+                                             float (&l)[2],
+                                             float (&corr)[2]) {
+  if (k0 + kBlockN > S || (causal && k0 + kBlockN - 1 > r0)) {
+#pragma unroll
+    for (int i = 0; i < kBlockN / 2; ++i) {
+      const int key = k0 + (i >> 2) * 8 + col2 + (i & 1);
+      const int qrow = row + ((i >> 1) & 1) * 8;
+      if (key >= S || (causal && key > qrow)) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < kBlockN / 2; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float shift[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = quad_max(mx[r]);
+    shift[r] = mn == -INFINITY ? 0.f : mn * scale_log2;
+    corr[r] = exp2_approx(m[r] * scale_log2 - shift[r]);
+    m[r] = mn;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < kBlockN / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    s[i] = exp2_approx(fmaf(s[i], scale_log2, -shift[r]));
+    s[i + 1] = exp2_approx(fmaf(s[i + 1], scale_log2, -shift[r]));
+    l[r] += s[i] + s[i + 1];
+  }
+}
+
+// P in bf16 as the A fragments of the P·V product, 16 keys per k-step:
+// the accumulator layout of S already is wgmma's A fragment layout.
+__device__ __forceinline__ void to_a_fragments(
+    const float (&s)[kBlockN / 2], uint32_t (&pa)[kBlockN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = pack_bf16(s[kk * 8 + e * 2], s[kk * 8 + e * 2 + 1]);
 }
 
 template <int D>
@@ -328,7 +432,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t v_s = k_s + kStages * kTile;
   const uint32_t q_full = v_s + kStages * kTile;
   const uint32_t k_full = q_full + 8, v_full = k_full + 8 * kStages;
-  const uint32_t kv_empty = v_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
 
   const int S = p.seq, H = p.n_heads;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -344,7 +449,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int st = 0; st < kStages; ++st) {
       mbar_init(k_full + 8 * st, 1);
       mbar_init(v_full + 8 * st, 1);
-      mbar_init(kv_empty + 8 * st, kConsumers * 128);
+      mbar_init(k_empty + 8 * st, kConsumers * 128);
+      mbar_init(v_empty + 8 * st, kConsumers * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -360,10 +466,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_tile<D, kBlockM>(q_s, &tq, q_full, h, q0, b);
       for (int j = 0; j < n_kt; ++j) {
         const int st = j % kStages;
-        mbar_wait(kv_empty + 8 * st, ((j / kStages) & 1) ^ 1);
+        const int free = ((j / kStages) & 1) ^ 1;
+        mbar_wait(k_empty + 8 * st, free);
         mbar_expect_tx(k_full + 8 * st, kTile);
         tma_tile<D, kBlockN>(k_s + st * kTile, &tk, k_full + 8 * st, kvh,
                              j * kBlockN, b);
+        mbar_wait(v_empty + 8 * st, free);
         mbar_expect_tx(v_full + 8 * st, kTile);
         tma_tile<D, kBlockN>(v_s + st * kTile, &tv, v_full + 8 * st, kvh,
                              j * kBlockN, b);
@@ -385,81 +493,64 @@ __global__ void __launch_bounds__(kThreads, 1)
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     mbar_wait(q_full, 0);
 
-    for (int j = 0; j < n_kt; ++j) {
-      const int st = j % kStages, parity = (j / kStages) & 1;
-      const uint32_t ks = k_s + st * kTile, vs = v_s + st * kTile;
-      const int k0 = j * kBlockN;
-
-      // S = Q Kᵀ; element i of s is row row + 8·((i >> 1) & 1), key
-      // k0 + 8·(i >> 2) + col2 + (i & 1).
+    // Tile j's S = Q Kᵀ is issued together with tile j - 1's O += P V,
+    // so the softmax of tile j runs while the tensor cores do P V. P
+    // becomes A fragments, and O is rescaled, only while no product that
+    // reads them is in flight.
+    uint32_t pa[kBlockN / 16][4];
+    float corr[2];
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+    {
       float s[kBlockN / 2];
-      mbar_wait(k_full + 8 * st, parity);
+      mbar_wait(k_full, 0);
+      turn_wait(wg);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n128(
-            s,
-            smem_desc(q_wg + (kk >> 2) * (kBlockM * kRowBytes) +
-                          (kk & 3) * 32,
-                      16, 8 * kRowBytes),
-            smem_desc(ks + (kk >> 2) * (kBlockN * kRowBytes) + (kk & 3) * 32,
-                      16, 8 * kRowBytes),
-            kk > 0);
+      issue_qk<D>(s, q_wg, k_s);
       wgmma_commit();
-      wgmma_wait_all();
+      turn_pass(wg);
+      wgmma_wait<0>();
       hold(s);
-
-      if (k0 + kBlockN > S || (p.causal && k0 + kBlockN - 1 > r0)) {
-#pragma unroll
-        for (int i = 0; i < kBlockN / 2; ++i) {
-          const int key = k0 + (i >> 2) * 8 + col2 + (i & 1);
-          const int qrow = row + ((i >> 1) & 1) * 8;
-          if (key >= S || (p.causal && key > qrow)) s[i] = -INFINITY;
-        }
-      }
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int i = 0; i < kBlockN / 2; ++i)
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-      float corr[2], shift[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float mn = quad_max(mx[r]);
-        shift[r] = mn == -INFINITY ? 0.f : mn * scale_log2;
-        corr[r] = exp2_approx(m[r] * scale_log2 - shift[r]);
-        m[r] = mn;
-        l[r] *= corr[r];
-      }
-      // P = exp2(s·scale·log2(e) − m·scale·log2(e)), straight into the A
-      // fragments of the P·V product: 16 keys per k-step.
-      uint32_t pa[kBlockN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = kk * 8 + e * 2, r = e & 1;
-          const float p0 = exp2_approx(fmaf(s[i], scale_log2, -shift[r]));
-          const float p1 =
-              exp2_approx(fmaf(s[i + 1], scale_log2, -shift[r]));
-          l[r] += p0 + p1;
-          pa[kk][e] = pack_bf16(p0, p1);
-        }
+      mbar_arrive(k_empty);
+      softmax_tile(s, 0, row, col2, r0, S, p.causal, scale_log2, m, l, corr);
+      to_a_fragments(s, pa);
+    }
+    for (int j = 1; j < n_kt; ++j) {
+      const int st = j % kStages, pst = (j - 1) % kStages;
+      float s[kBlockN / 2];
+      mbar_wait(k_full + 8 * st, (j / kStages) & 1);
+      turn_wait(wg);
+      wgmma_fence();
+      issue_qk<D>(s, q_wg, k_s + st * kTile);
+      wgmma_commit();
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
-
-      // O += P V: V MN-major, 16 keys (2048 bytes) per k-step; the next
-      // 64 columns of D are a column block (kBlockN rows) further.
-      mbar_wait(v_full + 8 * st, parity);
+      mbar_wait(v_full + 8 * pst, ((j - 1) / kStages) & 1);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk)
-        wgmma_pv<D>(o, pa[kk],
-                    smem_desc(vs + kk * 16 * kRowBytes, kBlockN * kRowBytes,
-                              8 * kRowBytes));
+      issue_pv<D>(o, pa, v_s + pst * kTile);
       wgmma_commit();
-      wgmma_wait_all();
+      turn_pass(wg);
+      wgmma_wait<1>();
+      hold(s);
+      mbar_arrive(k_empty + 8 * st);  // this thread is done with K_j
+      softmax_tile(s, j * kBlockN, row, col2, r0, S, p.causal, scale_log2,
+                   m, l, corr);
+      wgmma_wait<0>();
       hold(o);
-      mbar_arrive(kv_empty + 8 * st);  // this thread is done with stage st
+      mbar_arrive(v_empty + 8 * pst);  // and with V_{j-1}
+      to_a_fragments(s, pa);
+    }
+    {
+      const int st = (n_kt - 1) % kStages;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      mbar_wait(v_full + 8 * st, ((n_kt - 1) / kStages) & 1);
+      turn_wait(wg);
+      wgmma_fence();
+      issue_pv<D>(o, pa, v_s + st * kTile);
+      wgmma_commit();
+      if (wg == 0) turn_pass(wg);  // warpgroup 1's would meet no wait
+      wgmma_wait<0>();
+      hold(o);
     }
 
     const long long q_stride = (long long)H * D;
