@@ -1026,18 +1026,14 @@ def spec_profile_phase(torch, decode, llama, params, card):
 # --------------------------------------------------------------- phase 6
 
 
-def flash_mac(b, s, h, d, causal):
-    """Multiply-adds of one product over the live (query, key) pairs."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    return b * h * d * pairs
-
-
 def flash_bounds(b, s, h, hkv, d, causal, elem_bytes, peak_flops):
-    """Least time per flash kernel: max(bytes each input read once and
-    each output written once / HBM rate, operations this mask needs /
-    peak rate). One product over the live (query, key) pairs is 2·d
-    flops per pair: forward 2 products, dq 3, dk/dv 4."""
-    mac = flash_mac(b, s, h, d, causal)
+    """Least time per flash kernel, (ms, what sets it, flops): max(bytes
+    each input read once and each output written once / HBM rate,
+    operations this mask needs / peak rate). One product over the live
+    (query, key) pairs is 2·d flops per pair: forward 2 products, dq 3,
+    dk/dv 4."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    mac = b * h * d * pairs
     q_bytes = b * s * h * d * elem_bytes
     kv_bytes = b * s * hkv * d * elem_bytes
     row_bytes = b * h * s * 4                    # one fp32 [B,H,S] vector
@@ -1052,7 +1048,7 @@ def flash_bounds(b, s, h, hkv, d, causal, elem_bytes, peak_flops):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak_flops * 1e3
         bounds[name] = (max(t_bytes, t_ops),
-                        'bytes' if t_bytes >= t_ops else 'operations')
+                        'bytes' if t_bytes >= t_ops else 'operations', flops)
     return bounds
 
 
@@ -1171,13 +1167,10 @@ def flash_kernel_phase(torch, fa):
                                   2 if dtype_name == 'bf16' else 4,
                                   PEAK_BF16_FLOPS if dtype_name == 'bf16'
                                   else PEAK_FP32_FLOPS)
-            products = {'flash_forward_kernel': 2, 'flash_bwd_dq_kernel': 3,
-                        'flash_bwd_dkv_kernel': 4}
             for name, ms in kernel_ms.items():
                 fwd = name == 'flash_forward_kernel'
-                bound_ms, bound_by = bounds[name]
-                tflops = (2 * products[name] * flash_mac(b, s, h, d, causal)
-                          / ms / 1e9)
+                bound_ms, bound_by, flops = bounds[name]
+                tflops = flops / ms / 1e9
                 row = dict(max_abs_err=errs[name], ms=ms,
                            plain_ms=fwd_plain if fwd else bwd_plain,
                            bound_ms=bound_ms, bound_by=bound_by,

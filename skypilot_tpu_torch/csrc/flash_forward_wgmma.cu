@@ -88,14 +88,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of 16-byte chunk `chunk` (8 elements) of row `row` in a
-// swizzled [ROWS][D] tile.
-template <int ROWS>
-__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
-  return (chunk >> 3) * (ROWS * kRowBytes) + row * kRowBytes +
-         (((chunk & 7) ^ (row & 7)) << 4);
-}
-
 template <int D, int ROWS>
 __host__ __device__ constexpr uint32_t tile_bytes() {
   return ROWS * D * 2;

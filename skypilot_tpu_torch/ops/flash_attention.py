@@ -136,8 +136,9 @@ def _check(q, k, v, *rest):
 
 @functools.lru_cache(maxsize=None)
 def _entries():
-    """The C launchers (built and loaded at first use), typed for ctypes:
-    pointers and the stream as c_void_p, sizes as c_int."""
+    """The C launchers (both libraries built together and loaded at first
+    use), typed for ctypes: pointers and the stream as c_void_p, sizes
+    as c_int."""
     cuda_build.build(['flash_attention', 'flash_forward_wgmma'])
     lib = cuda_build.load('flash_attention')
     wgmma = cuda_build.load('flash_forward_wgmma')
