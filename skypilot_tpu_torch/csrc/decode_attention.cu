@@ -22,44 +22,49 @@
 // far below the ~295 flop/byte an H100 needs before compute matters. A
 // verify call does ~4 * S flops per byte: still bytes-bound at S <= 16.
 //
-// Design (simple and right first; see PERF.md for its measured time):
-//   * One CTA per (kv head, batch row, row chunk). The G = H / Hkv query
-//     heads of that kv head (times S queries when verifying) share each
-//     K/V tile read (GQA in-kernel, query head kv*G + r), so the cache is
-//     read once per chunk, not once per head.
-//   * Rows are cut into chunks of at most kMaxRows (the grid's third
-//     axis), each chunk re-reading that kv head's live tiles: G * S rows
-//     exceed what one CTA holds at spec_k >= 4 (G = 4: 20 rows at S = 5),
-//     and the extra CTAs fill more of the 132 SMs.
-//   * The CTA walks kTile-position tiles only up to the longest length
-//     of its rows, capped at the table's width (max_blocks * block_k):
-//     dead positions are never read and tables[b, max_blocks] never is,
-//     which is what the TPU kernel's clamped index map achieves. In paged
-//     mode the pool row of position p is
+// Design (see PERF.md for its measured time):
+//   * The sequence is split across CTAs with a fixed span (flash-
+//     decoding): CTA (kv head, sequence, split * chunks + chunk) walks
+//     positions [split * kSpan, min((split + 1) * kSpan, longest row))
+//     and writes, for each of its rows, a partial (m, l, acc[hd]) in
+//     fp32 to a workspace the wrapper allocates. There are
+//     ceil(capacity / kSpan) splits, capacity being the table's width
+//     (max_blocks * block_k; dense: max_len), so the host never reads a
+//     length; a CTA whose span starts past all its rows' lengths writes
+//     empty partials (m = -1e30, l = 0, acc = 0) and exits.
+//   * A combine kernel, enqueued by the same launcher call, reduces each
+//     row's partials over the splits that start below that row's own
+//     length, in split order: m = max m_s, l = sum l_s e^(m_s - m),
+//     out = sum acc_s e^(m_s - m) / max(l, 1e-20), cast to q's dtype; a
+//     row of length 0 reduces nothing and writes exact zeros.
+//   * The order in which a row's positions are reduced is a function of
+//     the position indices alone (fixed span, fixed tiles, fixed split
+//     order), never of R, S, the chunking, the grid or the other rows'
+//     lengths. So a verify call's query i is bit-identical to the
+//     decode kernel at cur_len = start + i + 1.
+//   * The G = H / Hkv query heads of a kv head (times S queries when
+//     verifying) share each K/V tile read (GQA in-kernel, query head
+//     kv*G + r). Rows are cut into chunks of at most kMaxRows, each
+//     chunk re-reading its span's tiles.
+//   * Within its span the CTA walks kTile-position tiles only up to the
+//     longest length of its rows, capped at the table's width: dead
+//     positions are never read and tables[b, max_blocks] never is. In
+//     paged mode the pool row of position p is
 //     tables[b, p / block_k] * block_k + p % block_k, looked up only for
 //     a live p.
 //   * A row skips a tile that holds none of its positions, and within a
-//     tile masks positions past its length: its m, l and acc are then
-//     what a decode call at that length leaves (the reduction order per
-//     row does not depend on the other rows), so a verify call's query
-//     i is bit-identical to the decode kernel at cur_len = start + i + 1.
+//     tile masks positions past its length.
 //   * K/V tiles are read with 16-byte vector loads (element loads when a
 //     row is not 16-byte aligned) and dequantised to fp32 in shared
 //     memory (int8 caches multiply by their per-(position, kv head) fp32
-//     scale); q is held in fp32; online softmax (m, l, acc) in fp32
-//     exactly as the Pallas body does it, result acc / max(l, 1e-20)
-//     cast to q's dtype. A row with cur_len == 0 runs no tile and writes
-//     exact zeros.
-//   * Each warp owns chunk rows c = warp, warp + 4, ...: lanes compute
-//     logits for positions lane + 32j, reduce max/sum with shuffles,
-//     then own head-dim columns d = lane + 32i of the PV update.
-//   * With 8 sequences and 8 kv heads a decode call has 64 CTAs for 132
-//     SMs (a verify call at S = 5, two chunks of 16 + 4 rows: 128), so
-//     this kernel sits well under its bandwidth bound; splitting the
-//     sequence across CTAs (flash-decoding) is the next step.
+//     scale); q is held in fp32; online softmax (m, l, acc) in fp32 as
+//     the Pallas body does it. Each warp owns chunk rows c = warp,
+//     warp + 4, ...: lanes compute logits for positions lane + 32j,
+//     reduce max/sum with shuffles, then own head-dim columns
+//     d = lane + 32i of the PV update.
 //
 // Plain C interface (built with nvcc, loaded with ctypes): the launcher
-// returns cudaGetLastError() after the launch, or -1 for arguments it
+// returns cudaGetLastError() after each launch, or -1 for arguments it
 // does not take.
 
 #include <cuda_bf16.h>
@@ -72,10 +77,12 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;  // cache positions per shared-memory tile
+constexpr int kTile = 64;    // cache positions per shared-memory tile
+constexpr int kSpan = 256;   // cache positions per split
 constexpr int kMaxRows = 16;  // (head, query) rows per CTA
 constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;
+static_assert(kSpan % kTile == 0, "a split holds whole tiles");
 
 // dtype codes shared with the Python wrapper.
 enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
@@ -90,6 +97,8 @@ struct Params {
                           // < lens[b] + len_offset + i
   const int32_t* tables;  // paged only: [B, max_blocks]
   void* out;              // [B, S, H, hd], q's dtype
+  float* part_acc;        // [B, S, H, n_splits, hd]: each split's acc
+  float* part_ml;         // [B, S, H, n_splits, 2]: its (m, l)
   int batch;
   int s_q;                // queries per sequence (decode: 1)
   int len_offset;         // decode: 0 (lens = cur_len); verify: 1
@@ -100,6 +109,9 @@ struct Params {
   int block_k;            // positions per cache block (dense: max_len)
   int max_blocks;         // table width (dense: 1)
   int n_pool_blocks;      // pool blocks (dense: B)
+  int capacity;           // max_blocks * block_k
+  int n_splits;           // ceil(capacity / kSpan)
+  int chunks;             // ceil(G * S / kMaxRows)
   float scale;            // hd ** -0.5
   int vec;                // every K/V row 16-byte aligned: vector loads
 };
@@ -170,6 +182,63 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// What CTA (kv head blockIdx.x, sequence blockIdx.y, blockIdx.z =
+// split * chunks + chunk) works on. Chunk row c is row r = row0 + c of
+// the (head, query) order, r = g * S + i: query head kvh * G + g of
+// token i.
+struct Cta {
+  int kvh, b, G, S, row0, R, split, s0, base, capacity;
+
+  __device__ explicit Cta(const Params& p) {
+    kvh = blockIdx.x;
+    b = blockIdx.y;
+    G = p.n_heads / p.n_kv_heads;
+    S = p.s_q;
+    const int chunk = blockIdx.z % p.chunks;
+    split = blockIdx.z / p.chunks;
+    row0 = chunk * kMaxRows;
+    R = min(kMaxRows, G * S - row0);
+    s0 = split * kSpan;
+    base = p.lens[b] + p.len_offset;
+    capacity = p.capacity;
+  }
+  // Chunk row c attends positions < row_len(c), never past the table.
+  __device__ int row_len(int c) const {
+    return max(0, min(base + (row0 + c) % S, capacity));
+  }
+  // The longest row of the chunk: positions past it are never read.
+  __device__ int longest() const {
+    int cur = 0;
+    for (int c = 0; c < R; ++c) cur = max(cur, row_len(c));
+    return cur;
+  }
+  // Chunk row c's (b, i, h) index in [B, S, H].
+  __device__ size_t head_row(int c, int n_heads) const {
+    const int r = row0 + c;
+    const int g = r / S;
+    const int i = r - g * S;
+    return (static_cast<size_t>(b) * S + i) * n_heads +
+           static_cast<size_t>(kvh) * G + g;
+  }
+  // Chunk row c's partial of this split.
+  __device__ size_t part(int c, const Params& p) const {
+    return head_row(c, p.n_heads) * p.n_splits + split;
+  }
+};
+
+// A span that holds none of the chunk's positions: empty partials.
+__device__ void write_empty(const Params& p, const Cta& cta) {
+  const int hd = p.head_dim;
+  for (int i = threadIdx.x; i < cta.R * hd; i += kThreads) {
+    const int c = i / hd;
+    p.part_acc[cta.part(c, p) * hd + (i - c * hd)] = 0.f;
+  }
+  for (int c = threadIdx.x; c < cta.R; c += kThreads) {
+    p.part_ml[2 * cta.part(c, p)] = kNegInf;
+    p.part_ml[2 * cta.part(c, p) + 1] = 0.f;
+  }
+}
+
 size_t smem_bytes(int rows, int head_dim) {
   // rows[kTile] (int64) | q[R][hd] | acc[R][hd] | k[kTile][hd+1] |
   // v[kTile][hd+1] | p[kWarps][kTile] | m[R] | l[R]
@@ -178,20 +247,18 @@ size_t smem_bytes(int rows, int head_dim) {
           kWarps * kTile + 2 * rows) * sizeof(float);
 }
 
-// The body of all three kernels: CTA (kv head kvh, sequence b, row
-// chunk blockIdx.z). Chunk row c is row r = blockIdx.z * kMaxRows + c of
-// the (head, query) order, r = g * S + i: query head kvh * G + g of
-// token i.
+// The split body of all three kernels on the CUDA cores.
 template <typename TQ, typename TKV, bool PAGED>
 __device__ __forceinline__ void attention_body(const Params& p) {
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+  const Cta cta(p);
+  const int R = cta.R;
   const int hd = p.head_dim;
-  const int G = p.n_heads / p.n_kv_heads;
-  const int S = p.s_q;
-  const int row0 = blockIdx.z * kMaxRows;
-  const int R = min(kMaxRows, G * S - row0);  // rows of this chunk
+  const int s1 = min(cta.s0 + kSpan, cta.longest());
+  if (cta.s0 >= s1) {
+    write_empty(p, cta);
+    return;
+  }
   const int ld = hd + 1;  // padded tile row: conflict-free column reads
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -207,51 +274,34 @@ __device__ __forceinline__ void attention_body(const Params& p) {
   float* ms = ps + kWarps * kTile;
   float* ls = ms + R;
 
-  // Element offset of chunk row c's head vector in q and out.
-  auto head_offset = [&](int c) -> size_t {
-    const int r = row0 + c;
-    const int g = r / S;
-    const int i = r - g * S;
-    return ((static_cast<size_t>(b) * S + i) * p.n_heads +
-            static_cast<size_t>(kvh) * G + g) * hd;
-  };
-  const int capacity = PAGED ? p.max_blocks * p.block_k : p.block_k;
-  const int base = p.lens[b] + p.len_offset;
-  // Chunk row c attends positions < row_len(c), never past the table.
-  auto row_len = [&](int c) -> int {
-    return max(0, min(base + (row0 + c) % S, capacity));
-  };
-
   const TQ* q = static_cast<const TQ*>(p.q);
   for (int i = tid; i < R * hd; i += kThreads) {
     const int c = i / hd;
-    qs[i] = to_f32(q[head_offset(c) + (i - c * hd)]);
+    qs[i] = to_f32(q[cta.head_row(c, p.n_heads) * hd + (i - c * hd)]);
     acc[i] = 0.f;
   }
   for (int c = tid; c < R; c += kThreads) {
     ms[c] = kNegInf;
     ls[c] = 0.f;
   }
-  int cur = 0;  // the longest row: tiles past it are never read
-  for (int c = 0; c < R; ++c) cur = max(cur, row_len(c));
   const TKV* kc = static_cast<const TKV*>(p.k);
   const TKV* vc = static_cast<const TKV*>(p.v);
   __syncthreads();
 
-  for (int t0 = 0; t0 < cur; t0 += kTile) {
-    const int n = min(kTile, cur - t0);
+  for (int t0 = cta.s0; t0 < s1; t0 += kTile) {
+    const int n = min(kTile, s1 - t0);
     // Cache row of each live position in the tile (the only table
     // reads: positions past every row's length are never looked up).
     for (int t = tid; t < n; t += kThreads) {
       const int pos = t0 + t;
       long long row;
       if (PAGED) {
-        const int blk =
-            p.tables[static_cast<size_t>(b) * p.max_blocks + pos / p.block_k];
+        const int blk = p.tables[static_cast<size_t>(cta.b) * p.max_blocks +
+                                 pos / p.block_k];
         if (blk < 0 || blk >= p.n_pool_blocks) __trap();
         row = static_cast<long long>(blk) * p.block_k + pos % p.block_k;
       } else {
-        row = static_cast<long long>(b) * p.block_k + pos;
+        row = static_cast<long long>(cta.b) * p.block_k + pos;
       }
       rows[t] = row;
     }
@@ -266,7 +316,7 @@ __device__ __forceinline__ void attention_body(const Params& p) {
         const int t = c / chunks;
         const int d0 = (c - t * chunks) * V;
         const size_t hrow =
-            static_cast<size_t>(rows[t]) * p.n_kv_heads + kvh;
+            static_cast<size_t>(rows[t]) * p.n_kv_heads + cta.kvh;
         const uint4 kraw =
             *reinterpret_cast<const uint4*>(kc + hrow * hd + d0);
         const uint4 vraw =
@@ -294,7 +344,7 @@ __device__ __forceinline__ void attention_body(const Params& p) {
         const int t = i / hd;
         const int d = i - t * hd;
         const size_t hrow =
-            static_cast<size_t>(rows[t]) * p.n_kv_heads + kvh;
+            static_cast<size_t>(rows[t]) * p.n_kv_heads + cta.kvh;
         float kv = to_f32(kc[hrow * hd + d]);
         float vv = to_f32(vc[hrow * hd + d]);
         if (kQuant) {
@@ -311,7 +361,7 @@ __device__ __forceinline__ void attention_body(const Params& p) {
     for (int c = warp; c < R; c += kWarps) {
       // This row's live positions in the tile. None: its m, l and acc
       // stay as they are (the update would be correction 1, p 0).
-      const int nr = min(n, row_len(c) - t0);
+      const int nr = min(n, cta.row_len(c) - t0);
       if (nr <= 0) continue;
       const float* qg = qs + c * hd;
       float s[kTile / 32];
@@ -360,10 +410,13 @@ __device__ __forceinline__ void attention_body(const Params& p) {
     __syncthreads();
   }
 
-  TQ* out = static_cast<TQ*>(p.out);
   for (int i = tid; i < R * hd; i += kThreads) {
     const int c = i / hd;
-    store(out + head_offset(c) + (i - c * hd), acc[i] / fmaxf(ls[c], 1e-20f));
+    p.part_acc[cta.part(c, p) * hd + (i - c * hd)] = acc[i];
+  }
+  for (int c = tid; c < R; c += kThreads) {
+    p.part_ml[2 * cta.part(c, p)] = ms[c];
+    p.part_ml[2 * cta.part(c, p) + 1] = ls[c];
   }
 }
 
@@ -381,11 +434,61 @@ paged_verify_kernel(const Params p) {
   attention_body<TQ, TKV, true>(p);
 }
 
+// One warp per (b, i, h) row: the row's partials over the splits that
+// start below its length, merged in split order, normalised and cast.
+template <typename TQ>
+__global__ void __launch_bounds__(kThreads)
+combine_partials_kernel(const Params p) {
+  constexpr int kCols = kMaxHeadDim / 32;
+  const int lane = threadIdx.x & 31;
+  const size_t row =
+      static_cast<size_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= static_cast<size_t>(p.batch) * p.s_q * p.n_heads) return;
+  const int hd = p.head_dim;
+  const size_t bi = row / p.n_heads;
+  const int i = static_cast<int>(bi % p.s_q);
+  const int b = static_cast<int>(bi / p.s_q);
+  const int len =
+      max(0, min(p.lens[b] + p.len_offset + i, p.capacity));
+  const int n_live = (len + kSpan - 1) / kSpan;
+  const float* ml = p.part_ml + row * p.n_splits * 2;
+  const float* pa = p.part_acc + row * p.n_splits * hd;
+  float m = kNegInf;
+  for (int s = 0; s < n_live; ++s) m = fmaxf(m, ml[2 * s]);
+  float l = 0.f;
+  float acc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
+  for (int s = 0; s < n_live; ++s) {
+    const float w = expf(ml[2 * s] - m);
+    l = fmaf(ml[2 * s + 1], w, l);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int d = lane + 32 * j;
+      if (d < hd) acc[j] = fmaf(pa[s * hd + d], w, acc[j]);
+    }
+  }
+  TQ* out = static_cast<TQ*>(p.out) + row * hd;
+  const float denom = fmaxf(l, 1e-20f);
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int d = lane + 32 * j;
+    if (d < hd) store(out + d, acc[j] / denom);
+  }
+}
+
+template <typename TQ>
+int launch_combine(const Params& p, cudaStream_t stream) {
+  const size_t rows = static_cast<size_t>(p.batch) * p.s_q * p.n_heads;
+  const unsigned grid = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
+  combine_partials_kernel<TQ><<<grid, kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // mode: 0 dense decode, 1 paged decode, 2 paged verify.
 template <typename TQ, typename TKV>
 int launch(const Params& p, int mode, cudaStream_t stream) {
   const int rows = p.n_heads / p.n_kv_heads * p.s_q;
-  const int chunks = (rows + kMaxRows - 1) / kMaxRows;
   const size_t smem = smem_bytes(rows < kMaxRows ? rows : kMaxRows,
                                  p.head_dim);
   void (*kernel)(const Params) =
@@ -396,9 +499,11 @@ int launch(const Params& p, int mode, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.n_kv_heads, p.batch, chunks);
+  const dim3 grid(p.n_kv_heads, p.batch, p.chunks * p.n_splits);
   kernel<<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_combine<TQ>(p, stream);
 }
 
 template <typename TQ>
@@ -413,22 +518,35 @@ int dispatch_kv(const Params& p, int kv_dtype, int mode, cudaStream_t s) {
 
 }  // namespace
 
+// Positions per split: the wrapper sizes the workspace with it.
+extern "C" int skytorch_decode_attention_span() { return kSpan; }
+
 // tables == nullptr selects the dense cache (block_k = max_len,
 // max_blocks = 1, n_pool_blocks = batch); otherwise the paged pool.
 // verify != 0 (paged only) runs the verify kernel: lens holds each
 // sequence's first query position, and query i attends positions
 // <= lens[b] + i. Otherwise s_q must be 1 and lens holds cur_len.
+// part_acc [B, S, H, n_splits, hd] and part_ml [B, S, H, n_splits, 2]
+// (fp32, n_splits = ceil(max_blocks * block_k / span)) are the
+// workspace of the split partials.
 extern "C" int skytorch_decode_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* lens, const void* tables,
-    void* out, int q_dtype, int kv_dtype, int batch, int s_q, int n_heads,
-    int n_kv_heads, int head_dim, int block_k, int max_blocks,
-    int n_pool_blocks, int verify, float scale, void* stream) {
+    void* out, void* part_acc, void* part_ml, int q_dtype, int kv_dtype,
+    int batch, int s_q, int n_heads, int n_kv_heads, int head_dim,
+    int block_k, int max_blocks, int n_pool_blocks, int n_splits,
+    int verify, float scale, void* stream) {
   if (batch < 1 || batch > 65535 || s_q < 1 || n_kv_heads < 1 ||
       n_heads % n_kv_heads != 0 || head_dim < 1 ||
       head_dim > kMaxHeadDim || block_k < 1 || max_blocks < 1 ||
       (verify ? tables == nullptr : s_q != 1) ||
-      (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
+      (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr) ||
+      part_acc == nullptr || part_ml == nullptr)
+    return -1;
+  const long long capacity = static_cast<long long>(max_blocks) * block_k;
+  const int chunks = (n_heads / n_kv_heads * s_q + kMaxRows - 1) / kMaxRows;
+  if (capacity > (1LL << 30) || n_splits != (capacity + kSpan - 1) / kSpan ||
+      static_cast<long long>(chunks) * n_splits > 65535)
     return -1;
   Params p;
   p.q = q;
@@ -439,6 +557,8 @@ extern "C" int skytorch_decode_attention(
   p.lens = static_cast<const int32_t*>(lens);
   p.tables = static_cast<const int32_t*>(tables);
   p.out = out;
+  p.part_acc = static_cast<float*>(part_acc);
+  p.part_ml = static_cast<float*>(part_ml);
   p.batch = batch;
   p.s_q = s_q;
   p.len_offset = verify ? 1 : 0;
@@ -448,6 +568,9 @@ extern "C" int skytorch_decode_attention(
   p.block_k = block_k;
   p.max_blocks = max_blocks;
   p.n_pool_blocks = n_pool_blocks;
+  p.capacity = static_cast<int>(capacity);
+  p.n_splits = n_splits;
+  p.chunks = chunks;
   p.scale = scale;
   const int elem_bytes = kv_dtype == kF32 ? 4 : kv_dtype == kBF16 ? 2 : 1;
   p.vec = (head_dim * elem_bytes) % 16 == 0 &&

@@ -41,6 +41,9 @@ IMPLS = ('kernel', 'plain')
 
 # Limit of the CUDA kernels (csrc/decode_attention.cu).
 MAX_HEAD_DIM = 256
+# Cache positions per split of the kernels (their kSpan): a row's
+# positions [j * SPLIT_SPAN, (j + 1) * SPLIT_SPAN) go to split j.
+SPLIT_SPAN = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -146,6 +149,70 @@ def paged_verify_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return grouped_attention_plain(q, k, v, mask, ks, vs)
 
 
+def split_partials_plain(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, row_len: torch.Tensor,
+                         k_scale: Optional[torch.Tensor] = None,
+                         v_scale: Optional[torch.Tensor] = None,
+                         span: int = SPLIT_SPAN):
+    """Plain twin of the kernels' split partials (tests only; the
+    serving path never calls it): q [B,S,H,hd] against a per-sequence
+    cache [B,T,Hkv,hd] (int8 with fp32 scales [B,T,Hkv]), row (b, i)
+    attending positions ``< row_len[b, i]`` → (m, l [B,S,H,n], acc
+    [B,S,H,n,hd]) in fp32, n = ceil(T / span). Split j covers positions
+    [j * span, (j + 1) * span): its largest logit m, l = sum exp(logit -
+    m) and acc = sum exp(logit - m) v over the row's live positions
+    there; a split with none gives (NEG_INF, 0, 0)."""
+    b, s, h, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale[..., None]
+        vf = vf * v_scale[..., None]
+    logits = torch.einsum('bskgd,btkd->bskgt',
+                          q.float().reshape(b, s, hkv, g, hd), kf)
+    logits = logits.reshape(b, s, h, t) * hd**-0.5
+    live = (torch.arange(t, device=q.device)[None, None, :] <
+            row_len.to(q.device)[:, :, None])[:, :, None, :]  # [B,S,1,T]
+    ms, ls, accs = [], [], []
+    for j in range(-(-t // span)):
+        sl = slice(j * span, min((j + 1) * span, t))
+        lg, lv = logits[..., sl], live[..., sl]
+        m = torch.where(lv, lg, NEG_INF).amax(-1)
+        p = torch.where(lv, torch.exp(lg - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum('bskgt,btkd->bskgd',
+                                 p.reshape(b, s, hkv, g, -1),
+                                 vf[:, sl]).reshape(b, s, h, hd))
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+
+
+def combine_partials_plain(m: torch.Tensor, l: torch.Tensor,
+                           acc: torch.Tensor, row_len: torch.Tensor,
+                           dtype: torch.dtype,
+                           span: int = SPLIT_SPAN) -> torch.Tensor:
+    """Plain twin of the combine kernel: partials (m, l [B,S,H,n], acc
+    [B,S,H,n,hd]) → [B,S,H,hd] in ``dtype``. Row (b, i) reduces only
+    its splits that start below ``row_len[b, i]``, in split order: m* =
+    max m_j, l* = sum l_j exp(m_j - m*), out = sum acc_j exp(m_j - m*) /
+    max(l*, 1e-20). A row of length 0 comes out exactly zero."""
+    n = m.shape[-1]
+    n_live = (row_len.to(m.device).long() + span - 1) // span     # [B,S]
+    live = (torch.arange(n, device=m.device)[None, None, :] <
+            n_live[:, :, None])[:, :, None, :].expand_as(m)
+    m_max = torch.where(live, m, NEG_INF).amax(-1)
+    out_l = torch.zeros_like(m_max)
+    out_acc = torch.zeros_like(acc[..., 0, :])
+    for j in range(n):   # a dead split's values are never used
+        lj = live[..., j]
+        w = torch.exp(m[..., j] - m_max)
+        out_l = out_l + torch.where(lj, l[..., j] * w, 0.0)
+        out_acc = out_acc + torch.where(lj[..., None],
+                                        acc[..., j, :] * w[..., None], 0.0)
+    return (out_acc / out_l.clamp_min(1e-20)[..., None]).to(dtype)
+
+
 # ----------------------------------------------------------------- kernel
 
 
@@ -189,19 +256,40 @@ def _check(q, k, v, k_scale, v_scale, one_query: bool = True):
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The C launcher (built and loaded at first use), typed for ctypes:
-    pointers and the stream as c_void_p, sizes as c_int."""
-    fn = cuda_build.load('decode_attention').skytorch_decode_attention
+    pointers and the stream as c_void_p, sizes as c_int. Refuses a
+    library whose split span is not :data:`SPLIT_SPAN`."""
+    lib = cuda_build.load('decode_attention')
+    if lib.skytorch_decode_attention_span() != SPLIT_SPAN:
+        raise RuntimeError(f'decode attention library splits every '
+                           f'{lib.skytorch_decode_attention_span()} '
+                           f'positions, the wrapper {SPLIT_SPAN}')
+    fn = lib.skytorch_decode_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 +
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 +
                    [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
+def n_splits(capacity: int, span: int = SPLIT_SPAN) -> int:
+    """Splits of a row that can attend ``capacity`` positions (the
+    table's width, or the dense cache's max_len)."""
+    return -(-capacity // span)
+
+
 def _launch(q, k, v, k_scale, v_scale, lens, tables, block_k,
-            max_blocks, n_pool_blocks, verify=False):
+            max_blocks, n_pool_blocks, verify=False, partials=None):
+    """One launcher call: the split kernel, then the combine kernel, on
+    the current stream. ``partials`` (a dict, tests only) receives the
+    workspace: ``m``, ``l`` [B,S,H,n_splits] and ``acc``
+    [B,S,H,n_splits,hd], fp32."""
     fn = _entry()
     b, s_q, h, hd = q.shape
     out = torch.empty_like(q)
+    splits = n_splits(block_k * max_blocks)
+    part_acc = torch.empty((b, s_q, h, splits, hd), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, s_q, h, splits, 2), dtype=torch.float32,
+                          device=q.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -209,13 +297,16 @@ def _launch(q, k, v, k_scale, v_scale, lens, tables, block_k,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(ptr(q), ptr(k), ptr(v), ptr(k_scale), ptr(v_scale),
-                 ptr(lens), ptr(tables), ptr(out),
-                 _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], b, s_q, h,
-                 k.shape[2], hd, block_k, max_blocks, n_pool_blocks,
-                 int(verify), hd**-0.5, stream)
+                 ptr(lens), ptr(tables), ptr(out), ptr(part_acc),
+                 ptr(part_ml), _DTYPE_CODES[q.dtype],
+                 _DTYPE_CODES[k.dtype], b, s_q, h, k.shape[2], hd, block_k,
+                 max_blocks, n_pool_blocks, splits, int(verify), hd**-0.5,
+                 stream)
     if err != 0:
         raise RuntimeError(f'decode attention kernel launch failed '
                            f'(code {err})')
+    if partials is not None:
+        partials.update(m=part_ml[..., 0], l=part_ml[..., 1], acc=part_acc)
     return out
 
 

@@ -229,6 +229,126 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         tda.decode_attention_kernel(*_t(q, k, v), torch.tensor([3]))
 
 
+# ------------------------------------------------- split and combine (CPU)
+
+
+def _row_lengths(start, s, capacity):
+    """Verify row (b, i) attends positions < start[b] + 1 + i, never past
+    the table: the rule of the kernels' combine."""
+    return (start[:, None].long() + 1 +
+            torch.arange(s)[None, :]).clamp(0, capacity)
+
+
+def _split_case(seed, b=3, s=5, h=4, hkv=2, hd=16, block_k=64, n_bt=10):
+    """A shuffled fp32 pool whose tables span n_bt * block_k = 640
+    positions: 2.5 splits of SPLIT_SPAN."""
+    rng = np.random.RandomState(seed)
+    n_blocks = b * n_bt + 1
+    q = rng.randn(b, s, h, hd).astype(np.float32)
+    k = rng.randn(n_blocks, block_k, hkv, hd).astype(np.float32)
+    v = rng.randn(n_blocks, block_k, hkv, hd).astype(np.float32)
+    tables = (rng.permutation(b * n_bt) + 1).reshape(b, n_bt)
+    return q, k, v, tables.astype(np.int32)
+
+
+def _split_then_combine(q, kp, vp, bt, start, ks=None, vs=None,
+                        span=tda.SPLIT_SPAN):
+    k, v, gks, gvs = tda.gather_paged_kv(kp, vp, bt, ks, vs)
+    row_len = _row_lengths(start, q.shape[1], k.shape[1])
+    parts = tda.split_partials_plain(q, k, v, row_len, gks, gvs, span)
+    return tda.combine_partials_plain(*parts, row_len, q.dtype, span)
+
+
+# Row lengths start + 1 + i at the split edges of SPLIT_SPAN 256: 1-5,
+# 255-259 (kSpan - 1, kSpan, kSpan + 1), 512-516 (2 kSpan + 1) and
+# 637-641, capped at the table's full width 640.
+@pytest.mark.parametrize('starts', [(0, 254, 511), (636, 255, 253),
+                                    (511, 0, 636)])
+@pytest.mark.parametrize('span', [tda.SPLIT_SPAN, 64])
+def test_split_then_combine_matches_verify_twin_and_reference(ref, starts,
+                                                              span):
+    """The kernels' split partials and combine, as plain twins, give the
+    verify twin and the reference's XLA verify at fp32."""
+    q, k, v, bt = _split_case(20)
+    start = np.array(starts, np.int32)
+    args = _t(q, k, v, bt, start)
+    out = _split_then_combine(*args, span=span)
+    _close(out, tda.paged_verify_attention_plain(*args))
+    _close(out, ref.da.paged_verify_attention_xla(
+        *(ref.jnp.asarray(a) for a in (q, k, v, bt, start))))
+
+
+def test_split_then_combine_int8_matches_reference(ref):
+    q, k, v, bt = _split_case(21, s=3)
+    start = np.array([255, 510, 637], np.int32)
+    kq, ks = (np.asarray(a) for a in ref.quant.quantize_kv(
+        ref.jnp.asarray(k)))
+    vq, vs = (np.asarray(a) for a in ref.quant.quantize_kv(
+        ref.jnp.asarray(v)))
+    arrays = (q, kq, vq, bt, start, ks, vs)
+    out = _split_then_combine(*_t(*arrays))
+    _close(out, ref.da.paged_verify_attention_xla(
+        *(ref.jnp.asarray(a) for a in arrays)), INT8_ATOL, INT8_RTOL)
+    _close(out, tda.paged_verify_attention_plain(*_t(*arrays)), INT8_ATOL,
+           INT8_RTOL)
+
+
+@pytest.mark.parametrize('cur_lens', [(0, 1, 255), (256, 257, 513),
+                                      (640, 300, 0)])
+def test_split_then_combine_one_query_is_the_decode_twin(ref, cur_lens):
+    """S = 1: the split path at start = cur_len - 1 is the paged and
+    dense decode twins at cur_len (a length-0 row comes out zero)."""
+    q, k, v, bt = _split_case(22, s=1)
+    cur = np.array(cur_lens, np.int32)
+    tq, tk, tv, tbt, tc = _t(q, k, v, bt, cur)
+    out = _split_then_combine(tq, tk, tv, tbt, tc - 1)
+    _close(out, tda.paged_decode_attention_plain(tq, tk, tv, tbt, tc))
+    kd, vd, _, _ = tda.gather_paged_kv(tk, tv, tbt)
+    _close(out, tda.decode_attention_plain(tq, kd, vd, tc))
+    _close(out, ref.da.decode_attention_xla(
+        *(ref.jnp.asarray(a) for a in (q, kd.numpy(), vd.numpy(), cur))))
+    for row, n in enumerate(cur_lens):
+        if n == 0:
+            assert float(out[row].abs().max()) == 0.0
+
+
+def test_split_partials_of_one_split_are_its_softmax_pieces():
+    """A row that fits one split: m is its largest logit, acc / l its
+    attention output; the splits past it are empty (NEG_INF, 0, 0)."""
+    q, k, v, bt = _split_case(23, b=1, s=1)
+    tq, tk, tv, tbt = _t(q, k, v, bt)
+    kd, vd, _, _ = tda.gather_paged_kv(tk, tv, tbt)
+    row_len = torch.tensor([[200]])
+    m, l, acc = tda.split_partials_plain(tq, kd, vd, row_len)
+    assert m.shape == (1, 1, 4, 3) and acc.shape == (1, 1, 4, 3, 16)
+    logits = torch.einsum('bshd,bthd->bsht', tq,
+                          t_attention.repeat_kv(kd, 2)[:, :200]) * 16**-0.5
+    _close(m[..., 0], logits.amax(-1))
+    _close(acc[..., 0, :] / l[..., 0, None],
+           tda.decode_attention_plain(tq, kd, vd, torch.tensor([200])))
+    assert torch.all(m[..., 1:] == tda.NEG_INF)
+    assert torch.all(l[..., 1:] == 0) and torch.all(acc[..., 1:, :] == 0)
+
+
+def test_combine_reads_no_split_past_the_row_length():
+    """Partials of splits that start at or past a row's length are never
+    read: NaN there leaves the output as it was."""
+    q, k, v, bt = _split_case(24, s=2)
+    tq, tk, tv, tbt = _t(q, k, v, bt)
+    kd, vd, _, _ = tda.gather_paged_kv(tk, tv, tbt)
+    row_len = torch.tensor([[255, 256], [257, 300], [0, 640]])
+    m, l, acc = tda.split_partials_plain(tq, kd, vd, row_len)
+    want = tda.combine_partials_plain(m, l, acc, row_len, torch.float32)
+    dead = (torch.arange(3)[None, None, :] * tda.SPLIT_SPAN >=
+            row_len[:, :, None])[:, :, None, :].expand_as(m)
+    m, l = m.masked_fill(dead, float('nan')), l.masked_fill(dead,
+                                                            float('nan'))
+    acc = acc.masked_fill(dead[..., None], float('nan'))
+    got = tda.combine_partials_plain(m, l, acc, row_len, torch.float32)
+    assert torch.equal(got, want)
+    assert float(got[2, 0].abs().max()) == 0.0
+
+
 # ------------------------------------------------------------------- cuda
 
 
@@ -386,3 +506,127 @@ def test_cuda_verify_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match='block_tables'):
         tda.paged_verify_attention_kernel(q, pools[0], pools[1],
                                           tables.cpu(), start)
+
+
+# Split edges of the kernels' fixed span, and the table's full width
+# (640 = 2.5 spans: the last split is cut by the capacity).
+SPAN = tda.SPLIT_SPAN
+SPLIT_EDGE_LENS = [0, 1, SPAN - 1, SPAN, SPAN + 1, 2 * SPAN + 1, 640]
+_SPLIT_CASES = [(torch.bfloat16, False), (torch.bfloat16, True),
+                (torch.float32, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [128, 64, 36])
+@pytest.mark.parametrize('dtype,int8', _SPLIT_CASES)
+def test_cuda_dense_kernel_at_split_edges(cuda, hd, dtype, int8):
+    """Dense decode at every split edge against its twin, and two
+    launches bitwise equal (hd 36 takes the CUDA-core body)."""
+    q, k, v = _cuda_case(cuda, 5, b=len(SPLIT_EDGE_LENS), t=640, h=8,
+                         hkv=2, hd=hd, dtype=dtype)
+    cur = torch.tensor(SPLIT_EDGE_LENS, device=cuda)
+    scales = ()
+    if int8:
+        k, ks = tquant.quantize_kv(k)
+        v, vs = tquant.quantize_kv(v)
+        scales = (ks, vs)
+    out = tda.decode_attention_kernel(q, k, v, cur, *scales)
+    again = tda.decode_attention_kernel(q, k, v, cur, *scales)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert float(out[0].abs().max()) == 0.0
+    ref_out = tda.decode_attention_plain(q, k, v, cur, *scales)
+    tol = max(_CUDA_TOL[dtype], INT8_ATOL if int8 else 0.0)
+    _close(out.float().cpu(), ref_out.float().cpu(), tol, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('int8', [False, True])
+def test_cuda_paged_kernel_at_split_edges(cuda, int8):
+    q, pools, tables = _verify_cuda_case(
+        cuda, 6, b=len(SPLIT_EDGE_LENS), s=1, h=32, hkv=8, hd=128,
+        block_k=64, max_blocks=10, dtype=torch.bfloat16, int8=int8)
+    cur = torch.tensor(SPLIT_EDGE_LENS, device=cuda)
+    out = tda.paged_decode_attention_kernel(q, pools[0], pools[1], tables,
+                                            cur, *pools[2:])
+    again = tda.paged_decode_attention_kernel(q, pools[0], pools[1],
+                                              tables, cur, *pools[2:])
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert float(out[0].abs().max()) == 0.0
+    ref_out = tda.paged_decode_attention_plain(q, pools[0], pools[1],
+                                               tables, cur, *pools[2:])
+    _close(out.float().cpu(), ref_out.float().cpu(),
+           _CUDA_TOL[torch.bfloat16], _CUDA_TOL[torch.bfloat16])
+
+
+# Verify rows start + 1 + i cross the split edges 256 and 512 and run
+# into the table's width 640.
+SPLIT_EDGE_STARTS = [0, SPAN - 3, SPAN - 1, 2 * SPAN - 4, 2 * SPAN, 638]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('s', [1, 5, 9, 17])
+@pytest.mark.parametrize('dtype,int8', _SPLIT_CASES)
+def test_cuda_verify_kernel_at_split_edges(cuda, s, dtype, int8):
+    """S up to 17 (G 4: 68 rows, five row chunks): the twin rule, two
+    launches bitwise equal, and query i bitwise equal to the paged
+    decode kernel at cur_len = start + i + 1."""
+    q, pools, tables = _verify_cuda_case(
+        cuda, 7, b=len(SPLIT_EDGE_STARTS), s=s, h=16, hkv=4, hd=128,
+        block_k=64, max_blocks=10, dtype=dtype, int8=int8)
+    start = torch.tensor(SPLIT_EDGE_STARTS, dtype=torch.int32, device=cuda)
+    args = (q, pools[0], pools[1], tables, start, *pools[2:])
+    out = tda.paged_verify_attention_kernel(*args)
+    again = tda.paged_verify_attention_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    err, msg = chip_smoke.twin_error(
+        out, tda.paged_verify_attention_plain(*args),
+        'fp32' if dtype == torch.float32 else 'bf16')
+    assert err is None, msg
+    for i in range(s):
+        dec = tda.paged_decode_attention_kernel(
+            q[:, i:i + 1].contiguous(), pools[0], pools[1], tables,
+            start + i + 1, *pools[2:])
+        assert torch.equal(out[:, i:i + 1], dec), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,int8', _SPLIT_CASES)
+def test_cuda_partials_and_combine_match_their_twins(cuda, dtype, int8):
+    """The split kernel's workspace against split_partials_plain on the
+    live splits, and the output against combine_partials_plain on the
+    kernel's own partials."""
+    s, block_k, max_blocks = 5, 64, 10
+    q, pools, tables = _verify_cuda_case(
+        cuda, 8, b=len(SPLIT_EDGE_STARTS), s=s, h=16, hkv=4, hd=128,
+        block_k=block_k, max_blocks=max_blocks, dtype=dtype, int8=int8)
+    start = torch.tensor(SPLIT_EDGE_STARTS, dtype=torch.int32, device=cuda)
+    scales = pools[2:] if int8 else (None, None)
+    parts = {}
+    out = tda._launch(q, pools[0], pools[1], *scales, start, tables,
+                      block_k=block_k, max_blocks=max_blocks,
+                      n_pool_blocks=pools[0].shape[0], verify=True,
+                      partials=parts)
+    torch.cuda.synchronize()
+    cap = block_k * max_blocks
+    row_len = (start[:, None].long() + 1 +
+               torch.arange(s, device=cuda)[None, :]).clamp(0, cap)
+    rule = 'fp32' if dtype == torch.float32 else 'bf16'
+    err, msg = chip_smoke.twin_error(
+        out, tda.combine_partials_plain(parts['m'], parts['l'],
+                                        parts['acc'], row_len, dtype),
+        rule)
+    assert err is None, msg
+    k, v, ks, vs = tda.gather_paged_kv(pools[0], pools[1], tables,
+                                       *pools[2:])
+    m, l, acc = tda.split_partials_plain(q, k, v, row_len, ks, vs)
+    live = (torch.arange(m.shape[-1], device=cuda)[None, None, :] * SPAN <
+            row_len[:, :, None])[:, :, None, :].expand_as(m)
+    _close(parts['m'][live].cpu(), m[live].cpu(), 1e-4, 1e-5)
+    _close(parts['l'][live].cpu(), l[live].cpu(), 1e-4, 1e-4)
+    err, msg = chip_smoke.twin_error(
+        parts['acc'][live] / parts['l'][live][:, None],
+        acc[live] / l[live][:, None], rule)
+    assert err is None, msg
