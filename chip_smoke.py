@@ -196,12 +196,11 @@ def fail(msg: str) -> None:
     raise SystemExit(f'chip_smoke: FAILED: {msg}')
 
 
-def wgmma_sass_check(cuda_build) -> None:
-    """The bf16 flash forward's products must be wgmma: every kernel in
-    its built library holds HGMMA instructions (cuobjdump, beside
-    nvcc)."""
+def sass_counts(cuda_build, lib_name, opcode):
+    """{kernel (mangled name): instructions of ``opcode``} in the built
+    library's SASS (cuobjdump, beside nvcc)."""
     tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), 'cuobjdump')
-    lib = cuda_build.library_path('flash_forward_wgmma')
+    lib = cuda_build.library_path(lib_name)
     sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts, fn = {}, None
@@ -209,12 +208,50 @@ def wgmma_sass_check(cuda_build) -> None:
         if 'Function :' in line:
             fn = line.split('Function :')[1].strip()
             counts[fn] = 0
-        elif fn is not None and 'HGMMA' in line:
+        elif fn is not None and opcode in line:
             counts[fn] += 1
-    print(f'[build] HGMMA instructions per kernel of {lib.name}: {counts}',
+    return counts
+
+
+def wgmma_sass_check(cuda_build) -> None:
+    """The bf16 flash forward's products must be wgmma: every kernel in
+    its built library holds HGMMA instructions."""
+    counts = sass_counts(cuda_build, 'flash_forward_wgmma', 'HGMMA')
+    print(f'[build] HGMMA instructions per kernel of '
+          f'{cuda_build.library_path("flash_forward_wgmma").name}: {counts}',
           flush=True)
     if not counts or not all(counts.values()):
         fail('the bf16 flash forward has a kernel without HGMMA')
+
+
+# The tensor-core instantiations the serving path runs (bf16 q, hd 128):
+# dense decode, paged decode and verify over bf16 and int8 (mangled
+# 'a') K/V, as mangled-name fragments.
+DECODE_MMA_KERNELS = [f'{kernel}I{kv}Li128E{flag}'
+                      for kv in ('13__nv_bfloat16', 'a')
+                      for kernel, flag in (
+                          ('decode_attention_mma_kernel', 'Lb0E'),
+                          ('decode_attention_mma_kernel', 'Lb1E'),
+                          ('paged_verify_mma_kernel', 'EEv'))]
+
+
+def hmma_sass_check(cuda_build) -> None:
+    """The decode library's bf16 bodies must run on mma.sync: every
+    ``*_mma_kernel`` holds HMMA instructions, and the dense decode, paged
+    decode and verify kernels at hd 128 over bf16 and int8 K/V exist."""
+    counts = sass_counts(cuda_build, 'decode_attention', 'HMMA')
+    mma = {fn: n for fn, n in counts.items() if 'mma_kernel' in fn}
+    short = {fn[min(fn.find(k) for k in ('decode_attention_mma',
+                                          'paged_verify_mma') if k in fn):]:
+             n for fn, n in mma.items()}
+    print(f'[build] HMMA instructions per tensor-core kernel of '
+          f'{cuda_build.library_path("decode_attention").name}: {short}',
+          flush=True)
+    missing = [want for want in DECODE_MMA_KERNELS
+               if not any(want in fn and n for fn, n in mma.items())]
+    if missing or not all(mma.values()):
+        fail(f'a bf16 decode/verify kernel has no HMMA: missing {missing}, '
+             f'counts {short}')
 
 
 def smi_line() -> str:
@@ -1477,6 +1514,7 @@ def main() -> int:
         log = cuda_build.library_path(lib).with_suffix('.log')
         print(log.read_text(errors='replace').strip(), flush=True)
     wgmma_sass_check(cuda_build)
+    hmma_sass_check(cuda_build)
 
     def phase_done(label):
         print(f'[time] {label} done at {time.perf_counter() - t_start:.1f}s',

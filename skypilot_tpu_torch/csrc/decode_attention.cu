@@ -434,6 +434,331 @@ paged_verify_kernel(const Params p) {
   attention_body<TQ, TKV, true>(p);
 }
 
+// ------------------------------------------------ tensor-core body (bf16 q)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l names row l % 8 of
+// matrix l / 8. trans: each thread gets the transposed pairs.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a * b on the tensor cores: m16n8k16, bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16 bytes of cache elements → bf16 in shared memory (int8 is exact).
+__device__ __forceinline__ void put_bf16(__nv_bfloat16* dst, const uint4& r,
+                                         __nv_bfloat16) {
+  *reinterpret_cast<uint4*>(dst) = r;
+}
+__device__ __forceinline__ void put_bf16(__nv_bfloat16* dst, const uint4& r,
+                                         int8_t) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&r);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = pack_bf16(static_cast<float>(c[2 * i]),
+                     static_cast<float>(c[2 * i + 1]));
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+size_t mma_smem_bytes(int head_dim) {
+  // rows[kTile] (int64) | k scale[kTile] | v scale[kTile] |
+  // q[kMaxRows][hd+8] | k[kTile][hd+8] | v[kTile][hd+8] (bf16) |
+  // (m, l)[kWarps][kMaxRows] | weights[kMaxRows][kWarps]
+  return kTile * sizeof(long long) + 2 * kTile * sizeof(float) +
+         (kMaxRows + 2 * kTile) * (head_dim + 8) * sizeof(__nv_bfloat16) +
+         3 * kWarps * kMaxRows * sizeof(float);
+}
+
+// The split body for bf16 q over bf16 or int8 K/V on the tensor cores,
+// head_dim % 16 == 0, head_dim <= HD_MAX. The chunk's rows are one m16
+// tile (rows past R zero). Warp w owns positions [16w, 16w + 16) of
+// every tile and keeps its own online softmax (m, l, acc) for each row:
+// S = Q K^T is two m16n8k16 n-tiles over hd, P (exp(S - m), times the
+// position's V scale for int8, rounded to bf16) is S's accumulator
+// reused as the A fragment, and O += P V runs hd / 8 n-tiles. K and V
+// sit in shared memory as bf16 (int8 converts exactly; its K scale
+// multiplies the logit). At the end of the span the four warps' states
+// merge in warp order into the row's partial.
+template <typename TKV, int HD_MAX, bool PAGED>
+__device__ __forceinline__ void mma_body(const Params& p) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  constexpr int kNT = HD_MAX / 8;
+  const Cta cta(p);
+  const int R = cta.R;
+  const int hd = p.head_dim;
+  const int s1 = min(cta.s0 + kSpan, cta.longest());
+  if (cta.s0 >= s1) {
+    write_empty(p, cta);
+    return;
+  }
+  const int ld = hd + 8;  // padded bf16 row: conflict-free ldmatrix
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;   // fragment rows g and g + 8
+  const int t4 = lane & 3;   // fragment columns 2 t4, 2 t4 + 1
+  const int pw = warp * 16;  // this warp's positions in each tile
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  long long* rows = reinterpret_cast<long long*>(smem_raw);
+  float* ksc = reinterpret_cast<float*>(rows + kTile);
+  float* vsc = ksc + kTile;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(vsc + kTile);
+  __nv_bfloat16* ks = qs + kMaxRows * ld;
+  __nv_bfloat16* vs = ks + kTile * ld;
+  float* mls = reinterpret_cast<float*>(vs + kTile * ld);
+  float* wts = mls + 2 * kWarps * kMaxRows;
+  float* accs = reinterpret_cast<float*>(ks);  // after the tiles
+
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
+  for (int i = tid; i < kMaxRows * hd; i += kThreads) {
+    const int c = i / hd;
+    const int d = i - c * hd;
+    qs[c * ld + d] = c < R ? q[cta.head_row(c, p.n_heads) * hd + d]
+                           : __float2bfloat16(0.f);
+  }
+  const int len[2] = {g < R ? cta.row_len(g) : 0,
+                      g + 8 < R ? cta.row_len(g + 8) : 0};
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};
+  float o[kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  const TKV* kc = static_cast<const TKV*>(p.k);
+  const TKV* vc = static_cast<const TKV*>(p.v);
+
+  for (int t0 = cta.s0; t0 < s1; t0 += kTile) {
+    const int n = min(kTile, s1 - t0);
+    // Cache row (and int8 scales) of each live position in the tile.
+    for (int t = tid; t < kTile; t += kThreads) {
+      if (t < n) {
+        const int pos = t0 + t;
+        long long row;
+        if (PAGED) {
+          const int blk = p.tables[static_cast<size_t>(cta.b) *
+                                   p.max_blocks + pos / p.block_k];
+          if (blk < 0 || blk >= p.n_pool_blocks) __trap();
+          row = static_cast<long long>(blk) * p.block_k + pos % p.block_k;
+        } else {
+          row = static_cast<long long>(cta.b) * p.block_k + pos;
+        }
+        rows[t] = row;
+        if (kQuant) {
+          const size_t hrow = static_cast<size_t>(row) * p.n_kv_heads +
+                              cta.kvh;
+          ksc[t] = p.k_scale[hrow];
+          vsc[t] = p.v_scale[hrow];
+        }
+      } else if (kQuant) {
+        ksc[t] = 0.f;
+        vsc[t] = 0.f;
+      }
+    }
+    __syncthreads();
+    // K/V rows → bf16 shared memory; positions t >= n are zero (never
+    // live, and 0 * V must stay 0).
+    if (p.vec) {
+      constexpr int V = 16 / sizeof(TKV);
+      const int chunks = hd / V;
+      for (int c = tid; c < kTile * chunks; c += kThreads) {
+        const int t = c / chunks;
+        const int d0 = (c - t * chunks) * V;
+        uint4 kraw = make_uint4(0, 0, 0, 0), vraw = kraw;
+        if (t < n) {
+          const size_t hrow =
+              static_cast<size_t>(rows[t]) * p.n_kv_heads + cta.kvh;
+          kraw = *reinterpret_cast<const uint4*>(kc + hrow * hd + d0);
+          vraw = *reinterpret_cast<const uint4*>(vc + hrow * hd + d0);
+        }
+        put_bf16(ks + t * ld + d0, kraw, TKV());
+        put_bf16(vs + t * ld + d0, vraw, TKV());
+      }
+    } else {
+      for (int i = tid; i < kTile * hd; i += kThreads) {
+        const int t = i / hd;
+        const int d = i - t * hd;
+        float kv = 0.f, vv = 0.f;
+        if (t < n) {
+          const size_t hrow =
+              static_cast<size_t>(rows[t]) * p.n_kv_heads + cta.kvh;
+          kv = to_f32(kc[hrow * hd + d]);
+          vv = to_f32(vc[hrow * hd + d]);
+        }
+        ks[t * ld + d] = __float2bfloat16(kv);
+        vs[t * ld + d] = __float2bfloat16(vv);
+      }
+    }
+    __syncthreads();
+
+    // S = Q K^T over this warp's 16 positions: s[nt] covers positions
+    // pw + 8 nt + [0, 8).
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < HD_MAX; kk += 16) {
+      if (kk >= hd) break;
+      uint32_t a[4], b[4];
+      ldmatrix_x4(a, qs + (lane & 15) * ld + kk + (lane >> 4) * 8);
+      ldmatrix_x4(b, ks + (pw + ((lane >> 4) << 3) + (lane & 7)) * ld +
+                         kk + ((lane >> 3) & 1) * 8);
+      mma_bf16(s[0], a, b[0], b[1]);
+      mma_bf16(s[1], a, b[2], b[3]);
+    }
+    // Logits, masked by each row's own length; the block max per row.
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = pw + nt * 8 + 2 * t4 + (e & 1);
+        float x = s[nt][e];
+        if (kQuant) x *= ksc[t];
+        x *= p.scale;
+        s[nt][e] = t0 + t < len[e >> 1] ? x : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+    float corr[2], safe[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_r[h], mx[h]);
+      safe[h] = m_new == kNegInf ? 0.f : m_new;
+      corr[h] = m_r[h] == kNegInf ? 0.f : expf(m_r[h] - safe[h]);
+      m_r[h] = m_new;
+    }
+    // P = exp(S - m) for live positions, 0 elsewhere; V's int8 scale
+    // folds in before P is rounded to bf16 (l sums the unscaled P).
+    uint32_t a[4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = pw + nt * 8 + 2 * t4 + (e & 1);
+        const int h = e >> 1;
+        const float pe = t0 + t < len[h] ? expf(s[nt][e] - safe[h]) : 0.f;
+        psum[h] += pe;
+        pv[e] = kQuant ? pe * vsc[t] : pe;
+      }
+      a[2 * nt] = pack_bf16(pv[0], pv[1]);
+      a[2 * nt + 1] = pack_bf16(pv[2], pv[3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 1);
+      psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 2);
+      l_r[h] = l_r[h] * corr[h] + psum[h];
+    }
+    // a is the m16n8k16 A fragment of P: (g, positions 0-7), (g + 8,
+    // 0-7), (g, 8-15), (g + 8, 8-15), two columns a lane.
+#pragma unroll
+    for (int nt = 0; nt < kNT; nt += 2) {
+      if (nt * 8 >= hd) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[nt][e] *= corr[e >> 1];
+        o[nt + 1][e] *= corr[e >> 1];
+      }
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vs + (pw + (lane & 15)) * ld + nt * 8 +
+                               (lane >> 4) * 8);
+      mma_bf16(o[nt], a, b[0], b[1]);
+      mma_bf16(o[nt + 1], a, b[2], b[3]);
+    }
+    __syncthreads();
+  }
+
+  // Merge the warps' states in warp order into each row's partial.
+  if (t4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mls[2 * (warp * kMaxRows + g + 8 * h)] = m_r[h];
+      mls[2 * (warp * kMaxRows + g + 8 * h) + 1] = l_r[h];
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    if (nt * 8 >= hd) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      accs[(warp * kMaxRows + g + 8 * (e >> 1)) * hd + nt * 8 + 2 * t4 +
+           (e & 1)] = o[nt][e];
+  }
+  __syncthreads();
+  if (tid < R) {
+    const int c = tid;
+    float m = kNegInf;
+    for (int w = 0; w < kWarps; ++w)
+      m = fmaxf(m, mls[2 * (w * kMaxRows + c)]);
+    float l = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = expf(mls[2 * (w * kMaxRows + c)] - m);
+      wts[c * kWarps + w] = wt;
+      l = fmaf(mls[2 * (w * kMaxRows + c) + 1], wt, l);
+    }
+    p.part_ml[2 * cta.part(c, p)] = m;
+    p.part_ml[2 * cta.part(c, p) + 1] = l;
+  }
+  __syncthreads();
+  for (int i = tid; i < R * hd; i += kThreads) {
+    const int c = i / hd;
+    const int d = i - c * hd;
+    float acc = 0.f;
+    for (int w = 0; w < kWarps; ++w)
+      acc = fmaf(accs[(w * kMaxRows + c) * hd + d], wts[c * kWarps + w],
+                 acc);
+    p.part_acc[cta.part(c, p) * hd + d] = acc;
+  }
+}
+
+// Decode on the tensor cores (bf16 q, bf16 or int8 K/V).
+template <typename TKV, int HD_MAX, bool PAGED>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_mma_kernel(const Params p) {
+  mma_body<TKV, HD_MAX, PAGED>(p);
+}
+
+// Speculative verify on the tensor cores.
+template <typename TKV, int HD_MAX>
+__global__ void __launch_bounds__(kThreads)
+paged_verify_mma_kernel(const Params p) {
+  mma_body<TKV, HD_MAX, true>(p);
+}
+
 // One warp per (b, i, h) row: the row's partials over the splits that
 // start below its length, merged in split order, normalised and cast.
 template <typename TQ>
@@ -454,11 +779,13 @@ combine_partials_kernel(const Params p) {
   const float* ml = p.part_ml + row * p.n_splits * 2;
   const float* pa = p.part_acc + row * p.n_splits * hd;
   float m = kNegInf;
+#pragma unroll 4
   for (int s = 0; s < n_live; ++s) m = fmaxf(m, ml[2 * s]);
   float l = 0.f;
   float acc[kCols];
 #pragma unroll
   for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
+#pragma unroll 4
   for (int s = 0; s < n_live; ++s) {
     const float w = expf(ml[2 * s] - m);
     l = fmaf(ml[2 * s + 1], w, l);
@@ -516,10 +843,51 @@ int dispatch_kv(const Params& p, int kv_dtype, int mode, cudaStream_t s) {
   }
 }
 
+template <typename TKV, int HD_MAX>
+int launch_mma(const Params& p, int mode, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes(p.head_dim);
+  void (*kernel)(const Params) =
+      mode == 2   ? paged_verify_mma_kernel<TKV, HD_MAX>
+      : mode == 1 ? decode_attention_mma_kernel<TKV, HD_MAX, true>
+                  : decode_attention_mma_kernel<TKV, HD_MAX, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.n_kv_heads, p.batch, p.chunks * p.n_splits);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_combine<__nv_bfloat16>(p, stream);
+}
+
+template <typename TKV>
+int dispatch_mma(const Params& p, int mode, cudaStream_t s) {
+  if (p.head_dim <= 64) return launch_mma<TKV, 64>(p, mode, s);
+  if (p.head_dim <= 128) return launch_mma<TKV, 128>(p, mode, s);
+  return launch_mma<TKV, 256>(p, mode, s);
+}
+
+// Which body a call runs, by dtype and shape alone: the tensor cores for
+// bf16 q over bf16 or int8 K/V at head_dim % 16 == 0, the CUDA cores
+// otherwise (fp32 q stays exact fp32).
+bool uses_mma(int q_dtype, int kv_dtype, int head_dim) {
+  return q_dtype == kBF16 && (kv_dtype == kBF16 || kv_dtype == kI8) &&
+         head_dim % 16 == 0;
+}
+
 }  // namespace
 
 // Positions per split: the wrapper sizes the workspace with it.
 extern "C" int skytorch_decode_attention_span() { return kSpan; }
+
+// 1 when a call with these dtypes and head_dim runs the tensor-core
+// body, 0 when it runs the CUDA-core one.
+extern "C" int skytorch_decode_attention_uses_mma(int q_dtype,
+                                                  int kv_dtype,
+                                                  int head_dim) {
+  return uses_mma(q_dtype, kv_dtype, head_dim) ? 1 : 0;
+}
 
 // tables == nullptr selects the dense cache (block_k = max_len,
 // max_blocks = 1, n_pool_blocks = batch); otherwise the paged pool.
@@ -578,6 +946,9 @@ extern "C" int skytorch_decode_attention(
           reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const int mode = verify ? 2 : tables != nullptr ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (uses_mma(q_dtype, kv_dtype, head_dim))
+    return kv_dtype == kBF16 ? dispatch_mma<__nv_bfloat16>(p, mode, s)
+                             : dispatch_mma<int8_t>(p, mode, s);
   switch (q_dtype) {
     case kF32: return dispatch_kv<float>(p, kv_dtype, mode, s);
     case kBF16: return dispatch_kv<__nv_bfloat16>(p, kv_dtype, mode, s);

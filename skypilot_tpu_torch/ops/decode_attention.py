@@ -253,17 +253,40 @@ def _check(q, k, v, k_scale, v_scale, one_query: bool = True):
         raise ValueError('decode attention kernel takes contiguous tensors')
 
 
+def uses_tensor_cores(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                      head_dim: int) -> bool:
+    """Which body the CUDA launcher runs, by dtype and shape alone (its
+    ``uses_mma``): the tensor-core body (mma.sync, bf16 K/V tiles) for
+    bf16 q over a bf16 or int8 cache at head_dim % 16 == 0, the
+    CUDA-core body otherwise (fp32 q stays exact fp32). Never a fallback
+    after a failure."""
+    return (q_dtype == torch.bfloat16 and
+            kv_dtype in (torch.bfloat16, torch.int8) and head_dim % 16 == 0)
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """The C launcher (built and loaded at first use), typed for ctypes:
-    pointers and the stream as c_void_p, sizes as c_int. Refuses a
-    library whose split span is not :data:`SPLIT_SPAN`."""
+def _library():
     lib = cuda_build.load('decode_attention')
     if lib.skytorch_decode_attention_span() != SPLIT_SPAN:
         raise RuntimeError(f'decode attention library splits every '
                            f'{lib.skytorch_decode_attention_span()} '
                            f'positions, the wrapper {SPLIT_SPAN}')
-    fn = lib.skytorch_decode_attention
+    return lib
+
+
+def kernel_uses_tensor_cores(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                             head_dim: int) -> bool:
+    """The built library's own answer to :func:`uses_tensor_cores`."""
+    return bool(_library().skytorch_decode_attention_uses_mma(
+        _DTYPE_CODES[q_dtype], _DTYPE_CODES[kv_dtype], head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C launcher (built and loaded at first use), typed for ctypes:
+    pointers and the stream as c_void_p, sizes as c_int. Refuses a
+    library whose split span is not :data:`SPLIT_SPAN`."""
+    fn = _library().skytorch_decode_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 +
                    [ctypes.c_float, ctypes.c_void_p])

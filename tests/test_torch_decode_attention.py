@@ -349,6 +349,22 @@ def test_combine_reads_no_split_past_the_row_length():
     assert float(got[2, 0].abs().max()) == 0.0
 
 
+def test_tensor_core_dispatch_rule():
+    """By dtype and shape only: bf16 q over a bf16 or int8 cache at
+    head_dim % 16 == 0 takes the mma body (llama3-8b's serving path),
+    everything else the CUDA-core body."""
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    assert tda.uses_tensor_cores(bf16, bf16, 128)
+    assert tda.uses_tensor_cores(bf16, i8, 128)
+    assert tda.uses_tensor_cores(bf16, bf16, 64)
+    assert tda.uses_tensor_cores(bf16, bf16, 256)
+    assert not tda.uses_tensor_cores(bf16, bf16, 36)
+    assert not tda.uses_tensor_cores(bf16, i8, 40)
+    assert not tda.uses_tensor_cores(bf16, f32, 128)
+    assert not tda.uses_tensor_cores(f32, f32, 128)
+    assert not tda.uses_tensor_cores(f32, i8, 128)
+
+
 # ------------------------------------------------------------------- cuda
 
 
@@ -630,3 +646,15 @@ def test_cuda_partials_and_combine_match_their_twins(cuda, dtype, int8):
         parts['acc'][live] / parts['l'][live][:, None],
         acc[live] / l[live][:, None], rule)
     assert err is None, msg
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_rule_is_the_libraries(cuda):
+    """The launcher's body choice equals uses_tensor_cores on every
+    dtype pair and head_dim the kernels take."""
+    for q_dtype in (torch.float32, torch.bfloat16):
+        for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for hd in range(1, tda.MAX_HEAD_DIM + 1):
+                assert (tda.kernel_uses_tensor_cores(q_dtype, kv_dtype, hd)
+                        == tda.uses_tensor_cores(q_dtype, kv_dtype, hd)), (
+                            q_dtype, kv_dtype, hd)
