@@ -715,6 +715,10 @@ def profile_phase(torch, decode, llama, params, card):
             print(f'[profile] {label}: the profiler recorded no device '
                   'time', flush=True)
             continue
+        attn_names = {r[1] for r in rows if 'decode_attention' in r[1]}
+        if not attn_names or not all('mma_kernel' in n for n in attn_names):
+            fail(f'{label}: the bf16 decode step did not run the tensor-'
+                 f'core decode kernel: {sorted(attn_names)}')
         attn_ms = sum(r[0] for r in rows if 'decode_attention' in r[1])
         combine_ms = sum(r[0] for r in rows if 'combine_partials' in r[1])
         gemm_ms = sum(r[0] for r in rows
@@ -1060,6 +1064,12 @@ def spec_profile_phase(torch, decode, llama, params, card):
         gemm = sum(r[0] for r in rows if any(
             key in r[1].lower() for key in ('gemm', 'nvjet', 'cutlass',
                                             'xmma'))) / n_prof
+        verify_names = {r[1] for r in rows if 'paged_verify' in r[1]}
+        if busy and name == 'verify' and not (
+                verify_names and all('mma_kernel' in n
+                                     for n in verify_names)):
+            fail(f'the bf16 verify step did not run the tensor-core verify '
+                 f'kernel: {sorted(verify_names)}')
         attn = sum(r[0] for r in rows if 'paged_verify' in r[1]) / n_prof
         combine = sum(r[0] for r in rows
                       if 'combine_partials' in r[1]) / n_prof
