@@ -31,17 +31,20 @@
 //     ceil(capacity / kSpan) splits, capacity being the table's width
 //     (max_blocks * block_k; dense: max_len), so the host never reads a
 //     length; a CTA whose span starts past all its rows' lengths writes
-//     empty partials (m = -1e30, l = 0, acc = 0) and exits.
+//     empty partials (m = -1e30, l = 0, acc = 0) and exits. At most
+//     kSpan / kTile tiles a CTA: the longest row no longer sets the pace
+//     of a grid too small for 132 SMs.
 //   * A combine kernel, enqueued by the same launcher call, reduces each
 //     row's partials over the splits that start below that row's own
 //     length, in split order: m = max m_s, l = sum l_s e^(m_s - m),
 //     out = sum acc_s e^(m_s - m) / max(l, 1e-20), cast to q's dtype; a
 //     row of length 0 reduces nothing and writes exact zeros.
 //   * The order in which a row's positions are reduced is a function of
-//     the position indices alone (fixed span, fixed tiles, fixed split
-//     order), never of R, S, the chunking, the grid or the other rows'
-//     lengths. So a verify call's query i is bit-identical to the
-//     decode kernel at cur_len = start + i + 1.
+//     the position indices alone (fixed span, fixed tiles, each warp's
+//     fixed share of a tile, fixed warp and split order, mma rows
+//     independent of each other), never of R, S, the chunking, the grid
+//     or the other rows' lengths. So a verify call's query i is
+//     bit-identical to the decode kernel at cur_len = start + i + 1.
 //   * The G = H / Hkv query heads of a kv head (times S queries when
 //     verifying) share each K/V tile read (GQA in-kernel, query head
 //     kv*G + r). Rows are cut into chunks of at most kMaxRows, each
@@ -51,17 +54,30 @@
 //     positions are never read and tables[b, max_blocks] never is. In
 //     paged mode the pool row of position p is
 //     tables[b, p / block_k] * block_k + p % block_k, looked up only for
-//     a live p.
-//   * A row skips a tile that holds none of its positions, and within a
-//     tile masks positions past its length.
-//   * K/V tiles are read with 16-byte vector loads (element loads when a
-//     row is not 16-byte aligned) and dequantised to fp32 in shared
-//     memory (int8 caches multiply by their per-(position, kv head) fp32
-//     scale); q is held in fp32; online softmax (m, l, acc) in fp32 as
-//     the Pallas body does it. Each warp owns chunk rows c = warp,
-//     warp + 4, ...: lanes compute logits for positions lane + 32j,
-//     reduce max/sum with shuffles, then own head-dim columns
-//     d = lane + 32i of the PV update.
+//     a live p. Within a tile each row masks positions past its length.
+//   * Two bodies, chosen by dtype and shape alone (uses_mma), never as a
+//     fallback:
+//     - tensor cores (mma_body) for bf16 q over a bf16 or int8 cache at
+//       head_dim % 16 == 0 (llama3-8b's serving path): K/V tiles staged
+//       as bf16 in shared memory (int8 converts exactly; its per-
+//       position fp32 scales sit beside the tile, K's multiplying the
+//       logit, V's folded into P before P is rounded to bf16); the
+//       chunk's rows are one m16 tile; warp w owns positions
+//       [16w, 16w + 16) of every tile with its own online softmax per
+//       row: S = Q K^T on mma.sync m16n8k16 (fp32 accumulation), P from
+//       S's accumulator registers as the A fragment, O += P V over
+//       hd / 8 n-tiles; the warps merge in warp order at the end of the
+//       span. The FMA chains of the CUDA-core body are gone, so a tile
+//       costs about its load latency (no K/V pipelining yet);
+//     - CUDA cores (attention_body) otherwise (fp32 q stays exact fp32,
+//       e.g. for the fp32 spec parity check): K/V tiles dequantised to
+//       fp32 in shared memory (16-byte loads where rows are 16-byte
+//       aligned), q in fp32; each warp owns chunk rows c = warp,
+//       warp + 4, ...: lanes compute logits for positions lane + 32j,
+//       reduce max/sum with shuffles, then own head-dim columns
+//       d = lane + 32i of the PV update.
+//     Both keep the online softmax (m, l, acc) in fp32 in the exp domain
+//     of the Pallas body.
 //
 // Plain C interface (built with nvcc, loaded with ctypes): the launcher
 // returns cudaGetLastError() after each launch, or -1 for arguments it
@@ -493,10 +509,10 @@ __device__ __forceinline__ void put_bf16(__nv_bfloat16* dst, const uint4& r,
 }
 
 size_t mma_smem_bytes(int head_dim) {
-  // rows[kTile] (int64) | k scale[kTile] | v scale[kTile] |
+  // rows[kSpan] (int64) | k scale[kSpan] | v scale[kSpan] |
   // q[kMaxRows][hd+8] | k[kTile][hd+8] | v[kTile][hd+8] (bf16) |
   // (m, l)[kWarps][kMaxRows] | weights[kMaxRows][kWarps]
-  return kTile * sizeof(long long) + 2 * kTile * sizeof(float) +
+  return kSpan * sizeof(long long) + 2 * kSpan * sizeof(float) +
          (kMaxRows + 2 * kTile) * (head_dim + 8) * sizeof(__nv_bfloat16) +
          3 * kWarps * kMaxRows * sizeof(float);
 }
@@ -506,11 +522,15 @@ size_t mma_smem_bytes(int head_dim) {
 // tile (rows past R zero). Warp w owns positions [16w, 16w + 16) of
 // every tile and keeps its own online softmax (m, l, acc) for each row:
 // S = Q K^T is two m16n8k16 n-tiles over hd, P (exp(S - m), times the
-// position's V scale for int8, rounded to bf16) is S's accumulator
-// reused as the A fragment, and O += P V runs hd / 8 n-tiles. K and V
-// sit in shared memory as bf16 (int8 converts exactly; its K scale
-// multiplies the logit). At the end of the span the four warps' states
-// merge in warp order into the row's partial.
+// position's V scale for int8) is S's accumulator reused as the A
+// fragment, and O += P V runs hd / 8 n-tiles, P going in as bf16 plus
+// its bf16 residual (two products), so P V keeps ~fp32 precision. K and
+// V sit in shared memory as bf16 (int8 converts exactly; its K scale
+// multiplies the logit). The span's cache rows and int8 scales are
+// looked up once, before its tiles; each thread issues its share of a
+// tile's 16-byte K/V loads kBatch at a time before storing any. At the
+// end of the span the four warps' states merge in warp order into the
+// row's partial.
 template <typename TKV, int HD_MAX, bool PAGED>
 __device__ __forceinline__ void mma_body(const Params& p) {
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
@@ -533,9 +553,9 @@ __device__ __forceinline__ void mma_body(const Params& p) {
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   long long* rows = reinterpret_cast<long long*>(smem_raw);
-  float* ksc = reinterpret_cast<float*>(rows + kTile);
-  float* vsc = ksc + kTile;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(vsc + kTile);
+  float* ksc = reinterpret_cast<float*>(rows + kSpan);
+  float* vsc = ksc + kSpan;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(vsc + kSpan);
   __nv_bfloat16* ks = qs + kMaxRows * ld;
   __nv_bfloat16* vs = ks + kTile * ld;
   float* mls = reinterpret_cast<float*>(vs + kTile * ld);
@@ -560,52 +580,66 @@ __device__ __forceinline__ void mma_body(const Params& p) {
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
   const TKV* kc = static_cast<const TKV*>(p.k);
   const TKV* vc = static_cast<const TKV*>(p.v);
+  // Cache row (and int8 scales) of each position of the span (the only
+  // table reads: positions past every row's length are never looked up).
+  for (int t = tid; t < s1 - cta.s0; t += kThreads) {
+    const int pos = cta.s0 + t;
+    long long row;
+    if (PAGED) {
+      const int blk =
+          p.tables[static_cast<size_t>(cta.b) * p.max_blocks +
+                   pos / p.block_k];
+      if (blk < 0 || blk >= p.n_pool_blocks) __trap();
+      row = static_cast<long long>(blk) * p.block_k + pos % p.block_k;
+    } else {
+      row = static_cast<long long>(cta.b) * p.block_k + pos;
+    }
+    rows[t] = row;
+    if (kQuant) {
+      const size_t hrow = static_cast<size_t>(row) * p.n_kv_heads + cta.kvh;
+      ksc[t] = p.k_scale[hrow];
+      vsc[t] = p.v_scale[hrow];
+    }
+  }
+  __syncthreads();
 
   for (int t0 = cta.s0; t0 < s1; t0 += kTile) {
     const int n = min(kTile, s1 - t0);
-    // Cache row (and int8 scales) of each live position in the tile.
-    for (int t = tid; t < kTile; t += kThreads) {
-      if (t < n) {
-        const int pos = t0 + t;
-        long long row;
-        if (PAGED) {
-          const int blk = p.tables[static_cast<size_t>(cta.b) *
-                                   p.max_blocks + pos / p.block_k];
-          if (blk < 0 || blk >= p.n_pool_blocks) __trap();
-          row = static_cast<long long>(blk) * p.block_k + pos % p.block_k;
-        } else {
-          row = static_cast<long long>(cta.b) * p.block_k + pos;
-        }
-        rows[t] = row;
-        if (kQuant) {
-          const size_t hrow = static_cast<size_t>(row) * p.n_kv_heads +
-                              cta.kvh;
-          ksc[t] = p.k_scale[hrow];
-          vsc[t] = p.v_scale[hrow];
-        }
-      } else if (kQuant) {
-        ksc[t] = 0.f;
-        vsc[t] = 0.f;
-      }
-    }
-    __syncthreads();
+    const long long* trow = rows + (t0 - cta.s0);
+    const float* tksc = ksc + (t0 - cta.s0);
+    const float* tvsc = vsc + (t0 - cta.s0);
     // K/V rows → bf16 shared memory; positions t >= n are zero (never
     // live, and 0 * V must stay 0).
     if (p.vec) {
       constexpr int V = 16 / sizeof(TKV);
+      constexpr int kBatch = 4;
       const int chunks = hd / V;
-      for (int c = tid; c < kTile * chunks; c += kThreads) {
-        const int t = c / chunks;
-        const int d0 = (c - t * chunks) * V;
-        uint4 kraw = make_uint4(0, 0, 0, 0), vraw = kraw;
-        if (t < n) {
-          const size_t hrow =
-              static_cast<size_t>(rows[t]) * p.n_kv_heads + cta.kvh;
-          kraw = *reinterpret_cast<const uint4*>(kc + hrow * hd + d0);
-          vraw = *reinterpret_cast<const uint4*>(vc + hrow * hd + d0);
+      const int total = kTile * chunks;
+      for (int c0 = tid; c0 < total; c0 += kBatch * kThreads) {
+        uint4 kraw[kBatch], vraw[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int c = c0 + u * kThreads;
+          const int t = c / chunks;
+          kraw[u] = vraw[u] = make_uint4(0, 0, 0, 0);
+          if (c < total && t < n) {
+            const size_t at =
+                (static_cast<size_t>(trow[t]) * p.n_kv_heads + cta.kvh) *
+                    hd + (c - t * chunks) * V;
+            kraw[u] = *reinterpret_cast<const uint4*>(kc + at);
+            vraw[u] = *reinterpret_cast<const uint4*>(vc + at);
+          }
         }
-        put_bf16(ks + t * ld + d0, kraw, TKV());
-        put_bf16(vs + t * ld + d0, vraw, TKV());
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int c = c0 + u * kThreads;
+          if (c < total) {
+            const int t = c / chunks;
+            const int d0 = (c - t * chunks) * V;
+            put_bf16(ks + t * ld + d0, kraw[u], TKV());
+            put_bf16(vs + t * ld + d0, vraw[u], TKV());
+          }
+        }
       }
     } else {
       for (int i = tid; i < kTile * hd; i += kThreads) {
@@ -614,7 +648,7 @@ __device__ __forceinline__ void mma_body(const Params& p) {
         float kv = 0.f, vv = 0.f;
         if (t < n) {
           const size_t hrow =
-              static_cast<size_t>(rows[t]) * p.n_kv_heads + cta.kvh;
+              static_cast<size_t>(trow[t]) * p.n_kv_heads + cta.kvh;
           kv = to_f32(kc[hrow * hd + d]);
           vv = to_f32(vc[hrow * hd + d]);
         }
@@ -645,7 +679,7 @@ __device__ __forceinline__ void mma_body(const Params& p) {
       for (int e = 0; e < 4; ++e) {
         const int t = pw + nt * 8 + 2 * t4 + (e & 1);
         float x = s[nt][e];
-        if (kQuant) x *= ksc[t];
+        if (kQuant) x *= t < n ? tksc[t] : 0.f;
         x *= p.scale;
         s[nt][e] = t0 + t < len[e >> 1] ? x : kNegInf;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
@@ -661,8 +695,9 @@ __device__ __forceinline__ void mma_body(const Params& p) {
       m_r[h] = m_new;
     }
     // P = exp(S - m) for live positions, 0 elsewhere; V's int8 scale
-    // folds in before P is rounded to bf16 (l sums the unscaled P).
-    uint32_t a[4];
+    // folds in before P is split into bf16 hi + lo (l sums the unscaled
+    // P).
+    uint32_t a[4], a_lo[4];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       float pv[4];
@@ -670,12 +705,20 @@ __device__ __forceinline__ void mma_body(const Params& p) {
       for (int e = 0; e < 4; ++e) {
         const int t = pw + nt * 8 + 2 * t4 + (e & 1);
         const int h = e >> 1;
-        const float pe = t0 + t < len[h] ? expf(s[nt][e] - safe[h]) : 0.f;
+        const bool live = t0 + t < len[h];
+        const float pe = live ? expf(s[nt][e] - safe[h]) : 0.f;
         psum[h] += pe;
-        pv[e] = kQuant ? pe * vsc[t] : pe;
+        pv[e] = kQuant && live ? pe * tvsc[t] : pe;
       }
-      a[2 * nt] = pack_bf16(pv[0], pv[1]);
-      a[2 * nt + 1] = pack_bf16(pv[2], pv[3]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 hi =
+            __floats2bfloat162_rn(pv[2 * h], pv[2 * h + 1]);
+        const float2 back = __bfloat1622float2(hi);
+        a[2 * nt + h] = *reinterpret_cast<const uint32_t*>(&hi);
+        a_lo[2 * nt + h] =
+            pack_bf16(pv[2 * h] - back.x, pv[2 * h + 1] - back.y);
+      }
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -683,8 +726,9 @@ __device__ __forceinline__ void mma_body(const Params& p) {
       psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 2);
       l_r[h] = l_r[h] * corr[h] + psum[h];
     }
-    // a is the m16n8k16 A fragment of P: (g, positions 0-7), (g + 8,
-    // 0-7), (g, 8-15), (g + 8, 8-15), two columns a lane.
+    // a (a_lo) is the m16n8k16 A fragment of P's bf16 part (residual):
+    // (g, positions 0-7), (g + 8, 0-7), (g, 8-15), (g + 8, 8-15), two
+    // columns a lane.
 #pragma unroll
     for (int nt = 0; nt < kNT; nt += 2) {
       if (nt * 8 >= hd) break;
@@ -697,7 +741,9 @@ __device__ __forceinline__ void mma_body(const Params& p) {
       ldmatrix_x4_trans(b, vs + (pw + (lane & 15)) * ld + nt * 8 +
                                (lane >> 4) * 8);
       mma_bf16(o[nt], a, b[0], b[1]);
+      mma_bf16(o[nt], a_lo, b[0], b[1]);
       mma_bf16(o[nt + 1], a, b[2], b[3]);
+      mma_bf16(o[nt + 1], a_lo, b[2], b[3]);
     }
     __syncthreads();
   }

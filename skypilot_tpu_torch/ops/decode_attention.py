@@ -13,10 +13,21 @@ templated body; see its header for the design and what bounds it):
   (speculative-decoding verify: S queries per sequence over the pool,
   query ``i`` attending positions ``<= start + i``).
 
+Each launcher call runs two kernels on the current stream: the split
+kernel (each CTA one fixed span of :data:`SPLIT_SPAN` positions, writing
+fp32 partials (m, l, acc) into a workspace :func:`_launch` allocates)
+and the combine kernel that merges a row's live splits in order. bf16
+queries over a bf16 or int8 cache at head_dim % 16 == 0 run the split
+kernel on tensor cores (:func:`uses_tensor_cores`), the rest on CUDA
+cores.
+
 Each has a plain PyTorch twin (:func:`decode_attention_plain`,
 :func:`paged_decode_attention_plain`, :func:`paged_verify_attention_plain`)
 mirroring the reference's ``decode_attention_xla`` numerics, bf16 casts
 included; a one-query verify twin is exactly the paged decode twin. The
+split and the combine have their own twins (:func:`split_partials_plain`,
+:func:`combine_partials_plain`) for the tests; the serving path never
+calls them. The
 dispatchers :func:`decode_attention` / :func:`paged_decode_attention` /
 :func:`paged_verify_attention` take the plain twin only for CPU tensors
 or when the caller asks for ``'plain'``; for a CUDA tensor they launch
