@@ -562,12 +562,26 @@ __device__ __forceinline__ void mma_body(const Params& p) {
   float* wts = mls + 2 * kWarps * kMaxRows;
   float* accs = reinterpret_cast<float*>(ks);  // after the tiles
 
+  // q rows (zero past R) → bf16 shared memory, 16 bytes a load when q
+  // is 16-byte aligned (rows are: hd % 16 == 0).
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
-  for (int i = tid; i < kMaxRows * hd; i += kThreads) {
-    const int c = i / hd;
-    const int d = i - c * hd;
-    qs[c * ld + d] = c < R ? q[cta.head_row(c, p.n_heads) * hd + d]
-                           : __float2bfloat16(0.f);
+  if (reinterpret_cast<uintptr_t>(q) % 16 == 0) {
+    const int chunks = hd / 8;
+    for (int i = tid; i < kMaxRows * chunks; i += kThreads) {
+      const int c = i / chunks;
+      const int d0 = (i - c * chunks) * 8;
+      *reinterpret_cast<uint4*>(qs + c * ld + d0) =
+          c < R ? *reinterpret_cast<const uint4*>(
+                      q + cta.head_row(c, p.n_heads) * hd + d0)
+                : make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int i = tid; i < kMaxRows * hd; i += kThreads) {
+      const int c = i / hd;
+      const int d = i - c * hd;
+      qs[c * ld + d] = c < R ? q[cta.head_row(c, p.n_heads) * hd + d]
+                             : __float2bfloat16(0.f);
+    }
   }
   const int len[2] = {g < R ? cta.row_len(g) : 0,
                       g + 8 < R ? cta.row_len(g + 8) : 0};
