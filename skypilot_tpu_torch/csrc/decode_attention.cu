@@ -242,6 +242,20 @@ struct Cta {
   }
 };
 
+// Cache row of position pos of sequence b: dense, or through the table
+// (read only for a live pos).
+template <bool PAGED>
+__device__ __forceinline__ long long cache_row(const Params& p, int b,
+                                               int pos) {
+  if (PAGED) {
+    const int blk =
+        p.tables[static_cast<size_t>(b) * p.max_blocks + pos / p.block_k];
+    if (blk < 0 || blk >= p.n_pool_blocks) __trap();
+    return static_cast<long long>(blk) * p.block_k + pos % p.block_k;
+  }
+  return static_cast<long long>(b) * p.block_k + pos;
+}
+
 // A span that holds none of the chunk's positions: empty partials.
 __device__ void write_empty(const Params& p, const Cta& cta) {
   const int hd = p.head_dim;
@@ -308,19 +322,8 @@ __device__ __forceinline__ void attention_body(const Params& p) {
     const int n = min(kTile, s1 - t0);
     // Cache row of each live position in the tile (the only table
     // reads: positions past every row's length are never looked up).
-    for (int t = tid; t < n; t += kThreads) {
-      const int pos = t0 + t;
-      long long row;
-      if (PAGED) {
-        const int blk = p.tables[static_cast<size_t>(cta.b) * p.max_blocks +
-                                 pos / p.block_k];
-        if (blk < 0 || blk >= p.n_pool_blocks) __trap();
-        row = static_cast<long long>(blk) * p.block_k + pos % p.block_k;
-      } else {
-        row = static_cast<long long>(cta.b) * p.block_k + pos;
-      }
-      rows[t] = row;
-    }
+    for (int t = tid; t < n; t += kThreads)
+      rows[t] = cache_row<PAGED>(p, cta.b, t0 + t);
     __syncthreads();
     // Dequantise the live K/V rows of the tile into fp32 shared memory
     // (rows t >= n are neither read nor used below). 16-byte loads when
@@ -597,17 +600,7 @@ __device__ __forceinline__ void mma_body(const Params& p) {
   // Cache row (and int8 scales) of each position of the span (the only
   // table reads: positions past every row's length are never looked up).
   for (int t = tid; t < s1 - cta.s0; t += kThreads) {
-    const int pos = cta.s0 + t;
-    long long row;
-    if (PAGED) {
-      const int blk =
-          p.tables[static_cast<size_t>(cta.b) * p.max_blocks +
-                   pos / p.block_k];
-      if (blk < 0 || blk >= p.n_pool_blocks) __trap();
-      row = static_cast<long long>(blk) * p.block_k + pos % p.block_k;
-    } else {
-      row = static_cast<long long>(cta.b) * p.block_k + pos;
-    }
+    const long long row = cache_row<PAGED>(p, cta.b, cta.s0 + t);
     rows[t] = row;
     if (kQuant) {
       const size_t hrow = static_cast<size_t>(row) * p.n_kv_heads + cta.kvh;

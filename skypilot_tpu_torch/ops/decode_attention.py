@@ -277,6 +277,8 @@ def uses_tensor_cores(q_dtype: torch.dtype, kv_dtype: torch.dtype,
 
 @functools.lru_cache(maxsize=None)
 def _library():
+    """The kernel library, built and loaded at first use; refuses one
+    whose split span is not :data:`SPLIT_SPAN`."""
     lib = cuda_build.load('decode_attention')
     if lib.skytorch_decode_attention_span() != SPLIT_SPAN:
         raise RuntimeError(f'decode attention library splits every '
@@ -285,29 +287,15 @@ def _library():
     return lib
 
 
-def kernel_uses_tensor_cores(q_dtype: torch.dtype, kv_dtype: torch.dtype,
-                             head_dim: int) -> bool:
-    """The built library's own answer to :func:`uses_tensor_cores`."""
-    return bool(_library().skytorch_decode_attention_uses_mma(
-        _DTYPE_CODES[q_dtype], _DTYPE_CODES[kv_dtype], head_dim))
-
-
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The C launcher (built and loaded at first use), typed for ctypes:
-    pointers and the stream as c_void_p, sizes as c_int. Refuses a
-    library whose split span is not :data:`SPLIT_SPAN`."""
+    pointers and the stream as c_void_p, sizes as c_int."""
     fn = _library().skytorch_decode_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 +
                    [ctypes.c_float, ctypes.c_void_p])
     return fn
-
-
-def n_splits(capacity: int, span: int = SPLIT_SPAN) -> int:
-    """Splits of a row that can attend ``capacity`` positions (the
-    table's width, or the dense cache's max_len)."""
-    return -(-capacity // span)
 
 
 def _launch(q, k, v, k_scale, v_scale, lens, tables, block_k,
@@ -319,7 +307,7 @@ def _launch(q, k, v, k_scale, v_scale, lens, tables, block_k,
     fn = _entry()
     b, s_q, h, hd = q.shape
     out = torch.empty_like(q)
-    splits = n_splits(block_k * max_blocks)
+    splits = -(-block_k * max_blocks // SPLIT_SPAN)  # of the table's width
     part_acc = torch.empty((b, s_q, h, splits, hd), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((b, s_q, h, splits, 2), dtype=torch.float32,

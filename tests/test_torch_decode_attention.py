@@ -652,9 +652,11 @@ def test_cuda_partials_and_combine_match_their_twins(cuda, dtype, int8):
 def test_cuda_dispatch_rule_is_the_libraries(cuda):
     """The launcher's body choice equals uses_tensor_cores on every
     dtype pair and head_dim the kernels take."""
+    uses_mma = tda._library().skytorch_decode_attention_uses_mma
+    codes = tda._DTYPE_CODES
     for q_dtype in (torch.float32, torch.bfloat16):
         for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
             for hd in range(1, tda.MAX_HEAD_DIM + 1):
-                assert (tda.kernel_uses_tensor_cores(q_dtype, kv_dtype, hd)
+                assert (bool(uses_mma(codes[q_dtype], codes[kv_dtype], hd))
                         == tda.uses_tensor_cores(q_dtype, kv_dtype, hd)), (
                             q_dtype, kv_dtype, hd)
