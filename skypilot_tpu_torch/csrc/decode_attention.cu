@@ -61,14 +61,15 @@
 //       head_dim % 16 == 0 (llama3-8b's serving path): K/V tiles staged
 //       as bf16 in shared memory (int8 converts exactly; its per-
 //       position fp32 scales sit beside the tile, K's multiplying the
-//       logit, V's folded into P before P is rounded to bf16); the
-//       chunk's rows are one m16 tile; warp w owns positions
-//       [16w, 16w + 16) of every tile with its own online softmax per
-//       row: S = Q K^T on mma.sync m16n8k16 (fp32 accumulation), P from
-//       S's accumulator registers as the A fragment, O += P V over
-//       hd / 8 n-tiles; the warps merge in warp order at the end of the
-//       span. The FMA chains of the CUDA-core body are gone, so a tile
-//       costs about its load latency (no K/V pipelining yet);
+//       logit, V's folded into P); the chunk's rows are one m16 tile;
+//       warp w owns positions [16w, 16w + 16) of every tile with its
+//       own online softmax per row: S = Q K^T on mma.sync m16n8k16 (fp32
+//       accumulation), P from S's accumulator registers as the A
+//       fragment, split into bf16 hi + lo so that O += P V (hd / 8
+//       n-tiles, two products each) keeps ~fp32 precision; the warps
+//       merge in warp order at the end of the span. The FMA chains of
+//       the CUDA-core body are gone, so a tile costs about its load
+//       latency (no K/V pipelining yet);
 //     - CUDA cores (attention_body) otherwise (fp32 q stays exact fp32,
 //       e.g. for the fp32 spec parity check): K/V tiles dequantised to
 //       fp32 in shared memory (16-byte loads where rows are 16-byte
