@@ -22,11 +22,11 @@ port's package is not beside it. Phases (any failure exits non-zero):
    each max abs error against its tolerance, the kernel's time, the
    plain version's time, ``library_ms`` (``scaled_dot_product_attention``
    over expanded K/V, a yardstick the port never calls), the bytes
-   bound and the kernel's fraction of it. The kernel's and SDPA's ms are
-   device time under torch.profiler (the kernel's: the launcher's split
-   and combine kernels), since events around back-to-back calls of a
-   kernel this short time the host; the event time of a call is
-   printed beside it.
+   bound and the kernel's fraction of it. The kernel's ms (the
+   launcher's split and combine kernels) and SDPA's are the card's time
+   for calls queued behind a spin kernel (``device_ms``), since events
+   around back-to-back calls of a kernel this short time the host; the
+   event time of a call is printed beside it.
 3. Main path: llama3-8b at full width and depth with random weights from
    a seed, served by the port's ``ModelServer`` on a local port — dense
    bf16, dense int8-KV and paged replicas in turn — answering streamed
@@ -298,26 +298,39 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# A spin of this many SM clock cycles (~25 ms at the H100's 1.98 GHz)
+# holds the stream while device_ms enqueues its calls.
+SPIN_CYCLES = 50_000_000
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time of one call: the device kernels' own time under
-    torch.profiler over ``iters`` calls, divided by ``iters``. The decode
-    kernels run for tens of µs, less than the wrapper's host work, so
-    events around back-to-back calls (``cuda_time_ms``) time the host;
-    this counts only what the card runs."""
+    """Time of one call on the card alone. The decode kernels run for
+    tens of µs, less than the wrapper's host work, so events around
+    back-to-back calls (``cuda_time_ms``) time the host. Here a spin
+    kernel (``torch.cuda._sleep``) holds the stream while the host
+    enqueues the ``iters`` calls, so the events around them see the
+    card run them back to back. Fails if the host was still enqueueing
+    when the spin ended."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = device_time_by_kernel(torch, prof)
-    if not rows:
-        fail('the profiler recorded no device time')
-    return sum(r[0] for r in rows) / iters
+    spin_start, start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(3))
+    spin_start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = spin_start.elapsed_time(start)
+    if not enqueue_ms < spin_ms:
+        fail(f'device_ms: enqueueing took {enqueue_ms:.2f} ms, longer than '
+             f'the {spin_ms:.2f} ms spin that holds the stream')
+    return start.elapsed_time(end) / iters
 
 
 # --------------------------------------------------------------- phase 2
