@@ -11,9 +11,9 @@ port's package is not beside it. Phases (any failure exits non-zero):
 1. Device: the card's name and power limit (``nvidia-smi``); build every
    CUDA kernel from ``skypilot_tpu_torch/csrc`` (one nvcc per source,
    started together) and print the build seconds and ptxas report; the
-   bf16 flash forward's kernels must hold HGMMA (wgmma) instructions in
-   their SASS (``cuobjdump -sass``), and the decode library's tensor-
-   core kernels (bf16 q: dense decode, paged decode, verify at hd 128
+   bf16 flash forward's and backward's kernels must hold HGMMA (wgmma)
+   instructions in their SASS (``cuobjdump -sass``), and the decode
+   library's tensor-core kernels (bf16 q: dense decode, paged decode, verify at hd 128
    over bf16 and int8 K/V among them) HMMA (mma.sync) instructions.
 2. Kernels against their plain PyTorch versions at the serving path's
    shapes (B=8, H=32, Hkv=8, hd=128, max_len 2048, block_k 128, ragged
@@ -45,9 +45,10 @@ port's package is not beside it. Phases (any failure exits non-zero):
    torch.profiler's device time by kernel over the kernel path, decode
    attention's split kernel and its combine apart; fails unless the
    profiled decode attention ran the tensor-core kernels.
-6. Flash-attention kernels (forward, dq, dk/dv; the bf16 forward is the
-   wgmma kernel of ``csrc/flash_forward_wgmma.cu``, the fp32 one the
-   CUDA-core body of ``csrc/flash_attention.cu``) against their plain
+6. Flash-attention kernels (forward, dq, dk/dv; in bf16 the wgmma
+   kernels of ``csrc/flash_forward_wgmma.cu`` and
+   ``csrc/flash_backward_wgmma.cu``, in fp32 the CUDA-core bodies of
+   ``csrc/flash_attention.cu``) against their plain
    twins at the training shapes (B=12, S=2048, H=16, Hkv=8, D=128,
    causal) in bf16 and fp32, at an S that does not tile (1000) and a
    small non-causal case (fp32 within 2e-5 of the twin's largest value;
@@ -56,7 +57,9 @@ port's package is not beside it. Phases (any failure exits non-zero):
    achieved TFLOP/s and fraction of its bound, the plain twin's,
    ``library_ms`` (``scaled_dot_product_attention``
    with ``enable_gqa`` and its autograd backward, a yardstick the port
-   never calls) and the bound with what sets it.
+   never calls) and the bound with what sets it; then the backward pair
+   as the trainer calls it (``row_dot``, dq, dk/dv) against SDPA's
+   backward, like for like.
 7. Main path of the trainer: bench-1b at full width and depth (flash
    attention, remat 'full', ce_chunks 8, batch 12 x seq 2048, warmup
    10) through ``train.make_train_step`` for 8 steps on one fixed
@@ -156,12 +159,15 @@ FLASH_SOURCES = {
     'flash_forward_kernel': 'skypilot_tpu/ops/flash_attention.py:37',
     'flash_bwd_dq_kernel': 'skypilot_tpu/ops/flash_attention.py:145',
     'flash_bwd_dkv_kernel': 'skypilot_tpu/ops/flash_attention.py:191'}
-# The port's source of each (the bf16 forward is the wgmma kernel; the
-# fp32 forward stays in flash_attention.cu).
+# The port's source of each bf16 kernel (the wgmma kernels; fp32 stays
+# in flash_attention.cu).
 FLASH_FILES = {
     'flash_forward_kernel': 'skypilot_tpu_torch/csrc/flash_forward_wgmma.cu',
-    'flash_bwd_dq_kernel': 'skypilot_tpu_torch/csrc/flash_attention.cu',
-    'flash_bwd_dkv_kernel': 'skypilot_tpu_torch/csrc/flash_attention.cu'}
+    'flash_bwd_dq_kernel': 'skypilot_tpu_torch/csrc/flash_backward_wgmma.cu',
+    'flash_bwd_dkv_kernel':
+        'skypilot_tpu_torch/csrc/flash_backward_wgmma.cu'}
+# The libraries whose every kernel must be wgmma (HGMMA in its SASS).
+WGMMA_LIBRARIES = ('flash_forward_wgmma', 'flash_backward_wgmma')
 # H100 SXM non-tensor fp32 peak (data sheet): the fp32 flash kernels run
 # on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
@@ -227,14 +233,15 @@ def sass_counts(cuda_build, lib_name, opcode):
 
 
 def wgmma_sass_check(cuda_build) -> None:
-    """The bf16 flash forward's products must be wgmma: every kernel in
-    its built library holds HGMMA instructions."""
-    counts = sass_counts(cuda_build, 'flash_forward_wgmma', 'HGMMA')
-    print(f'[build] HGMMA instructions per kernel of '
-          f'{cuda_build.library_path("flash_forward_wgmma").name}: {counts}',
-          flush=True)
-    if not counts or not all(counts.values()):
-        fail('the bf16 flash forward has a kernel without HGMMA')
+    """The bf16 flash forward's and backward's products must be wgmma:
+    every kernel in each of their built libraries holds HGMMA
+    instructions."""
+    for lib in WGMMA_LIBRARIES:
+        counts = sass_counts(cuda_build, lib, 'HGMMA')
+        print(f'[build] HGMMA instructions per kernel of '
+              f'{cuda_build.library_path(lib).name}: {counts}', flush=True)
+        if not counts or not all(counts.values()):
+            fail(f'{lib} has a kernel without HGMMA')
 
 
 # The tensor-core instantiations the serving path runs (bf16 q, hd 128):
@@ -1301,6 +1308,18 @@ def flash_kernel_phase(torch, fa):
                       f'{row["library_ms"]:.4f} bound_ms={bound_ms:.4f} '
                       f'({bound_by})', flush=True)
                 rows[name][dtype_name] = row
+            # The backward as the trainer runs it, against SDPA's.
+            pair_ms = cuda_time_ms(lambda: (
+                fa.flash_bwd_dq_kernel(q, k, v, g, lse, fa.row_dot(g, out),
+                                       causal),
+                fa.flash_bwd_dkv_kernel(q, k, v, g, lse, dsum, causal)))
+            pair_bound = (bounds['flash_bwd_dq_kernel'][0] +
+                          bounds['flash_bwd_dkv_kernel'][0])
+            print(f'[flash] backward pair {label} {dtype_name} (row_dot, dq, '
+                  f'dk/dv): ms={pair_ms:.4f} ({pair_ms / lib_bwd:.3f} of '
+                  f'SDPA backward\'s {lib_bwd:.4f} ms; bound '
+                  f'{pair_bound:.4f} ms, {pair_bound / pair_ms:.3f} of it)',
+                  flush=True)
             del q, k, v, g, out, lse, dsum, dq, dk, dv
             torch.cuda.empty_cache()
     return rows
@@ -1408,8 +1427,8 @@ def train_phase(torch, llama, train, fa, card):
         print('[train] the profiler recorded no device time', flush=True)
     else:
         groups = {'flash forward': 'flash_fwd_',
-                  'flash dq': 'flash_bwd_dq_kernel',
-                  'flash dk/dv': 'flash_bwd_dkv_kernel'}
+                  'flash dq': 'flash_bwd_dq_',
+                  'flash dk/dv': 'flash_bwd_dkv_'}
         split = {g: sum(r[0] for r in rows if key in r[1])
                  for g, key in groups.items()}
         split['GEMMs'] = sum(r[0] for r in rows if any(

@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 # name → source file under csrc/.
 SOURCES = {'decode_attention': 'decode_attention.cu',
            'flash_attention': 'flash_attention.cu',
-           'flash_forward_wgmma': 'flash_forward_wgmma.cu'}
+           'flash_forward_wgmma': 'flash_forward_wgmma.cu',
+           'flash_backward_wgmma': 'flash_backward_wgmma.cu'}
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

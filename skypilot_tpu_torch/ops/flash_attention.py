@@ -9,7 +9,9 @@ Counterpart of ``skypilot_tpu/ops/flash_attention.py``. Three kernels
   fp32 the CUDA-core body of ``csrc/flash_attention.cu``;
 * :func:`flash_bwd_dq_kernel` replaces ``_flash_bwd_dq_kernel``;
 * :func:`flash_bwd_dkv_kernel` replaces ``_flash_bwd_dkv_kernel``,
-  without expanding K/V to H heads (both in ``csrc/flash_attention.cu``).
+  without expanding K/V to H heads. bf16 runs the wgmma kernels of
+  ``csrc/flash_backward_wgmma.cu``, fp32 the CUDA-core bodies of
+  ``csrc/flash_attention.cu`` (:func:`kernel_entry` says which).
 
 Each has a plain PyTorch twin (:func:`flash_forward_plain`,
 :func:`flash_backward_plain`) in fp32 throughout. :class:`FlashAttention`
@@ -31,9 +33,21 @@ from skypilot_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
 IMPLS = ('kernel', 'plain')
-# Limits of the CUDA kernels (csrc/flash_attention.cu).
+# Limits of the CUDA kernels (csrc/flash_*.cu).
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+PASSES = ('forward', 'dq', 'dkv')
+# Launcher name → (library in cuda_build.SOURCES, C symbol, pointer
+# arguments before the sizes).
+ENTRIES = {
+    'forward': ('flash_attention', 'skytorch_flash_forward', 5),
+    'dq': ('flash_attention', 'skytorch_flash_bwd_dq', 7),
+    'dkv': ('flash_attention', 'skytorch_flash_bwd_dkv', 8),
+    'forward_wgmma': ('flash_forward_wgmma', 'skytorch_flash_forward_wgmma',
+                      5),
+    'dq_wgmma': ('flash_backward_wgmma', 'skytorch_flash_bwd_dq_wgmma', 7),
+    'dkv_wgmma': ('flash_backward_wgmma', 'skytorch_flash_bwd_dkv_wgmma',
+                  8)}
 
 
 # ------------------------------------------------------------------ plain
@@ -134,26 +148,36 @@ def _check(q, k, v, *rest):
                          f'{HEAD_DIMS}, got {d}')
 
 
+def kernel_entry(kernel_pass: str, dtype: torch.dtype) -> str:
+    """The launcher (a key of :data:`ENTRIES`) that a pass ('forward',
+    'dq' or 'dkv') calls, by dtype alone: the wgmma kernels for bf16,
+    the CUDA-core bodies of ``csrc/flash_attention.cu`` for fp32. Never
+    a fallback after a failure: a refused launch raises."""
+    if kernel_pass not in PASSES or dtype not in _DTYPE_CODES:
+        raise ValueError(f'no flash attention kernel for pass '
+                         f'{kernel_pass!r} and dtype {dtype}')
+    return (f'{kernel_pass}_wgmma' if dtype == torch.bfloat16 else
+            kernel_pass)
+
+
 @functools.lru_cache(maxsize=None)
 def _entries():
-    """The C launchers (both libraries built together and loaded at first
-    use), typed for ctypes: pointers and the stream as c_void_p, sizes
-    as c_int."""
-    cuda_build.build(['flash_attention', 'flash_forward_wgmma'])
-    lib = cuda_build.load('flash_attention')
-    wgmma = cuda_build.load('flash_forward_wgmma')
+    """The C launchers (the three libraries built together and loaded at
+    first use), typed for ctypes: pointers and the stream as c_void_p,
+    sizes as c_int."""
+    libs = sorted({lib for lib, _, _ in ENTRIES.values()})
+    cuda_build.build(libs)
     sizes = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    fns = {'forward': (lib.skytorch_flash_forward, 5),
-           'forward_wgmma': (wgmma.skytorch_flash_forward_wgmma, 5),
-           'dq': (lib.skytorch_flash_bwd_dq, 7),
-           'dkv': (lib.skytorch_flash_bwd_dkv, 8)}
-    for fn, n_ptrs in fns.values():
+    fns = {}
+    for name, (lib, symbol, n_ptrs) in ENTRIES.items():
+        fn = fns[name] = getattr(cuda_build.load(lib), symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + sizes
-    return {name: fn for name, (fn, _) in fns.items()}
+    return fns
 
 
-def _launch(name: str, tensors, q, k, causal: bool) -> None:
+def _launch(kernel_pass: str, tensors, q, k, causal: bool) -> None:
+    name = kernel_entry(kernel_pass, q.dtype)
     b, s, h, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -176,8 +200,7 @@ def flash_forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch('forward_wgmma' if q.dtype == torch.bfloat16 else 'forward',
-            (q, k, v, out, lse), q, k, causal)
+    _launch('forward', (q, k, v, out, lse), q, k, causal)
     flash_forward_kernel.launches += 1
     return out, lse
 
@@ -203,7 +226,8 @@ def flash_bwd_dq_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dsum: torch.Tensor, causal: bool = True
                         ) -> torch.Tensor:
     """CUDA FA-2 dq pass → dq [B,S,H,D]. Replaces the Pallas
-    ``_flash_bwd_dq_kernel``."""
+    ``_flash_bwd_dq_kernel``: the wgmma kernel for bf16, the CUDA-core
+    kernel for fp32."""
     q, k, v, dout, lse, dsum = _bwd_operands(q, k, v, dout, lse, dsum)
     dq = torch.empty_like(q)
     _launch('dq', (q, k, v, dout, lse, dsum, dq), q, k, causal)
@@ -220,7 +244,8 @@ def flash_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CUDA FA-2 dk/dv pass → (dk, dv [B,S,Hkv,D]), the group's query
     heads summed in the kernel. Replaces the Pallas
-    ``_flash_bwd_dkv_kernel``."""
+    ``_flash_bwd_dkv_kernel``: the wgmma kernel for bf16, the CUDA-core
+    kernel for fp32."""
     q, k, v, dout, lse, dsum = _bwd_operands(q, k, v, dout, lse, dsum)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch('dkv', (q, k, v, dout, lse, dsum, dk, dv), q, k, causal)

@@ -16,6 +16,7 @@ inside a fixture, so the card
 host, which has no JAX, runs them with
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``.
 """
+import shutil
 import types
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 
 import chip_smoke
 from skypilot_tpu_torch.ops import attention as t_attention
+from skypilot_tpu_torch.ops import cuda_build
 from skypilot_tpu_torch.ops import flash_attention as tfa
 
 torch.set_num_threads(2)
@@ -158,6 +160,60 @@ def test_dispatch_takes_plain_only_on_cpu_or_when_asked():
     assert [fn.launches for fn in tfa.KERNELS] == [0, 0, 0]
 
 
+@pytest.mark.parametrize('kernel_pass', tfa.PASSES)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_kernel_entry_picks_the_library_by_dtype(kernel_pass, dtype):
+    """bf16 launches the wgmma kernels, fp32 the CUDA-core bodies of
+    flash_attention.cu; each launcher's library is a built source that
+    defines its C symbol."""
+    name = tfa.kernel_entry(kernel_pass, dtype)
+    lib, symbol, _ = tfa.ENTRIES[name]
+    if dtype == torch.bfloat16:
+        assert name == f'{kernel_pass}_wgmma'
+        assert lib == ('flash_forward_wgmma' if kernel_pass == 'forward'
+                       else 'flash_backward_wgmma')
+    else:
+        assert (name, lib) == (kernel_pass, 'flash_attention')
+    source = (cuda_build.CSRC_DIR / cuda_build.SOURCES[lib]).read_text()
+    assert f'extern "C" int {symbol}(' in source
+
+
+def test_kernel_entry_refuses_other_dtypes_and_passes():
+    with pytest.raises(ValueError, match='no flash attention kernel'):
+        tfa.kernel_entry('dq', torch.float16)
+    with pytest.raises(ValueError, match='no flash attention kernel'):
+        tfa.kernel_entry('backward', torch.bfloat16)
+
+
+def test_build_sources_hold_the_backward_wgmma_library():
+    """The bf16 backward's source is built with the others, and both
+    wgmma sources take their Hopper helpers from the shared header."""
+    assert cuda_build.SOURCES['flash_backward_wgmma'] == (
+        'flash_backward_wgmma.cu')
+    assert {lib for lib, _, _ in tfa.ENTRIES.values()} <= set(
+        cuda_build.SOURCES)
+    for name in ('flash_forward_wgmma', 'flash_backward_wgmma'):
+        source = (cuda_build.CSRC_DIR / cuda_build.SOURCES[name]).read_text()
+        assert '#include "hopper.cuh"' in source
+
+
+def test_library_digest_follows_the_shared_header(tmp_path, monkeypatch):
+    """An edit of csrc/hopper.cuh renames every library, so a stale
+    build of either wgmma source is never loaded."""
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, 'CSRC_DIR', csrc)
+    before = {name: cuda_build.library_path(name)
+              for name in cuda_build.SOURCES}
+    header = csrc / 'hopper.cuh'
+    header.write_text(header.read_text() + '\n// edited\n')
+    after = {name: cuda_build.library_path(name)
+             for name in cuda_build.SOURCES}
+    for name in cuda_build.SOURCES:
+        assert after[name] != before[name]
+        assert after[name].name.startswith(f'lib{name}_')
+
+
 # ------------------------------------------------------------------- cuda
 
 
@@ -273,3 +329,62 @@ def test_cuda_bf16_forward_at_tile_edges(cuda, s, d, causal, g):
             assert ref.float().abs().max().item() <= 1e-4
         else:
             _check_twin(got, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('g', [1, 2, 8])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('d', [64, 128])
+@pytest.mark.parametrize('s', WGMMA_SEQS + (70,))
+def test_cuda_bf16_backward_at_tile_edges(cuda, s, d, causal, g):
+    """The wgmma backward kernels (dq CTAs of 128 query rows over 64-key
+    tiles, dk/dv CTAs of 128 keys over 64-row query tiles of G heads)
+    against the backward twin under ``twin_error``, and the same bits on
+    a second launch."""
+    q, k, v, dout = _cuda_case(cuda, 9, 2, s, 2 * g, 2, d, torch.bfloat16)
+    out, lse = tfa.flash_forward_kernel(q, k, v, causal)
+    dsum = tfa.row_dot(dout, out)
+    dq = tfa.flash_bwd_dq_kernel(q, k, v, dout, lse, dsum, causal)
+    dk, dv = tfa.flash_bwd_dkv_kernel(q, k, v, dout, lse, dsum, causal)
+    dq_again = tfa.flash_bwd_dq_kernel(q, k, v, dout, lse, dsum, causal)
+    dk_again, dv_again = tfa.flash_bwd_dkv_kernel(q, k, v, dout, lse, dsum,
+                                                  causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq_again)
+    assert torch.equal(dk, dk_again) and torch.equal(dv, dv_again)
+    want = tfa.flash_backward_plain(q, k, v, out, lse, dout, causal)
+    for name, got, ref in zip(('dq', 'dk', 'dv'), (dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        if s == 1 and name != 'dv':
+            # One key: dq and dk are 0 up to fp32 rounding of dP - D.
+            assert got.float().abs().max().item() <= 1e-4
+            assert ref.float().abs().max().item() <= 1e-4
+        else:
+            _check_twin(got, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_each_library_takes_only_its_dtype(cuda):
+    """flash_attention.cu refuses bf16 (-1) and the wgmma libraries
+    refuse fp32, before any launch; so fp32 dq/dk/dv, which match their
+    twin, ran the CUDA-core kernels."""
+    q, k, v, g = _cuda_case(cuda, 3, 1, 96, 4, 2, 64, torch.float32)
+    out, lse = tfa.flash_forward_kernel(q, k, v)
+    dsum = tfa.row_dot(g, out)
+    scratch = [torch.empty_like(x) for x in (q, k, v)]
+    buffers = {'forward': (q, k, v, scratch[0], lse),
+               'dq': (q, k, v, g, lse, dsum, scratch[0]),
+               'dkv': (q, k, v, g, lse, dsum, scratch[1], scratch[2])}
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, fn in tfa._entries().items():  # pylint: disable=protected-access
+        tensors = buffers[name.split('_')[0]]
+        wrong = 0 if name.endswith('_wgmma') else 1
+        assert fn(*(t.data_ptr() for t in tensors), wrong, 1, 96, 4, 2, 64,
+                  1, 0.125, stream) == -1, name
+    dq = tfa.flash_bwd_dq_kernel(q, k, v, g, lse, dsum)
+    dk, dv = tfa.flash_bwd_dkv_kernel(q, k, v, g, lse, dsum)
+    torch.cuda.synchronize()
+    for got, want in zip((dq, dk, dv), tfa.flash_backward_plain(
+            q, k, v, out, lse, g, True)):
+        assert got.dtype == torch.float32
+        _check_twin(got, want, torch.float32)
