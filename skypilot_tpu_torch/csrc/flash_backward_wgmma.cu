@@ -36,8 +36,11 @@
 //     MN-major B operand read through the descriptor's transpose mode
 //     (never transposed in memory). Tile j's S and dP are issued with
 //     tile j−1's dS·K, so dS of tile j is formed while dS·K runs; dS is
-//     packed only once no product reading it is in flight. Causal CTAs
-//     with the most key tiles go first.
+//     packed only once no product reading it is in flight. The ring
+//     needs three stages: tile j+1 loads into the stage that dS·K of
+//     tile j-1 frees (with two: 0.73-0.78 ms against 0.50-0.51 on an
+//     H100 at the training shapes, tools/flash_backward_variants.py).
+//     Causal CTAs with the most key tiles go first.
 //   * dk/dv: a CTA owns 128 keys of one (batch, kv head). K and V are
 //     loaded once; a two-stage ring streams the (query head, 64-row query
 //     tile) pairs of the group's G heads as one sequence, each stage a Q
@@ -51,8 +54,12 @@
 //     accumulator's columns: each thread reads the values of its fragment
 //     columns from the stage's copy. dK and dV stay in fp32 registers
 //     over every head and query tile, in a fixed order, and are written
-//     once: no atomics. Causal CTAs with the most query tiles (key tile
-//     0) go first.
+//     once: no atomics. Inside a warpgroup nothing overlaps: dK, dV, Sᵀ,
+//     dPᵀ and the P/dS fragments of a step before would need ~240
+//     registers (issuing step t's Sᵀ/dPᵀ with step t-1's products, as dq
+//     does, spilled and took 1.24-1.35 ms against 0.74-0.78 on an H100,
+//     tools/flash_backward_variants.py). Causal CTAs with the most query
+//     tiles (key tile 0) go first.
 //   * Both: two named barriers pass the tensor cores between the
 //     consumer warpgroups, so one's elementwise work runs under the
 //     other's products. The exp runs in the exp2 domain (scale·log2(e)
@@ -334,6 +341,37 @@ constexpr size_t dkv_smem_bytes() {
          8 * (1 + 2 * kDkvStages);
 }
 
+// Pᵀ in s and dSᵀ = Pᵀ ⊙ (dPᵀ − D) in dp for one 64-key x 64-query
+// tile (queries from q0 are the columns; keys `key` and key + 8 the
+// thread's rows), masked where the tile crosses the causal diagonal or
+// the end of S. lv: the stage's kTile values of L·log2(e), then of D.
+__device__ __forceinline__ void dkv_p_ds(float (&s)[kTile / 2],
+                                         float (&dp)[kTile / 2], int q0,
+                                         int key, int kw, int col2, int S,
+                                         int causal, float scale_log2,
+                                         const float* lv) {
+  if (q0 + kTile > S || (causal && q0 < kw + 63)) {
+#pragma unroll
+    for (int i = 0; i < kTile / 2; ++i) {
+      const int q = q0 + (i >> 2) * 8 + col2 + (i & 1);
+      const int kr = key + ((i >> 1) & 1) * 8;
+      if (q >= S || (causal && kr > q)) s[i] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kTile / 8; ++c) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lv + 8 * c + col2);
+    const float2 dd =
+        *reinterpret_cast<const float2*>(lv + kTile + 8 * c + col2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * c + e;
+      s[i] = exp2_approx(fmaf(s[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
+      dp[i] = s[i] * (dp[i] - ((e & 1) ? dd.y : dd.x));
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -446,28 +484,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       hold(s);
       hold(dp);
 
-      // Pᵀ in s and dSᵀ in dp; queries are the columns.
-      if (q0 + kTile > S || (p.causal && q0 < kw + 63)) {
-#pragma unroll
-        for (int i = 0; i < kTile / 2; ++i) {
-          const int q = q0 + (i >> 2) * 8 + col2 + (i & 1);
-          const int kr = key + ((i >> 1) & 1) * 8;
-          if (q >= S || (p.causal && kr > q)) s[i] = -INFINITY;
-        }
-      }
-      const float* const lv = vec_p + st * 2 * kTile;
-#pragma unroll
-      for (int c = 0; c < kTile / 8; ++c) {
-        const float2 l2 = *reinterpret_cast<const float2*>(lv + 8 * c + col2);
-        const float2 dd =
-            *reinterpret_cast<const float2*>(lv + kTile + 8 * c + col2);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * c + e;
-          s[i] = exp2_approx(fmaf(s[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
-          dp[i] = s[i] * (dp[i] - ((e & 1) ? dd.y : dd.x));
-        }
-      }
+      dkv_p_ds(s, dp, q0, key, kw, col2, S, p.causal, scale_log2,
+               vec_p + st * 2 * kTile);
       uint32_t pa[kTile / 16][4], dsa[kTile / 16][4];
       to_a_fragments(s, pa);
       to_a_fragments(dp, dsa);

@@ -81,9 +81,11 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def row_dot(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """D = rowsum(dO * O) in fp32, [B,S,H,D] → [B,H,S] (the reference
-    computes it outside its kernels too)."""
-    return torch.einsum('bshd,bshd->bhs', dout.float(),
-                        out.float()).contiguous()
+    computes it outside its kernels too). The products are formed in
+    place in an fp32 copy of dO, exact for bf16 inputs; an einsum over
+    two fp32 copies took 2.5x as long on the card."""
+    prod = dout.to(torch.float32, copy=True).mul_(out)
+    return prod.sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

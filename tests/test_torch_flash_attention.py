@@ -11,7 +11,10 @@ numpy seeds. Tolerances as tests/unit_tests/test_flash_attention.py:
 
 ``cuda`` cases: each CUDA kernel against its plain twin on the card
 (skipped here), under ``chip_smoke.py``'s bounds (its ``twin_error``),
-whose bf16 rule has a CPU test of its own. The reference is imported
+whose bf16 rule has a CPU test of its own; the bf16 wgmma forward and
+backward at every tile edge, launched twice for the same bits. CPU
+cases also cover which library each pass and dtype launch
+(``kernel_entry``) and the build's sources and digest. The reference is imported
 inside a fixture, so the card
 host, which has no JAX, runs them with
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``.
@@ -137,6 +140,22 @@ def test_function_gradients_match_autograd_of_gqa_attention(causal):
     _close(t_out.numpy(), ref_out.detach().numpy(), FWD_TOL)
     for t_x, x in zip(t_grads, (rq.grad, rk.grad, rv.grad)):
         _close(t_x.numpy(), x.numpy(), GRAD_TOL)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_row_dot_is_exact_and_leaves_its_inputs(dtype):
+    """D = rowsum(dO ⊙ O) as [B,H,S] in fp32, with the products exact
+    (a bf16 product fits in fp32); dO is not written, though an fp32 dO
+    is where ``.float()`` would return it and not a copy."""
+    _, _, _, g = _case(6, 2, 24, 6, 3, 16)
+    out = _case(7, 2, 24, 6, 3, 16)[0]
+    dout, o = (torch.from_numpy(x).to(dtype) for x in (g, out))
+    before = dout.clone()
+    got = tfa.row_dot(dout, o)
+    assert torch.equal(dout, before)
+    assert got.dtype == torch.float32 and got.shape == (2, 6, 24)
+    want = (dout.double() * o.double()).sum(-1).transpose(1, 2)
+    _close(got.numpy(), want.numpy(), 1e-6)
 
 
 def test_dispatch_takes_plain_only_on_cpu_or_when_asked():
