@@ -13,8 +13,9 @@ port's package is not beside it. Phases (any failure exits non-zero):
    started together) and print the build seconds and ptxas report; the
    bf16 flash forward's and backward's kernels must hold HGMMA (wgmma)
    instructions in their SASS (``cuobjdump -sass``), and the decode
-   library's tensor-core kernels (bf16 q: dense decode, paged decode, verify at hd 128
-   over bf16 and int8 K/V among them) HMMA (mma.sync) instructions.
+   library's tensor-core kernels (bf16 q: dense decode, paged decode,
+   verify at hd 128 over bf16 and int8 K/V among them) HMMA (mma.sync)
+   instructions.
 2. Kernels against their plain PyTorch versions at the serving path's
    shapes (B=8, H=32, Hkv=8, hd=128, max_len 2048, block_k 128, ragged
    lengths 0/1/127/128/129/2048/...): dense bf16 and int8, paged bf16

@@ -14,9 +14,9 @@ numpy seeds. Tolerances as tests/unit_tests/test_flash_attention.py:
 whose bf16 rule has a CPU test of its own; the bf16 wgmma forward and
 backward at every tile edge, launched twice for the same bits. CPU
 cases also cover which library each pass and dtype launch
-(``kernel_entry``) and the build's sources and digest. The reference is imported
-inside a fixture, so the card
-host, which has no JAX, runs them with
+(``kernel_entry``), the build's sources and digest, and ``row_dot``.
+The reference is imported inside a fixture, so the card host, which
+has no JAX, runs them with
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``.
 """
 import shutil
