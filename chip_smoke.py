@@ -102,7 +102,7 @@ port's package is not beside it. Phases (any failure exits non-zero):
    torch.profiler; fails unless the verify step ran the tensor-core
    verify kernel.
 
-The whole run took 178 s on an H100 (700 W), well inside its time
+The whole run took 164-178 s on an H100 (700 W), well inside its time
 limit, so every phase runs at full depth.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
