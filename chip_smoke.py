@@ -101,9 +101,37 @@ port's package is not beside it. Phases (any failure exits non-zero):
    verify step: verify kernel, its combine, GEMMs, the rest) under
    torch.profiler; fails unless the verify step ran the tensor-core
    verify kernel.
+10. Chunked prefill and supervision, run after phase 9 while the
+   llama3-8b weights are loaded, through the port's ModelServer on a
+   local port; the launch counts are reset just before and read just
+   after. (a) A paged bf16 replica with ``prefill_chunk`` 256 answers
+   phase 3's paged requests: paged-decode launches exactly n_layers x
+   decode steps, no dense-decode or verify launch, the chunked
+   admissions and chunks ``radix_chunks`` predicts (ceil((p - m) / 256)
+   for each prompt whose uncached suffix exceeds 256), prefix reuse,
+   and tokens against phase 3's unchunked replica under phase 9's
+   divergence rule; at full width and 8 layers in fp32, chunked tokens
+   exactly equal to unchunked. (b) The same with spec_k 4 at drafter
+   depth 1: verify launches exactly n_layers x rounds, no decode-kernel
+   launch, the same chunk and token checks. (c) Head-of-line, printed
+   and not gated: 7 lanes decoding 64 tokens when a 1,920-token prompt
+   arrives, with chunk 256 and then 0: the lanes' largest inter-token
+   gap while it prefills, its TTFT and its chunks, on the host clock.
+   (d) ``SKYTPU_CHAOS=engine_step_raise:1`` armed while 8 lanes decode
+   and one request is queued, on a paged and a dense replica: the 8
+   in-flight requests get their error within 10 s, ``restarts`` reads
+   1, the queued request gives phase 3's tokens for its prompt, device
+   memory allocated after the restart is at most 64 MiB above the
+   memory before the crash, the decode kernel ran n_layers x decode
+   steps across the restart; then with ``SKYTPU_ENGINE_MAX_RESTARTS=0``
+   one more crash fails the engine for good (/healthz 503, /generate
+   503 with ``Retry-After: 30``). (e) ``POST /drain`` with 4 requests in
+   flight: 202, all 4 finish their 64 tokens, /generate answers 503
+   with ``Retry-After``, /healthz 503, and the server stops by itself.
 
-The whole run took 164-178 s on an H100 (700 W), well inside its time
-limit, so every phase runs at full depth.
+The whole run took 206 s on an H100 (700 W) with phase 10 (164-178 s
+before it), well inside its time limit, so every phase runs at full
+depth.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -116,6 +144,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a
@@ -151,6 +180,17 @@ VERIFY_STARTS = [0, 126, 127, 128, 1000, MAX_LEN - 2, 513, 1500]
 VERIFY_SOURCE = 'skypilot_tpu/ops/decode_attention.py:467 _paged_verify_kernel'
 # The fp32 parity check runs llama3-8b's width at this depth.
 SPEC_PARITY_LAYERS = 8
+# Phase 10: chunked prefill and supervision on the paged replica.
+PREFILL_CHUNK = 256
+# (c) head-of-line: lanes decoding HOL_NEW tokens when a long prompt
+# arrives.
+HOL_LANES, HOL_NEW, HOL_PROMPT = 7, 64, 1920
+# (d) an injected crash must fail the in-flight requests within this
+# (the request timeout is minutes), and the rebuilt cache may leave at
+# most this much more memory allocated than before the crash (the old
+# pool is 2.16 GB at 8 slots x 16 blocks + 1).
+FAIL_FAST_SECONDS = 10.0
+RESTART_MEM_SLACK = 64 * 2**20
 
 DECODE_SOURCES = {
     'decode_attention_kernel': 'skypilot_tpu/ops/decode_attention.py:80',
@@ -587,8 +627,9 @@ def main_path_phase(torch, ms_lib, da, card):
     decode_kernels = (da.decode_attention_kernel,
                       da.paged_decode_attention_kernel)
     da.reset_launch_counts()
-    serve_phase(torch, ms_lib, params, 'dense bf16', {}, [dense_batch],
-                da.decode_attention_kernel, card)
+    _, dense_results = serve_phase(torch, ms_lib, params, 'dense bf16', {},
+                                   [dense_batch], da.decode_attention_kernel,
+                                   card)
     serve_phase(torch, ms_lib, params, 'dense int8-KV', {'kv_int8': True},
                 [dense_batch], da.decode_attention_kernel, card)
     paged, paged_results = serve_phase(torch, ms_lib, params, 'paged bf16',
@@ -603,7 +644,7 @@ def main_path_phase(torch, ms_lib, da, card):
         fail(f'paged replica reused no prefix: {paged}')
     print(f'[serve] paged prefix hit tokens={paged["prefill_tokens_saved"]}'
           f' blocks_used={paged["blocks_used"]}', flush=True)
-    return params, counts, paged_batches, paged_results
+    return params, counts, paged_batches, paged_results, dense_results
 
 
 # --------------------------------------------------------------- phase 4
@@ -1006,6 +1047,33 @@ def first_divergences(torch, llama, params, cfg, pairs, max_ulps, label):
     return found
 
 
+def fp32_cut(torch, params, cfg16):
+    """llama3-8b's width at SPEC_PARITY_LAYERS layers in fp32: (config,
+    params cut from the bf16 ones)."""
+    import dataclasses
+    cfg32 = dataclasses.replace(cfg16, n_layers=SPEC_PARITY_LAYERS,
+                                dtype=torch.float32)
+    p32 = {'layers': {k: w[:SPEC_PARITY_LAYERS].float()
+                      for k, w in params['layers'].items()},
+           **{k: w.float() for k, w in params.items() if k != 'layers'}}
+    return cfg32, p32
+
+
+def drain_engine(ms_lib, eng, prompts):
+    """Submit N_NEW-token requests for ``prompts`` all at once and step
+    the engine until every one finished; returns their tokens."""
+    reqs = [ms_lib.engine_lib.Request(p, N_NEW) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while not all(r.done for r in reqs):
+        eng.step()
+        steps += 1
+        if steps > 10 * N_NEW:
+            fail(f'{eng.name} engine did not finish')
+    return [r.tokens for r in reqs]
+
+
 def spec_parity_phase(torch, ms_lib, decode, llama, params, paged_results,
                       spec_runs):
     """Speculative tokens against the non-speculative paged path on the
@@ -1015,7 +1083,6 @@ def spec_parity_phase(torch, ms_lib, decode, llama, params, paged_results,
     SPEC_PARITY_BF16_ULPS bf16 ulps of the top logit; (2) fp32 at full
     width and SPEC_PARITY_LAYERS layers, spec engines (drafter depth 1
     and full depth) against a non-spec paged engine, exactly equal."""
-    import dataclasses
     cfg16 = llama.CONFIGS[MODEL]
     base = [(body['prompt'], res['tokens']) for body, res in paged_results]
     for label, (_, results) in spec_runs.items():
@@ -1028,11 +1095,7 @@ def spec_parity_phase(torch, ms_lib, decode, llama, params, paged_results,
         print(f'[spec-parity] {label} vs paged bf16: '
               f'{len(pairs) - len(div)}/{len(pairs)} requests token-'
               f'identical, {len(div)} near-tie divergences', flush=True)
-    cfg32 = dataclasses.replace(cfg16, n_layers=SPEC_PARITY_LAYERS,
-                                dtype=torch.float32)
-    p32 = {'layers': {k: w[:SPEC_PARITY_LAYERS].float()
-                      for k, w in params['layers'].items()},
-           **{k: w.float() for k, w in params.items() if k != 'layers'}}
+    cfg32, p32 = fp32_cut(torch, params, cfg16)
     # Drafter depth 1 rejects nearly every draft (the rollback path);
     # full depth accepts most (the multi-token accept path).
     tokens = {}
@@ -1041,16 +1104,8 @@ def spec_parity_phase(torch, ms_lib, decode, llama, params, paged_results,
                                    spec_drafter_layers=depth)
         eng = ms_lib.engine_lib.DecodeEngine(p32, cfg32, dcfg, 8,
                                              step_chunk=4, paged=True)
-        reqs = [ms_lib.engine_lib.Request(p, N_NEW) for p, _ in base]
-        for r in reqs:
-            eng.submit(r)
-        steps = 0
-        while not all(r.done for r in reqs):
-            eng.step()
-            steps += 1
-            if steps > 10 * N_NEW:
-                fail('fp32 parity engine did not finish')
-        tokens[spec_k, depth] = [r.tokens for r in reqs]
+        tokens[spec_k, depth] = drain_engine(ms_lib, eng,
+                                             [p for p, _ in base])
         st = eng.stats()
         del eng
         if not spec_k:
@@ -1148,6 +1203,394 @@ def spec_profile_phase(torch, decode, llama, params, card):
     del pool
     empty_cache(torch)
     return split
+
+
+# -------------------------------------------------------------- phase 10
+
+
+def radix_chunks(batches, block_k, chunk):
+    """(chunked admissions, prefill chunks) a paged replica with
+    ``prefill_chunk`` = ``chunk`` counts for ``batches`` sent one after
+    another. A prompt's cached prefix m is its longest run of whole
+    blocks published by an earlier batch, capped at p - 1 (the prompts
+    of one batch share no block here, so their order inside the batch
+    does not matter); it is chunked when p - m > chunk, in
+    ceil((p - m) / chunk) chunks."""
+    published = set()
+    admissions = chunks = 0
+    for batch in batches:
+        for body in batch:
+            prompt = body['prompt']
+            p, m = len(prompt), 0
+            while (m + block_k <= p and
+                   tuple(prompt[:m + block_k]) in published):
+                m += block_k
+            m = min(m, p - 1)
+            if p - m > chunk:
+                admissions += 1
+                chunks += -(-(p - m) // chunk)
+        for body in batch:
+            prompt = body['prompt']
+            published.update(tuple(prompt[:j * block_k])
+                             for j in range(1, len(prompt) // block_k + 1))
+    return admissions, chunks
+
+
+def chunked_phase(torch, ms_lib, da, decode, llama, params, paged_batches,
+                  paged_results, card):
+    """(a) A paged bf16 replica with prefill_chunk PREFILL_CHUNK and (b)
+    the same with spec_k SPEC_K at drafter depth 1 answer phase 3's paged
+    requests: exact launch counts (serve_phase), the chunk counts
+    radix_chunks predicts, prefix reuse, and tokens against phase 3's
+    unchunked replica under phase 9's divergence rule. Then fp32 at
+    full width and SPEC_PARITY_LAYERS layers: chunked tokens exactly
+    equal to unchunked."""
+    cfg16 = llama.CONFIGS[MODEL]
+    want = radix_chunks(paged_batches, BLOCK_K, PREFILL_CHUNK)
+    replicas = [
+        (f'paged bf16 chunk {PREFILL_CHUNK}', {},
+         da.paged_decode_attention_kernel,
+         (da.decode_attention_kernel, da.paged_verify_attention_kernel)),
+        (f'spec bf16 drafter 1 chunk {PREFILL_CHUNK}',
+         dict(spec_k=SPEC_K, drafter_layers=1),
+         da.paged_verify_attention_kernel,
+         (da.decode_attention_kernel, da.paged_decode_attention_kernel))]
+    for label, kwargs, kernel_fn, idle_fns in replicas:
+        stats, results = serve_phase(
+            torch, ms_lib, params, label,
+            dict(paged=True, prefill_chunk=PREFILL_CHUNK, **kwargs),
+            paged_batches, kernel_fn, card, idle_fns=idle_fns)
+        got = (stats['chunked_admissions'], stats['prefill_chunks'])
+        if got != want or not want[0]:
+            fail(f'{label}: (chunked admissions, prefill chunks) {got}, '
+                 f'expected {want}')
+        if stats['prefill_tokens_saved'] <= 0:
+            fail(f'{label}: no prefix reuse: {stats}')
+        pairs = [(body['prompt'], base['tokens'], res['tokens'])
+                 for (body, base), (_, res) in zip(paged_results, results)]
+        div = first_divergences(torch, llama, params, cfg16, pairs,
+                                SPEC_PARITY_BF16_ULPS, label)
+        print(f'[chunked] {label}: {got[0]} chunked admissions, {got[1]} '
+              f'chunks, prefix hit tokens {stats["prefill_tokens_saved"]}; '
+              f'{len(pairs) - len(div)}/{len(pairs)} requests token-'
+              f'identical to the unchunked paged replica, {len(div)} near-'
+              'tie divergences', flush=True)
+    cfg32, p32 = fp32_cut(torch, params, cfg16)
+    prompts = [body['prompt'] for body, _ in paged_results]
+    tokens = {}
+    for chunk in (0, PREFILL_CHUNK):
+        eng = ms_lib.engine_lib.DecodeEngine(
+            p32, cfg32, decode.DecodeConfig(max_len=MAX_LEN), 8,
+            step_chunk=4, paged=True, prefill_chunk=chunk)
+        tokens[chunk] = drain_engine(ms_lib, eng, prompts)
+        st = eng.stats()
+        del eng
+    if not st['chunked_admissions']:
+        fail(f'fp32 chunked engine chunked nothing: {st}')
+    label = f'fp32 {SPEC_PARITY_LAYERS} layers chunk {PREFILL_CHUNK}'
+    first_divergences(torch, llama, p32, cfg32,
+                      list(zip(prompts, tokens[0], tokens[PREFILL_CHUNK])),
+                      None, label)
+    print(f'[chunked] {label}: {st["chunked_admissions"]} chunked '
+          f'admissions, {st["prefill_chunks"]} chunks; tokens equal the '
+          f'unchunked engine\'s in all {len(prompts)} requests', flush=True)
+    del p32
+    empty_cache(torch)
+
+
+def stream_timed(port: int, body: dict, events: list) -> None:
+    """POST a streamed /generate and append (host time, event) for each
+    SSE event as it arrives, until the done event."""
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}/generate',
+        data=json.dumps({**body, 'stream': True}).encode(),
+        headers={'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for line in resp:
+            if not line.startswith(b'data: '):
+                continue
+            event = json.loads(line[len(b'data: '):])
+            events.append((time.perf_counter(), event))
+            if event.get('done'):
+                return
+
+
+def start_streams(port: int, bodies) -> tuple:
+    """One stream_timed thread per body: (threads, event lists)."""
+    events = [[] for _ in bodies]
+    threads = [threading.Thread(target=stream_timed, args=(port, b, ev),
+                                daemon=True)
+               for b, ev in zip(bodies, events)]
+    for t in threads:
+        t.start()
+    return threads, events
+
+
+def wait_for(cond, what: str, timeout: float = 120.0) -> float:
+    """Poll ``cond`` until true; returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            fail(f'timed out waiting for {what}')
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def join_all(threads, timeout: float = 600.0) -> None:
+    for t in threads:
+        t.join(timeout)
+        if t.is_alive():
+            fail('a client thread did not finish')
+
+
+def http_status(port: int, path: str, body=None):
+    """(status, headers, text) of one request, error statuses included."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f'http://127.0.0.1:{port}{path}', data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, dict(resp.headers), resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def rand_prompt(rng, vocab: int, n: int) -> list:
+    return [rng.randrange(vocab) for _ in range(n)]
+
+
+def hol_phase(torch, ms_lib, params, card):
+    """(c) Head-of-line, printed and not gated: HOL_LANES lanes decoding
+    HOL_NEW tokens each when a HOL_PROMPT-token prompt arrives, on a
+    paged replica with prefill_chunk PREFILL_CHUNK and then 0. Prints
+    the decoding lanes' largest inter-token gap while the long prompt
+    prefills and in a steady window of about three ticks before it
+    arrives (all lanes admitted), its TTFT and its chunks, on the host
+    clock. Tokens reach a lane in bursts of step_chunk, so a gap is the
+    time between two engine ticks."""
+    import random
+    vocab = ms_lib.llama.CONFIGS[MODEL].vocab_size
+    rng = random.Random(10)
+    lanes = [{'prompt': rand_prompt(rng, vocab, 64),
+              'max_new_tokens': HOL_NEW} for _ in range(HOL_LANES)]
+    long_body = {'prompt': rand_prompt(rng, vocab, HOL_PROMPT),
+                 'max_new_tokens': 16}
+    out = {}
+    for chunk in (PREFILL_CHUNK, 0):
+        engine = ms_lib.build_engine(MODEL, 8, MAX_LEN, step_chunk=4,
+                                     device=DEVICE, params=params,
+                                     paged=True, prefill_chunk=chunk)
+        server = ms_lib.ModelServer(engine, 0, host='127.0.0.1')
+        port = server.start()
+        try:
+            threads, events = start_streams(port, lanes)
+            wait_for(lambda: all(len(ev) >= 8 for ev in events),
+                     'the decoding lanes')
+            t_ready = time.perf_counter()
+            # Three more bursts of step_chunk tokens: the window holds at
+            # least one whole gap between ticks.
+            wait_for(lambda: all(len(ev) >= 20 for ev in events),
+                     'three more ticks')
+            t_post = time.perf_counter()
+            long_events = []
+            stream_timed(port, long_body, long_events)
+            join_all(threads)
+        finally:
+            server.stop()
+        t_first = long_events[0][0]
+        during = before = 0.0
+        for ev in events:
+            times = [t for t, _ in ev]
+            if len(times) != HOL_NEW:
+                fail(f'hol chunk {chunk}: a lane got {len(times)} tokens')
+            for a, b in zip(times, times[1:]):
+                if b > t_post and a < t_first:
+                    during = max(during, b - a)
+                elif a >= t_ready and b <= t_post:
+                    before = max(before, b - a)
+        out[chunk] = dict(gap_ms=during * 1e3, before_ms=before * 1e3,
+                          ttft_ms=(t_first - t_post) * 1e3,
+                          chunks=engine.stats()['prefill_chunks'])
+        print(f'[hol] prefill_chunk {chunk}: {HOL_LANES} lanes decoding '
+              f'{HOL_NEW} tokens, a {HOL_PROMPT}-token prompt arrives: '
+              f'largest inter-token gap {out[chunk]["gap_ms"]:.1f} ms while '
+              f'it prefills ({out[chunk]["before_ms"]:.1f} ms in the steady '
+              f'window before), its TTFT {out[chunk]["ttft_ms"]:.1f} ms, '
+              f'{out[chunk]["chunks"]} chunks; host clock, on {card}',
+              flush=True)
+    return out
+
+
+def allocated(torch) -> int:
+    if torch.device(DEVICE).type == 'cuda':
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+    return 0
+
+
+def supervision_phase(torch, ms_lib, da, params, paged_results,
+                      dense_results, card):
+    """(d) SKYTPU_CHAOS=engine_step_raise:1 armed while 8 lanes decode
+    and one request waits in the queue, on a paged and a dense replica:
+    the in-flight requests get their error within FAIL_FAST_SECONDS,
+    ``restarts`` reads 1, the queued request gives phase 3's tokens for
+    its prompt, device memory after the restart is at most the memory
+    before the crash plus RESTART_MEM_SLACK and its peak during the
+    restart stays below the memory before plus one cache (the old cache
+    is freed before the new one is allocated), and the decode kernel ran
+    n_layers x decode steps across the restart. Then, with
+    SKYTPU_ENGINE_MAX_RESTARTS=0, one more crash fails the engine for
+    good: /healthz 503, /generate 503 with Retry-After: 30."""
+    import random
+    from skypilot_tpu_torch.utils import chaos
+    cfg = ms_lib.llama.CONFIGS[MODEL]
+    rng = random.Random(11)
+    # The queued prompts were prefilled cold by phase 3 (no prefix hit).
+    replicas = [('paged', {'paged': True}, da.paged_decode_attention_kernel,
+                 paged_results[2]),
+                ('dense', {}, da.decode_attention_kernel, dense_results[0])]
+    out = {}
+    for label, kwargs, kernel_fn, (q_body, q_want) in replicas:
+        engine = ms_lib.build_engine(MODEL, 8, MAX_LEN, step_chunk=4,
+                                     device=DEVICE, params=params, **kwargs)
+        server = ms_lib.ModelServer(engine, 0, host='127.0.0.1')
+        port = server.start()
+        before = kernel_fn.launches
+        try:
+            bodies = [{'prompt': rand_prompt(rng, cfg.vocab_size, 32),
+                       'max_new_tokens': 1024} for _ in range(8)]
+            threads, events = start_streams(port, bodies)
+            wait_for(lambda: engine.active_slots() == 8 and
+                     all(events), f'{label}: 8 decoding lanes')
+            queued = {}
+            q_thread = threading.Thread(
+                target=lambda: queued.update(r=post(
+                    port, {**q_body, 'stream': False})), daemon=True)
+            q_thread.start()
+            wait_for(lambda: engine.queue_depth() == 1,
+                     f'{label}: a queued request')
+            mem_before = allocated(torch)
+            if torch.device(DEVICE).type == 'cuda':
+                torch.cuda.reset_peak_memory_stats()
+            chaos.reset()
+            os.environ[chaos.CHAOS_ENV] = 'engine_step_raise:1'
+            t_arm = time.perf_counter()
+            restart_s = wait_for(lambda: engine.restart_count() == 1,
+                                 f'{label}: the restart', FAIL_FAST_SECONDS)
+            join_all(threads, FAIL_FAST_SECONDS)
+            fail_s = max(ev[-1][0] for ev in events) - t_arm
+            for ev in events:
+                last = ev[-1][1]
+                if not (last.get('done') and
+                        'engine crashed' in str(last.get('error'))):
+                    fail(f'{label}: in-flight request ended with {last}')
+            if fail_s > FAIL_FAST_SECONDS:
+                fail(f'{label}: in-flight errors took {fail_s:.1f}s')
+            del os.environ[chaos.CHAOS_ENV]
+            join_all([q_thread])
+            if queued['r']['tokens'] != q_want['tokens']:
+                fail(f'{label}: the queued request gave '
+                     f'{queued["r"]["tokens"]}, phase 3 '
+                     f'{q_want["tokens"]}')
+            mem_after = allocated(torch)
+            peak = (torch.cuda.max_memory_allocated()
+                    if torch.device(DEVICE).type == 'cuda' else 0)
+            cache_bytes = sum(t.nbytes for t in engine._cache.values())  # pylint: disable=protected-access
+            if peak >= mem_before + cache_bytes:
+                fail(f'{label}: {peak} bytes allocated at the peak of the '
+                     f'restart, {mem_before} before it, the cache '
+                     f'{cache_bytes}: old and new caches coexisted')
+            stats = engine.stats()
+            if stats['restarts'] != 1:
+                fail(f'{label}: restarts {stats["restarts"]}')
+            if mem_after > mem_before + RESTART_MEM_SLACK:
+                fail(f'{label}: {mem_after} bytes allocated after the '
+                     f'restart, {mem_before} before the crash')
+            launches = kernel_fn.launches - before
+            if launches != cfg.n_layers * stats['decode_steps']:
+                fail(f'{label}: {kernel_fn.__name__} launched {launches} '
+                     f'times over {stats["decode_steps"]} decode steps')
+            # One more crash with no budget left: failed for good.
+            os.environ['SKYTPU_ENGINE_MAX_RESTARTS'] = '0'
+            chaos.reset()
+            os.environ[chaos.CHAOS_ENV] = 'engine_step_raise:1'
+            wait_for(lambda: engine.failed, f'{label}: permanent failure',
+                     FAIL_FAST_SECONDS)
+            health, _, text = http_status(port, '/healthz')
+            gen, headers, _ = http_status(port, '/generate',
+                                          {'prompt': [1, 2, 3]})
+            if (health != 503 or
+                    not text.startswith('engine failed permanently')):
+                fail(f'{label}: /healthz {health} {text[:80]}')
+            if gen != 503 or headers.get('Retry-After') != '30':
+                fail(f'{label}: /generate {gen} {headers}')
+        finally:
+            os.environ.pop(chaos.CHAOS_ENV, None)
+            os.environ.pop('SKYTPU_ENGINE_MAX_RESTARTS', None)
+            chaos.reset()
+            server.stop()
+        out[label] = dict(restart_s=restart_s, fail_s=fail_s,
+                          mem_before=mem_before, mem_after=mem_after,
+                          peak=peak, cache_bytes=cache_bytes,
+                          launches=launches)
+        print(f'[supervise] {label}: crash armed with 8 lanes decoding and '
+              f'1 queued; restarted in {restart_s:.3f}s, the 8 in-flight '
+              f'errors within {fail_s:.3f}s, restarts=1, the queued '
+              f'request gave phase 3\'s {len(q_want["tokens"])} tokens; '
+              f'memory allocated {mem_before / 2**30:.3f} GiB before the '
+              f'crash, {mem_after / 2**30:.3f} GiB after the restart, '
+              f'{peak / 2**30:.3f} GiB at the peak (the cache '
+              f'{cache_bytes / 2**30:.3f} GiB); '
+              f'{kernel_fn.__name__} {launches} launches; then failed for '
+              f'good at MAX_RESTARTS=0 (/healthz 503, /generate 503 '
+              f'Retry-After 30); on {card}', flush=True)
+    return out
+
+
+def drain_phase(torch, ms_lib, da, params, card):
+    """(e) POST /drain with 4 requests in flight on a paged replica: 202,
+    the 4 complete with every token, new /generate calls 503 with
+    Retry-After, /healthz 503, and the server stops by itself."""
+    import random
+    cfg = ms_lib.llama.CONFIGS[MODEL]
+    rng = random.Random(12)
+    engine = ms_lib.build_engine(MODEL, 8, MAX_LEN, step_chunk=4,
+                                 device=DEVICE, params=params, paged=True)
+    server = ms_lib.ModelServer(engine, 0, host='127.0.0.1')
+    port = server.start()
+    before = da.paged_decode_attention_kernel.launches
+    try:
+        bodies = [{'prompt': rand_prompt(rng, cfg.vocab_size, 64),
+                   'max_new_tokens': 64} for _ in range(4)]
+        threads, events = start_streams(port, bodies)
+        wait_for(lambda: engine.active_slots() == 4 and all(events),
+                 'drain: 4 decoding lanes')
+        status, _, text = http_status(port, '/drain', {})
+        if status != 202 or json.loads(text)['state'] != 'draining':
+            fail(f'drain: POST /drain {status} {text}')
+        gen, headers, _ = http_status(port, '/generate', {'prompt': [1]})
+        if gen != 503 or not headers.get('Retry-After'):
+            fail(f'drain: /generate while draining {gen} {headers}')
+        health, _, text = http_status(port, '/healthz')
+        if health != 503 or not text.startswith('draining'):
+            fail(f'drain: /healthz while draining {health} {text[:40]}')
+        join_all(threads)
+        for ev in events:
+            if (len(ev) != 64 or ev[-1][1].get('finish_reason') != 'length'):
+                fail(f'drain: a request got {len(ev)} events, last '
+                     f'{ev[-1][1] if ev else None}')
+        stop_s = wait_for(lambda: server.state == 'stopped',
+                          'drain: the server to stop', 60)
+    finally:
+        server.stop()
+    stats = engine.stats()
+    launches = da.paged_decode_attention_kernel.launches - before
+    if launches != cfg.n_layers * stats['decode_steps']:
+        fail(f'drain: {launches} paged decode launches over '
+             f'{stats["decode_steps"]} steps')
+    print(f'[drain] 4 in flight: 202, each finished its 64 tokens, '
+          f'/generate 503 with Retry-After {headers["Retry-After"]}, '
+          f'/healthz 503; stopped {stop_s:.3f}s after the last token; on '
+          f'{card}', flush=True)
 
 
 # --------------------------------------------------------------- phase 6
@@ -1604,8 +2047,8 @@ def main() -> int:
               flush=True)
 
     rows = kernel_phase(torch, da, quant)
-    params, counts, paged_batches, paged_results = main_path_phase(
-        torch, ms_lib, da, card)
+    params, counts, paged_batches, paged_results, dense_results = \
+        main_path_phase(torch, ms_lib, da, card)
     worst = e2e_phase(torch, decode, llama, params)
     print(f'[e2e] worst max|dlogit| / max|logit|: {worst}', flush=True)
     profile_phase(torch, decode, llama, params, card)
@@ -1618,9 +2061,25 @@ def main() -> int:
     spec_parity_phase(torch, ms_lib, decode, llama, params, paged_results,
                       spec_runs)
     spec_split = spec_profile_phase(torch, decode, llama, params, card)
-    del params, spec_runs, paged_results
-    torch.cuda.empty_cache()
     phase_done('phase 9')
+
+    # Phase 10 (chunked prefill, supervision) while the weights are up.
+    da.reset_launch_counts()
+    chunked_phase(torch, ms_lib, da, decode, llama, params, paged_batches,
+                  paged_results, card)
+    hol = hol_phase(torch, ms_lib, params, card)
+    supervised = supervision_phase(torch, ms_lib, da, params, paged_results,
+                                   dense_results, card)
+    drain_phase(torch, ms_lib, da, params, card)
+    phase10_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    print(f'[phase 10] launches {phase10_counts}; head-of-line {hol}; '
+          f'supervision {supervised}', flush=True)
+    if not all(phase10_counts.values()):
+        fail(f'a decode kernel was not launched in phase 10: '
+             f'{phase10_counts}')
+    del params, spec_runs, paged_results, dense_results
+    torch.cuda.empty_cache()
+    phase_done('phase 10')
 
     flash_rows = flash_kernel_phase(torch, fa)
     phase_done('phase 6')
@@ -1641,7 +2100,8 @@ def main() -> int:
             'max_abs_err': main['max_abs_err'], 'ms': main['ms'],
             'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
             'bound_by': main['bound_by'],
-            'library_ms': main['library_ms'], 'int8': row['int8']})
+            'library_ms': main['library_ms'], 'int8': row['int8'],
+            'phase10_launches': phase10_counts[kname]})
     kernels.append({
         'name': 'paged_verify_attention_kernel', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
@@ -1653,7 +2113,9 @@ def main() -> int:
         'bound_ms': verify_rows['bf16']['bound_ms'],
         'bound_by': verify_rows['bf16']['bound_by'],
         'library_ms': verify_rows['bf16']['library_ms'],
-        'int8': verify_rows['int8'], 'spec_round': spec_split})
+        'int8': verify_rows['int8'], 'spec_round': spec_split,
+        'phase10_launches':
+            phase10_counts['paged_verify_attention_kernel']})
     for kname, row in flash_rows.items():
         main = row['bf16']
         kernels.append({

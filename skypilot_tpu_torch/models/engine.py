@@ -3,9 +3,9 @@
 Counterpart of ``skypilot_tpu/models/engine.py``'s ``DecodeEngine``:
 dense and paged modes, greedy and sampled decoding, radix prefix reuse,
 per-tenant round-robin admission, clamp/reject of over-budget requests,
-and greedy speculative decoding on the paged pool. Chunked prefill,
-tensor parallelism, prefix fetch/store/handoff, telemetry and the crash
-supervisor belong to later slices.
+greedy speculative decoding and chunked prefill on the paged pool, and
+the crash supervisor. Tensor parallelism, prefix fetch/store/handoff and
+telemetry belong to later slices.
 
 * **One persistent cache** of ``num_slots`` lanes (dense) or one block
   pool (paged), updated in place for the life of the engine.
@@ -25,6 +25,17 @@ supervisor belong to later slices.
   ``[token, drafts]`` against the full model, and the host accepts the
   chain-rule prefix plus one correction token, rolling a rejected tail
   back by position only (:meth:`DecodeEngine._spec_round`).
+* **Chunked prefill** (``prefill_chunk > 0``, paged): an admission whose
+  un-cached suffix is longer than the chunk reserves its blocks at once
+  and then prefills one chunk per ``step()``, before the decode
+  dispatch, so one long prompt cannot freeze every other lane. The lane
+  stays done, its table row on scratch, until the last chunk delivers
+  the first token (:meth:`DecodeEngine._advance_prefill`).
+* **Supervision** (:meth:`DecodeEngine.run_forever`): a ``step()``
+  exception fails the in-flight requests at once, rebuilds the cache and
+  restarts the loop, at most ``SKYTPU_ENGINE_MAX_RESTARTS`` times in a
+  rolling ``SKYTPU_ENGINE_RESTART_WINDOW_SECONDS``; past that the engine
+  is failed for good and the queued requests are failed too.
 
 **Paged mode**: a host-side :class:`BlockAllocator` (refcounts,
 copy-on-write) and :class:`RadixPrefixCache` (radix tree over block-
@@ -41,19 +52,31 @@ import collections
 import heapq
 import itertools
 import logging
-import os
 import threading
 import time
+import traceback
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import decode, llama
+from skypilot_tpu_torch.observability import request_trace
+from skypilot_tpu_torch.utils import chaos, env
 
 logger = logging.getLogger(__name__)
 
 IDLE_SLEEP_ENV = 'SKYTPU_ENGINE_IDLE_SLEEP_SECONDS'
+# Supervisor restart budget: at most MAX_RESTARTS crash restarts within
+# a rolling RESTART_WINDOW; one more crash inside the window fails the
+# engine for good.
+MAX_RESTARTS_ENV = 'SKYTPU_ENGINE_MAX_RESTARTS'
+DEFAULT_MAX_RESTARTS = 3
+RESTART_WINDOW_ENV = 'SKYTPU_ENGINE_RESTART_WINDOW_SECONDS'
+DEFAULT_RESTART_WINDOW_SECONDS = 300.0
+# Chunked prefill: paged admissions whose un-cached suffix exceeds this
+# many tokens prefill one chunk per step (0 disables).
+PREFILL_CHUNK_ENV = 'SKYTPU_PREFILL_CHUNK'
 # The pool's block 0 is engine-owned scratch: freed slots' table rows
 # point at it so frozen lanes write harmlessly, and bucket-padding
 # prefill writes spill into it. The allocator never hands it out.
@@ -372,7 +395,8 @@ class DecodeEngine:
     ``submit()`` is thread-safe (the server's handlers call it);
     ``insert()``/``step()``/``run_forever()`` run on ONE engine thread,
     which owns the cache. The engine runs on the device its params live
-    on."""
+    on. ``prefill_chunk`` defaults to ``SKYTPU_PREFILL_CHUNK`` and is
+    forced to 0 when not paged."""
 
     def __init__(self, params, cfg: llama.LlamaConfig,
                  dcfg: decode.DecodeConfig, num_slots: int,
@@ -380,7 +404,8 @@ class DecodeEngine:
                  prefill_buckets: Optional[Sequence[int]] = None,
                  generator: Optional[torch.Generator] = None,
                  name: str = 'engine', paged: bool = False,
-                 num_blocks: Optional[int] = None):
+                 num_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None):
         if num_slots < 1:
             raise ValueError(f'num_slots must be >= 1, got {num_slots}')
         if step_chunk < 1:
@@ -432,6 +457,13 @@ class DecodeEngine:
                                else num_slots * self._max_blocks + 1)
         else:
             self.num_blocks = 0
+        # A paged-admission policy: the chunk calls name their block rows
+        # explicitly, which the dense cache has no use for.
+        if prefill_chunk is None:
+            prefill_chunk = env.env_int(PREFILL_CHUNK_ENV, 0)
+        self.prefill_chunk = max(0, int(prefill_chunk)) if paged else 0
+        self._prefill_chunks = 0
+        self._chunked_admissions = 0
         self._prompt_tokens_total = 0
         self._prompt_tokens_saved = 0
         self._prefix_evictions = 0
@@ -451,13 +483,26 @@ class DecodeEngine:
         self._admitted = 0
         self._evicted = 0
         self._rejected = 0
+        self.profiler = request_trace.EngineStepProfiler(name=name)
+        self._restarts = 0
+        self._crash_times: List[float] = []
+        # True while _admit runs: a request popped from its queue and not
+        # yet slotted is neither queued nor active.
+        self._admitting = False
         self.failed = False
         self.fail_reason: Optional[str] = None
 
     def _init_runtime_state(self) -> None:
-        """The device cache/pool, the allocator + radix cache, block
-        tables and the per-slot host mirrors."""
+        """(Re)build what a crashed step may have left inconsistent: the
+        device cache/pool, the allocator + radix cache, block tables and
+        the per-slot host mirrors. Called at construction and by the
+        supervisor's restart; the queues and cumulative stats stay, so
+        queued requests re-prefill against the fresh cache."""
         num_slots = self.num_slots
+        # Drop the old cache before allocating the new one: both at once
+        # would not fit beside the weights at full width.
+        self._cache = None
+        self._block_table_dev = None
         if self.paged:
             self._cache = decode.init_block_pool(
                 self.cfg, self.num_blocks, self._block_k,
@@ -477,6 +522,9 @@ class DecodeEngine:
                                                self.dcfg.max_len,
                                                self.dcfg.kv_cache_dtype,
                                                self.device)
+        # Chunked-prefill resume state: slot -> {'req', 'table', 'p',
+        # 'm', 'next'} while an admission is mid-prefill.
+        self._prefill_state: List[Optional[dict]] = [None] * num_slots
         self._slots: List[Optional[Request]] = [None] * num_slots
         self._token = np.zeros((num_slots,), np.int64)
         self._pos = np.zeros((num_slots,), np.int64)
@@ -486,12 +534,17 @@ class DecodeEngine:
     # ------------------------------------------------------------ intake
 
     def submit(self, request: Request) -> Request:
-        """Enqueue a request for admission (thread-safe)."""
+        """Enqueue a request for admission (thread-safe). On a permanently
+        failed engine the request finishes at once as an error: nothing
+        would ever admit it."""
         with self._queue_lock:
-            q = self._queues.get(request.tenant)
-            if q is None:
-                q = self._queues[request.tenant] = collections.deque()
-            q.append(request)
+            if not self.failed:
+                q = self._queues.get(request.tenant)
+                if q is None:
+                    q = self._queues[request.tenant] = collections.deque()
+                q.append(request)
+                return request
+        self._fail_request(request, 'engine failed permanently')
         return request
 
     def queue_depth(self) -> int:
@@ -533,6 +586,13 @@ class DecodeEngine:
     def active_slots(self) -> int:
         return self.num_slots - self.free_slots()
 
+    def idle(self) -> bool:
+        """Nothing queued, admitting or in a slot (the server's drain
+        waits for this). Read in this order: ``_admit`` raises its flag
+        before it pops and lowers it once the request is slotted."""
+        return (self.queue_depth() == 0 and not self._admitting and
+                self.active_slots() == 0)
+
     # --------------------------------------------------------- admission
 
     def insert(self, request: Request) -> int:
@@ -540,7 +600,9 @@ class DecodeEngine:
         from the prefill logits. Returns the slot. Raises RuntimeError
         when no slot is free, ValueError when the request exceeds
         max_len, PoolExhausted when the paged pool cannot cover it
-        (nothing mutated; requeue)."""
+        (nothing mutated; requeue). A chunked admission returns with the
+        blocks reserved and no token yet: the lane stays done, its table
+        row on scratch, until :meth:`_finish_prefill`."""
         slot = next((i for i, r in enumerate(self._slots) if r is None),
                     None)
         if slot is None:
@@ -553,6 +615,13 @@ class DecodeEngine:
                 f'{self.dcfg.max_len}')
         if self.paged:
             first = self._prefill_paged(slot, request)
+            if first is None:
+                self._admitted += 1
+                self._chunked_admissions += 1
+                self._slots[slot] = request
+                self._done[slot] = True
+                self._remaining[slot] = 0
+                return slot
         else:
             bucket = self._bucket_for(p)
             padded = np.zeros((1, bucket), np.int64)
@@ -567,7 +636,8 @@ class DecodeEngine:
 
     def _deliver_first(self, slot: int, request: Request,
                        first: int) -> None:
-        """First-token delivery and decode-lane init; a one-token or
+        """First-token delivery and decode-lane init, shared by direct
+        admission and the chunked-prefill finish; a one-token or
         immediate-EOS request never occupies a decode lane."""
         hit_eos = (self.dcfg.eos_id is not None and
                    first == self.dcfg.eos_id)
@@ -585,12 +655,15 @@ class DecodeEngine:
         self._done[slot] = False
         self._remaining[slot] = request.max_new_tokens - 1
 
-    def _prefill_paged(self, slot: int, request: Request) -> int:
+    def _prefill_paged(self, slot: int, request: Request) -> Optional[int]:
         """Paged admission: radix-match the prompt, reserve the worst
         case, copy-on-write the boundary block of a full-prompt hit,
         prefill only the un-cached suffix, publish the prompt's full
-        blocks. Returns the first token. Raises PoolExhausted with no
-        state mutated when the reservation cannot be met."""
+        blocks. Returns the first token, or None when the suffix exceeds
+        ``prefill_chunk``: the reservation is made, the resume state
+        parked, and :meth:`_advance_prefill` runs one chunk per step.
+        Raises PoolExhausted with no state mutated when the reservation
+        cannot be met."""
         bk = self._block_k
         p = len(request.prompt)
         blocks, path = self._radix.match(request.prompt)
@@ -630,46 +703,22 @@ class DecodeEngine:
         try:
             if needs_copy:
                 decode.copy_block(self._cache, cow_src, cow_dst)
-            if m == 0:
-                bucket = self._bucket_for(p)
-                padded = np.zeros((1, bucket), np.int64)
-                padded[0, :p] = request.prompt
-                row = np.full((bucket // bk,), SCRATCH_BLOCK, np.int64)
-                nrow = min(len(table), len(row))
-                row[:nrow] = table[:nrow]
-                last = decode.paged_prefill(
-                    self.params, self._dev(padded), p, self._dev(row),
-                    self.cfg, self._cache)
-            else:
-                suf = p - m
-                bucket = self._bucket_for(suf)
-                padded = np.zeros((1, bucket), np.int64)
-                padded[0, :suf] = request.prompt[m:]
-                # Prefix block count buckets to powers of two (the
-                # reference's compile bound; padding rows point at
-                # scratch and are masked by prefix_len).
-                npb = -(-m // bk)
-                npb_bucket = 1
-                while npb_bucket < npb:
-                    npb_bucket *= 2
-                pref = np.full((npb_bucket,), SCRATCH_BLOCK, np.int64)
-                pref[:npb] = table[:npb]
-                # Suffix writes start inside block m // bk at offset
-                # m % bk (the COW clone on a full hit).
-                start = m // bk
-                row = np.full((bucket // bk + 1,), SCRATCH_BLOCK, np.int64)
-                avail = table[start:start + len(row)]
-                row[:len(avail)] = avail
-                last = decode.paged_prefill_with_prefix(
-                    self.params, self._dev(padded), suf, m,
-                    self._dev(pref), self._dev(row), self.cfg,
-                    self._cache)
-                self._prompt_tokens_saved += m
-            self._prompt_tokens_total += p
-            full = p // bk
-            if full:
-                self._radix.insert(request.prompt[:full * bk],
-                                   table[:full])
+            if self.prefill_chunk and p - m > self.prefill_chunk:
+                # Chunked admission: the reservation and the boundary
+                # copy happen now; the suffix runs one chunk per step.
+                # The slot's table row stays on scratch until the last
+                # chunk (the chunk calls name their rows explicitly), so
+                # the frozen lane's decode writes cannot land in a half-
+                # prefilled block, and the radix publish waits until the
+                # blocks hold real K/V.
+                self._slot_refs[slot] = blocks + owned
+                self._slot_nodes[slot] = path
+                self._prefill_state[slot] = {
+                    'req': request, 'table': table, 'p': p, 'm': m,
+                    'next': m}
+                return None
+            last = self._prefill_range(request.prompt, m, p, table)
+            self._publish_prompt(request.prompt, m, table)
         except Exception:
             # Any failure past allocation returns the reservation (the
             # tree keeps the refs it took in insert()).
@@ -682,6 +731,57 @@ class DecodeEngine:
         self._block_table_np[slot, :n_total] = table
         self._block_table_dev = None
         return self._sample_first(last)
+
+    def _publish_prompt(self, prompt: Sequence[int], m: int,
+                        table: Sequence[int]) -> None:
+        """A prefill is done: count it (``m`` tokens came from the prefix
+        cache) and publish the prompt's whole blocks to the radix cache
+        (a partial tail block and a copy-on-write clone stay private)."""
+        self._prompt_tokens_saved += m
+        self._prompt_tokens_total += len(prompt)
+        full = len(prompt) // self._block_k
+        if full:
+            self._radix.insert(prompt[:full * self._block_k], table[:full])
+
+    def _prefill_range(self, prompt: Sequence[int], start: int, end: int,
+                       table: Sequence[int]) -> torch.Tensor:
+        """Prefill prompt positions [start, end) into the pool blocks of
+        ``table``, attending over positions [0, start) already there;
+        returns the logits at ``end - 1``. One call serves a whole
+        suffix and each chunk of a chunked admission. The bucket's
+        padding writes past ``end`` into the request's own blocks (or
+        scratch); nothing attends there before the next chunk or decode
+        step overwrites it."""
+        bk = self._block_k
+        suf = end - start
+        bucket = self._bucket_for(suf)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :suf] = prompt[start:end]
+        if start == 0:
+            row = np.full((bucket // bk,), SCRATCH_BLOCK, np.int64)
+            nrow = min(len(table), len(row))
+            row[:nrow] = table[:nrow]
+            return decode.paged_prefill(
+                self.params, self._dev(padded), suf, self._dev(row),
+                self.cfg, self._cache)
+        # Prefix block count buckets to powers of two (the reference's
+        # compile bound; padding rows point at scratch and are masked by
+        # prefix_len).
+        npb = -(-start // bk)
+        npb_bucket = 1
+        while npb_bucket < npb:
+            npb_bucket *= 2
+        pref = np.full((npb_bucket,), SCRATCH_BLOCK, np.int64)
+        pref[:npb] = table[:npb]
+        # Writes start inside block start // bk at offset start % bk, so
+        # the row holds one block more than the bucket.
+        srow = start // bk
+        row = np.full((bucket // bk + 1,), SCRATCH_BLOCK, np.int64)
+        avail = table[srow:srow + len(row)]
+        row[:len(avail)] = avail
+        return decode.paged_prefill_with_prefix(
+            self.params, self._dev(padded), suf, start, self._dev(pref),
+            self._dev(row), self.cfg, self._cache)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -702,53 +802,137 @@ class DecodeEngine:
     def _admit(self) -> int:
         """Fill free slots from the tenant queues (round-robin); over-
         budget requests are clamped (budget) or rejected (prompt too
-        long). Returns admissions made."""
+        long). Returns admissions made. A crash mid-admission finishes
+        the popped request as an error before it propagates: it is
+        neither queued nor slotted, so nothing else would answer it."""
         n = 0
-        while self.free_slots():
-            req = self._pop_next()
-            if req is None:
-                break
-            p = len(req.prompt)
-            budget = self.dcfg.max_len - p
-            if self.paged:
-                # A reservation larger than the whole pool would requeue
-                # forever.
-                budget = min(budget,
-                             (self.num_blocks - 1) * self._block_k - p)
-            if budget < 1:
-                self._reject(req, 'prompt_too_long')
-                continue
-            req.max_new_tokens = min(req.max_new_tokens, budget)
-            try:
-                self.insert(req)
-                n += 1
-            except PoolExhausted:
-                # Blocks are busy: head-of-line waits for an eviction.
-                self._requeue_front(req)
-                break
-            except ValueError as e:
-                self._reject(req, f'error: {e}')
+        self._admitting = True
+        try:
+            while self.free_slots():
+                req = self._pop_next()
+                if req is None:
+                    break
+                p = len(req.prompt)
+                budget = self.dcfg.max_len - p
+                if self.paged:
+                    # A reservation larger than the whole pool would
+                    # requeue forever.
+                    budget = min(budget,
+                                 (self.num_blocks - 1) * self._block_k - p)
+                if budget < 1:
+                    self._reject(req, 'prompt_too_long')
+                    continue
+                req.max_new_tokens = min(req.max_new_tokens, budget)
+                try:
+                    self.insert(req)
+                    n += 1
+                except PoolExhausted:
+                    # Blocks are busy: head-of-line waits for an eviction.
+                    self._requeue_front(req)
+                    break
+                except ValueError as e:
+                    self._reject(req, f'error: {e}')
+                except Exception as e:
+                    self._fail_request(req, f'admission crashed: {e}')
+                    raise
+        finally:
+            self._admitting = False
         return n
 
     def _reject(self, req: Request, reason: str) -> None:
+        """Terminal rejection, the request's fault (a 4xx)."""
+        self._finish_unadmitted(req, f'rejected: {reason}')
+
+    def _fail_request(self, req: Request, reason: str) -> None:
+        """Terminal server-side failure of a request that never got a
+        slot: 'error: ...', which the server answers with a 500."""
+        self._finish_unadmitted(req, f'error: {reason}')
+
+    def _finish_unadmitted(self, req: Request, finish_reason: str) -> None:
         self._rejected += 1
-        req._finish(f'rejected: {reason}')  # pylint: disable=protected-access
+        req._finish(finish_reason)  # pylint: disable=protected-access
+
+    # -------------------------------------------------- chunked prefill
+
+    def _advance_prefill(self) -> int:
+        """Advance every prefilling slot by one chunk; returns the prefill
+        tokens processed. The bound is per prompt, not global, so a burst
+        of long prompts still prefills in parallel."""
+        total = 0
+        for slot, st in enumerate(self._prefill_state):
+            if st is not None:
+                total += self._advance_prefill_slot(slot, st)
+        return total
+
+    def _advance_prefill_slot(self, slot: int, st: dict) -> int:
+        """Run one chunk of one slot's pending prefill; returns its token
+        count. Positions [0, next) already in the pool are the chunk's
+        prefix, exactly as a radix hit's are."""
+        start = st['next']
+        end = min(start + self.prefill_chunk, st['p'])
+        last = self._prefill_range(st['req'].prompt, start, end,
+                                   st['table'])
+        st['next'] = end
+        self._prefill_chunks += 1
+        if end >= st['p']:
+            self._finish_prefill(slot, st, last)
+        return end - start
+
+    def _finish_prefill(self, slot: int, st: dict,
+                        last: torch.Tensor) -> None:
+        """Last chunk done: publish the prompt to the prefix cache,
+        install the real table row, deliver the first token and join the
+        decode lanes."""
+        req, table = st['req'], st['table']
+        self._publish_prompt(req.prompt, st['m'], table)
+        self._block_table_np[slot, :] = SCRATCH_BLOCK
+        self._block_table_np[slot, :len(table)] = table
+        self._block_table_dev = None
+        self._prefill_state[slot] = None
+        self._deliver_first(slot, req, self._sample_first(last))
 
     # -------------------------------------------------------------- step
 
     def step(self) -> int:
-        """Admit, then run ``step_chunk`` decode steps across all slots, or
-        one speculative round when ``spec_k > 0``. Returns the number of
-        active slots (0 = idle)."""
+        """Admit, advance each chunked admission by one chunk, then run
+        ``step_chunk`` decode steps across all slots, or one speculative
+        round when ``spec_k > 0``. Returns the number of active slots
+        (0 = idle)."""
+        # Chaos points (off unless SKYTPU_CHAOS arms them): an injected
+        # raise exercises the supervisor; slow_step widens decode windows.
+        chaos.maybe_raise('engine_step_raise')
+        chaos.maybe_slow_step()
         self._admit()
         active = self.active_slots()
         if active == 0:
             return 0
-        if not self._done.all():
-            if self.dcfg.spec_k:
-                self._spec_round()
-            else:
-                self._decode_round()
+        t0 = time.perf_counter()
+        # One chunk per prefilling slot BEFORE the decode dispatch. With
+        # no lane decoding there is nothing to hold up: keep prefilling
+        # until a lane is ready instead of idling a step per chunk.
+        pf_tokens = self._advance_prefill()
+        decode_lanes = int(np.count_nonzero(~self._done))
+        while (decode_lanes == 0 and
+               any(st is not None for st in self._prefill_state)):
+            pf_tokens += self._advance_prefill()
+            decode_lanes = int(np.count_nonzero(~self._done))
+        emitted_before = self._decode_emitted
+        n = 0
+        if decode_lanes and self.dcfg.spec_k:
+            n = 1
+            self._spec_round()
+        elif decode_lanes:
+            n = self.step_chunk
+            self._decode_round()
+        stall = self.profiler.record(
+            time.perf_counter() - t0, chunk=n, active=active,
+            delivered=self._decode_emitted - emitted_before,
+            queue_depth=self.queue_depth(),
+            blocks_used=self._allocator.used() if self.paged else 0,
+            blocks_total=(self.num_blocks - 1) if self.paged else 0,
+            prefill_tokens=pf_tokens)
+        if stall is not None:
+            logger.warning('engine %s stall: %s', self.name, stall)
         # Refill freed lanes now so the next chunk runs full.
         self._admit()
         return active
@@ -893,7 +1077,9 @@ class DecodeEngine:
 
     def _deliver_chunk(self, toks_np: np.ndarray) -> None:
         for slot, req in enumerate(self._slots):
-            if req is not None:
+            # A slot mid-chunked-prefill is not decoding yet: its frozen
+            # lane's outputs are scratch noise, not tokens.
+            if req is not None and self._prefill_state[slot] is None:
                 self._decode_emitted += self._deliver_run(
                     slot, req, toks_np[:, slot])[0]
 
@@ -910,6 +1096,7 @@ class DecodeEngine:
             self._radix.release(self._slot_nodes[slot])
             self._slot_refs[slot] = []
             self._slot_nodes[slot] = []
+            self._prefill_state[slot] = None
             self._block_table_np[slot, :] = SCRATCH_BLOCK
             self._block_table_dev = None
         self._evicted += 1
@@ -918,36 +1105,89 @@ class DecodeEngine:
     # ------------------------------------------------------------- loop
 
     def run_forever(self, stop_event: threading.Event) -> None:
-        """Step while there is work, sleep briefly when idle, until
-        ``stop_event``. There is no restart supervisor in this slice: a
-        ``step()`` exception marks the engine failed, finishes every
-        in-flight and queued request with an error, and ends the loop."""
-        try:
-            idle = float(os.environ.get(IDLE_SLEEP_ENV, '0.02'))
-        except ValueError:
-            idle = 0.02
+        """Supervised engine loop: step while there is work, wait briefly
+        when idle, until ``stop_event``. Every iteration beats the
+        profiler's heartbeat (``/healthz`` staleness reads it). A
+        ``step()`` exception goes to :meth:`_recover_from_crash`, which
+        fails the in-flight requests, rebuilds and restarts within the
+        budget, or else fails the engine for good and ends the loop."""
+        idle = env.env_float(IDLE_SLEEP_ENV, 0.02)
         while not stop_event.is_set():
+            self.profiler.beat()
             try:
                 active = self.step()
             except Exception as exc:  # pylint: disable=broad-except
-                logger.exception('engine %s step failed', self.name)
-                self._fail_all(f'error: engine crashed: {exc}')
-                return
+                if not self._recover_from_crash(exc):
+                    return
+                continue
             if active == 0:
-                time.sleep(idle)
+                stop_event.wait(idle)
 
-    def _fail_all(self, reason: str) -> None:
-        self.failed = True
-        self.fail_reason = reason
+    # ------------------------------------------------------- supervision
+
+    def restart_count(self) -> int:
+        return self._restarts
+
+    def _recover_from_crash(self, exc: BaseException) -> bool:
+        """One supervisor round: log the crash with its traceback, fail
+        the in-flight requests, then rebuild and restart (True) or, past
+        ``SKYTPU_ENGINE_MAX_RESTARTS`` crashes within
+        ``SKYTPU_ENGINE_RESTART_WINDOW_SECONDS``, fail the queued
+        requests too and mark the engine failed for good (False). A
+        sticky CUDA error poisons the context, so every rebuild then
+        fails again and the budget runs out: the replica is replaced,
+        not reset in place."""
+        now = time.time()
+        window = env.env_float(RESTART_WINDOW_ENV,
+                               DEFAULT_RESTART_WINDOW_SECONDS)
+        budget = env.env_int(MAX_RESTARTS_ENV, DEFAULT_MAX_RESTARTS)
+        self._crash_times = [t for t in self._crash_times
+                             if now - t <= window]
+        self._crash_times.append(now)
+        permanent = len(self._crash_times) > budget
+        exc_text = str(exc) or type(exc).__name__
+        logger.error('engine %s crashed (%d in %.0fs, budget %d, %d in '
+                     'flight, %d queued, permanent=%s)', self.name,
+                     len(self._crash_times), window, budget,
+                     self.active_slots(), self.queue_depth(), permanent,
+                     exc_info=exc)
+        self._fail_in_flight(f'error: engine crashed: {exc_text}')
+        if permanent:
+            self.failed = True
+            self.fail_reason = (
+                f'{len(self._crash_times)} crashes within {window:.0f}s '
+                f'(budget {budget}); last: {exc_text}')
+            self._fail_queued()
+            return False
+        # The traceback's frames may hold the old cache (a crash inside a
+        # decode call): clear them so the rebuild can reuse its memory.
+        traceback.clear_frames(exc.__traceback__)
+        self._init_runtime_state()
+        self._restarts += 1
+        logger.warning('engine %s restarted (%d restarts, %d queued)',
+                       self.name, self._restarts, self.queue_depth())
+        return True
+
+    def _fail_in_flight(self, reason: str) -> None:
+        """Finish every slotted request with an error now (the server
+        answers 500), leaving the allocator and radix cache alone: the
+        crash may have left them inconsistent, and the caller rebuilds
+        them."""
         for slot, req in enumerate(self._slots):
-            if req is not None:
-                self._slots[slot] = None
-                req._finish(reason)  # pylint: disable=protected-access
+            if req is None:
+                continue
+            self._slots[slot] = None
+            self._prefill_state[slot] = None
+            self._evicted += 1
+            req._finish(reason)  # pylint: disable=protected-access
+
+    def _fail_queued(self) -> None:
+        """Permanent failure only: nothing will serve the queue again."""
         while True:
             req = self._pop_next()
             if req is None:
                 break
-            req._finish(reason)  # pylint: disable=protected-access
+            self._fail_request(req, 'engine failed permanently')
 
     # ------------------------------------------------------------ stats
 
@@ -964,9 +1204,8 @@ class DecodeEngine:
         return self._spec_accepted / self._spec_drafted
 
     def spec_stats(self) -> dict:
-        """The speculative-decoding counters of this engine (the
-        reference's ``spec_stats`` block; its chunked-prefill fields come
-        with that slice)."""
+        """The speculative-decoding and chunked-prefill counters of this
+        engine (the reference's ``spec_stats`` block)."""
         return {
             'enabled': self.dcfg.spec_k > 0,
             'spec_k': self.dcfg.spec_k,
@@ -974,6 +1213,9 @@ class DecodeEngine:
             'drafted_total': self._spec_drafted,
             'accepted_total': self._spec_accepted,
             'accept_ratio': round(self.spec_accept_ratio(), 4),
+            'prefill_chunk': self.prefill_chunk,
+            'prefill_chunks_total': self._prefill_chunks,
+            'chunked_admissions': self._chunked_admissions,
         }
 
     def prefix_hit_ratio(self) -> float:
@@ -992,6 +1234,8 @@ class DecodeEngine:
             'decode_steps': self._decode_steps,
             'decode_tokens': self._decode_emitted,
             'mean_occupancy': round(self.mean_occupancy(), 4),
+            'stalls': self.profiler.stall_count(),
+            'restarts': self._restarts,
             'failed': self.failed,
             'step_chunk': self.step_chunk,
             'kv_cache_dtype': self.dcfg.kv_cache_dtype,
@@ -1008,6 +1252,9 @@ class DecodeEngine:
                 'prefix_cache_blocks': self._radix.held_blocks(),
                 'prefix_hit_ratio': round(self.prefix_hit_ratio(), 4),
                 'prefill_tokens_saved': self._prompt_tokens_saved,
+                'prefill_chunk': self.prefill_chunk,
+                'prefill_chunks': self._prefill_chunks,
+                'chunked_admissions': self._chunked_admissions,
                 'prefix_evictions': self._prefix_evictions,
             })
         if self.dcfg.spec_k:

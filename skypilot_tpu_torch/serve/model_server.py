@@ -11,18 +11,30 @@ the engine loop on its own thread. Endpoints:
   "done"}`` event per token, the last one adding ``finish_reason`` and
   ``generated``; ``stream: false`` returns one JSON object with
   ``tokens``, ``text``, ``finish_reason`` and ``generated``. Bad bodies
-  answer 400, a failed engine 503 (the reference's 429 queue
-  backpressure and ``/drain`` come with the crash supervisor).
-* ``GET /healthz`` — 200 ``ok ...`` with the engine's stats, 503 when
-  the engine thread died or the engine failed.
+  answer 400; a full admission queue (``SKYTPU_SERVE_MAX_QUEUE``,
+  default 256, 0 = no bound) 429 with ``Retry-After: 1``; a draining or
+  stopped server 503 with ``Retry-After: 1``; a permanently failed
+  engine 503 with ``Retry-After: 30``. An engine crash mid-request
+  answers 500 (the supervisor restarts the engine; queued requests
+  survive it).
+* ``POST /drain`` — 202; the server stops taking requests, lets the
+  in-flight ones finish for up to ``SKYTPU_DRAIN_TIMEOUT_SECONDS``
+  (default 30), then stops. SIGTERM does the same in standalone mode.
+* ``GET /healthz`` — 200 ``ok staleness_seconds=... <stats>``; 503 when
+  the engine failed for good, the server is not running (draining,
+  stopped), the engine thread died, or the engine loop's heartbeat is
+  older than ``SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS`` (unset: no bound).
 * ``GET /stats`` — the engine's stats as JSON, with the speculative-
-  decoding counters under ``spec``.
+  decoding and chunked-prefill counters under ``spec``.
 
 Run as ``python -m skypilot_tpu_torch.serve.model_server`` with the
 reference's flag names. The engine runs on CUDA unless ``--device cpu``
 is given. Speculative decoding is on with ``--paged --spec-k K
-[--drafter-layers D]`` (or ``SKYTPU_SPEC_K`` / ``SKYTPU_SPEC_DRAFTER_LAYERS``);
-flags of features later slices port (chunked prefill, tensor
+[--drafter-layers D]`` (or ``SKYTPU_SPEC_K`` / ``SKYTPU_SPEC_DRAFTER_LAYERS``),
+chunked prefill with ``--paged --prefill-chunk N`` (or
+``SKYTPU_PREFILL_CHUNK``). ``SKYTPU_CHAOS`` arms the fault points
+``engine_step_raise``, ``slow_step``, ``drain_hang`` and ``replica_500``
+(``utils/chaos.py``). Flags of features later slices port (tensor
 parallelism, prefix fetch/store/handoff, int8 weights, checkpoints,
 roles) are rejected, never ignored.
 
@@ -36,7 +48,9 @@ import json
 import logging
 import os
 import queue
+import signal
 import threading
+import time
 from typing import Optional
 
 import torch
@@ -45,6 +59,7 @@ from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.models import engine as engine_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.utils import chaos, env
 
 logger = logging.getLogger(__name__)
 
@@ -54,6 +69,20 @@ REQUEST_TIMEOUT_ENV = 'SKYTPU_MODEL_SERVER_REQUEST_TIMEOUT'
 # truncated-layer drafter's depth, when the CLI does not give them.
 SPEC_K_ENV = 'SKYTPU_SPEC_K'
 SPEC_DRAFTER_LAYERS_ENV = 'SKYTPU_SPEC_DRAFTER_LAYERS'
+# Admission-queue backpressure: at this queue depth /generate answers
+# 429 + Retry-After instead of queueing without bound. 0 disables.
+MAX_QUEUE_ENV = 'SKYTPU_SERVE_MAX_QUEUE'
+DEFAULT_MAX_QUEUE = 256
+# Graceful drain: how long in-flight requests get to finish.
+DRAIN_TIMEOUT_ENV = 'SKYTPU_DRAIN_TIMEOUT_SECONDS'
+DEFAULT_DRAIN_TIMEOUT_SECONDS = 30.0
+# stop(): how long to wait for the engine thread before logging it as
+# wedged (it still holds the device).
+STOP_TIMEOUT_ENV = 'SKYTPU_SERVER_STOP_TIMEOUT_SECONDS'
+DEFAULT_STOP_TIMEOUT_SECONDS = 10.0
+# /healthz answers 503 once the engine loop's heartbeat is older than
+# this (unset, empty or unparseable: no bound).
+HEALTHZ_MAX_STALENESS_ENV = 'SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS'
 
 
 def _role(raw: str) -> str:
@@ -64,37 +93,17 @@ def _role(raw: str) -> str:
         'mixed')
 
 
-def _number(cast, default):
-    """The reference's numeric knob (``env_int`` / ``env_float`` /
-    ``env_optional_float``): an unparseable value gives ``default``."""
-    def parse(raw: str):
-        try:
-            return cast(raw)
-        except ValueError:
-            return default
-    return parse
-
-
 # Environment knobs of the reference's replica whose features the port
 # does not have yet: name → (feature, the reference's reading of a set
 # value, the reading that leaves the feature as the port runs it). Any
 # other reading is refused, never ignored. SKYTPU_STORE_DIR is read only
 # under the 'store' role, so refusing the role covers it.
 UNSUPPORTED_ENVS = {
-    'SKYTPU_PREFILL_CHUNK': ('chunked prefill', str, '0'),
     'SKYTPU_SERVE_TP': ('tensor parallelism', str, '1'),
     'SKYTPU_PREFIX_PEERS': ('cross-replica prefix fetch', str, None),
     'SKYTPU_STORE_URL': ('the durable block store', str, None),
     'SKYTPU_REPLICA_ROLE': ('disaggregated serving roles (prefill, '
                             'decode, store)', _role, 'mixed'),
-    'SKYTPU_SERVE_MAX_QUEUE': ('admission-queue backpressure',
-                               _number(int, 256), 256),
-    'SKYTPU_ENGINE_MAX_RESTARTS': ('the engine crash supervisor',
-                                   _number(int, 3), 3),
-    'SKYTPU_DRAIN_TIMEOUT_SECONDS': ('graceful drain',
-                                     _number(float, 30.0), 30.0),
-    'SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS': (
-        'the /healthz staleness bound', _number(float, None), None),
 }
 
 
@@ -107,13 +116,6 @@ def decode_tokens(tokens) -> str:
     """Inverse demo codec: ids → bytes (mod 256), lossy for vocab>256."""
     return bytes(t % 256 for t in tokens).decode('utf-8',
                                                  errors='replace')
-
-
-def _env_int(name: str, default: int) -> int:
-    """An integer knob; unset, empty or unparseable gives ``default``
-    (the reference's ``common_utils.env_int``)."""
-    raw = os.environ.get(name)
-    return _number(int, default)(raw) if raw else default
 
 
 def check_unsupported_env() -> None:
@@ -132,6 +134,7 @@ def build_engine(model: str, num_slots: int, max_len: int,
                  block_k: Optional[int] = None,
                  spec_k: Optional[int] = None,
                  drafter_layers: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
                  device: Optional[str] = None,
                  params: Optional[llama.Params] = None
                  ) -> engine_lib.DecodeEngine:
@@ -140,7 +143,8 @@ def build_engine(model: str, num_slots: int, max_len: int,
     ``device`` defaults to CUDA and raises without a card. ``spec_k`` /
     ``drafter_layers`` default from ``SKYTPU_SPEC_K`` /
     ``SKYTPU_SPEC_DRAFTER_LAYERS``; the drafter depth is clamped to the
-    model's layer count, as the reference does."""
+    model's layer count, as the reference does. ``prefill_chunk``
+    defaults from ``SKYTPU_PREFILL_CHUNK`` (paged only)."""
     check_unsupported_env()
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
@@ -154,9 +158,9 @@ def build_engine(model: str, num_slots: int, max_len: int,
     if block_k is not None:
         dcfg_kwargs['kernel_block_k'] = block_k
     if spec_k is None:
-        spec_k = _env_int(SPEC_K_ENV, 0)
+        spec_k = env.env_int(SPEC_K_ENV, 0)
     if drafter_layers is None:
-        drafter_layers = _env_int(SPEC_DRAFTER_LAYERS_ENV, 1)
+        drafter_layers = env.env_int(SPEC_DRAFTER_LAYERS_ENV, 1)
     if spec_k:
         dcfg_kwargs['spec_k'] = spec_k
         dcfg_kwargs['spec_drafter_layers'] = min(drafter_layers,
@@ -167,7 +171,8 @@ def build_engine(model: str, num_slots: int, max_len: int,
                                    decode.DecodeConfig(**dcfg_kwargs),
                                    num_slots, step_chunk=step_chunk,
                                    generator=sampler, name=model,
-                                   paged=paged, num_blocks=num_blocks)
+                                   paged=paged, num_blocks=num_blocks,
+                                   prefill_chunk=prefill_chunk)
 
 
 class _HTTPServer(http.server.ThreadingHTTPServer):
@@ -215,15 +220,25 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self.send_json(404, {'error': f'no route {path}'})
 
     def do_POST(self):  # pylint: disable=invalid-name
+        ms = self.server.model_server
         path = self.path.split('?', 1)[0]
         if path == '/generate':
-            self.server.model_server.handle_generate(self)
+            ms.handle_generate(self)
+        elif path == '/drain':
+            initiated = ms.begin_drain('http')
+            self.send_json(202, {'state': ms.state, 'initiated': initiated,
+                                 'drain_timeout_seconds': ms.drain_timeout})
         else:
             self.send_json(404, {'error': f'no route {path}'})
 
 
 class ModelServer:
-    """Threaded HTTP front end + engine loop thread, one per replica."""
+    """Threaded HTTP front end + engine loop thread, one per replica.
+
+    Lifecycle: starting → running → draining → stopped. ``stop()`` must
+    not run on the thread that runs ``serve_forever`` (``shutdown()``
+    waits for that loop to return), so a drain stops the server from
+    its own thread."""
 
     def __init__(self, engine: engine_lib.DecodeEngine, port: int,
                  host: str = '0.0.0.0',
@@ -232,25 +247,38 @@ class ModelServer:
         self.host = host
         self.port = port  # rebound to the OS-assigned port when 0
         self.default_max_new_tokens = default_max_new_tokens
-        try:
-            self.request_timeout = float(
-                os.environ.get(REQUEST_TIMEOUT_ENV, '300'))
-        except ValueError:
-            self.request_timeout = 300.0
+        self.request_timeout = env.env_float(REQUEST_TIMEOUT_ENV, 300.0)
+        self.max_queue = env.env_int(MAX_QUEUE_ENV, DEFAULT_MAX_QUEUE)
+        self.max_staleness = env.env_optional_float(
+            HEALTHZ_MAX_STALENESS_ENV)
+        self.drain_timeout = env.env_float(DRAIN_TIMEOUT_ENV,
+                                           DEFAULT_DRAIN_TIMEOUT_SECONDS)
+        self._started_at: Optional[float] = None
         self._stop = threading.Event()
         self._engine_thread: Optional[threading.Thread] = None
         self._http_thread: Optional[threading.Thread] = None
         self._httpd: Optional[_HTTPServer] = None
+        self._serving = False
+        self._state = 'starting'
+        self._state_lock = threading.Lock()
+        self._drain_thread: Optional[threading.Thread] = None
+
+    @property
+    def state(self) -> str:
+        return self._state
 
     # ---------------------------------------------------------- lifecycle
 
     def _bind(self) -> None:
         self._httpd = _HTTPServer((self.host, self.port), self)
         self.port = self._httpd.server_address[1]
+        self._started_at = time.time()
         self._engine_thread = threading.Thread(
             target=self.engine.run_forever, args=(self._stop,),
             daemon=True, name='skytorch-engine')
         self._engine_thread.start()
+        self._serving = True
+        self._state = 'running'
         logger.info('Model server listening on :%d (%d slots, max_len %d, '
                     '%s).', self.port, self.engine.num_slots,
                     self.engine.dcfg.max_len, self.engine.device)
@@ -266,42 +294,104 @@ class ModelServer:
         return self.port
 
     def run_forever(self) -> None:
-        """Standalone mode: serve until interrupted."""
+        """Standalone mode: serve until stopped; SIGTERM drains first (a
+        signal handler can only be installed from the main thread)."""
         self._bind()
+        try:
+            signal.signal(signal.SIGTERM,
+                          lambda *_: self.begin_drain('sigterm'))
+        except ValueError:
+            pass
         try:
             self._httpd.serve_forever()
         except KeyboardInterrupt:
             pass
         finally:
-            self._shutdown_engine()
-            self._httpd.server_close()
+            self.stop()
 
     def stop(self) -> None:
-        if self._httpd is not None and self._http_thread is not None:
-            self._httpd.shutdown()
-            self._http_thread.join(timeout=10)
-            self._httpd.server_close()
-        self._shutdown_engine()
-
-    def _shutdown_engine(self) -> None:
+        """Stop the engine loop (waiting ``SKYTPU_SERVER_STOP_TIMEOUT_
+        SECONDS`` for it) and the HTTP server; idempotent."""
         self._stop.set()
+        stop_timeout = env.env_float(STOP_TIMEOUT_ENV,
+                                     DEFAULT_STOP_TIMEOUT_SECONDS)
         if self._engine_thread is not None:
-            self._engine_thread.join(timeout=30)
+            self._engine_thread.join(timeout=stop_timeout)
             if self._engine_thread.is_alive():
-                logger.error('engine thread did not stop within 30s')
+                logger.error('engine thread did not stop within %.0fs: '
+                             'wedged (it still holds the device)',
+                             stop_timeout)
+        if self._httpd is not None:
+            if self._serving:
+                # Returns once serve_forever has (on whatever thread).
+                self._httpd.shutdown()
+                self._serving = False
+            self._httpd.server_close()
+        if self._http_thread is not None:
+            self._http_thread.join(timeout=10)
+        self._state = 'stopped'
+
+    def begin_drain(self, reason: str = 'api') -> bool:
+        """Flip to draining (False when not running): /healthz and new
+        /generate calls answer 503, in-flight requests get up to
+        ``drain_timeout`` seconds to finish, then the server stops."""
+        with self._state_lock:
+            if self._state != 'running':
+                return False
+            self._state = 'draining'
+        logger.info('Draining (%s): waiting up to %.0fs for %d in-flight '
+                    'and %d queued requests.', reason, self.drain_timeout,
+                    self.engine.active_slots(), self.engine.queue_depth())
+        self._drain_thread = threading.Thread(target=self._drain_and_stop,
+                                              daemon=True,
+                                              name='skytorch-drain')
+        self._drain_thread.start()
+        return True
+
+    def _drain_and_stop(self) -> None:
+        deadline = time.time() + self.drain_timeout
+        drained = False
+        while time.time() < deadline:
+            # drain_hang (chaos): never see the engine idle, so the
+            # drain rides out its timeout.
+            if self.engine.idle() and not chaos.armed('drain_hang'):
+                drained = True
+                break
+            time.sleep(0.05)
+        if not drained:
+            logger.warning('Drain timed out after %.0fs with %d request(s) '
+                           'in flight; stopping anyway.',
+                           self.drain_timeout, self.engine.active_slots())
+        self.stop()
 
     # ----------------------------------------------------------- handlers
 
+    def staleness_seconds(self) -> float:
+        """Age of the engine loop's heartbeat, floored at the server's
+        start so an engine that has not beaten yet reads fresh."""
+        beat = max(self.engine.profiler.heartbeat_ts(),
+                   self._started_at or 0.0)
+        return max(0.0, time.time() - beat)
+
     def health(self):
+        """The reference's /healthz order: failed for good, not running,
+        engine thread dead, stale, ok."""
         alive = (self._engine_thread is not None and
                  self._engine_thread.is_alive())
+        staleness = self.staleness_seconds()
         line = ' '.join(f'{k}={v}' for k, v in self.engine.stats().items())
+        tail = f'staleness_seconds={staleness:.3f} {line}\n'
         if self.engine.failed:
-            return 503, (f'engine failed ({self.engine.fail_reason}) '
-                         f'{line}\n')
+            return 503, (f'engine failed permanently '
+                         f'({self.engine.fail_reason}) {tail}')
+        if self._state != 'running':
+            return 503, f'{self._state} {tail}'
         if not alive:
-            return 503, f'engine thread dead {line}\n'
-        return 200, f'ok {line}\n'
+            return 503, f'engine thread dead {tail}'
+        if (self.max_staleness is not None and
+                staleness > self.max_staleness):
+            return 503, f'stale {tail}'
+        return 200, f'ok {tail}'
 
     def parse_prompt_body(self, body):
         """``(tokens, max_new, None)`` or ``(None, 0, (status, error))``,
@@ -333,9 +423,21 @@ class ModelServer:
         return tokens, max(1, min(max_new, limit)), None
 
     def handle_generate(self, h: _Handler) -> None:
+        if chaos.should_fire('replica_500'):
+            h.send_json(500, {'error': 'chaos: injected replica_500'})
+            return
+        # Draining or stopped: answer at once, so the client retries
+        # another replica instead of queueing behind one that will not
+        # admit it.
+        state = self._state
+        if state != 'running':
+            h.send_json(503, {'error': f'server {state}', 'state': state},
+                        headers={'Retry-After': '1'})
+            return
         if self.engine.failed:
             h.send_json(503, {'error': f'engine failed: '
-                                       f'{self.engine.fail_reason}'})
+                                       f'{self.engine.fail_reason}'},
+                        headers={'Retry-After': '30'})
             return
         try:
             length = int(h.headers.get('Content-Length') or 0)
@@ -348,6 +450,13 @@ class ModelServer:
             h.send_json(err[0], {'error': err[1]})
             return
         stream = bool(body.get('stream', True))
+        # Backpressure before enqueueing (0 disables).
+        if self.max_queue > 0:
+            depth = self.engine.queue_depth()
+            if depth >= self.max_queue:
+                h.send_json(429, {'error': f'queue full ({depth} waiting)'},
+                            headers={'Retry-After': '1'})
+                return
         tenant = h.headers.get('X-Tenant') or body.get('tenant') or 'default'
         events: queue.Queue = queue.Queue()
         req = engine_lib.Request(
@@ -429,7 +538,6 @@ class ModelServer:
 # flag → (argparse kwargs, what it would enable).
 _UNSUPPORTED_FLAGS = {
     '--int8': (dict(action='store_true'), 'int8 weights'),
-    '--prefill-chunk': (dict(type=int), 'chunked prefill'),
     '--tp': (dict(type=int), 'tensor parallelism'),
     '--prefix-peers': (dict(), 'cross-replica prefix fetch'),
     '--store-url': (dict(), 'the durable block store'),
@@ -480,6 +588,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--drafter-layers', type=int, default=None,
                         help='truncated-layer drafter depth (default '
                              'SKYTPU_SPEC_DRAFTER_LAYERS or 1)')
+    parser.add_argument('--prefill-chunk', type=int, default=None,
+                        help='chunked prefill: paged admissions whose '
+                             'uncached suffix exceeds this many tokens '
+                             'prefill one chunk per engine step (default '
+                             'SKYTPU_PREFILL_CHUNK or 0 = off)')
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--device', default=None,
                         help='torch device (default: cuda; a machine '
@@ -505,6 +618,7 @@ def main(argv=None) -> None:
                           paged=args.paged, num_blocks=args.num_blocks,
                           block_k=args.block_k, spec_k=args.spec_k,
                           drafter_layers=args.drafter_layers,
+                          prefill_chunk=args.prefill_chunk,
                           device=args.device)
     ModelServer(engine, args.port, host=args.host,
                 default_max_new_tokens=args.max_new_tokens).run_forever()

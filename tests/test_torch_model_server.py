@@ -1,11 +1,14 @@
 """Port model server (skypilot_tpu_torch/serve/model_server.py) over HTTP
 on a CPU engine: the reference server's /generate body and reply shapes
 (SSE events and the unary JSON), its 400s, /healthz and /stats, the CLI
-refusing flags of unported features — and served tokens equal to the
-JAX reference's ``decode.generate`` on the same (bridged) weights.
+refusing flags of unported features, the env knobs of ported ones read
+as the reference reads them — and served tokens equal to the JAX
+reference's ``decode.generate`` on the same (bridged) weights.
 """
 import json
 import re
+import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -122,18 +125,30 @@ def test_bad_bodies_answer_400(served, body, raw, needle):
 
 
 def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
-    for argv in (['--tp', '2'], ['--int8'], ['--prefill-chunk', '64'],
-                 ['--prefix-peers', 'http://x'], ['--role', 'prefill'],
-                 ['--checkpoint-dir', '/ckpt']):
+    for argv in (['--tp', '2'], ['--int8'], ['--prefix-peers', 'http://x'],
+                 ['--role', 'prefill'], ['--checkpoint-dir', '/ckpt']):
         with pytest.raises(SystemExit) as exc:
             model_server.parse_args(argv)
         assert exc.value.code == 2
     args = model_server.parse_args(['--paged', '--kv-int8', '--attn',
-                                    'plain', '--device', 'cpu'])
+                                    'plain', '--device', 'cpu',
+                                    '--prefill-chunk', '64'])
     assert args.paged and args.kv_int8 and args.device == 'cpu'
+    assert args.prefill_chunk == 64
+    eng = model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                    prefill_chunk=args.prefill_chunk,
+                                    device='cpu')
+    assert eng.prefill_chunk == 64
+    # SKYTPU_PREFILL_CHUNK reaches a paged engine; dense ignores it, as
+    # the reference does; an explicit argument wins.
     monkeypatch.setenv('SKYTPU_PREFILL_CHUNK', '64')
-    with pytest.raises(ValueError, match='chunked prefill'):
-        model_server.build_engine('debug', 1, 32, device='cpu')
+    assert model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                     device='cpu').prefill_chunk == 64
+    assert model_server.build_engine('debug', 1, 32,
+                                     device='cpu').prefill_chunk == 0
+    assert model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                     prefill_chunk=0,
+                                     device='cpu').prefill_chunk == 0
 
 
 # (knob, value, the feature its refusal names, or None where the value
@@ -142,20 +157,13 @@ ENV_KNOB_CASES = [
     ('SKYTPU_REPLICA_ROLE', 'prefill', 'disaggregated serving roles'),
     ('SKYTPU_REPLICA_ROLE', 'decode', 'disaggregated serving roles'),
     ('SKYTPU_REPLICA_ROLE', 'store', 'disaggregated serving roles'),
-    ('SKYTPU_SERVE_MAX_QUEUE', '64', 'admission-queue backpressure'),
-    ('SKYTPU_ENGINE_MAX_RESTARTS', '0', 'the engine crash supervisor'),
-    ('SKYTPU_DRAIN_TIMEOUT_SECONDS', '5', 'graceful drain'),
-    ('SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS', '10',
-     'the /healthz staleness bound'),
+    ('SKYTPU_SERVE_TP', '2', 'tensor parallelism'),
+    ('SKYTPU_PREFIX_PEERS', 'http://peer:8000', 'cross-replica prefix'),
+    ('SKYTPU_STORE_URL', 'http://store:8000', 'the durable block store'),
     ('SKYTPU_REPLICA_ROLE', 'mixed', None),
     ('SKYTPU_REPLICA_ROLE', 'MIXED ', None),
     ('SKYTPU_REPLICA_ROLE', 'prefil', None),
-    ('SKYTPU_SERVE_MAX_QUEUE', '256', None),
-    ('SKYTPU_SERVE_MAX_QUEUE', 'lots', None),
-    ('SKYTPU_ENGINE_MAX_RESTARTS', '3', None),
-    ('SKYTPU_DRAIN_TIMEOUT_SECONDS', '30', None),
-    ('SKYTPU_DRAIN_TIMEOUT_SECONDS', '30.0', None),
-    ('SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS', 'never', None),
+    ('SKYTPU_SERVE_TP', '1', None),
 ]
 
 
@@ -172,6 +180,82 @@ def test_env_knobs_of_unported_features_are_refused_unless_default(
     else:
         with pytest.raises(ValueError, match=re.escape(feature)):
             model_server.build_engine('debug', 1, 32, device='cpu')
+
+
+def _server_reading(name):
+    """What the built server reads for a server knob."""
+    srv = model_server.ModelServer(
+        model_server.build_engine('debug', 1, 32, device='cpu'), 0)
+    return {'SKYTPU_SERVE_MAX_QUEUE': srv.max_queue,
+            'SKYTPU_DRAIN_TIMEOUT_SECONDS': srv.drain_timeout,
+            'SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS': srv.max_staleness}[name]
+
+
+def _profiler_reading(name):
+    prof = model_server.build_engine('debug', 1, 32, device='cpu').profiler
+    return {'SKYTPU_ENGINE_STEP_RING': prof.capacity,
+            'SKYTPU_ENGINE_STALL_FACTOR': prof.stall_factor,
+            'SKYTPU_ENGINE_STALL_MIN_SECONDS': prof.stall_min_seconds}[name]
+
+
+def _restarts_before_permanent(name):
+    """Crashes a fresh engine restarts from before one more fails it for
+    good (the restart knobs are read at each crash)."""
+    eng = model_server.build_engine('debug', 1, 32, device='cpu')
+    n = 0
+    while eng._recover_from_crash(RuntimeError('injected')):  # pylint: disable=protected-access
+        n += 1
+        assert n < 10
+    assert eng.failed and eng.restart_count() == n
+    return n
+
+
+def _stop_wait(name):
+    """How long stop() waits for an engine thread that will not end for
+    5 s: the knob's 0.2 when it gave up after at least 0.2 s and well
+    before the thread ended, else the seconds it took."""
+    srv = model_server.ModelServer(
+        model_server.build_engine('debug', 1, 32, device='cpu'), 0)
+    srv._engine_thread = threading.Thread(target=time.sleep, args=(5,),  # pylint: disable=protected-access
+                                          daemon=True)
+    srv._engine_thread.start()  # pylint: disable=protected-access
+    t0 = time.perf_counter()
+    srv.stop()
+    waited = time.perf_counter() - t0
+    return 0.2 if 0.2 <= waited < 4 else waited
+
+
+# (knob, value, how to read it, what the reference reads): the knobs of
+# ported features, each read as the reference reads it (an unparseable
+# value gives the default).
+ENV_READ_CASES = [
+    ('SKYTPU_SERVE_MAX_QUEUE', '64', _server_reading, 64),
+    ('SKYTPU_SERVE_MAX_QUEUE', '0', _server_reading, 0),
+    ('SKYTPU_SERVE_MAX_QUEUE', 'lots', _server_reading, 256),
+    ('SKYTPU_DRAIN_TIMEOUT_SECONDS', '5', _server_reading, 5.0),
+    ('SKYTPU_DRAIN_TIMEOUT_SECONDS', '30.0', _server_reading, 30.0),
+    ('SKYTPU_DRAIN_TIMEOUT_SECONDS', 'soon', _server_reading, 30.0),
+    ('SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS', '10', _server_reading, 10.0),
+    ('SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS', 'never', _server_reading,
+     None),
+    ('SKYTPU_ENGINE_MAX_RESTARTS', '0', _restarts_before_permanent, 0),
+    ('SKYTPU_ENGINE_MAX_RESTARTS', '3', _restarts_before_permanent, 3),
+    ('SKYTPU_ENGINE_MAX_RESTARTS', 'many', _restarts_before_permanent, 3),
+    ('SKYTPU_ENGINE_RESTART_WINDOW_SECONDS', '300',
+     _restarts_before_permanent, 3),
+    ('SKYTPU_SERVER_STOP_TIMEOUT_SECONDS', '0.2', _stop_wait, 0.2),
+    ('SKYTPU_ENGINE_STEP_RING', '16', _profiler_reading, 16),
+    ('SKYTPU_ENGINE_STEP_RING', 'big', _profiler_reading, 512),
+    ('SKYTPU_ENGINE_STALL_FACTOR', '4', _profiler_reading, 4.0),
+    ('SKYTPU_ENGINE_STALL_MIN_SECONDS', '0.5', _profiler_reading, 0.5),
+]
+
+
+@pytest.mark.parametrize('name,value,read,want', ENV_READ_CASES)
+def test_env_knobs_of_ported_features_are_read_as_the_reference(
+        monkeypatch, name, value, read, want):
+    monkeypatch.setenv(name, value)
+    assert read(name) == want
 
 
 def test_spec_flags_and_envs_reach_the_decode_config(monkeypatch):
