@@ -129,8 +129,8 @@ port's package is not beside it. Phases (any failure exits non-zero):
    flight: 202, all 4 finish their 64 tokens, /generate answers 503
    with ``Retry-After``, /healthz 503, and the server stops by itself.
 
-The whole run took 206 s on an H100 (700 W) with phase 10 (164-178 s
-before it), well inside its time limit, so every phase runs at full
+The whole run took 206-213 s on an H100 (700 W) with phase 10 (164-178
+s before it), well inside its time limit, so every phase runs at full
 depth.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
