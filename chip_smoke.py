@@ -128,20 +128,53 @@ port's package is not beside it. Phases (any failure exits non-zero):
    503 with ``Retry-After: 30``). (e) ``POST /drain`` with 4 requests in
    flight: 202, all 4 finish their 64 tokens, /generate answers 503
    with ``Retry-After``, /healthz 503, and the server stops by itself.
+11. Serving telemetry, run after phase 10 while the llama3-8b weights are
+   loaded, through the port's ModelServer on a local port; each replica
+   gets a fresh metrics registry and its own journal file
+   (``SKYTPU_JOURNAL_PATH`` in a temporary directory); the launch counts
+   are reset just before and read just after. (a) A paged bf16 replica
+   answers phase 3's paged requests, each with its own ``X-Request-Id``
+   (answered back); ``GET /metrics``: ``skytpu_engine_steps_total`` x
+   n_layers equals the paged-decode launches, ``tokens_total`` the
+   tokens the clients got, ``admitted_total``, ``evicted_total`` and
+   ``ttft_seconds_count`` the request count, ``compiles_total`` the
+   distinct ``engine.compile`` rows of the journal. (b)
+   ``skytpu_engine_hbm_bytes`` weights and paged_pool (kv_cache on a
+   dense replica) equal their tensors' bytes, workspace >= 0 and
+   measured, and the ``engine.hbm`` row says the same. (c) ``/slo`` has
+   the reference server's keys and counts every request; its TTFT and
+   per-token p50/p95/p99 printed; ``/debug/requests`` lists every
+   request under its trace id; ``/debug/engine``'s step ring is not
+   empty; ``/journal`` answers 404, and with ``SKYTPU_JOURNAL_PEERS``
+   one request's ``server.request`` span with its ``engine.admit`` and
+   ``engine.evict`` rows under it. (d) The same on a spec replica
+   (spec_k 4, drafter depth 1: verify launches = n_layers x rounds) and
+   the drafted/accepted counters and accept-ratio gauge against
+   ``/slo``'s ``spec`` block; and on a dense replica (the dense decode
+   kernel, the kv_cache split). (e) Printed, not gated: the median
+   engine tick of an 8 x 64-token burst with the journal on and with
+   ``SKYTPU_JOURNAL_DISABLED=1`` in turns (host clock), then with
+   ``journal_write_stall`` armed at 2 s a flush, the burst's largest
+   inter-token gap and the ``journal.stall`` row after recovery.
 
-The whole run took 206-213 s on an H100 (700 W) with phase 10 (164-178
-s before it), well inside its time limit, so every phase runs at full
-depth.
+Every replica journals into a temporary directory of the run, not into
+``~/.skytpu``. The whole run took 206-213 s on an H100 (700 W) up to
+phase 10 (164-178 s before it), well inside its time limit, so every
+phase runs at full depth.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
 """
+import atexit
+import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -503,14 +536,17 @@ def kernel_phase(torch, da, quant):
 # --------------------------------------------------------------- phase 3
 
 
-def post(port: int, body: dict, timeout: float = 600.0):
+def post(port: int, body: dict, timeout: float = 600.0, headers=None):
+    """POST /generate; the reply's tokens, with the answered X-Request-Id
+    under ``request_id``."""
     req = urllib.request.Request(
         f'http://127.0.0.1:{port}/generate', data=json.dumps(body).encode(),
-        headers={'Content-Type': 'application/json'})
+        headers={'Content-Type': 'application/json', **(headers or {})})
     with urllib.request.urlopen(req, timeout=timeout) as resp:
         raw = resp.read().decode()
+        rid = resp.headers.get('X-Request-Id')
         if not body.get('stream', True):
-            return json.loads(raw)
+            return {**json.loads(raw), 'request_id': rid}
     events = [json.loads(line[len('data: '):])
               for line in raw.splitlines() if line.startswith('data: ')]
     if not events or not events[-1].get('done'):
@@ -519,7 +555,7 @@ def post(port: int, body: dict, timeout: float = 600.0):
         fail(f'stream error: {events[-1]}')
     return {'tokens': [e['token'] for e in events],
             'generated': events[-1]['generated'],
-            'finish_reason': events[-1]['finish_reason']}
+            'finish_reason': events[-1]['finish_reason'], 'request_id': rid}
 
 
 def serve_phase(torch, ms_lib, params, label, engine_kwargs, requests,
@@ -1593,6 +1629,369 @@ def drain_phase(torch, ms_lib, da, params, card):
           f'{card}', flush=True)
 
 
+# -------------------------------------------------------------- phase 11
+
+
+P3 = ('p50', 'p95', 'p99')
+# The reference replica's /slo body, key by key
+# (skypilot_tpu/serve/model_server.py _handle_slo over
+# observability/request_trace.RequestTelemetry.slo): the card host has no
+# aiohttp and no jax to start the reference server.
+SLO_KEYS = {
+    'engine': None,
+    'window': ('capacity', 'completed', 'span_seconds'),
+    'in_flight': None, 'queued': None,
+    'queue_wait_seconds': P3, 'prefill_seconds': P3, 'ttft_seconds': P3,
+    'per_token_seconds': P3, 'total_seconds': P3,
+    'rates': ('finished_total', 'rejected_total', 'error_total',
+              'slow_total', 'reject_rate', 'error_rate'),
+    'slo': ('slow_request_seconds', 'ttft_slo_seconds'),
+    'resilience': ('server_state', 'drains_total', 'engine_restarts',
+                   'engine_failed'),
+    'spec': ('enabled', 'spec_k', 'drafter_layers', 'drafted_total',
+             'accepted_total', 'accept_ratio', 'prefill_chunk',
+             'prefill_chunks_total', 'chunked_admissions'),
+    'cache': ('paged', 'prefix_hit_ratio', 'prefill_tokens_saved',
+              'prompt_tokens_total', 'prefix_cache_blocks', 'radix_nodes',
+              'prefix_evictions', 'prefix_fetch_hits',
+              'prefix_fetch_misses', 'prefix_fetch_tokens', 'prefix_peers',
+              'store_configured', 'store_in_backoff', 'store_fetch_hits',
+              'store_fetch_misses', 'store_fetch_tokens', 'store_spills',
+              'store_spill_tokens', 'store_spill_failures',
+              'store_spill_drops'),
+    'role': None,
+    'handoff': ('completed', 'degraded', 'tokens_pushed', 'injections',
+                'tokens_injected'),
+    'store': ('hosting', 'configured_url', 'in_backoff', 'prewarms',
+              'prewarm_tokens'),
+    'steps': {'engine': None, 'capacity': None, 'steps_recorded': None,
+              'stalls': None, 'stall_factor': None,
+              'stall_min_seconds': None, 'rolling_median_seconds': None,
+              'last_step_age_seconds': None, 'step_seconds': P3,
+              'mean_step_seconds': None},
+}
+# (e) the burst whose ticks are timed: lanes x new tokens.
+COST_LANES, COST_NEW = 8, 64
+JOURNAL_STALL_SECONDS = 2.0
+
+
+def key_tree(obj):
+    """A JSON body's keys in SLO_KEYS's form: nested dicts where a value
+    holds dicts, a tuple of keys where it holds scalars."""
+    if not isinstance(obj, dict):
+        return None
+    subs = {k: key_tree(v) for k, v in obj.items()}
+    if all(v is None for v in subs.values()):
+        return tuple(obj)
+    return subs
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text exposition → {series with labels: value}."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith('#'):
+            series, value = line.rsplit(' ', 1)
+            out[series] = float(value)
+    return out
+
+
+def get_json(port: int, path: str, body=None):
+    status, _, text = http_status(port, path, body)
+    if status != 200:
+        fail(f'{path}: {status} {text[:200]}')
+    return json.loads(text)
+
+
+def tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    return tree.nbytes
+
+
+def telemetry_replica(torch, ms_lib, tele, params, label, kwargs, batches,
+                      kernel_fn, tmp, card):
+    """(a)-(d) on one replica: a fresh registry and journal file, phase
+    3's paged requests each with its own X-Request-Id, then the counters
+    of /metrics against the kernel's launches and the clients' tokens,
+    the device-memory split against the tensors' bytes, /slo's keys and
+    window, /debug/*, and /journal with and without
+    SKYTPU_JOURNAL_PEERS. Returns what (d) and the summary read."""
+    metrics, journal = tele
+    db = os.path.join(tmp, f'{label.replace(" ", "_")}.db')
+    os.environ[journal.DB_PATH_ENV] = db
+    metrics.set_registry(metrics.MetricsRegistry())
+    # A stopped replica's engine and cache stay allocated until the cyclic
+    # collector runs (the server and its HTTP server refer to each
+    # other): collect them, so workspace reads this replica's own.
+    gc.collect()
+    engine = ms_lib.build_engine(MODEL, 8, MAX_LEN, step_chunk=4,
+                                 device=DEVICE, params=params, **kwargs)
+    server = ms_lib.ModelServer(engine, 0, host='127.0.0.1')
+    port = server.start()
+    before = kernel_fn.launches
+    n_layers = ms_lib.llama.CONFIGS[MODEL].n_layers
+    replies = []
+    try:
+        for b, batch in enumerate(batches):
+            out = [None] * len(batch)
+            errors = []
+
+            def run(i, body, rid):
+                try:
+                    out[i] = post(port, body, headers={'X-Request-Id': rid})
+                except BaseException as e:  # noqa: BLE001 re-raised below
+                    errors.append(e)
+
+            rids = [f'p11-{label.split()[0]}-{b}-{i}'
+                    for i in range(len(batch))]
+            threads = [threading.Thread(target=run, args=(i, body, rid))
+                       for i, (body, rid) in enumerate(zip(batch, rids))]
+            for t in threads:
+                t.start()
+            join_all(threads, 900)
+            if errors:
+                raise errors[0]
+            replies += list(zip(rids, out))
+        n = len(replies)
+        for rid, res in replies:
+            if res['request_id'] != rid:
+                fail(f'{label}: X-Request-Id {res["request_id"]} for {rid}')
+        # A client wakes on its last token; the eviction's telemetry
+        # follows on the engine thread.
+        wait_for(lambda: get_json(port, '/slo')['window']['completed'] == n,
+                 f'{label}: /slo to count {n} requests', 30)
+        launches = kernel_fn.launches - before
+        status, headers, text = http_status(port, '/metrics')
+        if status != 200 or not headers['Content-Type'].startswith(
+                'text/plain'):
+            fail(f'{label}: /metrics {status} {headers}')
+        m = parse_metrics(text)
+        slo = get_json(port, '/slo')
+        reqs = get_json(port, '/debug/requests?n=64')
+        steps = get_json(port, '/debug/engine?n=32')
+        status, _, _ = http_status(port, '/journal')
+        if status != 404:
+            fail(f'{label}: /journal without SKYTPU_JOURNAL_PEERS: {status}')
+        os.environ[ms_lib.JOURNAL_PEERS_ENV] = 'http://127.0.0.1:1'
+        try:
+            trace = replies[-1][0]
+            rows = get_json(port, '/journal', {'trace_id': trace})['events']
+        finally:
+            del os.environ[ms_lib.JOURNAL_PEERS_ENV]
+    finally:
+        server.stop()
+    engine.flush_journal()
+    compiles = journal.query(kinds=['engine.compile'], db_path=db,
+                             limit=100000)
+    hbm_row = journal.query(kinds=['engine.hbm'], db_path=db)[0]['payload']
+    # (a) counters against launches and tokens.
+    tokens = sum(len(res['tokens']) for _, res in replies)
+    steps_total = m['skytpu_engine_steps_total']
+    checks = {
+        'steps_total x n_layers': (steps_total * n_layers, launches),
+        'tokens_total': (m['skytpu_engine_tokens_total'], tokens),
+        'admitted_total': (m['skytpu_engine_admitted_total'], n),
+        'evicted_total': (m['skytpu_engine_evicted_total'], n),
+        'ttft_seconds_count': (m['skytpu_engine_ttft_seconds_count'], n),
+        'compiles_total': (m['skytpu_engine_compiles_total'],
+                           len({json.dumps(r['payload'], sort_keys=True)
+                                for r in compiles})),
+    }
+    for what, (got, want) in checks.items():
+        if got != want or not want:
+            fail(f'{label}: /metrics {what} {got}, expected {want}')
+    # (b) device memory.
+    pool_kind = 'paged_pool' if kwargs.get('paged') else 'kv_cache'
+    hbm = {k: m[f'skytpu_engine_hbm_bytes{{kind="{k}"}}']
+           for k in ('weights', pool_kind, 'workspace')}
+    if (hbm['weights'] != tensor_bytes(params) or
+            hbm[pool_kind] != tensor_bytes(engine._cache) or  # pylint: disable=protected-access
+            hbm['workspace'] < 0 or
+            hbm_row['workspace_measured'] != (
+                torch.device(DEVICE).type == 'cuda') or
+            hbm_row['per_device_bytes'] != {k: int(v)
+                                            for k, v in hbm.items()}):
+        fail(f'{label}: hbm {hbm} against weights {tensor_bytes(params)} '
+             f'and {pool_kind} {tensor_bytes(engine._cache)}; engine.hbm '  # pylint: disable=protected-access
+             f'{hbm_row}')
+    # (c) /slo, /debug/* and the journal.
+    if key_tree(slo) != SLO_KEYS:
+        fail(f'{label}: /slo keys {key_tree(slo)}')
+    traced = {r['trace_id'] for r in reqs['completed']}
+    if not {rid for rid, _ in replies} <= traced:
+        fail(f'{label}: /debug/requests lacks {set(r for r, _ in replies) - traced}')
+    if not steps['step_profile']['recent']:
+        fail(f'{label}: /debug/engine step_profile ring is empty')
+    span = [r for r in rows if r['kind'] == 'span.start']
+    kinds = [r['kind'] for r in rows]
+    if (len(span) != 1 or span[0]['payload']['name'] != 'server.request' or
+            not {'engine.admit', 'engine.evict'} <= set(kinds) or
+            any(r['trace_id'] != trace or
+                r['span_id'] != span[0]['span_id'] for r in rows)):
+        fail(f'{label}: /journal for {trace}: {rows}')
+    print(f'[telemetry] {label}: {n} requests, steps_total '
+          f'{steps_total:.0f} x {n_layers} layers = {kernel_fn.__name__} '
+          f'{launches} launches, tokens_total {tokens}, admitted = evicted '
+          f'= ttft count = {n}, {len(compiles)} engine.compile rows; hbm '
+          f'weights {hbm["weights"] / 2**30:.3f} GiB, {pool_kind} '
+          f'{hbm[pool_kind] / 2**30:.3f} GiB, workspace '
+          f'{hbm["workspace"] / 2**30:.3f} GiB; ttft_seconds '
+          f'{slo["ttft_seconds"]} per_token_seconds '
+          f'{slo["per_token_seconds"]}; /journal {trace}: {kinds}; '
+          f'on {card}', flush=True)
+    return {'metrics': m, 'slo': slo, 'launches': launches, 'hbm': hbm,
+            'ttft': slo['ttft_seconds'], 'per_token':
+            slo['per_token_seconds']}
+
+
+def timed_ticks(engine) -> list:
+    """Wrap ``engine.step`` (the loop calls it through the instance) to
+    record each busy tick's host seconds; returns the list it fills."""
+    ticks = []
+    step = engine.step
+
+    def timed():
+        t0 = time.perf_counter()
+        active = step()
+        if active:
+            ticks.append(time.perf_counter() - t0)
+        return active
+
+    engine.step = timed
+    return ticks
+
+
+def telemetry_cost_phase(torch, ms_lib, tele, params, tmp, card):
+    """(e) Printed, not gated: one burst of COST_LANES x COST_NEW tokens
+    on a paged replica with the journal on and with
+    SKYTPU_JOURNAL_DISABLED=1, in turns: the median tick (host time of
+    the busy engine steps) and the largest inter-token gap of each; then
+    the same with journal_write_stall armed
+    (SKYTPU_CHAOS_JOURNAL_STALL_SECONDS=2). The largest gap includes the
+    ticks that admit the burst's prefills, so the stalled burst's is read
+    against the others'."""
+    import random
+    from skypilot_tpu_torch.utils import chaos
+    metrics, journal = tele
+    os.environ[journal.DB_PATH_ENV] = os.path.join(tmp, 'cost.db')
+    metrics.set_registry(metrics.MetricsRegistry())
+    gc.collect()
+    vocab = ms_lib.llama.CONFIGS[MODEL].vocab_size
+    rng = random.Random(13)
+    engine = ms_lib.build_engine(MODEL, 8, MAX_LEN, step_chunk=4,
+                                 device=DEVICE, params=params, paged=True)
+    server = ms_lib.ModelServer(engine, 0, host='127.0.0.1')
+    port = server.start()
+    ticks = timed_ticks(engine)
+    medians = {'on': [], 'off': [], 'stall': []}
+    gaps = {'on': [], 'off': [], 'stall': []}
+
+    def burst():
+        bodies = [{'prompt': rand_prompt(rng, vocab, 32),
+                   'max_new_tokens': COST_NEW} for _ in range(COST_LANES)]
+        threads, events = start_streams(port, bodies)
+        join_all(threads)
+        for ev in events:
+            if len(ev) != COST_NEW:
+                fail(f'telemetry cost: a lane got {len(ev)} tokens')
+        return max(b - a for ev in events
+                   for (a, _), (b, _) in zip(ev, ev[1:])) * 1e3
+
+    try:
+        os.environ[chaos.JOURNAL_STALL_SECONDS_ENV] = str(
+            JOURNAL_STALL_SECONDS)
+        for mode in ('on', 'off', 'on', 'off', 'stall'):
+            if mode == 'off':
+                os.environ[journal.DISABLE_ENV] = '1'
+            elif mode == 'stall':
+                chaos.reset()
+                os.environ[chaos.CHAOS_ENV] = 'journal_write_stall:1.0'
+            del ticks[:]
+            gaps[mode].append(burst())
+            os.environ.pop(journal.DISABLE_ENV, None)
+            medians[mode].append(statistics.median(ticks) * 1e3)
+        del os.environ[chaos.CHAOS_ENV]
+        # Recovery: once the stalled flush ends, the next flush with rows
+        # is fast and journals the one journal.stall row.
+        time.sleep(JOURNAL_STALL_SECONDS + 0.2)
+        post(port, {'prompt': [1, 2, 3], 'max_new_tokens': 2})
+        stall_rows = []
+        deadline = time.perf_counter() + 10
+        while not stall_rows and time.perf_counter() < deadline:
+            engine.flush_journal()
+            stall_rows = journal.query(kinds=['journal.stall'],
+                                       db_path=os.environ[
+                                           journal.DB_PATH_ENV])
+            time.sleep(0.05)
+        jstats = engine.journal_stats()
+    finally:
+        os.environ.pop(chaos.CHAOS_ENV, None)
+        os.environ.pop(chaos.JOURNAL_STALL_SECONDS_ENV, None)
+        os.environ.pop(journal.DISABLE_ENV, None)
+        chaos.reset()
+        server.stop()
+    out = {'tick_ms': medians, 'max_gap_ms': gaps, 'stall_journal': jstats,
+           'stall_rows': [r['payload'] for r in stall_rows]}
+
+    def ms_list(xs):
+        return '/'.join(f'{x:.1f}' for x in xs)
+
+    print(f'[telemetry] cost, {COST_LANES} x {COST_NEW}-token bursts in '
+          f'turns, median tick / largest inter-token gap: journal on '
+          f'{ms_list(medians["on"])} / {ms_list(gaps["on"])} ms, '
+          f'SKYTPU_JOURNAL_DISABLED=1 {ms_list(medians["off"])} / '
+          f'{ms_list(gaps["off"])} ms, journal_write_stall '
+          f'({JOURNAL_STALL_SECONDS:.0f} s a flush) '
+          f'{ms_list(medians["stall"])} / {ms_list(gaps["stall"])} ms; '
+          f'journal {jstats}, journal.stall rows {out["stall_rows"]}; host '
+          f'clock, on {card}', flush=True)
+    return out
+
+
+def telemetry_phase(torch, ms_lib, da, params, paged_batches, card):
+    """Phase 11: the serving telemetry on paged, spec, dense replicas and
+    its cost; launch counts reset by the caller."""
+    from skypilot_tpu_torch.observability import journal, metrics
+    tele = (metrics, journal)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_journal_')
+    prev_registry = metrics.get_registry()
+    prev_db = os.environ.get(journal.DB_PATH_ENV)
+    try:
+        paged = telemetry_replica(
+            torch, ms_lib, tele, params, 'paged bf16', {'paged': True},
+            paged_batches, da.paged_decode_attention_kernel, tmp, card)
+        spec = telemetry_replica(
+            torch, ms_lib, tele, params, 'spec bf16',
+            {'paged': True, 'spec_k': SPEC_K, 'drafter_layers': 1},
+            paged_batches, da.paged_verify_attention_kernel, tmp, card)
+        m, block = spec['metrics'], spec['slo']['spec']
+        drafted = m['skytpu_engine_spec_drafted_total']
+        accepted = m['skytpu_engine_spec_accepted_total']
+        ratio = m['skytpu_engine_spec_accept_ratio']
+        if (drafted != block['drafted_total'] or
+                accepted != block['accepted_total'] or not drafted or
+                abs(ratio - accepted / drafted) > 1e-12):
+            fail(f'spec: counters {drafted} {accepted} {ratio} against '
+                 f'/slo spec {block}')
+        print(f'[telemetry] spec: drafted {drafted:.0f} accepted '
+              f'{accepted:.0f} ratio {ratio} equal /slo spec; verify '
+              f'launches = n_layers x rounds', flush=True)
+        dense = telemetry_replica(
+            torch, ms_lib, tele, params, 'dense bf16', {}, paged_batches,
+            da.decode_attention_kernel, tmp, card)
+        cost = telemetry_cost_phase(torch, ms_lib, tele, params, tmp, card)
+    finally:
+        os.environ.pop(journal.DB_PATH_ENV, None)
+        if prev_db is not None:
+            os.environ[journal.DB_PATH_ENV] = prev_db
+        metrics.set_registry(prev_registry)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {'paged': {k: paged[k] for k in ('hbm', 'ttft', 'per_token')},
+            'spec': {k: spec[k] for k in ('ttft', 'per_token')},
+            'dense_hbm': dense['hbm'], 'cost': cost}
+
+
 # --------------------------------------------------------------- phase 6
 
 
@@ -2029,6 +2428,12 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Every replica journals: keep the rows in a directory of this run,
+    # not in ~/.skytpu (phase 11 gives each of its replicas a file).
+    journal_dir = tempfile.mkdtemp(prefix='chip_smoke_journal_')
+    atexit.register(shutil.rmtree, journal_dir, True)
+    os.environ['SKYTPU_JOURNAL_PATH'] = os.path.join(journal_dir,
+                                                     'journal.db')
 
     card = smi_line()
     name = torch.cuda.get_device_name(0)
@@ -2077,9 +2482,20 @@ def main() -> int:
     if not all(phase10_counts.values()):
         fail(f'a decode kernel was not launched in phase 10: '
              f'{phase10_counts}')
+    phase_done('phase 10')
+
+    # Phase 11 (serving telemetry) while the weights are up.
+    da.reset_launch_counts()
+    telemetry = telemetry_phase(torch, ms_lib, da, params, paged_batches,
+                                card)
+    phase11_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    print(f'[phase 11] launches {phase11_counts}; {telemetry}', flush=True)
+    if not all(phase11_counts.values()):
+        fail(f'a decode kernel was not launched in phase 11: '
+             f'{phase11_counts}')
     del params, spec_runs, paged_results, dense_results
     torch.cuda.empty_cache()
-    phase_done('phase 10')
+    phase_done('phase 11')
 
     flash_rows = flash_kernel_phase(torch, fa)
     phase_done('phase 6')
@@ -2101,7 +2517,8 @@ def main() -> int:
             'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
             'bound_by': main['bound_by'],
             'library_ms': main['library_ms'], 'int8': row['int8'],
-            'phase10_launches': phase10_counts[kname]})
+            'phase10_launches': phase10_counts[kname],
+            'phase11_launches': phase11_counts[kname]})
     kernels.append({
         'name': 'paged_verify_attention_kernel', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
@@ -2115,7 +2532,9 @@ def main() -> int:
         'library_ms': verify_rows['bf16']['library_ms'],
         'int8': verify_rows['int8'], 'spec_round': spec_split,
         'phase10_launches':
-            phase10_counts['paged_verify_attention_kernel']})
+            phase10_counts['paged_verify_attention_kernel'],
+        'phase11_launches':
+            phase11_counts['paged_verify_attention_kernel']})
     for kname, row in flash_rows.items():
         main = row['bf16']
         kernels.append({

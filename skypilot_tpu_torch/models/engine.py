@@ -3,9 +3,9 @@
 Counterpart of ``skypilot_tpu/models/engine.py``'s ``DecodeEngine``:
 dense and paged modes, greedy and sampled decoding, radix prefix reuse,
 per-tenant round-robin admission, clamp/reject of over-budget requests,
-greedy speculative decoding and chunked prefill on the paged pool, and
-the crash supervisor. Tensor parallelism, prefix fetch/store/handoff and
-telemetry belong to later slices.
+greedy speculative decoding and chunked prefill on the paged pool, the
+crash supervisor, and the serving telemetry. Tensor parallelism and
+prefix fetch/store/handoff belong to later slices.
 
 * **One persistent cache** of ``num_slots`` lanes (dense) or one block
   pool (paged), updated in place for the life of the engine.
@@ -36,6 +36,15 @@ telemetry belong to later slices.
   restarts the loop, at most ``SKYTPU_ENGINE_MAX_RESTARTS`` times in a
   rolling ``SKYTPU_ENGINE_RESTART_WINDOW_SECONDS``; past that the engine
   is failed for good and the queued requests are failed too.
+* **Telemetry**, with the reference's names and call sites:
+  ``skytpu_engine_*`` metrics through the package's registry
+  (``observability/metrics.py``), ``engine.*`` rows through a
+  :class:`~skypilot_tpu_torch.observability.journal.JournalBuffer`
+  (one transaction per tick, written off the loop thread), per-request
+  phase records (``observability/request_trace.RequestTelemetry``), the
+  step profile, and the device-memory split (``engine.hbm``). The port
+  has no jit: ``engine.compile`` marks the first dispatch of each
+  distinct shape, which is also what a captured CUDA graph would key on.
 
 **Paged mode**: a host-side :class:`BlockAllocator` (refcounts,
 copy-on-write) and :class:`RadixPrefixCache` (radix tree over block-
@@ -51,7 +60,6 @@ copies of the reference's pure-Python classes.
 import collections
 import heapq
 import itertools
-import logging
 import threading
 import time
 import traceback
@@ -61,10 +69,11 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import decode, llama
+from skypilot_tpu_torch.observability import journal
+from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import request_trace
+from skypilot_tpu_torch.observability import runtime_metrics
 from skypilot_tpu_torch.utils import chaos, env
-
-logger = logging.getLogger(__name__)
 
 IDLE_SLEEP_ENV = 'SKYTPU_ENGINE_IDLE_SLEEP_SECONDS'
 # Supervisor restart budget: at most MAX_RESTARTS crash restarts within
@@ -318,12 +327,24 @@ class Request:
     ``on_token(token, done)`` fires from the engine thread per token;
     ``on_finish()`` fires once at the terminal state, rejections
     included. ``tokens`` accumulates the generation; ``wait()`` blocks
-    until the request finishes."""
+    until the request finishes.
+
+    ``trace_id`` (the server's ``X-Request-Id``) stamps this request's
+    journal rows, and ``span_id`` (the server's ``server.request`` span)
+    nests them under the HTTP span; None leaves the ambient trace.
+    ``prefix_hint`` (the load balancer's prefix-owner header) is kept
+    for the cross-replica prefix tier, which the port does not have yet.
+    ``enqueue_ts``/``first_token_ts``/``finish_ts`` are
+    ``time.perf_counter()`` stamps the telemetry plane reads."""
     _ids = itertools.count()
 
     def __init__(self, prompt: Sequence[int], max_new_tokens: int,
                  on_token: Optional[Callable[[int, bool], None]] = None,
-                 tenant: str = 'default'):
+                 request_id: Optional[str] = None,
+                 tenant: str = 'default',
+                 trace_id: Optional[str] = None,
+                 span_id: Optional[str] = None,
+                 prefix_hint: Optional[str] = None):
         if max_new_tokens < 1:
             raise ValueError(f'max_new_tokens must be >= 1, got '
                              f'{max_new_tokens}')
@@ -334,9 +355,16 @@ class Request:
         self.on_token = on_token
         self.on_finish: Optional[Callable[[], None]] = None
         self.tenant = str(tenant)
-        self.id = f'r{next(self._ids)}'
+        self.id = (request_id if request_id is not None
+                   else f'r{next(self._ids)}')
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.prefix_hint = prefix_hint
         self.tokens: List[int] = []
         self.finish_reason: Optional[str] = None
+        self.enqueue_ts: Optional[float] = None
+        self.first_token_ts: Optional[float] = None
+        self.finish_ts: Optional[float] = None
         self._done = threading.Event()
 
     @property
@@ -348,11 +376,14 @@ class Request:
 
     def _deliver(self, token: int, done: bool) -> None:
         self.tokens.append(token)
+        if self.first_token_ts is None:
+            self.first_token_ts = time.perf_counter()
         if self.on_token is not None:
             self.on_token(token, done)
 
     def _finish(self, reason: str) -> None:
         self.finish_reason = reason
+        self.finish_ts = time.perf_counter()
         self._done.set()
         if self.on_finish is not None:
             self.on_finish()
@@ -377,6 +408,15 @@ def _spec_step(params, token: torch.Tensor, pos: torch.Tensor,
     return drafts, logits.argmax(dim=-1)
 
 
+def _tree_nbytes(tree) -> int:
+    """Bytes of every tensor in a nest of dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return tree.nbytes
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return sum(_tree_nbytes(t) for t in tree)
+
+
 def _default_buckets(max_len: int) -> Tuple[int, ...]:
     """Prompt-length buckets: powers of two from 8 up to max_len."""
     buckets = []
@@ -396,7 +436,8 @@ class DecodeEngine:
     ``insert()``/``step()``/``run_forever()`` run on ONE engine thread,
     which owns the cache. The engine runs on the device its params live
     on. ``prefill_chunk`` defaults to ``SKYTPU_PREFILL_CHUNK`` and is
-    forced to 0 when not paged."""
+    forced to 0 when not paged. ``journal_db`` pins the engine's journal
+    rows to one file (None: the host journal, ``journal.db_path()``)."""
 
     def __init__(self, params, cfg: llama.LlamaConfig,
                  dcfg: decode.DecodeConfig, num_slots: int,
@@ -405,7 +446,8 @@ class DecodeEngine:
                  generator: Optional[torch.Generator] = None,
                  name: str = 'engine', paged: bool = False,
                  num_blocks: Optional[int] = None,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 journal_db: Optional[str] = None):
         if num_slots < 1:
             raise ValueError(f'num_slots must be >= 1, got {num_slots}')
         if step_chunk < 1:
@@ -467,6 +509,9 @@ class DecodeEngine:
         self._prompt_tokens_total = 0
         self._prompt_tokens_saved = 0
         self._prefix_evictions = 0
+        # engine.compile dedupe: dispatch shapes already noted. Restarts
+        # keep it, as the reference's process-global jit cache does.
+        self._traced_shapes: set = set()
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
@@ -483,6 +528,15 @@ class DecodeEngine:
         self._admitted = 0
         self._evicted = 0
         self._rejected = 0
+        # Journal rows batch into one sqlite transaction per tick, written
+        # off the loop thread (stats() flushes from the HTTP thread while
+        # the loop appends).
+        self.journal_db = journal_db
+        self._jbuf = journal.JournalBuffer(db_path=journal_db,
+                                           entity=f'engine:{name}')
+        # Per-request phase records assembled at the admit/evict/reject
+        # choke points, and the per-step profile behind /debug/engine.
+        self.telemetry = request_trace.RequestTelemetry(name=name)
         self.profiler = request_trace.EngineStepProfiler(name=name)
         self._restarts = 0
         self._crash_times: List[float] = []
@@ -491,6 +545,63 @@ class DecodeEngine:
         self._admitting = False
         self.failed = False
         self.fail_reason: Optional[str] = None
+        self._m = metrics_lib
+        self._m.gauge('skytpu_engine_num_slots',
+                      'Configured KV-cache lanes.').set(num_slots)
+        self._publish_slot_gauges()
+        # One device and no mesh: the reference's unsharded engine.
+        self._m.gauge(
+            'skytpu_engine_tp_degree',
+            'Tensor-parallel degree of the serving mesh (1 = '
+            'unsharded).').set(1)
+        self._m.gauge(
+            'skytpu_engine_mesh_devices',
+            'Devices in the engine serving mesh.').set(1)
+        cuda = self.device.type == 'cuda'
+        # engine.mesh and engine.hbm: journaled once at engine start (the
+        # supervisor's rebuild makes an identically sized cache).
+        self._journal_raw(journal.EventKind.ENGINE_MESH, {
+            'tp': 1,
+            'mesh_shape': {'model': 1},
+            'devices': 1,
+            'device_kinds': [torch.cuda.get_device_name(self.device)
+                             if cuda else 'cpu'],
+            'platform': 'gpu' if cuda else 'cpu',
+            'process_count': 1,
+            'paged': self.paged,
+        })
+        hbm = self._hbm_accounting()
+        hbm_g = self._m.gauge(
+            'skytpu_engine_hbm_bytes',
+            'Per-device HBM bytes by consumer: sharded weights, the '
+            'paged KV pool (or dense cache), and measured workspace '
+            'residual.', labels=('kind',))
+        for kind, nbytes in hbm['per_device_bytes'].items():
+            hbm_g.set(nbytes, labels=(kind,))
+        self._journal_raw(journal.EventKind.ENGINE_HBM, {'tp': 1, **hbm})
+        self.flush_journal()
+
+    def _hbm_accounting(self) -> dict:
+        """Device byte split of this engine's footprint. Weights and the
+        pool (or dense cache) are exact byte sums of their tensors;
+        workspace is the rest of ``torch.cuda.memory_allocated`` on the
+        card (``workspace_measured: true``), and 0 on the CPU, which has
+        no device memory to meter (``workspace_measured: false``)."""
+        weights = _tree_nbytes(self.params)
+        pool = _tree_nbytes(self._cache)
+        pool_kind = 'paged_pool' if self.paged else 'kv_cache'
+        workspace = 0
+        measured = self.device.type == 'cuda'
+        if measured:
+            workspace = max(0, torch.cuda.memory_allocated(self.device)
+                            - weights - pool)
+        return {
+            'per_device_bytes': {'weights': weights,
+                                 pool_kind: pool,
+                                 'workspace': workspace},
+            'workspace_measured': measured,
+            'pool_kind': pool_kind,
+        }
 
     def _init_runtime_state(self) -> None:
         """(Re)build what a crashed step may have left inconsistent: the
@@ -537,14 +648,19 @@ class DecodeEngine:
         """Enqueue a request for admission (thread-safe). On a permanently
         failed engine the request finishes at once as an error: nothing
         would ever admit it."""
+        request.enqueue_ts = time.perf_counter()
+        self.telemetry.on_enqueue(request)
         with self._queue_lock:
-            if not self.failed:
+            queued = not self.failed
+            if queued:
                 q = self._queues.get(request.tenant)
                 if q is None:
                     q = self._queues[request.tenant] = collections.deque()
                 q.append(request)
-                return request
-        self._fail_request(request, 'engine failed permanently')
+            depth = sum(len(d) for d in self._queues.values())
+        if not queued:
+            self._fail_request(request, 'engine failed permanently')
+        self._publish_queue_depth(depth)
         return request
 
     def queue_depth(self) -> int:
@@ -579,6 +695,19 @@ class DecodeEngine:
                 self._queues.move_to_end(request.tenant, last=False)
             q.appendleft(request)
             self._rr_offset = list(self._queues).index(request.tenant)
+            depth = sum(len(d) for d in self._queues.values())
+        # Restore the gauge _admit lowered for the pop: a starved head-of-
+        # line request must not read as depth 0.
+        self._publish_queue_depth(depth)
+
+    def _publish_queue_depth(self, depth: Optional[int] = None) -> int:
+        """The one writer of the queue-depth gauge (submit, requeue,
+        admission and the step profiler publish through here)."""
+        if depth is None:
+            depth = self.queue_depth()
+        self._m.gauge('skytpu_engine_queue_depth',
+                      'Requests waiting for a free slot.').set(depth)
+        return depth
 
     def free_slots(self) -> int:
         return sum(1 for r in self._slots if r is None)
@@ -613,32 +742,68 @@ class DecodeEngine:
                 f'prompt ({p}) + max_new_tokens '
                 f'({request.max_new_tokens}) exceeds max_len '
                 f'{self.dcfg.max_len}')
+        if request.enqueue_ts is None:
+            request.enqueue_ts = time.perf_counter()
+        admit_ts = time.perf_counter()
         if self.paged:
-            first = self._prefill_paged(slot, request)
+            first, shared_tokens = self._prefill_paged(slot, request)
             if first is None:
-                self._admitted += 1
                 self._chunked_admissions += 1
+                self._count_admitted()
+                self.telemetry.on_admit(
+                    request, slot, admit_ts=admit_ts,
+                    prefix_hit_tokens=shared_tokens,
+                    blocks_reserved=len(self._slot_refs[slot]))
+                self._journal(journal.EventKind.ENGINE_ADMIT, request,
+                              slot, prompt_len=p,
+                              prefix_hit_tokens=shared_tokens,
+                              max_new_tokens=request.max_new_tokens,
+                              chunked=True,
+                              prefill_chunk=self.prefill_chunk)
                 self._slots[slot] = request
                 self._done[slot] = True
                 self._remaining[slot] = 0
+                self._publish_slot_gauges()
                 return slot
         else:
+            shared_tokens = 0
             bucket = self._bucket_for(p)
+            self._note_compile('prefill', bucket=bucket)
             padded = np.zeros((1, bucket), np.int64)
             padded[0, :p] = request.prompt
             last = decode.prefill_into_slot(
                 self.params, torch.as_tensor(padded, device=self.device),
                 p, slot, self.cfg, self._cache)
             first = self._sample_first(last)
-        self._admitted += 1
+        self._count_admitted()
+        self.telemetry.on_admit(
+            request, slot, admit_ts=admit_ts,
+            prefix_hit_tokens=shared_tokens,
+            blocks_reserved=(len(self._slot_refs[slot]) if self.paged
+                             else 0))
+        self._journal(journal.EventKind.ENGINE_ADMIT, request, slot,
+                      prompt_len=p, prefix_hit_tokens=shared_tokens,
+                      max_new_tokens=request.max_new_tokens)
         self._deliver_first(slot, request, first)
         return slot
+
+    def _count_admitted(self) -> None:
+        self._admitted += 1
+        self._m.counter('skytpu_engine_admitted_total',
+                        'Requests admitted into a slot.').inc()
 
     def _deliver_first(self, slot: int, request: Request,
                        first: int) -> None:
         """First-token delivery and decode-lane init, shared by direct
-        admission and the chunked-prefill finish; a one-token or
+        admission and the chunked-prefill finish: the TTFT observation
+        (counted before the token reaches the client); a one-token or
         immediate-EOS request never occupies a decode lane."""
+        self._m.histogram(
+            'skytpu_engine_ttft_seconds',
+            'Time from enqueue to first token (includes queueing).',
+            buckets=runtime_metrics.TTFT_BUCKETS).observe(
+                time.perf_counter() - request.enqueue_ts)
+        self._count_tokens(1)
         hit_eos = (self.dcfg.eos_id is not None and
                    first == self.dcfg.eos_id)
         first_done = hit_eos or request.max_new_tokens == 1
@@ -654,16 +819,23 @@ class DecodeEngine:
         self._pos[slot] = len(request.prompt)
         self._done[slot] = False
         self._remaining[slot] = request.max_new_tokens - 1
+        self._publish_slot_gauges()
 
-    def _prefill_paged(self, slot: int, request: Request) -> Optional[int]:
+    def _count_tokens(self, n: int) -> None:
+        self._m.counter('skytpu_engine_tokens_total',
+                        'Tokens generated by the engine.').inc(n)
+
+    def _prefill_paged(self, slot: int, request: Request
+                       ) -> Tuple[Optional[int], int]:
         """Paged admission: radix-match the prompt, reserve the worst
         case, copy-on-write the boundary block of a full-prompt hit,
         prefill only the un-cached suffix, publish the prompt's full
-        blocks. Returns the first token, or None when the suffix exceeds
-        ``prefill_chunk``: the reservation is made, the resume state
-        parked, and :meth:`_advance_prefill` runs one chunk per step.
-        Raises PoolExhausted with no state mutated when the reservation
-        cannot be met."""
+        blocks. Returns (first token, shared prefix tokens), or (None,
+        shared) when the suffix exceeds ``prefill_chunk``: the
+        reservation is made, the resume state parked, and
+        :meth:`_advance_prefill` runs one chunk per step. Raises
+        PoolExhausted with no state mutated when the reservation cannot
+        be met."""
         bk = self._block_k
         p = len(request.prompt)
         blocks, path = self._radix.match(request.prompt)
@@ -677,7 +849,7 @@ class DecodeEngine:
         need = n_total - first_owned
         short = need - self._allocator.available()
         if short > 0:
-            self._prefix_evictions += self._radix.evict(short)
+            self._radix_evict(short)
         cow_dst = cow_src = None
         try:
             if m < m_full:
@@ -716,7 +888,8 @@ class DecodeEngine:
                 self._prefill_state[slot] = {
                     'req': request, 'table': table, 'p': p, 'm': m,
                     'next': m}
-                return None
+                self._publish_block_gauges()
+                return None, m
             last = self._prefill_range(request.prompt, m, p, table)
             self._publish_prompt(request.prompt, m, table)
         except Exception:
@@ -730,34 +903,56 @@ class DecodeEngine:
         self._block_table_np[slot, :] = SCRATCH_BLOCK
         self._block_table_np[slot, :n_total] = table
         self._block_table_dev = None
-        return self._sample_first(last)
+        self._publish_block_gauges()
+        return self._sample_first(last), m
+
+    def _radix_evict(self, need: int) -> int:
+        """The one gateway to radix LRU eviction: counts freed blocks."""
+        freed = self._radix.evict(need)
+        if freed:
+            self._prefix_evictions += freed
+            self._m.counter(
+                'skytpu_engine_prefix_evictions_total',
+                'Prefix-cache blocks LRU-evicted under pool '
+                'pressure.').inc(freed)
+        return freed
 
     def _publish_prompt(self, prompt: Sequence[int], m: int,
                         table: Sequence[int]) -> None:
         """A prefill is done: count it (``m`` tokens came from the prefix
         cache) and publish the prompt's whole blocks to the radix cache
         (a partial tail block and a copy-on-write clone stay private)."""
-        self._prompt_tokens_saved += m
+        if m:
+            self._prompt_tokens_saved += m
+            self._m.counter(
+                'skytpu_engine_prefill_tokens_saved_total',
+                'Prompt tokens NOT prefilled thanks to prefix-'
+                'cache hits.').inc(m)
         self._prompt_tokens_total += len(prompt)
         full = len(prompt) // self._block_k
         if full:
             self._radix.insert(prompt[:full * self._block_k], table[:full])
 
     def _prefill_range(self, prompt: Sequence[int], start: int, end: int,
-                       table: Sequence[int]) -> torch.Tensor:
+                       table: Sequence[int],
+                       chunk: Optional[int] = None) -> torch.Tensor:
         """Prefill prompt positions [start, end) into the pool blocks of
         ``table``, attending over positions [0, start) already there;
         returns the logits at ``end - 1``. One call serves a whole
-        suffix and each chunk of a chunked admission. The bucket's
-        padding writes past ``end`` into the request's own blocks (or
-        scratch); nothing attends there before the next chunk or decode
-        step overwrites it."""
+        suffix and each chunk of a chunked admission (``chunk``, which
+        the ``engine.compile`` shape then carries). The bucket's padding
+        writes past ``end`` into the request's own blocks (or scratch);
+        nothing attends there before the next chunk or decode step
+        overwrites it."""
         bk = self._block_k
         suf = end - start
         bucket = self._bucket_for(suf)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :suf] = prompt[start:end]
+        chunk_shape = {'chunk': chunk} if chunk else {}
         if start == 0:
+            self._note_compile('paged_prefill', bucket=bucket,
+                               **chunk_shape)
             row = np.full((bucket // bk,), SCRATCH_BLOCK, np.int64)
             nrow = min(len(table), len(row))
             row[:nrow] = table[:nrow]
@@ -771,6 +966,8 @@ class DecodeEngine:
         npb_bucket = 1
         while npb_bucket < npb:
             npb_bucket *= 2
+        self._note_compile('paged_prefill_with_prefix', bucket=bucket,
+                           npb_bucket=npb_bucket, **chunk_shape)
         pref = np.full((npb_bucket,), SCRATCH_BLOCK, np.int64)
         pref[:npb] = table[:npb]
         # Writes start inside block start // bk at offset start % bk, so
@@ -802,9 +999,10 @@ class DecodeEngine:
     def _admit(self) -> int:
         """Fill free slots from the tenant queues (round-robin); over-
         budget requests are clamped (budget) or rejected (prompt too
-        long). Returns admissions made. A crash mid-admission finishes
-        the popped request as an error before it propagates: it is
-        neither queued nor slotted, so nothing else would answer it."""
+        long), each with a journaled ``engine.reject``. Returns
+        admissions made. A crash mid-admission finishes the popped
+        request as an error before it propagates: it is neither queued
+        nor slotted, so nothing else would answer it."""
         n = 0
         self._admitting = True
         try:
@@ -812,6 +1010,7 @@ class DecodeEngine:
                 req = self._pop_next()
                 if req is None:
                     break
+                self._publish_queue_depth()
                 p = len(req.prompt)
                 budget = self.dcfg.max_len - p
                 if self.paged:
@@ -820,9 +1019,18 @@ class DecodeEngine:
                     budget = min(budget,
                                  (self.num_blocks - 1) * self._block_k - p)
                 if budget < 1:
-                    self._reject(req, 'prompt_too_long')
+                    self._reject(req, 'prompt_too_long', prompt_len=p,
+                                 max_len=self.dcfg.max_len)
                     continue
-                req.max_new_tokens = min(req.max_new_tokens, budget)
+                if req.max_new_tokens > budget:
+                    # Clamp rather than reject: only the generation
+                    # budget overshoots. Journaled so the truncation is
+                    # attributable after the fact.
+                    self._journal(journal.EventKind.ENGINE_REJECT, req, -1,
+                                  action='clamp', prompt_len=p,
+                                  requested=req.max_new_tokens,
+                                  clamped_to=budget)
+                    req.max_new_tokens = budget
                 try:
                     self.insert(req)
                     n += 1
@@ -839,18 +1047,34 @@ class DecodeEngine:
             self._admitting = False
         return n
 
-    def _reject(self, req: Request, reason: str) -> None:
+    def _reject(self, req: Request, reason: str, **payload) -> None:
         """Terminal rejection, the request's fault (a 4xx)."""
-        self._finish_unadmitted(req, f'rejected: {reason}')
+        self._finish_unadmitted(req, f'rejected: {reason}',
+                                action='reject', reason=reason, **payload)
 
-    def _fail_request(self, req: Request, reason: str) -> None:
+    def _fail_request(self, req: Request, reason: str, **payload) -> None:
         """Terminal server-side failure of a request that never got a
         slot: 'error: ...', which the server answers with a 500."""
-        self._finish_unadmitted(req, f'error: {reason}')
+        self._finish_unadmitted(req, f'error: {reason}',
+                                action='error', reason=reason, **payload)
 
-    def _finish_unadmitted(self, req: Request, finish_reason: str) -> None:
+    def _finish_unadmitted(self, req: Request, finish_reason: str,
+                           **payload) -> None:
+        self._journal(journal.EventKind.ENGINE_REJECT, req, -1, **payload)
         self._rejected += 1
+        self._m.counter('skytpu_engine_rejected_total',
+                        'Requests rejected at admission.').inc()
         req._finish(finish_reason)  # pylint: disable=protected-access
+        self._finish_telemetry(req, -1, req.finish_reason)
+
+    def _finish_telemetry(self, req: Request, slot: int,
+                          reason: str) -> None:
+        """Freeze the request's phase record; an SLO breach journals
+        ``engine.slow_request`` under its trace id."""
+        slow = self.telemetry.on_finish(req, reason)
+        if slow is not None:
+            self._journal(journal.EventKind.ENGINE_SLOW_REQUEST, req, slot,
+                          **slow)
 
     # -------------------------------------------------- chunked prefill
 
@@ -871,9 +1095,12 @@ class DecodeEngine:
         start = st['next']
         end = min(start + self.prefill_chunk, st['p'])
         last = self._prefill_range(st['req'].prompt, start, end,
-                                   st['table'])
+                                   st['table'], chunk=self.prefill_chunk)
         st['next'] = end
         self._prefill_chunks += 1
+        self._m.counter(
+            'skytpu_engine_prefill_chunks_total',
+            'Prefill chunks executed by chunked admissions.').inc()
         if end >= st['p']:
             self._finish_prefill(slot, st, last)
         return end - start
@@ -889,6 +1116,7 @@ class DecodeEngine:
         self._block_table_np[slot, :len(table)] = table
         self._block_table_dev = None
         self._prefill_state[slot] = None
+        self._publish_block_gauges()
         self._deliver_first(slot, req, self._sample_first(last))
 
     # -------------------------------------------------------------- step
@@ -918,23 +1146,40 @@ class DecodeEngine:
             decode_lanes = int(np.count_nonzero(~self._done))
         emitted_before = self._decode_emitted
         n = 0
-        if decode_lanes and self.dcfg.spec_k:
-            n = 1
-            self._spec_round()
-        elif decode_lanes:
-            n = self.step_chunk
-            self._decode_round()
+        if decode_lanes:
+            # Token latency is observed over the decode dispatch only: the
+            # chunked-prefill share of the step is admission work.
+            t_dec = time.perf_counter()
+            if self.dcfg.spec_k:
+                n = 1
+                self._spec_round()
+                # One round replaces a variable number of per-lane steps:
+                # normalise by the mean tokens delivered per live lane.
+                per_token_div = max(
+                    (self._decode_emitted - emitted_before)
+                    / decode_lanes, 1.0)
+            else:
+                n = self._decode_round()
+                per_token_div = float(n)
+            self._m.histogram(
+                'skytpu_engine_token_seconds',
+                'Per-token decode step latency.',
+                buckets=runtime_metrics.TOKEN_LATENCY_BUCKETS
+            ).observe((time.perf_counter() - t_dec) / per_token_div)
         stall = self.profiler.record(
             time.perf_counter() - t0, chunk=n, active=active,
             delivered=self._decode_emitted - emitted_before,
-            queue_depth=self.queue_depth(),
+            queue_depth=self._publish_queue_depth(),
             blocks_used=self._allocator.used() if self.paged else 0,
             blocks_total=(self.num_blocks - 1) if self.paged else 0,
             prefill_tokens=pf_tokens)
         if stall is not None:
-            logger.warning('engine %s stall: %s', self.name, stall)
-        # Refill freed lanes now so the next chunk runs full.
+            self._journal_raw(journal.EventKind.ENGINE_STALL, stall)
+        # Refill freed lanes now so the next chunk runs full. The journal
+        # write rides a background thread: a stalled journal disk never
+        # blocks the step loop.
         self._admit()
+        self.flush_journal(wait=False)
         return active
 
     def _tables_dev(self) -> torch.Tensor:
@@ -942,12 +1187,15 @@ class DecodeEngine:
             self._block_table_dev = self._dev(self._block_table_np)
         return self._block_table_dev
 
-    def _decode_round(self) -> None:
+    def _decode_round(self) -> int:
         """``step_chunk`` single-token steps over every slot, then one
-        host fetch and delivery. Per-step semantics are the reference's
-        ``_scan_engine_steps``: sample → EOS-force → done-fold, one
-        budget unit per live step, done lanes freeze their position."""
+        host fetch and delivery; returns the steps run. Per-step
+        semantics are the reference's ``_scan_engine_steps``: sample →
+        EOS-force → done-fold, one budget unit per live step, done lanes
+        freeze their position."""
         eos = self.dcfg.eos_id
+        self._note_compile('decode_steps', n_steps=self.step_chunk,
+                           paged=self.paged)
         token = self._dev(self._token)
         pos = self._dev(self._pos)
         done = self._dev(self._done)
@@ -986,9 +1234,15 @@ class DecodeEngine:
             for i in range(4))
         self._done = done_np.astype(bool)
         # Counted before delivery: a client woken by its last token may
-        # read stats() at once.
-        self._decode_steps += n
+        # read stats() or /metrics at once.
+        self._count_steps(n)
         self._deliver_chunk(toks_np)
+        return n
+
+    def _count_steps(self, n: int) -> None:
+        self._decode_steps += n
+        self._m.counter('skytpu_engine_steps_total',
+                        'Batched decode steps executed.').inc(n)
 
     def _spec_round(self) -> None:
         """One speculative draft + batched-verify round across all lanes,
@@ -1016,6 +1270,9 @@ class DecodeEngine:
         while nb_bucket < npb:
             nb_bucket *= 2
         nb_bucket = min(nb_bucket, self._max_blocks)
+        self._note_compile('spec_step', spec_k=k,
+                           drafter_layers=self.dcfg.spec_drafter_layers,
+                           draft_blocks=nb_bucket)
         drafts, vtok = _spec_step(self.params, self._dev(self._token),
                                   self._dev(self._pos),
                                   tables[:, :nb_bucket], tables,
@@ -1032,10 +1289,24 @@ class DecodeEngine:
                 n_acc += 1
             runs.append((slot, req, n_acc))
         # Counted before delivery: a client woken by its last token may
-        # read stats() at once.
-        self._decode_steps += 1
-        self._spec_drafted += k * len(runs)
-        self._spec_accepted += sum(n for _, _, n in runs)
+        # read stats() or /metrics at once.
+        self._count_steps(1)
+        round_drafted = k * len(runs)
+        round_accepted = sum(n for _, _, n in runs)
+        self._spec_drafted += round_drafted
+        self._spec_accepted += round_accepted
+        self._m.counter(
+            'skytpu_engine_spec_drafted_total',
+            'Tokens proposed by the speculative drafter.').inc(
+                round_drafted)
+        self._m.counter(
+            'skytpu_engine_spec_accepted_total',
+            'Drafted tokens accepted by the batched verify.').inc(
+                round_accepted)
+        self._m.gauge(
+            'skytpu_engine_spec_accept_ratio',
+            'Cumulative accepted/drafted ratio of the speculative '
+            'path.').set(self.spec_accept_ratio())
         for slot, req, n_acc in runs:
             delivered, last_tok, evicted = self._deliver_run(
                 slot, req, vtok[slot, :n_acc + 1])
@@ -1054,26 +1325,27 @@ class DecodeEngine:
         eos = self.dcfg.eos_id
         budget = req.max_new_tokens - len(req.tokens)
         reason = None
-        delivered = 0
-        last_tok = 0
+        run: List[int] = []
         for t in tokens:
-            t = int(t)
-            budget -= 1
-            delivered += 1
-            last_tok = t
-            if eos is not None and t == eos:
+            run.append(int(t))
+            if eos is not None and run[-1] == eos:
                 reason = 'eos'
-            elif budget <= 0:
+            elif len(run) >= budget:
                 reason = 'length'
             if reason is not None:
+                break
+        # Counted before delivery: a client woken by its last token may
+        # read /metrics at once.
+        self._count_tokens(len(run))
+        for i, t in enumerate(run):
+            done = reason is not None and i == len(run) - 1
+            if done:
                 # Publish the reason before the terminal token.
                 req.finish_reason = reason
-            req._deliver(t, done=reason is not None)  # pylint: disable=protected-access
-            if reason is not None:
-                break
+            req._deliver(t, done=done)  # pylint: disable=protected-access
         if reason is not None:
             self._evict(slot, reason)
-        return delivered, last_tok, reason is not None
+        return len(run), run[-1] if run else 0, reason is not None
 
     def _deliver_chunk(self, toks_np: np.ndarray) -> None:
         for slot, req in enumerate(self._slots):
@@ -1099,8 +1371,18 @@ class DecodeEngine:
             self._prefill_state[slot] = None
             self._block_table_np[slot, :] = SCRATCH_BLOCK
             self._block_table_dev = None
-        self._evicted += 1
+            self._publish_block_gauges()
+        self._count_evicted()
+        self._journal(journal.EventKind.ENGINE_EVICT, req, slot,
+                      reason=reason, generated=len(req.tokens))
         req._finish(reason)  # pylint: disable=protected-access
+        self._finish_telemetry(req, slot, reason)
+        self._publish_slot_gauges()
+
+    def _count_evicted(self) -> None:
+        self._evicted += 1
+        self._m.counter('skytpu_engine_evicted_total',
+                        'Requests evicted from a slot (finished).').inc()
 
     # ------------------------------------------------------------- loop
 
@@ -1121,6 +1403,9 @@ class DecodeEngine:
                     return
                 continue
             if active == 0:
+                # One-token admissions while idle (non-blocking: the idle
+                # loop keeps beating through a journal stall).
+                self.flush_journal(wait=False)
                 stop_event.wait(idle)
 
     # ------------------------------------------------------- supervision
@@ -1129,8 +1414,9 @@ class DecodeEngine:
         return self._restarts
 
     def _recover_from_crash(self, exc: BaseException) -> bool:
-        """One supervisor round: log the crash with its traceback, fail
-        the in-flight requests, then rebuild and restart (True) or, past
+        """One supervisor round: journal the crash with its traceback
+        (``engine.crash``), fail the in-flight requests, then rebuild and
+        restart (True) or, past
         ``SKYTPU_ENGINE_MAX_RESTARTS`` crashes within
         ``SKYTPU_ENGINE_RESTART_WINDOW_SECONDS``, fail the queued
         requests too and mark the engine failed for good (False). A
@@ -1146,11 +1432,16 @@ class DecodeEngine:
         self._crash_times.append(now)
         permanent = len(self._crash_times) > budget
         exc_text = str(exc) or type(exc).__name__
-        logger.error('engine %s crashed (%d in %.0fs, budget %d, %d in '
-                     'flight, %d queued, permanent=%s)', self.name,
-                     len(self._crash_times), window, budget,
-                     self.active_slots(), self.queue_depth(), permanent,
-                     exc_info=exc)
+        self._journal_raw(journal.EventKind.ENGINE_CRASH, {
+            'error': exc_text,
+            'traceback': ''.join(traceback.format_exception(
+                type(exc), exc, exc.__traceback__)),
+            'in_flight': self.active_slots(),
+            'queued': self.queue_depth(),
+            'crashes_in_window': len(self._crash_times),
+            'max_restarts': budget,
+            'permanent': permanent,
+        })
         self._fail_in_flight(f'error: engine crashed: {exc_text}')
         if permanent:
             self.failed = True
@@ -1158,14 +1449,24 @@ class DecodeEngine:
                 f'{len(self._crash_times)} crashes within {window:.0f}s '
                 f'(budget {budget}); last: {exc_text}')
             self._fail_queued()
+            self.flush_journal()
             return False
         # The traceback's frames may hold the old cache (a crash inside a
         # decode call): clear them so the rebuild can reuse its memory.
         traceback.clear_frames(exc.__traceback__)
         self._init_runtime_state()
         self._restarts += 1
-        logger.warning('engine %s restarted (%d restarts, %d queued)',
-                       self.name, self._restarts, self.queue_depth())
+        self._m.counter(
+            'skytpu_engine_restarts_total',
+            'Engine supervisor restarts after a step() crash.').inc()
+        self._journal_raw(journal.EventKind.ENGINE_RESTART, {
+            'restarts': self._restarts,
+            'queued': self.queue_depth(),
+        })
+        self.flush_journal()
+        self._publish_slot_gauges()
+        if self.paged:
+            self._publish_block_gauges()
         return True
 
     def _fail_in_flight(self, reason: str) -> None:
@@ -1178,8 +1479,12 @@ class DecodeEngine:
                 continue
             self._slots[slot] = None
             self._prefill_state[slot] = None
-            self._evicted += 1
+            self._count_evicted()
+            self._journal(journal.EventKind.ENGINE_EVICT, req, slot,
+                          reason=reason, generated=len(req.tokens))
             req._finish(reason)  # pylint: disable=protected-access
+            self._finish_telemetry(req, slot, reason)
+        self._publish_slot_gauges()
 
     def _fail_queued(self) -> None:
         """Permanent failure only: nothing will serve the queue again."""
@@ -1188,6 +1493,7 @@ class DecodeEngine:
             if req is None:
                 break
             self._fail_request(req, 'engine failed permanently')
+        self._publish_queue_depth()
 
     # ------------------------------------------------------------ stats
 
@@ -1204,8 +1510,8 @@ class DecodeEngine:
         return self._spec_accepted / self._spec_drafted
 
     def spec_stats(self) -> dict:
-        """The speculative-decoding and chunked-prefill counters of this
-        engine (the reference's ``spec_stats`` block)."""
+        """The ``/slo`` ``spec`` block: speculative-decoding and
+        chunked-prefill counters of this engine."""
         return {
             'enabled': self.dcfg.spec_k > 0,
             'spec_k': self.dcfg.spec_k,
@@ -1223,7 +1529,48 @@ class DecodeEngine:
             return 0.0
         return self._prompt_tokens_saved / self._prompt_tokens_total
 
+    def cache_stats(self) -> dict:
+        """The ``/slo`` ``cache`` block: prefix-cache locality and pressure
+        counters. The peer and store tiers are not ported: their fields
+        read as the reference's do with those tiers off."""
+        return {
+            'paged': self.paged,
+            'prefix_hit_ratio': round(self.prefix_hit_ratio(), 4),
+            'prefill_tokens_saved': self._prompt_tokens_saved,
+            'prompt_tokens_total': self._prompt_tokens_total,
+            'prefix_cache_blocks': (self._radix.held_blocks()
+                                    if self.paged else 0),
+            'radix_nodes': self._radix.node_count() if self.paged else 0,
+            'prefix_evictions': self._prefix_evictions,
+            'prefix_fetch_hits': 0,
+            'prefix_fetch_misses': 0,
+            'prefix_fetch_tokens': 0,
+            'prefix_peers': 0,
+            'store_configured': False,
+            'store_in_backoff': False,
+            'store_fetch_hits': 0,
+            'store_fetch_misses': 0,
+            'store_fetch_tokens': 0,
+            'store_spills': 0,
+            'store_spill_tokens': 0,
+            'store_spill_failures': 0,
+            'store_spill_drops': 0,
+        }
+
+    def handoff_stats(self) -> dict:
+        """The ``/slo`` ``handoff`` block. Disaggregated prefill/decode is
+        not ported: every counter reads 0, as on a reference replica that
+        never hands off."""
+        return {
+            'completed': 0,
+            'degraded': 0,
+            'tokens_pushed': 0,
+            'injections': 0,
+            'tokens_injected': 0,
+        }
+
     def stats(self) -> dict:
+        self.flush_journal()
         out = {
             'num_slots': self.num_slots,
             'active_slots': self.active_slots(),
@@ -1241,6 +1588,7 @@ class DecodeEngine:
             'kv_cache_dtype': self.dcfg.kv_cache_dtype,
             'max_len': self.dcfg.max_len,
             'paged': self.paged,
+            'tp': 1,
             'device': str(self.device),
             'decode_attention': self.dcfg.decode_attention,
         }
@@ -1256,6 +1604,16 @@ class DecodeEngine:
                 'prefill_chunks': self._prefill_chunks,
                 'chunked_admissions': self._chunked_admissions,
                 'prefix_evictions': self._prefix_evictions,
+                # Tiers not ported yet, read as the reference's with
+                # them off.
+                'prefix_fetch_hits': 0,
+                'prefix_fetch_misses': 0,
+                'handoffs_completed': 0,
+                'handoffs_degraded': 0,
+                'handoff_injections': 0,
+                'store_configured': False,
+                'store_fetch_hits': 0,
+                'store_spills': 0,
             })
         if self.dcfg.spec_k:
             out.update({
@@ -1265,3 +1623,97 @@ class DecodeEngine:
                 'spec_accept_ratio': round(self.spec_accept_ratio(), 4),
             })
         return out
+
+    # ---------------------------------------------------------- plumbing
+
+    def _publish_slot_gauges(self) -> None:
+        self._m.gauge('skytpu_engine_active_slots',
+                      'Slots currently decoding.').set(self.active_slots())
+        self._m.gauge(
+            'skytpu_engine_slot_occupancy',
+            'Measured decode-lane occupancy (delivered tokens / '
+            'lane-steps).').set(self.mean_occupancy())
+
+    def _publish_block_gauges(self) -> None:
+        self._m.gauge('skytpu_engine_blocks_total',
+                      'Usable KV pool blocks (scratch excluded).').set(
+                          self.num_blocks - 1)
+        self._m.gauge('skytpu_engine_blocks_used',
+                      'KV pool blocks currently referenced (slots or '
+                      'prefix cache).').set(self._allocator.used())
+        self._m.gauge(
+            'skytpu_engine_prefix_hit_ratio',
+            'Cumulative fraction of prompt tokens served from the '
+            'prefix cache.').set(self.prefix_hit_ratio())
+        self._m.gauge(
+            'skytpu_engine_radix_nodes',
+            'Edges in the radix prefix tree.').set(
+                self._radix.node_count())
+        self._m.gauge(
+            'skytpu_engine_prefix_cache_blocks',
+            'KV pool blocks held by the radix prefix cache.').set(
+                self._radix.held_blocks())
+
+    def _note_compile(self, kind: str, **shape) -> None:
+        """Journal ``engine.compile`` once per distinct dispatch shape,
+        just before its first dispatch, with the reference's kinds and
+        keys. The port runs eagerly: the row marks the first launch of a
+        shape (where a CUDA-graph capture would happen), not a trace.
+        The dedupe set survives supervisor restarts."""
+        key = (kind, tuple(sorted(shape.items())))
+        if key in self._traced_shapes:
+            return
+        self._traced_shapes.add(key)
+        self._m.counter(
+            'skytpu_engine_compiles_total',
+            'Distinct engine dispatch shapes traced (journaled as '
+            'engine.compile).').inc()
+        self._journal_raw(journal.EventKind.ENGINE_COMPILE,
+                          {'compile_kind': kind, **shape})
+
+    def _journal(self, kind, request: Request, slot: int,
+                 **payload) -> None:
+        self._journal_raw(kind,
+                          {'request': request.id, 'slot': slot, **payload},
+                          trace_id=request.trace_id,
+                          span_id=request.span_id)
+
+    def _journal_raw(self, kind, payload: dict,
+                     trace_id: Optional[str] = None,
+                     span_id: Optional[str] = None,
+                     parent_span_id: Optional[str] = None,
+                     entity: Optional[str] = None) -> None:
+        """Buffer one row; a per-request ``trace_id`` overrides the
+        ambient trace for that row (the X-Request-Id join), and
+        ``span_id``/``parent_span_id`` nest it under the HTTP span that
+        carried the request (``span_id`` requires ``trace_id``)."""
+        if trace_id is not None and span_id is not None:
+            override = (trace_id, span_id, parent_span_id)
+        else:
+            override = trace_id
+        self._jbuf.append(kind, entity or f'engine:{self.name}', payload,
+                          override)
+
+    def journal_buffered(self, kind, payload: dict,
+                         trace_id: Optional[str] = None,
+                         span_id: Optional[str] = None,
+                         parent_span_id: Optional[str] = None,
+                         entity: Optional[str] = None) -> None:
+        """The batched journal buffer for co-located callers on the
+        request hot path (the model server's span rows): they ride the
+        engine tick's one transaction instead of a commit each."""
+        self._journal_raw(kind, payload, trace_id=trace_id,
+                          span_id=span_id, parent_span_id=parent_span_id,
+                          entity=entity)
+
+    def flush_journal(self, wait: bool = True) -> None:
+        """Write the buffered rows in one transaction. ``step()`` calls
+        it per tick with ``wait=False`` (a background thread writes, so a
+        wedged journal disk never blocks the decode loop); ``stats()``
+        and direct ``insert()`` drivers use the synchronous form."""
+        self._jbuf.flush(wait=wait)
+
+    def journal_stats(self) -> dict:
+        """Journal-plane self-observability (buffered, dropped, flush
+        p95)."""
+        return self._jbuf.stats()

@@ -24,8 +24,32 @@ the engine loop on its own thread. Endpoints:
   the engine failed for good, the server is not running (draining,
   stopped), the engine thread died, or the engine loop's heartbeat is
   older than ``SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS`` (unset: no bound).
+  The stats part of the line starts with ``role=mixed``.
 * ``GET /stats`` — the engine's stats as JSON, with the speculative-
   decoding and chunked-prefill counters under ``spec``.
+* ``GET /metrics`` — the package registry's Prometheus text exposition
+  (``skytpu_engine_*``, ``skytpu_request_*``, ``skytpu_journal_*``,
+  ``skytpu_server_*``).
+* ``GET /debug/requests?n=`` — in-flight and the last ``n`` (default 50)
+  completed request records with their phase breakdowns;
+  ``GET /debug/engine?n=`` — the engine's stats and its step profile
+  (the last ``n``, default 32, steps).
+* ``GET /slo`` — the rolling SLO surface (``ttft_seconds``,
+  ``per_token_seconds``, ... p50/p95/p99 over the completed ring) with
+  the reference's ``resilience``, ``spec``, ``cache``, ``role``,
+  ``handoff``, ``store`` and ``steps`` blocks.
+* ``GET/POST /journal`` — filtered rows of this replica's journal
+  (``trace_id``, ``kinds``, ``entity``, ``since_id``, ``limit``; the
+  reference's ``journal.serve_query``). 404 unless
+  ``SKYTPU_JOURNAL_PEERS`` names the hosts allowed to pull it.
+
+Every ``/generate`` answers an ``X-Request-Id``: the client's header, or
+a minted trace id. It is the request's trace id (``X-Skytpu-Trace-Id``
+wins when a load balancer sends one), so the request's
+``server.request`` span rows and its engine rows
+(``engine.admit``/``evict``/``slow_request``) share it, nested under
+the span (and under the caller's span when ``X-Skytpu-Span-Id`` is
+given).
 
 Run as ``python -m skypilot_tpu_torch.serve.model_server`` with the
 reference's flag names. The engine runs on CUDA unless ``--device cpu``
@@ -33,10 +57,11 @@ is given. Speculative decoding is on with ``--paged --spec-k K
 [--drafter-layers D]`` (or ``SKYTPU_SPEC_K`` / ``SKYTPU_SPEC_DRAFTER_LAYERS``),
 chunked prefill with ``--paged --prefill-chunk N`` (or
 ``SKYTPU_PREFILL_CHUNK``). ``SKYTPU_CHAOS`` arms the fault points
-``engine_step_raise``, ``slow_step``, ``drain_hang`` and ``replica_500``
-(``utils/chaos.py``). Flags of features later slices port (tensor
-parallelism, prefix fetch/store/handoff, int8 weights, checkpoints,
-roles) are rejected, never ignored.
+``engine_step_raise``, ``slow_step``, ``drain_hang``, ``replica_500``,
+``journal_write_stall`` and ``journal_disk_full`` (``utils/chaos.py``).
+Flags of features later slices port (tensor parallelism, prefix
+fetch/store/handoff, int8 weights, checkpoints, roles) are rejected,
+never ignored.
 
 Tokenizer note: the models are research checkpoints without a shipped
 tokenizer, so ``text`` uses a byte-level demo codec (UTF-8 bytes → ids;
@@ -51,6 +76,7 @@ import queue
 import signal
 import threading
 import time
+import urllib.parse
 from typing import Optional
 
 import torch
@@ -59,6 +85,9 @@ from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.models import engine as engine_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import journal
+from skypilot_tpu_torch.observability import metrics as metrics_lib
+from skypilot_tpu_torch.observability import trace as trace_lib
 from skypilot_tpu_torch.utils import chaos, env
 
 logger = logging.getLogger(__name__)
@@ -83,6 +112,15 @@ DEFAULT_STOP_TIMEOUT_SECONDS = 10.0
 # /healthz answers 503 once the engine loop's heartbeat is older than
 # this (unset, empty or unparseable: no bound).
 HEALTHZ_MAX_STALENESS_ENV = 'SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS'
+# The journal query plane's trust set: hosts allowed to pull this
+# replica's /journal. Unset, /journal answers 404: a replica outside any
+# fleet must not export its journal to whoever reaches its port. (The
+# reference also opens it to a replica with prefix peers, which the port
+# refuses.)
+JOURNAL_PEERS_ENV = 'SKYTPU_JOURNAL_PEERS'
+# skytpu_server_state gauge values (/healthz carries the string).
+_STATE_VALUES = {'starting': 0, 'running': 0, 'draining': 1,
+                 'stopped': 2}
 
 
 def _role(raw: str) -> str:
@@ -207,6 +245,17 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def query(self) -> dict:
+        """The URL's query parameters (the first of each)."""
+        qs = urllib.parse.urlsplit(self.path).query
+        return {k: v[0] for k, v in urllib.parse.parse_qs(qs).items()}
+
+    def query_int(self, key: str, default: int) -> int:
+        try:
+            return int(self.query().get(key, default))
+        except ValueError:
+            return default
+
     def do_GET(self):  # pylint: disable=invalid-name
         ms = self.server.model_server
         path = self.path.split('?', 1)[0]
@@ -216,6 +265,20 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         elif path == '/stats':
             self.send_json(200, {**ms.engine.stats(),
                                  'spec': ms.engine.spec_stats()})
+        elif path == '/metrics':
+            self.send_text(200, metrics_lib.generate_latest().decode())
+        elif path == '/debug/requests':
+            self.send_json(200, ms.engine.telemetry.snapshot(
+                self.query_int('n', 50)))
+        elif path == '/debug/engine':
+            self.send_json(200, {
+                'stats': ms.engine.stats(),
+                'step_profile': ms.engine.profiler.snapshot(
+                    self.query_int('n', 32))})
+        elif path == '/slo':
+            self.send_json(200, ms.slo())
+        elif path == '/journal':
+            ms.handle_journal(self, {})
         else:
             self.send_json(404, {'error': f'no route {path}'})
 
@@ -224,6 +287,13 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         path = self.path.split('?', 1)[0]
         if path == '/generate':
             ms.handle_generate(self)
+        elif path == '/journal':
+            try:
+                length = int(self.headers.get('Content-Length') or 0)
+                body = json.loads(self.rfile.read(length) or b'{}')
+            except (ValueError, UnicodeDecodeError):
+                body = {}  # a malformed filter serves the unfiltered page
+            ms.handle_journal(self, body if isinstance(body, dict) else {})
         elif path == '/drain':
             initiated = ms.begin_drain('http')
             self.send_json(202, {'state': ms.state, 'initiated': initiated,
@@ -244,6 +314,12 @@ class ModelServer:
                  host: str = '0.0.0.0',
                  default_max_new_tokens: int = 128):
         self.engine = engine
+        # The journal file of this replica's direct writes and /journal
+        # reads: the engine's (None: the host journal).
+        self._journal_db = engine.journal_db
+        # Serving roles are not ported (SKYTPU_REPLICA_ROLE is refused
+        # unless it reads 'mixed'): the replica is monolithic.
+        self.role = 'mixed'
         self.host = host
         self.port = port  # rebound to the OS-assigned port when 0
         self.default_max_new_tokens = default_max_new_tokens
@@ -262,6 +338,7 @@ class ModelServer:
         self._state = 'starting'
         self._state_lock = threading.Lock()
         self._drain_thread: Optional[threading.Thread] = None
+        self._drains = 0
 
     @property
     def state(self) -> str:
@@ -278,7 +355,7 @@ class ModelServer:
             daemon=True, name='skytorch-engine')
         self._engine_thread.start()
         self._serving = True
-        self._state = 'running'
+        self._set_state('running')
         logger.info('Model server listening on :%d (%d slots, max_len %d, '
                     '%s).', self.port, self.engine.num_slots,
                     self.engine.dcfg.max_len, self.engine.device)
@@ -321,6 +398,13 @@ class ModelServer:
                 logger.error('engine thread did not stop within %.0fs: '
                              'wedged (it still holds the device)',
                              stop_timeout)
+                journal.event(
+                    journal.EventKind.ENGINE_CRASH,
+                    f'engine:{self.engine.name}',
+                    {'error': 'engine thread wedged at server stop',
+                     'wedged': True, 'phase': 'stop',
+                     'join_timeout_seconds': stop_timeout},
+                    db_path=self._journal_db)
         if self._httpd is not None:
             if self._serving:
                 # Returns once serve_forever has (on whatever thread).
@@ -329,7 +413,17 @@ class ModelServer:
             self._httpd.server_close()
         if self._http_thread is not None:
             self._http_thread.join(timeout=10)
-        self._state = 'stopped'
+        self._set_state('stopped')
+
+    def _set_state(self, state: str) -> None:
+        self._state = state
+        metrics_lib.gauge(
+            'skytpu_server_state',
+            'Model server lifecycle state (0=running, 1=draining, '
+            '2=stopped).').set(_STATE_VALUES.get(state, 0))
+
+    def _entity(self) -> str:
+        return f'server:{self.engine.name}:{self.port}'
 
     def begin_drain(self, reason: str = 'api') -> bool:
         """Flip to draining (False when not running): /healthz and new
@@ -338,7 +432,14 @@ class ModelServer:
         with self._state_lock:
             if self._state != 'running':
                 return False
-            self._state = 'draining'
+            self._drains += 1
+            self._set_state('draining')
+        journal.event(journal.EventKind.SERVER_DRAIN, self._entity(),
+                      {'phase': 'begin', 'reason': reason,
+                       'in_flight': self.engine.active_slots(),
+                       'queued': self.engine.queue_depth(),
+                       'timeout_seconds': self.drain_timeout},
+                      db_path=self._journal_db)
         logger.info('Draining (%s): waiting up to %.0fs for %d in-flight '
                     'and %d queued requests.', reason, self.drain_timeout,
                     self.engine.active_slots(), self.engine.queue_depth())
@@ -349,7 +450,8 @@ class ModelServer:
         return True
 
     def _drain_and_stop(self) -> None:
-        deadline = time.time() + self.drain_timeout
+        t0 = time.time()
+        deadline = t0 + self.drain_timeout
         drained = False
         while time.time() < deadline:
             # drain_hang (chaos): never see the engine idle, so the
@@ -358,6 +460,12 @@ class ModelServer:
                 drained = True
                 break
             time.sleep(0.05)
+        journal.event(journal.EventKind.SERVER_DRAIN, self._entity(),
+                      {'phase': 'done', 'drained': drained,
+                       'waited_seconds': round(time.time() - t0, 3),
+                       'in_flight': self.engine.active_slots(),
+                       'queued': self.engine.queue_depth()},
+                      db_path=self._journal_db)
         if not drained:
             logger.warning('Drain timed out after %.0fs with %d request(s) '
                            'in flight; stopping anyway.',
@@ -379,7 +487,8 @@ class ModelServer:
         alive = (self._engine_thread is not None and
                  self._engine_thread.is_alive())
         staleness = self.staleness_seconds()
-        line = ' '.join(f'{k}={v}' for k, v in self.engine.stats().items())
+        line = ' '.join([f'role={self.role}'] +
+                        [f'{k}={v}' for k, v in self.engine.stats().items()])
         tail = f'staleness_seconds={staleness:.3f} {line}\n'
         if self.engine.failed:
             return 503, (f'engine failed permanently '
@@ -392,6 +501,51 @@ class ModelServer:
                 staleness > self.max_staleness):
             return 503, f'stale {tail}'
         return 200, f'ok {tail}'
+
+    def slo(self) -> dict:
+        """The ``/slo`` body: the request-telemetry SLO surface plus the
+        reference's resilience, spec, cache, role, handoff, store and
+        step-profile blocks (store hosting and handoff are not ported and
+        read as a reference replica without them)."""
+        body = self.engine.telemetry.slo()
+        body['resilience'] = {
+            'server_state': self._state,
+            'drains_total': self._drains,
+            'engine_restarts': self.engine.restart_count(),
+            'engine_failed': self.engine.failed,
+        }
+        body['spec'] = self.engine.spec_stats()
+        body['cache'] = self.engine.cache_stats()
+        body['role'] = self.role
+        body['handoff'] = self.engine.handoff_stats()
+        body['store'] = {
+            'hosting': False,
+            'configured_url': None,
+            'in_backoff': False,
+            'prewarms': 0,
+            'prewarm_tokens': 0,
+        }
+        # Aggregates only, recomputed per call (heartbeat age included).
+        steps = self.engine.profiler.snapshot(last_n=0)
+        steps.pop('recent', None)
+        body['steps'] = steps
+        return body
+
+    def handle_journal(self, h: '_Handler', body: dict) -> None:
+        """Serve filtered rows of this replica's journal
+        (``journal.serve_query``: trace id, kinds, entity, since-rowid
+        cursor, hard row cap), after landing the engine's buffered rows.
+        404 unless ``SKYTPU_JOURNAL_PEERS`` is set."""
+        if not os.environ.get(JOURNAL_PEERS_ENV, '').strip():
+            h.send_json(404, {'error': 'journal query plane not '
+                                       'configured (SKYTPU_JOURNAL_PEERS)'})
+            return
+        params = {**h.query(), **body}
+        self.engine.flush_journal()
+        out = journal.serve_query(params, db_path=self._journal_db,
+                                  host=self._entity())
+        out['role'] = self.role
+        h.send_json(200, out)
 
     def parse_prompt_body(self, body):
         """``(tokens, max_new, None)`` or ``(None, 0, (status, error))``,
@@ -454,18 +608,46 @@ class ModelServer:
         if self.max_queue > 0:
             depth = self.engine.queue_depth()
             if depth >= self.max_queue:
+                metrics_lib.counter(
+                    'skytpu_server_rejected_total',
+                    'Requests rejected with 429 (queue full).').inc()
                 h.send_json(429, {'error': f'queue full ({depth} waiting)'},
                             headers={'Retry-After': '1'})
                 return
         tenant = h.headers.get('X-Tenant') or body.get('tenant') or 'default'
+        # The client's X-Request-Id, else a minted trace id, is the
+        # request's trace id; a load balancer's hop headers join its
+        # trace and parent this server.request span under its own.
+        request_id = (h.headers.get(trace_lib.REQUEST_ID_HEADER)
+                      or trace_lib.new_trace_id())
+        trace_id = h.headers.get(trace_lib.TRACE_ID_HEADER) or request_id
+        parent_span = h.headers.get(trace_lib.SPAN_ID_HEADER)
+        span_id = trace_lib.new_span_id()
         events: queue.Queue = queue.Queue()
+        # The header value rides as the trace id only: engine request
+        # ids stay server-generated and unique.
         req = engine_lib.Request(
             tokens, max_new, tenant=str(tenant),
-            on_token=lambda token, done: events.put((token, done)))
+            on_token=lambda token, done: events.put((token, done)),
+            trace_id=trace_id, span_id=span_id,
+            prefix_hint=h.headers.get(trace_lib.PREFIX_OWNER_HEADER))
         # Terminal sentinel: a rejected request finishes without a token.
         req.on_finish = lambda: events.put((None, True))
-        rid = {'X-Request-Id': h.headers.get('X-Request-Id') or req.id}
+        rid = {'X-Request-Id': req.trace_id or req.id}
+        # The span rows ride the engine's batched journal buffer (one
+        # transaction per engine tick), not a commit per request.
+        self.engine.journal_buffered(
+            journal.EventKind.SPAN_START,
+            {'name': 'server.request', 'request': req.id,
+             'tenant': req.tenant, 'prompt_len': len(tokens),
+             'stream': stream},
+            trace_id=trace_id, span_id=span_id,
+            parent_span_id=parent_span, entity=self._entity())
         self.engine.submit(req)
+        metrics_lib.counter('skytpu_engine_requests_total',
+                            'HTTP /generate requests accepted.',
+                            labels=('stream',)).inc(
+                                labels=(str(stream).lower(),))
         try:
             if stream:
                 self._stream_response(h, req, events, rid)
@@ -473,6 +655,14 @@ class ModelServer:
                 self._unary_response(h, req, events, rid)
         except (BrokenPipeError, ConnectionResetError):
             logger.info('client of request %s went away', req.id)
+        finally:
+            self.engine.journal_buffered(
+                journal.EventKind.SPAN_END,
+                {'name': 'server.request',
+                 'finish_reason': req.finish_reason,
+                 'generated': len(req.tokens)},
+                trace_id=trace_id, span_id=span_id,
+                parent_span_id=parent_span, entity=self._entity())
 
     def _stream_response(self, h: _Handler, req: engine_lib.Request,
                          events: queue.Queue, rid: dict) -> None:

@@ -28,11 +28,19 @@ Points the port checks:
                        idle, so it rides out ``SKYTPU_DRAIN_TIMEOUT_SECONDS``.
 ``replica_500``        the model server answers ``/generate`` with a 500
                        before touching the engine.
+``journal_write_stall``  ``JournalBuffer`` batch commits sleep
+                       ``SKYTPU_CHAOS_JOURNAL_STALL_SECONDS`` (default
+                       2.0) first: a wedged journal disk. The bounded
+                       buffer must keep the engine step loop
+                       non-blocking (drops counted, one ``journal.stall``
+                       row on recovery).
+``journal_disk_full``  ``JournalBuffer`` batch commits fail outright: the
+                       whole batch is counted as ``write_error`` drops.
 =====================  ====================================================
 
 The reference's other points belong to features the port does not have
-yet (handoff, journal, block store). With ``SKYTPU_CHAOS`` unset every
-check is one dict lookup returning False.
+yet (handoff, block store). With ``SKYTPU_CHAOS`` unset every check is
+one dict lookup returning False.
 """
 import os
 import random
@@ -43,6 +51,8 @@ from typing import Dict, Optional
 CHAOS_ENV = 'SKYTPU_CHAOS'
 SLOW_STEP_SECONDS_ENV = 'SKYTPU_CHAOS_SLOW_STEP_SECONDS'
 DEFAULT_SLOW_STEP_SECONDS = 0.2
+JOURNAL_STALL_SECONDS_ENV = 'SKYTPU_CHAOS_JOURNAL_STALL_SECONDS'
+DEFAULT_JOURNAL_STALL_SECONDS = 2.0
 
 
 class ChaosError(RuntimeError):
@@ -133,3 +143,12 @@ def maybe_slow_step() -> None:
     """Sleep the configured delay when ``slow_step`` fires."""
     if should_fire('slow_step'):
         time.sleep(slow_step_seconds())
+
+
+def journal_stall_seconds() -> float:
+    """How long a fired ``journal_write_stall`` wedges one batch commit."""
+    try:
+        return float(os.environ.get(JOURNAL_STALL_SECONDS_ENV,
+                                    str(DEFAULT_JOURNAL_STALL_SECONDS)))
+    except ValueError:
+        return DEFAULT_JOURNAL_STALL_SECONDS

@@ -51,8 +51,11 @@ def test_importing_the_port_leaves_jax_out_of_the_process():
             'from skypilot_tpu_torch.models import checkpoint, convert, data\n'
             'from skypilot_tpu_torch.models import decode, engine, train\n'
             'from skypilot_tpu_torch.ops import cuda_build, flash_attention\n'
+            'from skypilot_tpu_torch.observability import journal, metrics\n'
             'from skypilot_tpu_torch.observability import request_trace\n'
-            'from skypilot_tpu_torch.utils import chaos, env\n'
+            'from skypilot_tpu_torch.observability import runtime_metrics\n'
+            'from skypilot_tpu_torch.observability import trace\n'
+            'from skypilot_tpu_torch.utils import chaos, db_utils, env\n'
             'bad = sorted(m for m in sys.modules\n'
             "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
             "                                    'skypilot_tpu'))\n"
