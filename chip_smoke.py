@@ -157,10 +157,31 @@ port's package is not beside it. Phases (any failure exits non-zero):
    ``journal_write_stall`` armed at 2 s a flush, the burst's largest
    inter-token gap and the ``journal.stall`` row after recovery.
 
+12. Int8 weights and checkpoint restore, run after phase 11 while the
+   llama3-8b weights are loaded; the launch counts are reset just
+   before and read just after. (a) The int8 route (``ops/quant``: row
+   quantisation, cuBLASLt's int8 GEMM through ``torch._int_mm``,
+   rescale) bit-equal to its twin (the same over an exact fp64 product)
+   at M 8/40/1000 x llama3-8b's four (K, N); the GEMM's device time,
+   its bound, the same GEMM over a row-major weight, the whole int8
+   matmul and bf16 ``x @ w``. (b) ``build_engine(int8=True)`` dense,
+   paged and spec (spec_k 4, drafter depth 1) replicas answer phase 3's
+   requests: token counts, each attention kernel's launches n_layers x
+   steps, the int8 GEMM's launches exactly 7 per layer pass, the
+   weights' bytes in the HBM split against the config (9,086,705,664);
+   then phase 5's profile of the int8 step beside the bf16 one. (c)
+   Kernel vs plain decode attention with int8 weights, teacher-forced,
+   dense and paged, within INT8_E2E_REL_TOL (twin_error's statistics,
+   fp32 activations and int8 against bf16 weights printed). (d) The
+   bf16 params saved with ``checkpoint.save_params`` (17 GB free
+   needed under ``build/``), a replica built the CLI's way
+   (``checkpoint_dir``, ``int8=True``, no params) gives (b)'s dense
+   tokens, and a trainer checkpoint raises ValueError.
+
 Every replica journals into a temporary directory of the run, not into
-``~/.skytpu``. The whole run took 206-213 s on an H100 (700 W) up to
-phase 10 (164-178 s before it), well inside its time limit, so every
-phase runs at full depth.
+``~/.skytpu``. The whole run took 269.6-285.3 s on an H100 (700 W),
+phase 12 83.3-85.4 s of it (210-219 s before phase 12), well inside its
+time limit, so every phase runs at full depth.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -563,10 +584,15 @@ def serve_phase(torch, ms_lib, params, label, engine_kwargs, requests,
     """One replica: start the port's server, answer ``requests`` (lists
     of (body) batches sent concurrently), check counts: ``kernel_fn``
     launched n_layers times per decode step (a speculative round is one
-    step), each of ``idle_fns`` never. Returns (stats, [(body, reply)])."""
+    step), each of ``idle_fns`` never. Returns (stats, [(body, reply)]);
+    the stats add the engine's build seconds (``build_s``) and its
+    weights' bytes in the HBM split (``weights_bytes``)."""
+    t_build = time.perf_counter()
     engine = ms_lib.build_engine(MODEL, 8, MAX_LEN, step_chunk=4,
                                  device=DEVICE, params=params,
                                  **engine_kwargs)
+    sync(torch)
+    build_s = time.perf_counter() - t_build
     server = ms_lib.ModelServer(engine, 0, host='127.0.0.1')
     port = server.start()
     before = kernel_fn.launches
@@ -606,6 +632,9 @@ def serve_phase(torch, ms_lib, params, label, engine_kwargs, requests,
     finally:
         server.stop()
     stats = engine.stats()   # the engine thread has stopped
+    stats['build_s'] = build_s
+    stats['weights_bytes'] = engine._hbm_accounting()[  # pylint: disable=protected-access
+        'per_device_bytes']['weights']
     for body, res in results:
         n = body['max_new_tokens']
         if res is None or len(res['tokens']) != n or res['generated'] != n:
@@ -686,6 +715,83 @@ def main_path_phase(torch, ms_lib, da, card):
 # --------------------------------------------------------------- phase 4
 
 
+def forced_case(torch, cfg):
+    """Teacher-forcing inputs for the end-to-end phases: 4 prompts of
+    300 tokens at lengths 300/129/17/256, 4 forced steps, max_len 512,
+    each row's blocks at reversed pool positions."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    b, s, steps, max_len = 4, 300, 4, 512
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    nbk = max_len // BLOCK_K
+    return dict(
+        b=b, steps=steps, max_len=max_len, nbk=nbk, prompt=prompt,
+        lens=torch.tensor([300, 129, 17, 256], device=dev),
+        forced=torch.randint(0, cfg.vocab_size, (steps, b), generator=gen,
+                             device=dev),
+        tables=(torch.arange(b * nbk, device=dev) + 1).flip(0).reshape(
+            b, nbk).to(torch.int32),
+        padded=torch.nn.functional.pad(
+            prompt, (0, -(-s // BLOCK_K) * BLOCK_K - s)))
+
+
+def teacher_forced(torch, decode, p, cfg, case, paged, impl):
+    """Logits [steps, b, vocab] of the forced tokens after a prefill,
+    through the dense or paged decode step under ``impl``."""
+    dev = torch.device(DEVICE)
+    b, max_len, tables = case['b'], case['max_len'], case['tables']
+    lens, padded = case['lens'], case['padded']
+    dcfg = decode.DecodeConfig(max_len=max_len, decode_attention=impl)
+    if paged:
+        cache = decode.init_block_pool(cfg, b * case['nbk'] + 1, BLOCK_K,
+                                       device=dev)
+        for i in range(b):
+            decode.paged_prefill(p, padded[i:i + 1], int(lens[i]),
+                                 tables[i, :padded.shape[1] // BLOCK_K],
+                                 cfg, cache)
+    else:
+        cache = decode.init_kv_cache(cfg, b, max_len, device=dev)
+        decode.prefill(p, case['prompt'], cfg, cache, lens)
+    outs = []
+    pos = lens.clone()
+    for t in range(case['steps']):
+        token = case['forced'][t]
+        if paged:
+            outs.append(decode.paged_decode_step(p, token, pos, tables, cfg,
+                                                 dcfg, cache))
+        else:
+            outs.append(decode.decode_step(p, token, pos, cfg, dcfg, cache))
+        pos = pos + 1
+    return torch.stack(outs)
+
+
+def e2e_check(torch, kl, pl, rel_tol, label):
+    """Kernel-path logits ``kl`` against plain-path ``pl``: max |dlogit|
+    within rel_tol x max |logit|, greedy tokens equal wherever the plain
+    path's top-1/top-2 gap exceeds that. Returns max |dlogit| /
+    max |logit|."""
+    if not (torch.isfinite(kl).all() and kl.shape == pl.shape):
+        fail(f'end-to-end {label}: kernel logits not finite / wrong shape')
+    scale = pl.abs().max().item()
+    diff = (kl - pl).abs().max().item()
+    tol = rel_tol * scale
+    top2 = pl.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol
+    agree = kl.argmax(-1) == pl.argmax(-1)
+    print(f'[e2e] {label}: max|dlogit|={diff:.4e} (tol {tol:.4e} = '
+          f'{rel_tol} x max|logit| {scale:.3f}); greedy equal on '
+          f'{int(agree[clear].sum())}/{int(clear.sum())} clear-gap '
+          f'positions, {int(agree.sum())}/{agree.numel()} overall',
+          flush=True)
+    if diff > tol:
+        fail(f'end-to-end {label} logits differ by {diff} > {tol}')
+    if not agree[clear].all():
+        fail(f'end-to-end {label} greedy tokens differ at a clear gap')
+    return diff / scale
+
+
 def e2e_phase(torch, decode, llama, params):
     """Teacher-forced decode steps, kernel vs plain, dense and paged, in
     fp32 (the kernel and the plain path differ only in summation order)
@@ -694,45 +800,7 @@ def e2e_phase(torch, decode, llama, params):
     import dataclasses
     cfg16 = llama.CONFIGS[MODEL]
     dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    b, s, steps, max_len = 4, 300, 4, 512
-    prompt = torch.randint(0, cfg16.vocab_size, (b, s), generator=gen,
-                           device=dev)
-    lens = torch.tensor([300, 129, 17, 256], device=dev)
-    forced = torch.randint(0, cfg16.vocab_size, (steps, b), generator=gen,
-                           device=dev)
-    nbk = max_len // BLOCK_K
-    # Each row's blocks at reversed pool positions.
-    tables = (torch.arange(b * nbk, device=dev) + 1).flip(0).reshape(
-        b, nbk).to(torch.int32)
-    padded = torch.nn.functional.pad(prompt,
-                                     (0, -(-s // BLOCK_K) * BLOCK_K - s))
-
-    def run(p, cfg, paged, impl):
-        dcfg = decode.DecodeConfig(max_len=max_len, decode_attention=impl)
-        if paged:
-            cache = decode.init_block_pool(cfg, b * nbk + 1, BLOCK_K,
-                                           device=dev)
-            for i in range(b):
-                decode.paged_prefill(p, padded[i:i + 1], int(lens[i]),
-                                     tables[i, :padded.shape[1] // BLOCK_K],
-                                     cfg, cache)
-        else:
-            cache = decode.init_kv_cache(cfg, b, max_len, device=dev)
-            decode.prefill(p, prompt, cfg, cache, lens)
-        outs = []
-        pos = lens.clone()
-        for t in range(steps):
-            if paged:
-                outs.append(decode.paged_decode_step(p, forced[t], pos,
-                                                     tables, cfg, dcfg,
-                                                     cache))
-            else:
-                outs.append(decode.decode_step(p, forced[t], pos, cfg, dcfg,
-                                               cache))
-            pos = pos + 1
-        return torch.stack(outs)
+    case = forced_case(torch, cfg16)
 
     worst = {}
     for dtype_name, rel_tol in (('fp32', E2E_REL_TOL['fp32']),
@@ -746,29 +814,11 @@ def e2e_phase(torch, decode, llama, params):
         else:
             cfg, p = cfg16, params
         for paged in (False, True):
-            kl = run(p, cfg, paged, 'kernel')
-            pl = run(p, cfg, paged, 'plain')
-            if not (torch.isfinite(kl).all() and kl.shape ==
-                    (steps, b, cfg.vocab_size)):
-                fail('end-to-end kernel logits not finite / wrong shape')
-            scale = pl.abs().max().item()
-            diff = (kl - pl).abs().max().item()
-            tol = rel_tol * scale
-            top2 = pl.topk(2, dim=-1).values
-            clear = (top2[..., 0] - top2[..., 1]) > tol
-            agree = kl.argmax(-1) == pl.argmax(-1)
-            label = f'{dtype_name} {"paged" if paged else "dense"}'
-            print(f'[e2e] {label}: max|dlogit|={diff:.4e} (tol {tol:.4e} = '
-                  f'{rel_tol} x max|logit| {scale:.3f}); greedy equal on '
-                  f'{int(agree[clear].sum())}/{int(clear.sum())} clear-gap '
-                  f'positions, {int(agree.sum())}/{agree.numel()} overall',
-                  flush=True)
-            if diff > tol:
-                fail(f'end-to-end {label} logits differ by {diff} > {tol}')
-            if not agree[clear].all():
-                fail(f'end-to-end {label} greedy tokens differ at a clear '
-                     'gap')
-            worst[dtype_name] = max(worst.get(dtype_name, 0.0), diff / scale)
+            kl = teacher_forced(torch, decode, p, cfg, case, paged, 'kernel')
+            pl = teacher_forced(torch, decode, p, cfg, case, paged, 'plain')
+            rel = e2e_check(torch, kl, pl, rel_tol,
+                            f'{dtype_name} {"paged" if paged else "dense"}')
+            worst[dtype_name] = max(worst.get(dtype_name, 0.0), rel)
         del p
         sync(torch)
         torch.cuda.empty_cache() if dev.type == 'cuda' else None
@@ -781,11 +831,13 @@ def e2e_phase(torch, decode, llama, params):
 PROFILE_LENS = [16, 200, 1000, 77, 512, 333, 700, 900]
 
 
-def profile_phase(torch, decode, llama, params, card):
-    """Where one decode step's time goes: the 8-slot dense and paged bf16
-    steps at ragged live lengths (PROFILE_LENS), host clock around
-    synchronised steps for 'kernel' and 'plain', then torch.profiler
-    over the kernel path for device time by kernel name."""
+def profile_phase(torch, decode, llama, params, card, weights='bf16'):
+    """Where one decode step's time goes: the 8-slot dense and paged
+    steps (``weights``: 'bf16', or 'int8' for quantised params) at
+    ragged live lengths (PROFILE_LENS), host clock around synchronised
+    steps for 'kernel' and 'plain', then torch.profiler over the kernel
+    path for device time by kernel name. Returns {'dense'|'paged':
+    {host_ms, wall_ms, busy_ms, gemm_ms, launches}} per step."""
     from torch.profiler import ProfilerActivity, profile
     cfg = llama.CONFIGS[MODEL]
     dev = torch.device(DEVICE)
@@ -795,13 +847,14 @@ def profile_phase(torch, decode, llama, params, card):
     nbk = MAX_LEN // BLOCK_K
     tables = (torch.arange(b * nbk, device=dev) + 1).reshape(b, nbk).to(
         torch.int32)
+    out = {}
     for paged in (False, True):
         if paged:
             cache = decode.init_block_pool(cfg, b * nbk + 1, BLOCK_K,
                                            device=dev)
         else:
             cache = decode.init_kv_cache(cfg, b, MAX_LEN, device=dev)
-        label = 'paged' if paged else 'dense'
+        label = f'{"paged" if paged else "dense"} {weights}'
 
         def step(dcfg):
             # The same positions every step: K/V values do not change
@@ -829,7 +882,7 @@ def profile_phase(torch, decode, llama, params, card):
         stats = {impl: (statistics.median(v),
                         statistics.quantiles(v, n=10)[-1])
                  for impl, v in samples.items()}
-        print(f'[profile] {label} bf16 decode step, 8 slots, live lengths '
+        print(f'[profile] {label} decode step, 8 slots, live lengths '
               f'{PROFILE_LENS}, host clock (median / p90 of 40): kernel '
               f'path {stats["kernel"][0]:.3f} / {stats["kernel"][1]:.3f} '
               f'ms, plain path {stats["plain"][0]:.3f} / '
@@ -852,8 +905,8 @@ def profile_phase(torch, decode, llama, params, card):
             continue
         attn_names = {r[1] for r in rows if 'decode_attention' in r[1]}
         if not attn_names or not all('mma_kernel' in n for n in attn_names):
-            fail(f'{label}: the bf16 decode step did not run the tensor-'
-                 f'core decode kernel: {sorted(attn_names)}')
+            fail(f'{label}: the decode step did not run the tensor-core '
+                 f'decode kernel: {sorted(attn_names)}')
         attn_ms = sum(r[0] for r in rows if 'decode_attention' in r[1])
         combine_ms = sum(r[0] for r in rows if 'combine_partials' in r[1])
         gemm_ms = sum(r[0] for r in rows
@@ -868,10 +921,15 @@ def profile_phase(torch, decode, llama, params, card):
               f'{combine_ms / n_prof:.3f} ms/step, GEMMs '
               f'{gemm_ms / n_prof:.3f} ms/step ({gemm_ms / busy_ms:.3f})',
               flush=True)
-        for ms, key, count in rows[:6]:
+        for ms, key, count in rows[:6 if weights == 'bf16' else 12]:
             print(f'[profile] {label}:   {ms / n_prof:8.3f} ms/step  '
                   f'x{count // n_prof:<4d} {key[:80]}', flush=True)
+        out[label.split()[0]] = dict(
+            host_ms=stats['kernel'][0], wall_ms=wall_ms / n_prof,
+            busy_ms=busy_ms / n_prof, gemm_ms=gemm_ms / n_prof,
+            launches=launches / n_prof)
         del cache
+    return out
 
 
 # --------------------------------------------------------------- phase 9
@@ -1992,6 +2050,285 @@ def telemetry_phase(torch, ms_lib, da, params, paged_batches, card):
             'dense_hbm': dense['hbm'], 'cost': cost}
 
 
+# -------------------------------------------------------------- phase 12
+
+
+# (a) the int8 library GEMM at the serving shapes: rows (decode's 8
+# slots, verify's 8 x 5, a prefill) against llama3-8b's (K, N).
+INT8_ROWS = (8, 40, 1000)
+INT8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+# H100 SXM dense int8 tensor-core peak (data sheet), operations/s.
+PEAK_INT8_OPS = 1979e12
+# (b) the int8 replicas' weights, predicted from the config before the
+# first run (PERF.md): int8 layer weights + fp32 scales + the bf16
+# embedding, lm_head and norms.
+INT8_WEIGHTS_PREDICTED = 9_086_705_664
+# (c) int8 weights, kernel vs plain decode attention, max |dlogit| over
+# max |logit|. Dynamic int8 activation quantisation is discontinuous: a
+# one-ulp difference that carries a row value across a rounding edge
+# moves it by a whole int8 step (1/127 of the row's largest value), and
+# 32 layers of random weights amplify that. So the int8 paths part far
+# more than the bf16 ones (phase 4's 0.1), even with fp32 activations
+# (phase 12 prints that reading beside phase 4's fp32 one, where fp32
+# weights part by ~1e-5). The first run of this phase read 0.263
+# (dense, H100 80GB HBM3, 700 W) before this bound was set at about
+# twice it.
+INT8_E2E_REL_TOL = 0.5
+# (d) the params checkpoint: llama3-8b's bf16 params are 16.06 GB.
+PARAMS_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               'build', 'chip_smoke_params')
+PARAMS_CKPT_FREE = 17 * 10**9
+
+
+def int8_gemm_phase(torch, quant, card):
+    """(a) The int8 route (row quantisation, cuBLASLt's int8 GEMM, the
+    rescale) against its twin (the same over an exact fp64 product),
+    bit for bit, at INT8_ROWS x INT8_SHAPES; the GEMM's device time,
+    the whole int8 matmul's, bf16 ``x @ w``'s, and the GEMM's bound
+    (int8 weight, int8 rows and int32 result bytes over the HBM rate,
+    or 2MKN over the int8 peak), and the GEMM over a row-major weight,
+    the layout the wrapper refuses. Returns the rows."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1212)
+    rows = []
+    for k, n in INT8_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).bfloat16()
+        qw = quant.quantize_int8(w, 0)
+        for m in INT8_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+            got = quant.int8_matmul(x, qw)
+            want = quant.int8_matmul_plain(x, qw)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                fail(f'int8 M={m} K={k} N={n}: the library route and its '
+                     f'twin differ (max '
+                     f'{(got.float() - want.float()).abs().max().item()})')
+            xq, _ = quant._quantize_rows(x)  # pylint: disable=protected-access
+            gemm_ms = device_ms(lambda: quant.int8_gemm_library(xq,
+                                                                qw.values))
+            # The layout the wrapper refuses: the same GEMM over a
+            # row-major copy of the weight (rows padded alike).
+            xp = torch.nn.functional.pad(
+                xq, (0, 0, 0, max(0, quant.LIBRARY_MIN_ROWS - m)))
+            wr = qw.values.contiguous()
+            row_major_ms = device_ms(lambda: torch._int_mm(xp, wr))  # pylint: disable=protected-access
+            del xp, wr
+            matmul_ms = device_ms(lambda: quant.int8_matmul(x, qw))
+            bf16_ms = device_ms(lambda: x @ w)
+            t_bytes = (k * n + m * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * m * k * n / PEAK_INT8_OPS * 1e3
+            bound = max(t_bytes, t_ops)
+            bound_by = 'bytes' if t_bytes >= t_ops else 'operations'
+            print(f'[phase 12] int8 M={m} K={k} N={n}: library route '
+                  f'bitwise equal to its twin; GEMM device_ms={gemm_ms:.4f}'
+                  f' (bound {bound:.4f}, {bound_by}; at {bound / gemm_ms:.3f}'
+                  f' of it; row-major weight {row_major_ms:.4f}), whole '
+                  f'int8 matmul {matmul_ms:.4f}, bf16 x @ w {bf16_ms:.4f}; '
+                  f'on {card}', flush=True)
+            rows.append(dict(m=m, k=k, n=n, gemm_ms=gemm_ms,
+                             row_major_ms=row_major_ms, matmul_ms=matmul_ms,
+                             bf16_ms=bf16_ms, bound_ms=bound,
+                             bound_by=bound_by))
+        del w, qw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_weight_bytes(llama, decode, cfg) -> int:
+    """The int8 replica's weights from the config's shapes: int8 values
+    and fp32 [L, 1, out] scales for the quantised layer weights, the
+    model dtype's bytes for the rest."""
+    total = 0
+    for name, shape in llama.param_shapes(cfg)['layers'].items():
+        n = math.prod(shape)
+        total += (n + 4 * shape[0] * shape[2]
+                  if name in decode.QUANTIZED_WEIGHTS else 2 * n)
+    return total + sum(2 * math.prod(shape)
+                       for name, shape in llama.param_shapes(cfg).items()
+                       if name != 'layers')
+
+
+def int8_serve_phase(torch, ms_lib, quant, da, params, dense_results,
+                     paged_batches, card):
+    """(b) ``build_engine(int8=True)`` replicas, dense, paged and spec
+    (spec_k SPEC_K, drafter depth 1), answering phase 3's requests:
+    token counts and the attention kernel's launches (serve_phase), the
+    int8 GEMM's launches exactly 7 per layer pass (n_layers per prefill
+    and per decode step or verify, plus the drafter's depth x SPEC_K a
+    round), and the weights' bytes in the HBM split against the config
+    and the prediction. Returns {label: (stats, results)}."""
+    cfg = ms_lib.llama.CONFIGS[MODEL]
+    n_w = len(ms_lib.decode.QUANTIZED_WEIGHTS)
+    want_bytes = int8_weight_bytes(ms_lib.llama, ms_lib.decode, cfg)
+    dense_batch = [body for body, _ in dense_results]
+    kernels = (da.decode_attention_kernel, da.paged_decode_attention_kernel,
+               da.paged_verify_attention_kernel)
+    replicas = (
+        ('dense int8-weights', {}, [dense_batch], kernels[0], 0),
+        ('paged int8-weights', {'paged': True}, paged_batches, kernels[1], 0),
+        ('spec int8-weights', {'paged': True, 'spec_k': SPEC_K,
+                               'drafter_layers': 1}, paged_batches,
+         kernels[2], 1))
+    out = {}
+    for label, kwargs, batches, kernel, drafter in replicas:
+        before = quant.int8_gemm_library.launches
+        stats, results = serve_phase(
+            torch, ms_lib, params, label, {'int8': True, **kwargs}, batches,
+            kernel, card, idle_fns=[k for k in kernels if k is not kernel])
+        gemms = quant.int8_gemm_library.launches - before
+        steps = stats['decode_steps']
+        expect = n_w * (cfg.n_layers * (steps + stats['admitted']) +
+                        drafter * SPEC_K * steps)
+        if gemms != expect:
+            fail(f'{label}: the int8 GEMM launched {gemms} times, expected '
+                 f'{n_w} x (n_layers x ({steps} steps + '
+                 f'{stats["admitted"]} prefills) + {drafter} x {SPEC_K} x '
+                 f'{steps}) = {expect}')
+        if stats['weights_bytes'] != want_bytes:
+            fail(f'{label}: weights {stats["weights_bytes"]} bytes in the '
+                 f'HBM split, the config gives {want_bytes}')
+        print(f'[phase 12] {label}: int8 GEMM launches {gemms} = {expect} '
+              f'({n_w} a layer pass); weights {stats["weights_bytes"]} '
+              f'bytes (predicted {INT8_WEIGHTS_PREDICTED}); built and '
+              f'quantised in {stats["build_s"]:.2f}s; on {card}',
+              flush=True)
+        out[label] = (stats, results)
+    return out
+
+
+def int8_e2e_phase(torch, decode, llama, params, qparams, card):
+    """(c) The int8 weights teacher-forced through the dense and paged
+    decode steps under 'kernel' and 'plain' decode attention, held to
+    phase 4's rule at INT8_E2E_REL_TOL (the int8 GEMM is the same on
+    both paths), with twin_error's statistics printed; the same with
+    fp32 activations (dense), printed; then int8 against bf16 weights on
+    the kernel path, printed and not bounded (the reference sets no
+    bound). Returns the worst kernel-vs-plain relative difference."""
+    import dataclasses
+    cfg = llama.CONFIGS[MODEL]
+    case = forced_case(torch, cfg)
+    worst = 0.0
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    q32 = {'layers': {k: (w if k in decode.QUANTIZED_WEIGHTS else w.float())
+                      for k, w in qparams['layers'].items()},
+           **{k: w.float() for k, w in qparams.items() if k != 'layers'}}
+    kl, pl = (teacher_forced(torch, decode, q32, cfg32, case, False, impl)
+              for impl in ('kernel', 'plain'))
+    rel = ((kl - pl).abs().max() / pl.abs().max()).item()
+    top1 = (kl.argmax(-1) == pl.argmax(-1)).float().mean().item()
+    print(f'[phase 12] int8-weights dense, fp32 activations, kernel vs '
+          f'plain (report only): max|dlogit| / max|logit| {rel:.4e}, '
+          f'top-1 agreement {top1:.4f}; on {card}', flush=True)
+    del q32, kl, pl
+    for paged in (False, True):
+        label = f'int8-weights {"paged" if paged else "dense"}'
+        kl = teacher_forced(torch, decode, qparams, cfg, case, paged,
+                            'kernel')
+        pl = teacher_forced(torch, decode, qparams, cfg, case, paged,
+                            'plain')
+        worst = max(worst, e2e_check(torch, kl, pl, INT8_E2E_REL_TOL,
+                                     label))
+        _, msg = twin_error(kl, pl, 'bf16')
+        print(f'[phase 12] {label} kernel vs plain, twin_error statistics '
+              f'(not a bound end to end): {msg}; on {card}', flush=True)
+        bl = teacher_forced(torch, decode, params, cfg, case, paged,
+                            'kernel')
+        rel = ((kl - bl).abs().max() / bl.abs().max()).item()
+        top1 = (kl.argmax(-1) == bl.argmax(-1)).float().mean().item()
+        print(f'[phase 12] {label} against bf16 weights (report only): '
+              f'max|dlogit| / max|logit| {rel:.4e}, top-1 agreement '
+              f'{top1:.4f} of {kl.shape[0] * kl.shape[1]} positions; on '
+              f'{card}', flush=True)
+        del kl, pl, bl
+    empty_cache(torch)
+    return worst
+
+
+def restore_phase(torch, ms_lib, da, train, params, int8_dense, card):
+    """(d) llama3-8b's bf16 params saved as a params checkpoint, then a
+    replica built the CLI's way, ``build_engine(checkpoint_dir=...,
+    int8=True)`` with no params: its greedy tokens equal (b)'s dense
+    int8 replica's on the same prompts. A trainer checkpoint handed to
+    the same call raises ValueError. Fails when the disk has less than
+    PARAMS_CKPT_FREE bytes free. Returns the seconds and bytes."""
+    ckpt = ms_lib.checkpoint
+    os.makedirs(PARAMS_CKPT_DIR, exist_ok=True)
+    free = shutil.disk_usage(PARAMS_CKPT_DIR).free
+    if free < PARAMS_CKPT_FREE:
+        fail(f'restore: {free / 1e9:.1f} GB free under {PARAMS_CKPT_DIR}, '
+             f'the params checkpoint needs {PARAMS_CKPT_FREE / 1e9:.0f} GB')
+    trainer_dir = os.path.join(PARAMS_CKPT_DIR, 'trainer')
+    try:
+        t0 = time.perf_counter()
+        path = ckpt.save_params(PARAMS_CKPT_DIR, params, 1)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, ckpt.STATE_FILE))
+        print(f'[phase 12] restore: saved the {MODEL} params ({nbytes} '
+              f'bytes) in {save_s:.2f}s; on {card}', flush=True)
+        want_stats, want = int8_dense
+        stats, got = serve_phase(
+            torch, ms_lib, None, 'restored int8-weights',
+            {'int8': True, 'checkpoint_dir': PARAMS_CKPT_DIR},
+            [[body for body, _ in want]], da.decode_attention_kernel, card)
+        for (body, a), (_, b) in zip(want, got):
+            if a['tokens'] != b['tokens']:
+                fail(f'restore: tokens {b["tokens"]} for a prompt of '
+                     f'{len(body["prompt"])}, the in-memory int8 replica '
+                     f'gave {a["tokens"]}')
+        print(f'[phase 12] restore: the restored int8 replica\'s '
+              f'{len(got)} replies equal the in-memory one\'s token for '
+              f'token; init + restore + quantise {stats["build_s"]:.2f}s '
+              f'(quantise alone {want_stats["build_s"]:.2f}s); on {card}',
+              flush=True)
+        state = train.init_train_state(ms_lib.llama.CONFIGS['debug'],
+                                       train.TrainConfig(), DEVICE)
+        ckpt.save(trainer_dir, state, 1)
+        try:
+            ms_lib.build_engine(MODEL, 8, MAX_LEN, int8=True, device=DEVICE,
+                                checkpoint_dir=trainer_dir)
+        except ValueError as e:
+            print(f'[phase 12] restore: a trainer checkpoint raises '
+                  f'ValueError ({str(e)[:100]})', flush=True)
+        else:
+            fail('restore: a trainer checkpoint was served')
+    finally:
+        shutil.rmtree(PARAMS_CKPT_DIR, ignore_errors=True)
+    empty_cache(torch)
+    return {'save_s': save_s, 'bytes': nbytes,
+            'restore_build_s': stats['build_s']}
+
+
+def int8_phase(torch, ms_lib, quant, da, decode, llama, train, params,
+               dense_results, paged_batches, phase5, card):
+    """Phase 12: int8 weights and checkpoint restore at llama3-8b's full
+    width and depth; launch counts reset by the caller."""
+    gemm_rows = int8_gemm_phase(torch, quant, card)
+    served = int8_serve_phase(torch, ms_lib, quant, da, params,
+                              dense_results, paged_batches, card)
+    qparams = decode.quantize_params(params)
+    prof = profile_phase(torch, decode, llama, qparams, card, 'int8')
+    for kind, row in prof.items():
+        bf16 = phase5.get(kind, {})
+        print(f'[phase 12] {kind} decode step, int8 weights against bf16 '
+              f'(phase 5, this run): GEMMs {row["gemm_ms"]:.3f} against '
+              f'{bf16.get("gemm_ms", float("nan")):.3f} ms/step of device '
+              f'time, device busy {row["busy_ms"]:.3f} against '
+              f'{bf16.get("busy_ms", float("nan")):.3f}, '
+              f'{row["launches"]:.0f} against '
+              f'{bf16.get("launches", float("nan")):.0f} kernels/step, host '
+              f'clock {row["host_ms"]:.3f} against '
+              f'{bf16.get("host_ms", float("nan")):.3f} ms; on {card}',
+              flush=True)
+    worst = int8_e2e_phase(torch, decode, llama, params, qparams, card)
+    del qparams
+    empty_cache(torch)
+    restored = restore_phase(torch, ms_lib, da, train, params,
+                             served['dense int8-weights'], card)
+    return {'gemm': gemm_rows, 'profile': prof, 'e2e_worst': worst,
+            'restore': restored}
+
+
 # --------------------------------------------------------------- phase 6
 
 
@@ -2456,7 +2793,7 @@ def main() -> int:
         main_path_phase(torch, ms_lib, da, card)
     worst = e2e_phase(torch, decode, llama, params)
     print(f'[e2e] worst max|dlogit| / max|logit|: {worst}', flush=True)
-    profile_phase(torch, decode, llama, params, card)
+    phase5 = profile_phase(torch, decode, llama, params, card)
     phase_done('serving phases 2-5')
 
     # Phase 9 (speculative decoding) while the llama3-8b weights are up.
@@ -2493,9 +2830,22 @@ def main() -> int:
     if not all(phase11_counts.values()):
         fail(f'a decode kernel was not launched in phase 11: '
              f'{phase11_counts}')
+    phase_done('phase 11')
+
+    # Phase 12 (int8 weights, checkpoint restore) while the weights are up.
+    da.reset_launch_counts()
+    int8_report = int8_phase(torch, ms_lib, quant, da, decode, llama, train,
+                             params, dense_results, paged_batches, phase5,
+                             card)
+    phase12_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    print(f'[phase 12] launches {phase12_counts}; {int8_report}',
+          flush=True)
+    if not all(phase12_counts.values()):
+        fail(f'a decode kernel was not launched in phase 12: '
+             f'{phase12_counts}')
     del params, spec_runs, paged_results, dense_results
     torch.cuda.empty_cache()
-    phase_done('phase 11')
+    phase_done('phase 12')
 
     flash_rows = flash_kernel_phase(torch, fa)
     phase_done('phase 6')
@@ -2518,7 +2868,8 @@ def main() -> int:
             'bound_by': main['bound_by'],
             'library_ms': main['library_ms'], 'int8': row['int8'],
             'phase10_launches': phase10_counts[kname],
-            'phase11_launches': phase11_counts[kname]})
+            'phase11_launches': phase11_counts[kname],
+            'phase12_launches': phase12_counts[kname]})
     kernels.append({
         'name': 'paged_verify_attention_kernel', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
@@ -2534,7 +2885,9 @@ def main() -> int:
         'phase10_launches':
             phase10_counts['paged_verify_attention_kernel'],
         'phase11_launches':
-            phase11_counts['paged_verify_attention_kernel']})
+            phase11_counts['paged_verify_attention_kernel'],
+        'phase12_launches':
+            phase12_counts['paged_verify_attention_kernel']})
     for kname, row in flash_rows.items():
         main = row['bf16']
         kernels.append({

@@ -1,12 +1,19 @@
-"""Train-state checkpoints: save, list, restore — the preemption resume.
+"""Checkpoints: save, list, restore — the trainer's preemption resume and
+the replica's weights.
 
 Counterpart of ``skypilot_tpu/models/checkpoint.py`` with the same
 ``<root>/step_<N>`` naming, keep-N pruning at save time and resume from
 the newest complete step. The format is the port's own (no orbax on the
-card's host): ``torch.save`` of params, Adam moments, count and step into
-a temporary directory, a commit marker written last, then one rename
-into place, so an interrupted save is never resumed from. Reading the
-JAX package's orbax checkpoints is not ported.
+card's host): ``torch.save`` of one object into a temporary directory, a
+commit marker written last, then one rename into place, so an
+interrupted save is never restored. The trainer saves its ``TrainState``
+(params, Adam moments, count and step: :func:`save`, :func:`restore`,
+:func:`restore_latest`); a replica's weights are a params tree
+(:func:`save_params`), restored into a template tree
+(:func:`restore_latest_params`) that must match the saved tree's keys,
+shapes and dtypes, or ``ValueError``, as orbax raises in the reference.
+So a trainer checkpoint handed to a replica raises, in both packages.
+Reading the JAX package's orbax checkpoints is not ported.
 """
 import json
 import os
@@ -49,18 +56,15 @@ def list_steps(root: str) -> List[int]:
     return sorted(steps)
 
 
-def save(root: str, state: Any, step: int, keep: int = 3) -> str:
-    """Write ``state`` (a ``train.TrainState``) as step ``step`` under
-    root; prune to the newest ``keep``."""
+def _write(root: str, obj: Any, step: int, keep: int) -> str:
+    """``obj`` as step ``step`` under root, committed by one rename;
+    prune to the newest ``keep``."""
     root = _root(root)
     os.makedirs(root, exist_ok=True)
     tmp = os.path.join(root, f'.{STEP_PREFIX}{step}.tmp-{os.getpid()}')
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    opt = state.opt_state
-    torch.save({'params': state.params, 'mu': opt.mu, 'nu': opt.nu,
-                'count': opt.count, 'step': state.step},
-               os.path.join(tmp, STATE_FILE))
+    torch.save(obj, os.path.join(tmp, STATE_FILE))
     with open(os.path.join(tmp, COMMIT_FILE), 'w', encoding='utf-8') as f:
         json.dump({'step': step}, f)
     path = _ckpt_dir(root, step)
@@ -68,6 +72,30 @@ def save(root: str, state: Any, step: int, keep: int = 3) -> str:
     os.rename(tmp, path)
     _prune(root, keep)
     return path
+
+
+def save(root: str, state: Any, step: int, keep: int = 3) -> str:
+    """Write ``state`` (a ``train.TrainState``) as step ``step`` under
+    root; prune to the newest ``keep``."""
+    opt = state.opt_state
+    return _write(root, {'params': state.params, 'mu': opt.mu,
+                         'nu': opt.nu, 'count': opt.count,
+                         'step': state.step}, step, keep)
+
+
+def save_params(root: str, params: Any, step: int, keep: int = 3) -> str:
+    """Write a params tree (nested dicts of tensors) as step ``step``
+    under root; prune to the newest ``keep``."""
+    def check(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                check(v, f'{path}/{k}')
+        elif not isinstance(node, torch.Tensor):
+            raise TypeError(f'{path or "params"}: {type(node).__name__} '
+                            'is not a tensor (save weights before '
+                            'quantising them)')
+    check(params, '')
+    return _write(root, params, step, keep)
 
 
 def _prune(root: str, keep: int) -> None:
@@ -99,3 +127,52 @@ def restore_latest(root: str, device=None) -> Optional[Tuple[Any, int]]:
     if not steps:
         return None
     return restore(root, steps[-1], device), steps[-1]
+
+
+def _match(saved: Any, template: Any, path: str) -> None:
+    """Raise ValueError unless ``saved`` has the template's tree: the
+    same dict keys, and tensors of the same shapes and dtypes."""
+    where = path or 'params'
+    if isinstance(template, dict):
+        if not isinstance(saved, dict) or set(saved) != set(template):
+            have = (sorted(saved) if isinstance(saved, dict)
+                    else type(saved).__name__)
+            raise ValueError(f'{where}: the saved tree does not match the '
+                             f'template: {have} != {sorted(template)}')
+        for k in template:
+            _match(saved[k], template[k], f'{path}/{k}')
+        return
+    if not isinstance(saved, torch.Tensor):
+        raise ValueError(f'{where}: saved {type(saved).__name__}, the '
+                         'template has a tensor')
+    if saved.shape != template.shape or saved.dtype != template.dtype:
+        raise ValueError(f'{where}: saved {tuple(saved.shape)} '
+                         f'{saved.dtype} != template '
+                         f'{tuple(template.shape)} {template.dtype}')
+
+
+def restore_latest_params(root: str, template: Any, device=None
+                          ) -> Optional[Tuple[Any, int]]:
+    """(params, step) from the newest complete checkpoint, restored into
+    ``template``'s tree on ``device`` (default CUDA; without a card only
+    ``device='cpu'`` runs), or None when there is no complete step.
+    Raises ValueError when the saved tree is not the template's (a
+    trainer checkpoint, another config). The reference's
+    ``restore_latest(root, params)`` as the replica calls it."""
+    device = resolve_device(device)
+    steps = list_steps(root)
+    if not steps:
+        return None
+    path = _ckpt_dir(_root(root), steps[-1])
+    # Memory-mapped: the tree is checked before any tensor is read or
+    # moved to the device.
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location='cpu',
+                       weights_only=True, mmap=True)
+    _match(saved, template, '')
+
+    def to_device(node):
+        if isinstance(node, dict):
+            return {k: to_device(v) for k, v in node.items()}
+        return node.to(device)
+
+    return to_device(saved), steps[-1]

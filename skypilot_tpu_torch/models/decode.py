@@ -19,6 +19,10 @@ Counterpart of ``skypilot_tpu/models/decode.py``, same semantics:
   for the life of the engine.
 * Greedy or temperature sampling; ``generate`` stops per sequence on EOS
   through a done mask.
+* Int8 weights (:func:`quantize_params`): the seven per-layer GEMM
+  weights become ``ops/quant.QuantizedTensor``s, which ``llama.quant_mm``
+  routes to the int8 GEMM; every path below reaches them through
+  ``llama.qkv``, ``_attend_out`` and ``llama.ffn_sublayer``.
 * Speculative decoding (paged, greedy): :func:`spec_draft_tokens` drafts
   ``spec_k`` tokens with the model's first layers, reading the pool and
   never writing it; :func:`paged_verify_step` scores the last token and
@@ -60,6 +64,39 @@ class DecodeConfig:
     # out-norm + lm_head (no second set of weights); its attention reads
     # the pool blocks the full model wrote.
     spec_drafter_layers: int = 1
+
+
+# The per-layer GEMM weights that ``quantize_params`` makes int8.
+QUANTIZED_WEIGHTS = ('w1', 'w3', 'w2', 'wq', 'wk', 'wv', 'wo')
+
+
+def quantize_params(params: Params) -> Params:
+    """Int8-quantize the per-layer GEMM weights (FFN and attention
+    projections) for serving. Layer weights are stacked [L, in, out]:
+    the contraction axis is 1, so scales are per (layer, output
+    channel), [L, 1, out]. Embedding, norms and lm_head stay in the
+    model dtype; the KV cache quantizes separately
+    (``DecodeConfig.kv_cache_dtype``). One layer at a time, which gives
+    the same bits as the whole stack at once (the scales never span
+    layers) without llama3-8b's 7.5 GB fp32 transient of a stacked
+    ``w1``. Counterpart of the reference's ``quantize_params``."""
+    out = dict(params)
+    layers = dict(params['layers'])
+    for name in QUANTIZED_WEIGHTS:
+        w = layers[name]
+        n_layers, k, n = w.shape
+        # K-major storage (ops/quant.k_major), shape [L, K, N].
+        values = torch.empty((n_layers, n, k), dtype=torch.int8,
+                             device=w.device).transpose(1, 2)
+        scale = torch.empty((n_layers, 1, n), dtype=torch.float32,
+                            device=w.device)
+        for i in range(n_layers):
+            qw = quant.quantize_int8(w[i], axis=0)
+            values[i] = qw.values
+            scale[i] = qw.scale
+        layers[name] = quant.QuantizedTensor(values=values, scale=scale)
+    out['layers'] = layers
+    return out
 
 
 def _empty_cache(cfg: llama.LlamaConfig, shape, kv_cache_dtype: str,
@@ -132,7 +169,7 @@ def _attend_out(cfg: llama.LlamaConfig, x: torch.Tensor,
     """Attention output projection + residual, then the FFN sublayer."""
     b, s = x.shape[:2]
     attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    x = x + (attn @ layer['wo']).to(cfg.dtype)
+    x = x + llama.quant_mm(attn, layer['wo']).to(cfg.dtype)
     return llama.ffn_sublayer(cfg, x, layer)
 
 

@@ -73,6 +73,7 @@ from skypilot_tpu_torch.observability import journal
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import request_trace
 from skypilot_tpu_torch.observability import runtime_metrics
+from skypilot_tpu_torch.ops import quant
 from skypilot_tpu_torch.utils import chaos, env
 
 IDLE_SLEEP_ENV = 'SKYTPU_ENGINE_IDLE_SLEEP_SECONDS'
@@ -409,8 +410,9 @@ def _spec_step(params, token: torch.Tensor, pos: torch.Tensor,
 
 
 def _tree_nbytes(tree) -> int:
-    """Bytes of every tensor in a nest of dicts, lists and tuples."""
-    if isinstance(tree, torch.Tensor):
+    """Bytes of every tensor in a nest of dicts, lists and tuples (an
+    int8 weight counts its values and its scales)."""
+    if isinstance(tree, (torch.Tensor, quant.QuantizedTensor)):
         return tree.nbytes
     if isinstance(tree, dict):
         tree = tree.values()

@@ -11,6 +11,12 @@ statistics in fp32 cast to the model dtype *before* the weight multiply,
 split-half RoPE in fp32, SwiGLU in fp32 cast before ``w2``, and the
 lm_head product in the model dtype *then* cast to fp32.
 
+The seven per-layer weight GEMMs go through :func:`quant_mm` /
+:func:`quant_mms`, which run int8 weights (``ops/quant.QuantizedTensor``,
+made by ``decode.quantize_params`` for serving) on the int8 GEMM and a
+plain tensor as ``x @ w``; ``lm_head`` and the embedding stay in the
+model dtype, as in the reference.
+
 Training: :func:`loss_fn` (mean next-token cross-entropy, optionally in
 checkpointed sequence chunks), per-block rematerialisation through
 ``torch.utils.checkpoint`` (policy ``'full'``), and the flash-attention
@@ -27,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
+from skypilot_tpu_torch.ops import quant
 
 Params = Dict[str, Any]
 
@@ -187,10 +194,29 @@ def qkv(cfg: LlamaConfig, x: torch.Tensor, layer: Params, cos: torch.Tensor,
     b, s, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, layer['attn_norm'], cfg.norm_eps)
-    q = (h @ layer['wq']).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ layer['wk']).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ layer['wv']).reshape(b, s, cfg.n_kv_heads, hd)
+    q, k, v = quant_mms(h, layer['wq'], layer['wk'], layer['wv'])
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def quant_mm(x: torch.Tensor, w) -> torch.Tensor:
+    """Matmul that dispatches on int8-quantized weights (the serving
+    path, ``ops/quant.py``); a plain tensor is ``x @ w``. The
+    reference's ``quant_mm``."""
+    if isinstance(w, quant.QuantizedTensor):
+        return quant.int8_matmul(x, w)
+    return x @ w
+
+
+def quant_mms(x: torch.Tensor, *ws) -> list:
+    """``[quant_mm(x, w) for w in ws]``, quantising x's rows once when
+    every weight is int8 (the same rows and scales as separate calls, so
+    the same bits, in fewer launches)."""
+    if all(isinstance(w, quant.QuantizedTensor) for w in ws):
+        return quant.int8_matmuls(x, ws)
+    return [quant_mm(x, w) for w in ws]
 
 
 def full_sequence_attention(cfg: LlamaConfig, q: torch.Tensor,
@@ -215,16 +241,17 @@ def attn_sublayer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
     q, k, v = qkv(cfg, x, layer, cos, sin)
     attn = full_sequence_attention(cfg, q, k, v, impl)
     attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return x + (attn @ layer['wo']).to(cfg.dtype), k, v
+    return x + quant_mm(attn, layer['wo']).to(cfg.dtype), k, v
 
 
 def ffn_sublayer(cfg: LlamaConfig, x: torch.Tensor,
                  layer: Params) -> torch.Tensor:
     """Norm → SwiGLU (fp32) → residual."""
     h = rms_norm(x, layer['ffn_norm'], cfg.norm_eps)
-    gate = torch.nn.functional.silu((h @ layer['w1']).float())
-    up = (h @ layer['w3']).float()
-    down = (gate * up).to(cfg.dtype) @ layer['w2']
+    w1_out, w3_out = quant_mms(h, layer['w1'], layer['w3'])
+    gate = torch.nn.functional.silu(w1_out.float())
+    up = w3_out.float()
+    down = quant_mm((gate * up).to(cfg.dtype), layer['w2'])
     return x + down.to(cfg.dtype)
 
 

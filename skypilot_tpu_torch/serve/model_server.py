@@ -59,9 +59,13 @@ chunked prefill with ``--paged --prefill-chunk N`` (or
 ``SKYTPU_PREFILL_CHUNK``). ``SKYTPU_CHAOS`` arms the fault points
 ``engine_step_raise``, ``slow_step``, ``drain_hang``, ``replica_500``,
 ``journal_write_stall`` and ``journal_disk_full`` (``utils/chaos.py``).
-Flags of features later slices port (tensor parallelism, prefix
-fetch/store/handoff, int8 weights, checkpoints, roles) are rejected,
-never ignored.
+``--int8`` serves int8 weights (the seven per-layer GEMM weights
+quantised per output channel, ``decode.quantize_params``);
+``--checkpoint-dir DIR`` restores the newest complete params checkpoint
+under DIR (``models/checkpoint.save_params``) before quantising, or
+serves the random init with a warning when there is none. Flags of
+features later slices port (tensor parallelism, prefix
+fetch/store/handoff, roles) are rejected, never ignored.
 
 Tokenizer note: the models are research checkpoints without a shipped
 tokenizer, so ``text`` uses a byte-level demo codec (UTF-8 bytes → ids;
@@ -77,12 +81,13 @@ import signal
 import threading
 import time
 import urllib.parse
+import weakref
 from typing import Optional
 
 import torch
 
 from skypilot_tpu_torch.device import resolve_device
-from skypilot_tpu_torch.models import decode
+from skypilot_tpu_torch.models import checkpoint, decode
 from skypilot_tpu_torch.models import engine as engine_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import journal
@@ -166,8 +171,10 @@ def check_unsupported_env() -> None:
 
 def build_engine(model: str, num_slots: int, max_len: int,
                  temperature: float = 0.0, eos_id: Optional[int] = None,
-                 kv_int8: bool = False, attn: str = 'kernel',
-                 step_chunk: int = 4, seed: int = 0, paged: bool = False,
+                 kv_int8: bool = False, int8: bool = False,
+                 attn: str = 'kernel', step_chunk: int = 4,
+                 checkpoint_dir: Optional[str] = None, seed: int = 0,
+                 paged: bool = False,
                  num_blocks: Optional[int] = None,
                  block_k: Optional[int] = None,
                  spec_k: Optional[int] = None,
@@ -178,6 +185,9 @@ def build_engine(model: str, num_slots: int, max_len: int,
                  ) -> engine_lib.DecodeEngine:
     """Assemble params + configs into a DecodeEngine (CLI, tests and
     ``chip_smoke.py``). Params are random from ``seed`` unless given;
+    with ``checkpoint_dir`` the newest complete params checkpoint there
+    replaces them (its tree must match theirs, or ValueError), then
+    ``int8`` quantises the layer weights, as the reference does.
     ``device`` defaults to CUDA and raises without a card. ``spec_k`` /
     ``drafter_layers`` default from ``SKYTPU_SPEC_K`` /
     ``SKYTPU_SPEC_DRAFTER_LAYERS``; the drafter depth is clamped to the
@@ -190,6 +200,18 @@ def build_engine(model: str, num_slots: int, max_len: int,
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = llama.init_params(cfg, gen, dev)
+    if checkpoint_dir:
+        restored = checkpoint.restore_latest_params(checkpoint_dir, params,
+                                                    dev)
+        if restored is None:
+            logger.warning('No complete checkpoint under %s; serving '
+                           'random init.', checkpoint_dir)
+        else:
+            params, step = restored
+            logger.info('Restored checkpoint step %d from %s.', step,
+                        checkpoint_dir)
+    if int8:
+        params = decode.quantize_params(params)
     dcfg_kwargs = dict(max_len=max_len, temperature=temperature,
                        eos_id=eos_id, decode_attention=attn,
                        kv_cache_dtype='int8' if kv_int8 else 'bf16')
@@ -217,8 +239,15 @@ class _HTTPServer(http.server.ThreadingHTTPServer):
     daemon_threads = True
 
     def __init__(self, address, model_server: 'ModelServer'):
-        self.model_server = model_server
+        # Held weakly: the ModelServer holds this server, and a cycle
+        # would keep a stopped replica's engine and cache alive until the
+        # cyclic collector runs.
+        self._model_server = weakref.ref(model_server)
         super().__init__(address, _Handler)
+
+    @property
+    def model_server(self) -> 'ModelServer':
+        return self._model_server()
 
 
 class _Handler(http.server.BaseHTTPRequestHandler):
@@ -727,13 +756,11 @@ class ModelServer:
 # Flags of the reference CLI whose features later slices port:
 # flag → (argparse kwargs, what it would enable).
 _UNSUPPORTED_FLAGS = {
-    '--int8': (dict(action='store_true'), 'int8 weights'),
     '--tp': (dict(type=int), 'tensor parallelism'),
     '--prefix-peers': (dict(), 'cross-replica prefix fetch'),
     '--store-url': (dict(), 'the durable block store'),
     '--store-dir': (dict(), 'the durable block store'),
     '--role': (dict(), 'disaggregated prefill/decode roles'),
-    '--checkpoint-dir': (dict(), 'checkpoint restore'),
 }
 
 
@@ -757,6 +784,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                              'fetch per tick)')
     parser.add_argument('--temperature', type=float, default=0.0)
     parser.add_argument('--eos-id', type=int, default=None)
+    parser.add_argument('--int8', action='store_true',
+                        help='int8-quantize the GEMM weights')
     parser.add_argument('--kv-int8', action='store_true',
                         help='int8 KV cache')
     parser.add_argument('--attn', choices=('kernel', 'plain'),
@@ -783,6 +812,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                              'uncached suffix exceeds this many tokens '
                              'prefill one chunk per engine step (default '
                              'SKYTPU_PREFILL_CHUNK or 0 = off)')
+    parser.add_argument('--checkpoint-dir', default=None,
+                        help='restore params from models/checkpoint '
+                             'save_params layout (default: random init)')
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--device', default=None,
                         help='torch device (default: cuda; a machine '
@@ -803,8 +835,9 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     engine = build_engine(args.model, args.num_slots, args.max_len,
                           temperature=args.temperature, eos_id=args.eos_id,
-                          kv_int8=args.kv_int8, attn=args.attn,
-                          step_chunk=args.step_chunk, seed=args.seed,
+                          kv_int8=args.kv_int8, int8=args.int8,
+                          attn=args.attn, step_chunk=args.step_chunk,
+                          checkpoint_dir=args.checkpoint_dir, seed=args.seed,
                           paged=args.paged, num_blocks=args.num_blocks,
                           block_k=args.block_k, spec_k=args.spec_k,
                           drafter_layers=args.drafter_layers,

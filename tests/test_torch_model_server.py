@@ -3,14 +3,24 @@ on a CPU engine: the reference server's /generate body and reply shapes
 (SSE events and the unary JSON), its 400s, /healthz and /stats, the CLI
 refusing flags of unported features, the env knobs of ported ones read
 as the reference reads them — and served tokens equal to the JAX
-reference's ``decode.generate`` on the same (bridged) weights.
+reference's ``decode.generate`` on the same (bridged) weights. The
+weights of a replica: ``--int8`` and ``--checkpoint-dir`` parsed and
+passed as the reference's CLI does them, a params checkpoint restored
+(with and without int8) to the reference's tokens for the same weights,
+no complete step serving the random init with the reference's warning,
+a trainer checkpoint refused with ValueError in both packages; and a
+stopped server releasing its engine without the cyclic collector.
 """
+import gc
 import json
+import logging
+import os
 import re
 import threading
 import time
 import urllib.error
 import urllib.request
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -18,10 +28,17 @@ import numpy as np
 import pytest
 import torch
 
+from skypilot_tpu.models import checkpoint as jcheckpoint
 from skypilot_tpu.models import decode as jdecode
+from skypilot_tpu.models import engine as jengine
 from skypilot_tpu.models import llama as jllama
+from skypilot_tpu.models import train as jtrain
+from skypilot_tpu.serve import model_server as jserver
+from skypilot_tpu_torch.models import checkpoint
 from skypilot_tpu_torch.models import convert
+from skypilot_tpu_torch.models import engine as engine_lib
 from skypilot_tpu_torch.models import llama as tllama
+from skypilot_tpu_torch.models import train as ttrain
 from skypilot_tpu_torch.serve import model_server
 
 torch.set_num_threads(2)
@@ -125,8 +142,9 @@ def test_bad_bodies_answer_400(served, body, raw, needle):
 
 
 def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
-    for argv in (['--tp', '2'], ['--int8'], ['--prefix-peers', 'http://x'],
-                 ['--role', 'prefill'], ['--checkpoint-dir', '/ckpt']):
+    for argv in (['--tp', '2'], ['--prefix-peers', 'http://x'],
+                 ['--role', 'prefill'], ['--store-url', 'http://s'],
+                 ['--store-dir', '/store']):
         with pytest.raises(SystemExit) as exc:
             model_server.parse_args(argv)
         assert exc.value.code == 2
@@ -314,3 +332,141 @@ def test_spec_replica_serves_reference_tokens_and_stats_block():
     assert spec['drafted_total'] == 3 * stats['decode_steps'] > 0
     assert 0 <= spec['accepted_total'] <= spec['drafted_total']
     assert stats['spec_drafted'] == spec['drafted_total']
+
+# ------------------------------------------------- the replica's weights
+
+
+def test_int8_and_checkpoint_flags_parse_and_reach_build_engine(
+        monkeypatch):
+    """``--int8`` (store_true) and ``--checkpoint-dir`` (a path, default
+    None) parse as the reference's CLI declares them, and ``main()``
+    passes both to ``build_engine``."""
+    args = model_server.parse_args([])
+    assert args.int8 is False and args.checkpoint_dir is None
+    args = model_server.parse_args(['--int8', '--checkpoint-dir', '/ckpt',
+                                    '--device', 'cpu'])
+    assert args.int8 is True and args.checkpoint_dir == '/ckpt'
+    seen = {}
+    build = model_server.build_engine
+
+    def fake_build(*a, **kw):
+        seen.update(kw)
+        return build('debug', 1, 32, device='cpu')
+
+    monkeypatch.setattr(model_server, 'build_engine', fake_build)
+    monkeypatch.setattr(model_server.ModelServer, 'run_forever',
+                        lambda self: None)
+    model_server.main(['--int8', '--checkpoint-dir', '/ckpt', '--device',
+                       'cpu'])
+    assert seen['int8'] is True and seen['checkpoint_dir'] == '/ckpt'
+
+
+def _greedy(eng, engine_mod, prompts, n=5):
+    reqs = [engine_mod.Request(p, n) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while not all(r.done for r in reqs):
+        eng.step()
+        steps += 1
+        assert steps < 200, 'engine did not converge'
+    return [r.tokens for r in reqs]
+
+
+def _restore_prompts():
+    rng = np.random.RandomState(9)
+    return [rng.randint(0, 256, size=n).tolist() for n in (5, 11, 3)]
+
+
+@pytest.fixture(scope='module')
+def seed7_ckpt(tmp_path_factory):
+    """The reference's seed-7 params, bridged, in the port's params
+    checkpoint format (step 11; an interrupted step 12 beside it)."""
+    d = str(tmp_path_factory.mktemp('params_ckpt'))
+    jparams = jllama.init_params(jax.random.PRNGKey(7), JCFG)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        tllama.CONFIGS['debug'])
+    checkpoint.save_params(d, tparams, 11)
+    os.makedirs(os.path.join(d, 'step_12'))   # no commit marker
+    return d
+
+
+@pytest.mark.parametrize('int8', [False, True])
+def test_checkpoint_dir_restores_reference_tokens(seed7_ckpt, int8, caplog):
+    prompts = _restore_prompts()
+    want = _greedy(jserver.build_engine('debug', 2, 64, attn='xla',
+                                        seed=7, int8=int8),
+                   jengine, prompts)
+    with caplog.at_level(logging.INFO, logger=model_server.__name__):
+        eng = model_server.build_engine('debug', 2, 64, attn='plain',
+                                        checkpoint_dir=seed7_ckpt,
+                                        int8=int8, device='cpu')
+    assert f'Restored checkpoint step 11 from {seed7_ckpt}' in caplog.text
+    assert _greedy(eng, engine_lib, prompts) == want
+    fresh = model_server.build_engine('debug', 2, 64, attn='plain',
+                                      int8=int8, device='cpu')
+    assert _greedy(fresh, engine_lib, prompts) != want
+
+
+def test_checkpoint_dir_without_a_complete_step_serves_random_init(
+        tmp_path, caplog):
+    prompts = _restore_prompts()
+    want = _greedy(model_server.build_engine('debug', 2, 64, device='cpu'),
+                   engine_lib, prompts)
+    os.makedirs(tmp_path / '.step_3.tmp-1')
+    with caplog.at_level(logging.WARNING, logger=model_server.__name__):
+        eng = model_server.build_engine('debug', 2, 64,
+                                        checkpoint_dir=str(tmp_path),
+                                        device='cpu')
+    assert (f'No complete checkpoint under {tmp_path}; serving random '
+            'init.') in caplog.text
+    assert _greedy(eng, engine_lib, prompts) == want
+
+
+def test_trainer_checkpoint_is_refused_as_the_reference_refuses_it(
+        tmp_path):
+    """A trainer checkpoint is a TrainState, not a params tree: both
+    replicas raise ValueError rather than serve it."""
+    tcfg = tllama.CONFIGS['debug']
+    state = ttrain.init_train_state(tcfg, ttrain.TrainConfig(), 'cpu')
+    checkpoint.save(str(tmp_path / 'port'), state, 5)
+    with pytest.raises(ValueError, match='does not match'):
+        model_server.build_engine('debug', 1, 32, device='cpu',
+                                  checkpoint_dir=str(tmp_path / 'port'))
+    # Another config's params: the shapes differ.
+    other = tllama.init_params(tllama.CONFIGS['bench-cpu'],
+                               torch.Generator().manual_seed(0))
+    checkpoint.save_params(str(tmp_path / 'other'), other, 1)
+    with pytest.raises(ValueError, match='template'):
+        model_server.build_engine('debug', 1, 32, device='cpu',
+                                  checkpoint_dir=str(tmp_path / 'other'))
+    jstate = jtrain.init_train_state(jax.random.PRNGKey(0), JCFG,
+                                     jtrain.TrainConfig())
+    jcheckpoint.save(str(tmp_path / 'ref'), jstate, 5)
+    with pytest.raises(ValueError):
+        jserver.build_engine('debug', 1, 32, attn='xla',
+                             checkpoint_dir=str(tmp_path / 'ref'))
+
+
+def test_stopped_server_releases_engine_without_cyclic_collector():
+    """stop() and the caller's last reference free the engine (and its
+    cache) by reference counting alone: nothing of the server keeps a
+    cycle through it."""
+    gc.collect()
+    gc.disable()
+    try:
+        engine = model_server.build_engine('debug', 2, 64, paged=True,
+                                           block_k=8, step_chunk=2,
+                                           device='cpu')
+        server = model_server.ModelServer(engine, 0, host='127.0.0.1',
+                                          default_max_new_tokens=3)
+        port = server.start()
+        status, _, _ = _post(port, {'prompt': [1, 2, 3], 'stream': False})
+        assert status == 200
+        alive = weakref.ref(engine)
+        del engine
+        server.stop()
+        del server
+        assert alive() is None
+    finally:
+        gc.enable()
