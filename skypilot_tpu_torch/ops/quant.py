@@ -31,7 +31,6 @@ import torch
 _INT8_MAX = 127.0
 # torch._int_mm on CUDA refuses 16 rows or fewer.
 LIBRARY_MIN_ROWS = 17
-IMPLS = ('library', 'plain')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,19 +146,15 @@ def int8_gemm_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return (xq.double() @ wq.double()).to(torch.int32)
 
 
-def resolved_impl(device, impl: Optional[str] = None) -> str:
-    """'library' or 'plain' for tensors on ``device``: the twin for CPU
-    tensors or ``impl='plain'``; a CUDA tensor takes the library GEMM
-    and never falls back."""
-    if impl not in (None,) + IMPLS:
-        raise ValueError(f'int8 matmul impl must be one of {IMPLS}, got '
-                         f'{impl!r}')
+def _product(device):
+    """The int32 product for tensors on ``device``: the twin on the CPU,
+    the library GEMM on CUDA (never the twin), nothing elsewhere."""
     device = torch.device(device)
-    if impl == 'plain' or device.type == 'cpu':
-        return 'plain'
+    if device.type == 'cpu':
+        return int8_gemm_plain
     if device.type != 'cuda':
         raise ValueError(f'no int8 GEMM for {device}')
-    return 'library'
+    return int8_gemm_library
 
 
 def _int8_matmuls(x: torch.Tensor, qws, out_dtype, product) -> list:
@@ -184,29 +179,23 @@ def _int8_matmuls(x: torch.Tensor, qws, out_dtype, product) -> list:
 
 
 def int8_matmuls(x: torch.Tensor, qws,
-                 out_dtype: Optional[torch.dtype] = None,
-                 impl: Optional[str] = None) -> list:
+                 out_dtype: Optional[torch.dtype] = None) -> list:
     """``[x @ w for w in qws]`` with both operands int8: x [..., K]
     float, each qw [K, N] → [..., N] in ``out_dtype`` (default x.dtype).
-    The int32 products run on the library GEMM for CUDA tensors, on the
-    twin for CPU tensors or ``impl='plain'``."""
-    product = (int8_gemm_plain if resolved_impl(x.device, impl) == 'plain'
-               else int8_gemm_library)
-    return _int8_matmuls(x, qws, out_dtype, product)
+    The int32 products run on the library GEMM for CUDA tensors and on
+    the twin for CPU tensors."""
+    return _int8_matmuls(x, qws, out_dtype, _product(x.device))
 
 
 def int8_matmul(x: torch.Tensor, qw: QuantizedTensor,
-                out_dtype: Optional[torch.dtype] = None,
-                impl: Optional[str] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x @ w`` with both operands int8 (:func:`int8_matmuls` of one
     weight): the reference's ``int8_matmul``."""
-    return int8_matmuls(x, (qw,), out_dtype, impl)[0]
+    return int8_matmuls(x, (qw,), out_dtype)[0]
 
 
 def int8_matmul_plain(x: torch.Tensor, qw: QuantizedTensor,
-                      out_dtype: Optional[torch.dtype] = None,
-                      impl: Optional[str] = None) -> torch.Tensor:
-    """The twin of :func:`int8_matmul` (``impl`` is accepted for the
-    same signature and ignored): bit-equal on every device."""
-    del impl
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """The twin of :func:`int8_matmul`: bit-equal on every device."""
     return _int8_matmuls(x, (qw,), out_dtype, int8_gemm_plain)[0]

@@ -169,6 +169,18 @@ def check_unsupported_env() -> None:
                              'skypilot_tpu_torch yet')
 
 
+def _param_template(cfg: llama.LlamaConfig) -> llama.Params:
+    """The params tree as meta tensors: keys, shapes and dtypes, no
+    storage."""
+    def meta(shape):
+        return torch.empty(shape, dtype=cfg.dtype, device='meta')
+
+    shapes = llama.param_shapes(cfg)
+    return {name: ({n: meta(s) for n, s in shape.items()}
+                   if name == 'layers' else meta(shape))
+            for name, shape in shapes.items()}
+
+
 def build_engine(model: str, num_slots: int, max_len: int,
                  temperature: float = 0.0, eos_id: Optional[int] = None,
                  kv_int8: bool = False, int8: bool = False,
@@ -196,13 +208,12 @@ def build_engine(model: str, num_slots: int, max_len: int,
     check_unsupported_env()
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
-    if params is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        params = llama.init_params(cfg, gen, dev)
     if checkpoint_dir:
-        restored = checkpoint.restore_latest_params(checkpoint_dir, params,
-                                                    dev)
+        # Without given params the tree is checked against meta tensors,
+        # so no random init is drawn beside the restored weights.
+        template = params if params is not None else _param_template(cfg)
+        restored = checkpoint.restore_latest_params(checkpoint_dir,
+                                                    template, dev)
         if restored is None:
             logger.warning('No complete checkpoint under %s; serving '
                            'random init.', checkpoint_dir)
@@ -210,6 +221,10 @@ def build_engine(model: str, num_slots: int, max_len: int,
             params, step = restored
             logger.info('Restored checkpoint step %d from %s.', step,
                         checkpoint_dir)
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = llama.init_params(cfg, gen, dev)
     if int8:
         params = decode.quantize_params(params)
     dcfg_kwargs = dict(max_len=max_len, temperature=temperature,

@@ -153,14 +153,18 @@ def test_int8_matmul_bit_equal_to_reference_jit(ref, dtype, lead):
 
 
 def test_int8_route_dispatch_never_falls_back():
-    assert tquant.resolved_impl('cpu') == 'plain'
-    assert tquant.resolved_impl('cpu', 'library') == 'plain'
-    assert tquant.resolved_impl('cuda') == 'library'
-    assert tquant.resolved_impl('cuda', 'plain') == 'plain'
-    with pytest.raises(ValueError, match='impl'):
-        tquant.resolved_impl('cpu', 'kernel')
+    # The device alone picks the product: the CPU the twin, CUDA the
+    # library GEMM, anything else nothing.
+    # pylint: disable=protected-access
+    assert tquant._product('cpu') is tquant.int8_gemm_plain
+    assert tquant._product('cuda') is tquant.int8_gemm_library
+    assert tquant._product(torch.device('cuda', 0)) is (
+        tquant.int8_gemm_library)
     with pytest.raises(ValueError, match='no int8 GEMM'):
-        tquant.resolved_impl('meta')
+        tquant._product('meta')
+    with pytest.raises(ValueError, match='no int8 GEMM'):
+        tquant.int8_matmul(torch.ones(2, 64, device='meta'),
+                           tquant.quantize_int8(torch.ones(64, 8), 0))
     xq = torch.ones((2, 64), dtype=torch.int8)
     wq = tquant.k_major(torch.ones((64, 8), dtype=torch.int8), 0)
     before = tquant.int8_gemm_library.launches

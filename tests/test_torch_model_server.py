@@ -408,6 +408,31 @@ def test_checkpoint_dir_restores_reference_tokens(seed7_ckpt, int8, caplog):
     assert _greedy(fresh, engine_lib, prompts) != want
 
 
+def test_checkpoint_restore_draws_no_random_init(seed7_ckpt, tmp_path,
+                                                monkeypatch):
+    """With a complete step the saved tree is checked against meta
+    tensors (keys, shapes, the config's dtype), so no random init is
+    drawn beside the restored weights."""
+    def refuse(*args, **kwargs):
+        raise AssertionError('random init drawn beside a checkpoint')
+
+    monkeypatch.setattr(tllama, 'init_params', refuse)
+    eng = model_server.build_engine('debug', 2, 64, attn='plain',
+                                    checkpoint_dir=seed7_ckpt, device='cpu')
+    saved = checkpoint.restore_latest_params(
+        seed7_ckpt, eng.params, 'cpu')[0]
+    for name, w in eng.params['layers'].items():
+        assert w.device.type == 'cpu'
+        assert torch.equal(w, saved['layers'][name]), name
+    # The config's dtype is part of the template: fp32 weights refused.
+    fp32 = {k: ({n: w.float() for n, w in v.items()} if k == 'layers'
+                else v.float()) for k, v in saved.items()}
+    checkpoint.save_params(str(tmp_path), fp32, 1)
+    with pytest.raises(ValueError, match='template'):
+        model_server.build_engine('debug', 1, 32, device='cpu',
+                                  checkpoint_dir=str(tmp_path))
+
+
 def test_checkpoint_dir_without_a_complete_step_serves_random_init(
         tmp_path, caplog):
     prompts = _restore_prompts()
