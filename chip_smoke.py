@@ -181,11 +181,40 @@ port's package is not beside it. Phases (any failure exits non-zero):
    the same build without ``checkpoint_dir`` gives others, and a
    trainer checkpoint raises ValueError.
 
+13. The cross-replica prefix fetch, run after phase 12 while the
+   llama3-8b weights are loaded; the launch counts are reset just
+   before and read just after. For bf16 and then int8 K/V, paged
+   replicas of the port's ModelServer on local ports (8 slots, max_len
+   2048, block_k 128), built with ``prefix_peers``: an owner answers a
+   prompt of a 1,024-token prefix (8 blocks) and a 24-token tail; a
+   fetcher, whose peers are the owner and itself (its own URL must be
+   left out) and whose budget is 60 s (``SKYTPU_PREFIX_FETCH_BUDGET_
+   SECONDS``), answers four prompts of that prefix with tails of 16-40
+   tokens, 32 new tokens each, the first alone (it fetches), the other
+   three together (radix hits). (a) Every prompt's tokens equal those
+   of a control without peers that first prefilled the owner's prompt
+   itself, so that its first prompt takes the fetcher's path (the
+   prefix from the radix cache, the tail prefilled over it); a cold
+   control would prefill 1,040 tokens in one pass, whose bf16 logits
+   differ in their last bits. (b) ``/slo``'s cache block counts one
+   fetch hit of 1,024 tokens and no miss, and ``/journal`` (open on a
+   replica with peers) holds the ``hit`` row from the owner's URL. (c)
+   The fetcher's 8 blocks equal the owner's (``torch.equal``) in every
+   layer, K, V and the scale planes. (d) The paged-decode kernel ran
+   exactly n_layers x the decode steps of every replica of the phase,
+   the dense and verify kernels never. Printed, not gated: the fetch's
+   seconds from its journal row against the first-token time of the
+   owner's prompt prefilled locally and of the same prompt cold, the
+   payload's bytes (JSON and raw) and a client's read of it, and the
+   outcome of one more fetcher left at the default 0.5 s budget, whose
+   tokens are held to the control its outcome implies (the one above on
+   a hit, the cold one otherwise).
+
 Every replica journals into a temporary directory of the run, not into
-``~/.skytpu``. The whole run took 273.7 s on an H100 (700 W), phase 12
-88.9 s of it (its int8 step profile 36.9 s, the 16 GB save and restore
-31.3 s; 210-219 s before phase 12), well inside its time limit, so
-every phase runs at full depth.
+``~/.skytpu``. Before phase 13 the whole run took 273.7 s on an H100
+(700 W), phase 12 88.9 s of it (its int8 step profile 36.9 s, the 16 GB
+save and restore 31.3 s), well inside its time limit, so every phase
+runs at full depth; ``PERF.md`` has the run with phase 13.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -2410,6 +2439,264 @@ def int8_phase(torch, ms_lib, quant, da, decode, llama, train, params,
             'restore': restored}
 
 
+# -------------------------------------------------------------- phase 13
+
+
+# The shared prefix: 8 blocks of 128 at llama3-8b width; the owner's
+# tail and the fetcher's four, all inside one block, so the fetcher's
+# later prompts hit its radix cache and only its first one fetches.
+PREFIX_LEN = 1024
+PREFIX_OWNER_TAIL = 24
+PREFIX_TAILS = (16, 24, 32, 40)
+# The fetcher's budget: large enough that the fetch of 8 blocks (134 MB
+# raw in bf16, ~179 MB of base64 JSON) completes; a second fetcher keeps
+# the default (0.5 s) and its outcome is printed.
+PREFIX_FETCH_BUDGET = 60.0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def timed_stream(port: int, body: dict, rid: str) -> tuple:
+    """A streamed /generate with ``X-Request-Id: rid``: (tokens, seconds
+    to the first token on the client)."""
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}/generate',
+        data=json.dumps({**body, 'stream': True}).encode(),
+        headers={'Content-Type': 'application/json', 'X-Request-Id': rid})
+    t0 = time.perf_counter()
+    ttft, tokens = None, []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for line in resp:
+            if not line.startswith(b'data: '):
+                continue
+            event = json.loads(line[len(b'data: '):])
+            if 'error' in event:
+                fail(f'request {rid}: {event}')
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+            tokens.append(event['token'])
+            if event.get('done'):
+                break
+    if len(tokens) != body['max_new_tokens']:
+        fail(f'request {rid}: {len(tokens)} tokens, expected '
+             f'{body["max_new_tokens"]}')
+    return tokens, ttft
+
+
+class PrefixReplica:
+    """One paged llama3-8b replica of phase 13 on a local port, built the
+    way a user starts one (``build_engine`` with ``prefix_peers``; the
+    budget through ``SKYTPU_PREFIX_FETCH_BUDGET_SECONDS``)."""
+
+    def __init__(self, ms_lib, params, kv, port, peers=None, budget=None):
+        env_name = 'SKYTPU_PREFIX_FETCH_BUDGET_SECONDS'
+        if budget is not None:
+            os.environ[env_name] = str(budget)
+        try:
+            self.engine = ms_lib.build_engine(
+                MODEL, 8, MAX_LEN, step_chunk=4, device=DEVICE,
+                params=params, paged=True, kv_int8=kv == 'int8',
+                prefix_peers=peers)
+        finally:
+            os.environ.pop(env_name, None)
+        self.server = ms_lib.ModelServer(self.engine, port,
+                                         host='127.0.0.1')
+        self.port = self.server.start()
+        self.url = f'http://127.0.0.1:{self.port}'
+
+    def serve(self, bodies, rid: str) -> list:
+        """Answer ``bodies[0]`` alone (the admission that fetches, so its
+        first-token time is its own), then the rest concurrently;
+        [(tokens, ttft)] in order, request ids ``rid-0``, ``rid-1``..."""
+        first = timed_stream(self.port, bodies[0], f'{rid}-0')
+        out = [first] + [None] * (len(bodies) - 1)
+        errors = []
+
+        def run(i, body):
+            try:
+                out[i] = timed_stream(self.port, body, f'{rid}-{i}')
+            except BaseException as e:  # noqa: BLE001 re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(i, b))
+                   for i, b in enumerate(bodies) if i]
+        for t in threads:
+            t.start()
+        join_all(threads)
+        if errors:
+            raise errors[0]
+        return out
+
+    def fetch_rows(self, rid: str) -> list:
+        """The ``engine.prefix_fetch`` rows of request ``rid`` through
+        /journal, which a replica with prefix peers opens."""
+        rows = get_json(self.port, '/journal',
+                        {'trace_id': rid,
+                         'kinds': 'engine.prefix_fetch'})['events']
+        return [r['payload'] for r in rows]
+
+    def stop(self) -> dict:
+        self.server.stop()
+        return self.engine.stats()
+
+
+def prefix_fetch_phase(torch, ms_lib, da, params, card):
+    """Phase 13: the cross-replica prefix fetch at llama3-8b width, bf16
+    and int8 K/V; launch counts reset by the caller. Returns the printed
+    numbers by K/V dtype."""
+    import random
+    cfg = ms_lib.llama.CONFIGS[MODEL]
+    rng = random.Random(13)
+    out = {}
+    decode_steps = 0
+    for kv in ('bf16', 'int8'):
+        prefix = rand_prompt(rng, cfg.vocab_size, PREFIX_LEN)
+
+        def body(tail):
+            return {'prompt': prefix + rand_prompt(rng, cfg.vocab_size,
+                                                    tail),
+                    'max_new_tokens': N_NEW}
+
+        owner_body = body(PREFIX_OWNER_TAIL)
+        bodies = [body(n) for n in PREFIX_TAILS]
+        owner_port, fetch_port = free_port(), free_port()
+        owner_url = f'http://127.0.0.1:{owner_port}'
+        fetch_url = f'http://127.0.0.1:{fetch_port}'
+        fleet = [owner_url, fetch_url]
+        # The owner and the fetcher share one fleet list, as a deployment
+        # writes it: each finds its own address in it and skips it.
+        owner = PrefixReplica(ms_lib, params, kv, owner_port, peers=fleet)
+        fetcher = PrefixReplica(ms_lib, params, kv, fetch_port, peers=fleet,
+                                budget=PREFIX_FETCH_BUDGET)
+        replicas = [owner, fetcher]
+        try:
+            owner.serve([owner_body], f'p13-{kv}-owner')
+            probe = ms_lib.engine_lib.Request(bodies[0]['prompt'], 1)
+            tried = fetcher.engine._prefix_fetch_peers(probe)  # pylint: disable=protected-access
+            if tried != [owner_url]:
+                fail(f'{kv}: the fetcher would ask {tried}, expected only '
+                     f'the owner {owner_url} (its own URL excluded)')
+            fetched = fetcher.serve(bodies, f'p13-{kv}-fetch')
+            slo = get_json(fetcher.port, '/slo')['cache']
+            rows = [r for i in range(len(bodies))
+                    for r in fetcher.fetch_rows(f'p13-{kv}-fetch-{i}')]
+            decode_steps += fetcher.stop()['decode_steps']
+            replicas.remove(fetcher)
+            # The wire's cost apart, measured by a client of the owner.
+            t_wire = time.perf_counter()
+            status, _, text = http_status(
+                owner.port, '/prefix_blocks',
+                {'prompt': prefix, 'from_tokens': 0, 'budget_seconds': 60})
+            wire_s = time.perf_counter() - t_wire
+            if status != 200:
+                fail(f'{kv}: /prefix_blocks {status} {text[:200]}')
+            wire_bytes = len(text)
+            payload = ms_lib.prefix_transfer.decode_payload(json.loads(text))
+            raw_bytes = sum(a.nbytes for a in payload['arrays'].values())
+            del text, payload
+            # (c) the fetcher's 8 blocks are the owner's, every plane (the
+            # owner's read through its loop, the fetcher's stopped).
+            mine = fetcher.engine._export_prefix_now(prefix, 0)  # pylint: disable=protected-access
+            theirs = owner.engine.export_prefix_blocks(prefix, 0, 60.0)
+            if (mine is None or theirs is None or
+                    mine['matched_tokens'] != PREFIX_LEN or
+                    theirs['matched_tokens'] != PREFIX_LEN):
+                fail(f'{kv}: the prefix is not held whole by both')
+            for name, t in theirs['arrays'].items():
+                if not torch.equal(mine['arrays'][name], t):
+                    fail(f'{kv}: fetched {name} differs from the owner\'s')
+            planes = sorted(theirs['arrays'])
+            del mine, fetcher
+            gc.collect()
+            # (b) one fetch, a hit of the whole prefix, journaled.
+            hits = [r for r in rows if r.get('outcome') == 'hit']
+            if (slo['prefix_fetch_hits'] != 1 or
+                    slo['prefix_fetch_tokens'] != PREFIX_LEN or
+                    slo['prefix_fetch_misses'] != 0 or len(hits) != 1 or
+                    hits[0]['peer'] != owner_url or
+                    hits[0]['tokens_gained'] != PREFIX_LEN):
+                fail(f'{kv}: fetch counters {slo}, rows {rows}')
+            # The controls: "warm" holds the prefix by its own prefill of
+            # the owner's prompt, so its first prompt takes the fetcher's
+            # path (a radix hit, then the suffix); "cold" prefills
+            # everything locally.
+            warm = PrefixReplica(ms_lib, params, kv, 0)
+            replicas.append(warm)
+            (_, local_ttft), = warm.serve([owner_body], f'p13-{kv}-warm-own')
+            warm_out = warm.serve(bodies, f'p13-{kv}-warm')
+            decode_steps += warm.stop()['decode_steps']
+            cold = PrefixReplica(ms_lib, params, kv, 0)
+            replicas.append(cold)
+            cold_out = cold.serve(bodies, f'p13-{kv}-cold')
+            decode_steps += cold.stop()['decode_steps']
+            # (a) every prompt's tokens are the warm control's.
+            for i, ((got, _), (want, _)) in enumerate(zip(fetched,
+                                                         warm_out)):
+                if got != want:
+                    fail(f'{kv}: prompt {i} over the fetched prefix gave '
+                         f'{got[:8]}..., the control {want[:8]}...')
+            # A fetcher left at the default budget: outcome printed; its
+            # tokens are the warm control's on a hit, else the cold one's.
+            default_port = free_port()
+            dflt = PrefixReplica(
+                ms_lib, params, kv, default_port,
+                peers=[owner_url, f'http://127.0.0.1:{default_port}'])
+            replicas.append(dflt)
+            dflt_out = dflt.serve(bodies, f'p13-{kv}-default')
+            dflt_rows = dflt.fetch_rows(f'p13-{kv}-default-0')
+            decode_steps += dflt.stop()['decode_steps']
+            outcome = dflt_rows[-1]['outcome'] if dflt_rows else None
+            ref = warm_out if outcome == 'hit' else cold_out
+            for i, ((got, _), (want, _)) in enumerate(zip(dflt_out, ref)):
+                if got != want:
+                    fail(f'{kv}: default-budget fetcher ({outcome}) prompt '
+                         f'{i} differs from its control')
+            decode_steps += owner.stop()['decode_steps']
+            replicas = []
+        finally:
+            for r in replicas:
+                r.server.stop()
+        out[kv] = {
+            'fetch_seconds': hits[0]['seconds'],
+            'fetch_ttft_s': fetched[0][1],
+            'local_prefill_ttft_s': local_ttft,
+            'cold_ttft_s': cold_out[0][1],
+            'warm_ttft_s': warm_out[0][1],
+            'payload_json_bytes': wire_bytes,
+            'payload_raw_bytes': raw_bytes,
+            'wire_client_s': wire_s,
+            'default_budget': {'outcome': outcome,
+                               'seconds': (dflt_rows[-1]['seconds']
+                                           if dflt_rows else None)},
+            'planes': planes,
+        }
+        print(f'[prefix] {kv}: fetch of {PREFIX_LEN} tokens '
+              f'{hits[0]["seconds"]:.3f}s (journal), first-token '
+              f'{fetched[0][1]:.3f}s over the fetched prefix against '
+              f'{local_ttft:.3f}s for the owner\'s prompt prefilled '
+              f'locally and {cold_out[0][1]:.3f}s cold for the same '
+              f'prompt; payload {wire_bytes} bytes of JSON for '
+              f'{raw_bytes} raw, a client read it in {wire_s:.3f}s; '
+              f'default 0.5s budget: {outcome}; on {card}', flush=True)
+        del owner, theirs
+        gc.collect()
+        empty_cache(torch)
+    n_layers = cfg.n_layers
+    launched = da.paged_decode_attention_kernel.launches
+    if launched != n_layers * decode_steps or not decode_steps:
+        fail(f'phase 13: paged decode launched {launched} times, expected '
+             f'n_layers x decode steps = {n_layers * decode_steps}')
+    for fn in (da.decode_attention_kernel, da.paged_verify_attention_kernel):
+        if fn.launches:
+            fail(f'phase 13: {fn.__name__} launched {fn.launches} times')
+    return out
+
+
 # --------------------------------------------------------------- phase 6
 
 
@@ -2924,9 +3211,17 @@ def main() -> int:
     if not all(phase12_counts.values()):
         fail(f'a decode kernel was not launched in phase 12: '
              f'{phase12_counts}')
+    phase_done('phase 12')
+
+    # Phase 13 (the cross-replica prefix fetch) while the weights are up.
+    da.reset_launch_counts()
+    prefix_report = prefix_fetch_phase(torch, ms_lib, da, params, card)
+    phase13_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    print(f'[phase 13] launches {phase13_counts}; {prefix_report}',
+          flush=True)
     del params, spec_runs, paged_results, dense_results
     torch.cuda.empty_cache()
-    phase_done('phase 12')
+    phase_done('phase 13')
 
     flash_rows = flash_kernel_phase(torch, fa)
     phase_done('phase 6')
@@ -2950,7 +3245,8 @@ def main() -> int:
             'library_ms': main['library_ms'], 'int8': row['int8'],
             'phase10_launches': phase10_counts[kname],
             'phase11_launches': phase11_counts[kname],
-            'phase12_launches': phase12_counts[kname]})
+            'phase12_launches': phase12_counts[kname],
+            'phase13_launches': phase13_counts[kname]})
     kernels.append({
         'name': 'paged_verify_attention_kernel', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
@@ -2968,7 +3264,9 @@ def main() -> int:
         'phase11_launches':
             phase11_counts['paged_verify_attention_kernel'],
         'phase12_launches':
-            phase12_counts['paged_verify_attention_kernel']})
+            phase12_counts['paged_verify_attention_kernel'],
+        'phase13_launches':
+            phase13_counts['paged_verify_attention_kernel']})
     for kname, row in flash_rows.items():
         main = row['bf16']
         kernels.append({

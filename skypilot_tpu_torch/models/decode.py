@@ -527,6 +527,30 @@ def copy_block(pool: Cache, src: int, dst: int) -> None:
         t[:, dst] = t[:, src]
 
 
+def inject_pool_blocks(pool: Cache, block_idx: torch.Tensor,
+                       values: Cache) -> None:
+    """Write fetched prefix blocks into the pool in place:
+    ``values[name]`` ``[L, n, block_k, ...]`` lands at pool blocks
+    ``block_idx`` [n], every plane (the int8 scale planes included). The
+    values arrive in the pool's own storage dtype and are written as
+    they are, never cast: a value cast of bytes decoded under a wrong
+    dtype would install plausible garbage K/V, so a dtype mismatch
+    raises."""
+    for name, t in pool.items():
+        v = values[name]
+        if v.dtype != t.dtype:
+            raise ValueError(f'{name}: {v.dtype} values for a {t.dtype} '
+                             'pool')
+        t[:, block_idx.to(t.device)] = v.to(t.device)
+
+
+def export_pool_blocks(pool: Cache, block_idx: torch.Tensor) -> Cache:
+    """Pool blocks ``block_idx`` [n] of every plane, ``[L, n, block_k,
+    ...]``, copied to the host: the owner side of the prefix fetch."""
+    return {name: t[:, block_idx.to(t.device)].to('cpu')
+            for name, t in pool.items()}
+
+
 # --------------------------------------------------------------- sampling
 
 

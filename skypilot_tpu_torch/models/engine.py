@@ -4,8 +4,9 @@ Counterpart of ``skypilot_tpu/models/engine.py``'s ``DecodeEngine``:
 dense and paged modes, greedy and sampled decoding, radix prefix reuse,
 per-tenant round-robin admission, clamp/reject of over-budget requests,
 greedy speculative decoding and chunked prefill on the paged pool, the
-crash supervisor, and the serving telemetry. Tensor parallelism and
-prefix fetch/store/handoff belong to later slices.
+crash supervisor, the serving telemetry, and the cross-replica prefix
+fetch. Tensor parallelism, the handoff and the block store belong to
+later slices.
 
 * **One persistent cache** of ``num_slots`` lanes (dense) or one block
   pool (paged), updated in place for the life of the engine.
@@ -54,21 +55,37 @@ prefills only the suffix a cached prefix does not cover, and publishes
 the prompt's full blocks. Evicted lanes repoint their table rows at
 scratch block 0 so their frozen writes never land in a reused block.
 
+**Cross-replica prefix fetch** (paged, ``prefix_peers`` or
+``SKYTPU_PREFIX_PEERS``): on a local radix miss worth at least one block
+the admission asks the configured peers for the prompt's blocks
+(``models/prefix_transfer.py``), within ``SKYTPU_PREFIX_FETCH_BUDGET_
+SECONDS``, installs what one sends verbatim (``decode.
+inject_pool_blocks``), publishes it to the radix cache and re-matches,
+so a fetched prefix is from then on a local hit. Any failure (timeout,
+malformed or mismatched payload, pool exhausted) degrades to the local
+prefill and is journaled as ``engine.prefix_fetch``. The owner side:
+:meth:`DecodeEngine.export_prefix_blocks` queues a peer's request from
+the HTTP thread, and ``step()`` serves it on the loop thread, which
+owns the radix cache and the pool.
+
 The allocator, radix cache and :class:`Request` are this package's own
 copies of the reference's pure-Python classes.
 """
 import collections
+import functools
 import heapq
 import itertools
+import os
 import threading
 import time
 import traceback
+import uuid
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.models import decode, llama
+from skypilot_tpu_torch.models import decode, llama, prefix_transfer
 from skypilot_tpu_torch.observability import journal
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import request_trace
@@ -333,8 +350,9 @@ class Request:
     ``trace_id`` (the server's ``X-Request-Id``) stamps this request's
     journal rows, and ``span_id`` (the server's ``server.request`` span)
     nests them under the HTTP span; None leaves the ambient trace.
-    ``prefix_hint`` (the load balancer's prefix-owner header) is kept
-    for the cross-replica prefix tier, which the port does not have yet.
+    ``prefix_hint`` (the load balancer's prefix-owner header) moves a
+    configured peer of the same URL to the front of the prefix fetch's
+    try order; it never adds one.
     ``enqueue_ts``/``first_token_ts``/``finish_ts`` are
     ``time.perf_counter()`` stamps the telemetry plane reads."""
     _ids = itertools.count()
@@ -439,7 +457,16 @@ class DecodeEngine:
     which owns the cache. The engine runs on the device its params live
     on. ``prefill_chunk`` defaults to ``SKYTPU_PREFILL_CHUNK`` and is
     forced to 0 when not paged. ``journal_db`` pins the engine's journal
-    rows to one file (None: the host journal, ``journal.db_path()``)."""
+    rows to one file (None: the host journal, ``journal.db_path()``).
+
+    ``prefix_peers`` (default ``SKYTPU_PREFIX_PEERS``, comma-separated;
+    kept only when paged) are the replicas a radix miss fetches from,
+    within ``prefix_fetch_budget`` seconds (default
+    ``SKYTPU_PREFIX_FETCH_BUDGET_SECONDS`` or 0.5).
+    ``prefix_fetch_fn(peer_url, tokens, from_tokens, budget)`` is the
+    transport (default: ``prefix_transfer.http_fetch`` carrying this
+    engine's ``instance_id``); tests hand in direct engine-to-engine
+    calls."""
 
     def __init__(self, params, cfg: llama.LlamaConfig,
                  dcfg: decode.DecodeConfig, num_slots: int,
@@ -449,6 +476,9 @@ class DecodeEngine:
                  name: str = 'engine', paged: bool = False,
                  num_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
+                 prefix_peers: Optional[Sequence[str]] = None,
+                 prefix_fetch_budget: Optional[float] = None,
+                 prefix_fetch_fn: Optional[Callable] = None,
                  journal_db: Optional[str] = None):
         if num_slots < 1:
             raise ValueError(f'num_slots must be >= 1, got {num_slots}')
@@ -511,6 +541,49 @@ class DecodeEngine:
         self._prompt_tokens_total = 0
         self._prompt_tokens_saved = 0
         self._prefix_evictions = 0
+        # Cross-replica prefix tier (paged only): the peers a local radix
+        # miss consults, within the fetch budget, so a slow peer degrades
+        # the admission to a local prefill and never stalls it.
+        if prefix_peers is None:
+            raw = os.environ.get(prefix_transfer.PREFIX_PEERS_ENV, '')
+            prefix_peers = [u.strip() for u in raw.split(',')
+                            if u.strip()]
+        self.prefix_peers: List[str] = list(prefix_peers) if paged else []
+        self.prefix_fetch_budget = (
+            prefix_fetch_budget if prefix_fetch_budget is not None
+            else env.env_float(prefix_transfer.FETCH_BUDGET_ENV,
+                               prefix_transfer.DEFAULT_FETCH_BUDGET_SECONDS))
+        # Fetch only when at least this many block-aligned tokens stand
+        # to be gained (default one block, the least a peer can ship).
+        self._prefix_fetch_min_tokens = env.env_int(
+            prefix_transfer.FETCH_MIN_TOKENS_ENV, self._block_k)
+        # This engine's identity: the default transport sends it with
+        # every fetch, and /prefix_blocks answers {'self': true} when it
+        # reaches the engine that minted it, the one sure self-detection
+        # under a fleet-shared peers list.
+        self.instance_id = uuid.uuid4().hex
+        self._prefix_fetch_fn = (
+            prefix_fetch_fn if prefix_fetch_fn is not None
+            else functools.partial(prefix_transfer.http_fetch,
+                                   instance=self.instance_id))
+        # A peer whose fetch failed sits out this many seconds; a
+        # successful fetch clears its backoff.
+        self._prefix_fetch_backoff = env.env_float(
+            prefix_transfer.FETCH_BACKOFF_ENV,
+            prefix_transfer.DEFAULT_FETCH_BACKOFF_SECONDS)
+        self._peer_backoff_until: dict = {}
+        # URLs that address this replica (the model server registers
+        # its own): a self-fetch would stall the loop for a whole budget,
+        # since the loop doing the fetch is the one that serves exports.
+        self._prefix_self_urls: set = set()
+        self._prefix_fetch_hits = 0
+        self._prefix_fetch_misses = 0
+        self._prefix_fetch_tokens = 0
+        # Peers' /prefix_blocks exports queue here from any thread and
+        # are served by the loop at the top of each step (the radix
+        # cache and the pool are loop-confined).
+        self._export_lock = threading.Lock()
+        self._export_jobs: List[dict] = []
         # engine.compile dedupe: dispatch shapes already noted. Restarts
         # keep it, as the reference's process-global jit cache does.
         self._traced_shapes: set = set()
@@ -842,6 +915,16 @@ class DecodeEngine:
         p = len(request.prompt)
         blocks, path = self._radix.match(request.prompt)
         m_full = len(blocks) * bk
+        if self._should_prefix_fetch(p, m_full):
+            if self._prefix_fetch_into_cache(request, blocks, m_full):
+                # The fetched blocks now live in the pool and the radix
+                # cache: drop the stale match and match again, which
+                # takes the extended prefix with its refs and locks, so
+                # a remote hit is from here on a local one.
+                self._allocator.decref(blocks)
+                self._radix.release(path)
+                blocks, path = self._radix.match(request.prompt)
+                m_full = len(blocks) * bk
         # Keep >= 1 suffix token: the first generated token samples from
         # the last prompt position's logits, which only a forward pass
         # produces.
@@ -918,6 +1001,270 @@ class DecodeEngine:
                 'Prefix-cache blocks LRU-evicted under pool '
                 'pressure.').inc(freed)
         return freed
+
+    # ------------------------------------------ cross-replica prefix tier
+
+    def _should_prefix_fetch(self, p: int, m_full: int) -> bool:
+        """Consult peers only when a fetch could help: peers are
+        configured (a load balancer's hint alone introduces none) and
+        the local miss leaves at least the minimum block-aligned gain."""
+        if not self.paged or not self.prefix_peers:
+            return False
+        aligned = (p // self._block_k) * self._block_k
+        return aligned - m_full >= max(self._prefix_fetch_min_tokens,
+                                       self._block_k)
+
+    def register_self_url(self, url: str) -> None:
+        """Model-server hook: URLs that address this replica are never
+        fetched from."""
+        self._prefix_self_urls.add(url.rstrip('/'))
+
+    def _prefix_fetch_peers(self, request: Request) -> List[str]:
+        """The configured peers minus self and those in backoff. The
+        load balancer's owner hint only moves a matching configured peer
+        to the front: it rides a header any client can set, and fetching
+        from an unvetted URL would publish its KV blocks to every tenant.
+        The peer list is the trust set."""
+        now = time.perf_counter()
+        hint = (request.prefix_hint or '').rstrip('/')
+        peers = []
+        for u in sorted(self.prefix_peers,
+                        key=lambda u: 0 if u.rstrip('/') == hint else 1):
+            if (u and u not in peers
+                    and u.rstrip('/') not in self._prefix_self_urls
+                    and self._peer_backoff_until.get(u, 0.0) <= now):
+                peers.append(u)
+        return peers
+
+    def _note_peer_failure(self, peer: str) -> None:
+        self._peer_backoff_until[peer] = (time.perf_counter() +
+                                          self._prefix_fetch_backoff)
+
+    def peer_in_backoff(self, peer: str) -> bool:
+        """Is ``peer`` inside its failure-backoff window?"""
+        return self._peer_backoff_until.get(peer,
+                                            0.0) > time.perf_counter()
+
+    def _count_prefix_fetch(self, result: str) -> None:
+        self._m.counter(
+            'skytpu_engine_prefix_fetches_total',
+            'Cross-replica prefix-block fetch attempts by outcome.',
+            labels=('result',)).inc(labels=(result,))
+
+    def _prefix_fetch_into_cache(self, request: Request,
+                                 local_blocks: List[int],
+                                 m_full: int) -> bool:
+        """Pull the prompt's missing prefix blocks from a peer into the
+        pool and the radix cache; True when the cache now holds a longer
+        prefix (the caller matches again). Bounded by the fetch budget.
+        Every failure (timeout, malformed payload, dtype or shape
+        mismatch, pool exhausted) degrades to the local prefill, with the
+        outcome journaled as ``engine.prefix_fetch``."""
+        bk = self._block_k
+        aligned = (len(request.prompt) // bk) * bk
+        t0 = time.perf_counter()
+        deadline = t0 + self.prefix_fetch_budget
+        outcome = 'miss'
+        peers_tried = self._prefix_fetch_peers(request)
+        for peer in peers_tried:
+            remaining = deadline - time.perf_counter()
+            if remaining <= 0:
+                outcome = 'budget_exhausted'
+                break
+            try:
+                payload = self._prefix_fetch_fn(
+                    peer, request.prompt[:aligned], m_full, remaining)
+            except Exception as e:  # pylint: disable=broad-except
+                # A misbehaving peer or transport never crashes admission.
+                self._note_peer_failure(peer)
+                outcome = 'error'
+                self._journal(journal.EventKind.ENGINE_PREFIX_FETCH,
+                              request, -1, outcome='error', peer=peer,
+                              error=f'{type(e).__name__}: {e}')
+                continue
+            if payload is None:
+                # A transport failure backs the peer off; an honest empty
+                # match is a payload and lands in the 'empty' branch.
+                self._note_peer_failure(peer)
+                continue
+            if payload.get('self'):
+                # The peer answered "I am you": one of our own addresses.
+                self.register_self_url(peer)
+                continue
+            try:
+                gained = self._install_remote_blocks(
+                    request.prompt, payload, local_blocks, m_full)
+            except Exception as e:  # pylint: disable=broad-except
+                # A failure past validation (device memory): degrade,
+                # never crash the step (the allocator refs came back).
+                self._note_peer_failure(peer)
+                outcome = 'error'
+                self._journal(journal.EventKind.ENGINE_PREFIX_FETCH,
+                              request, -1, outcome='error', peer=peer,
+                              error=f'{type(e).__name__}: {e}')
+                continue
+            if gained == 'empty':
+                # Reachable but cold: the admission's outcome is a miss
+                # even if an earlier peer failed (journaled above).
+                outcome = 'miss'
+                continue
+            if gained is None:
+                # A version-skewed peer is backed off like a dead one.
+                self._note_peer_failure(peer)
+                outcome = 'mismatch'
+                continue
+            if gained == 'pool_exhausted':
+                outcome = 'pool_exhausted'
+                break
+            self._peer_backoff_until.pop(peer, None)
+            self._prefix_fetch_hits += 1
+            self._prefix_fetch_tokens += gained
+            self._count_prefix_fetch('hit')
+            self._journal(journal.EventKind.ENGINE_PREFIX_FETCH, request,
+                          -1, outcome='hit', peer=peer,
+                          tokens_gained=gained, blocks_gained=gained // bk,
+                          seconds=round(time.perf_counter() - t0, 6))
+            return True
+        self._prefix_fetch_misses += 1
+        self._count_prefix_fetch(outcome)
+        self._journal(journal.EventKind.ENGINE_PREFIX_FETCH, request, -1,
+                      outcome=outcome, peers=len(peers_tried),
+                      seconds=round(time.perf_counter() - t0, 6))
+        return False
+
+    def _install_remote_blocks(self, prompt_tokens: Sequence[int],
+                               payload: dict, local_blocks: List[int],
+                               m_full: int):
+        """Validate and install one peer payload: allocate pool blocks,
+        write the fetched K/V as they are (int8 values and scale planes
+        included), publish the extended prefix to the radix cache.
+        Returns the tokens gained, ``'empty'`` (the peer holds nothing
+        past what we have: a miss, not a protocol error),
+        ``'pool_exhausted'``, or None on a mismatch with this engine."""
+        bk = self._block_k
+        aligned = (len(prompt_tokens) // bk) * bk
+        matched = int(payload.get('matched_tokens', 0))
+        arrays = payload.get('arrays') or {}
+        if matched <= m_full or not arrays:
+            return 'empty'
+        if (payload.get('block_k') != bk or
+                payload.get('kv_cache_dtype') != self.dcfg.kv_cache_dtype
+                or payload.get('from_tokens') != m_full
+                or matched % bk or matched > aligned):
+            return None
+        if set(arrays) != set(self._cache):
+            return None
+        n_new = (matched - m_full) // bk
+        for name, pool_arr in self._cache.items():
+            a = arrays[name]
+            want = (pool_arr.shape[0], n_new) + tuple(pool_arr.shape[2:])
+            # The dtype must match exactly: bytes decoded under another
+            # dtype would pass for plausible K/V.
+            if (not isinstance(a, torch.Tensor) or tuple(a.shape) != want
+                    or a.dtype != pool_arr.dtype):
+                return None
+        short = n_new - self._allocator.available()
+        if short > 0:
+            self._radix_evict(short)
+        try:
+            new_blocks = self._allocator.alloc(n_new)
+        except PoolExhausted:
+            return 'pool_exhausted'
+        try:
+            # The reference's power-of-two bucket names the shape (it
+            # pads the scatter for jit); the port writes n_new blocks.
+            bucket = 1
+            while bucket < n_new:
+                bucket *= 2
+            self._note_compile('prefix_inject', blocks=bucket)
+            decode.inject_pool_blocks(
+                self._cache, self._dev(np.asarray(new_blocks, np.int64)),
+                arrays)
+            # Publish [0, matched): the cached part dedupes, the fetched
+            # suffix is adopted (the tree takes its refs)...
+            self._radix.insert(list(prompt_tokens[:matched]),
+                               local_blocks[:m_full // bk] + new_blocks)
+        except Exception:
+            self._allocator.decref(new_blocks)
+            raise
+        # ...then drop our alloc refs: the tree owns the blocks, and the
+        # caller's match again takes the request's own.
+        self._allocator.decref(new_blocks)
+        self._publish_block_gauges()
+        return matched - m_full
+
+    def _export_prefix_now(self, tokens: Sequence[int],
+                           from_tokens: int = 0) -> Optional[dict]:
+        """LOOP THREAD ONLY: radix-match ``tokens`` and copy the matched
+        pool blocks past ``from_tokens`` to the host. None when nothing
+        past ``from_tokens`` is cached."""
+        if not self.paged:
+            return None
+        bk = self._block_k
+        blocks, path = self._radix.match([int(t) for t in tokens])
+        try:
+            matched = len(blocks) * bk
+            start = from_tokens // bk
+            if matched <= from_tokens or start >= len(blocks):
+                return None
+            send = blocks[start:]
+            bucket = 1
+            while bucket < len(send):
+                bucket *= 2
+            self._note_compile('prefix_export', blocks=bucket)
+            # The match's refs pin the blocks for the copy; the host copy
+            # is a fresh buffer, safe to ship after they drop.
+            arrays = decode.export_pool_blocks(
+                self._cache, self._dev(np.asarray(send, np.int64)))
+            return {
+                'matched_tokens': matched,
+                'from_tokens': start * bk,
+                'block_k': bk,
+                'kv_cache_dtype': self.dcfg.kv_cache_dtype,
+                'arrays': arrays,
+            }
+        finally:
+            if blocks:
+                self._allocator.decref(blocks)
+            self._radix.release(path)
+
+    def export_prefix_blocks(self, tokens: Sequence[int],
+                             from_tokens: int = 0,
+                             timeout: float = 2.0) -> Optional[dict]:
+        """Cross-thread prefix export (the model server's
+        ``/prefix_blocks``): queue a job the loop serves at its next step
+        and wait at most ``timeout``. None on timeout or no match; the
+        peer prefills locally either way."""
+        job = {'tokens': list(tokens), 'from': int(from_tokens),
+               'event': threading.Event(), 'result': None,
+               # Past this the waiter is gone: skip the match and copy.
+               'deadline': time.monotonic() + timeout}
+        with self._export_lock:
+            self._export_jobs.append(job)
+        if job['event'].wait(timeout):
+            return job['result']
+        return None
+
+    def _service_prefix_exports(self) -> None:
+        """Serve the queued exports (loop thread, top of every step)."""
+        with self._export_lock:
+            if not self._export_jobs:
+                return
+            jobs, self._export_jobs = self._export_jobs, []
+        for job in jobs:
+            if job['deadline'] >= time.monotonic():
+                try:
+                    job['result'] = self._export_prefix_now(job['tokens'],
+                                                            job['from'])
+                except Exception as e:  # pylint: disable=broad-except
+                    # Best effort for the peer: a failed read must not
+                    # crash this engine's loop (the peer gets None).
+                    self._journal_raw(
+                        journal.EventKind.ENGINE_PREFIX_FETCH,
+                        {'outcome': 'export_error',
+                         'error': f'{type(e).__name__}: {e}'})
+                    job['result'] = None
+            job['event'].set()
 
     def _publish_prompt(self, prompt: Sequence[int], m: int,
                         table: Sequence[int]) -> None:
@@ -1132,6 +1479,9 @@ class DecodeEngine:
         # raise exercises the supervisor; slow_step widens decode windows.
         chaos.maybe_raise('engine_step_raise')
         chaos.maybe_slow_step()
+        # Peers' /prefix_blocks exports, before admission, so a prefix
+        # published last step is exportable at once.
+        self._service_prefix_exports()
         self._admit()
         active = self.active_slots()
         if active == 0:
@@ -1533,8 +1883,8 @@ class DecodeEngine:
 
     def cache_stats(self) -> dict:
         """The ``/slo`` ``cache`` block: prefix-cache locality and pressure
-        counters. The peer and store tiers are not ported: their fields
-        read as the reference's do with those tiers off."""
+        counters, and the peer tier's. The store tier is not ported: its
+        fields read as the reference's do with it off."""
         return {
             'paged': self.paged,
             'prefix_hit_ratio': round(self.prefix_hit_ratio(), 4),
@@ -1544,10 +1894,10 @@ class DecodeEngine:
                                     if self.paged else 0),
             'radix_nodes': self._radix.node_count() if self.paged else 0,
             'prefix_evictions': self._prefix_evictions,
-            'prefix_fetch_hits': 0,
-            'prefix_fetch_misses': 0,
-            'prefix_fetch_tokens': 0,
-            'prefix_peers': 0,
+            'prefix_fetch_hits': self._prefix_fetch_hits,
+            'prefix_fetch_misses': self._prefix_fetch_misses,
+            'prefix_fetch_tokens': self._prefix_fetch_tokens,
+            'prefix_peers': len(self.prefix_peers),
             'store_configured': False,
             'store_in_backoff': False,
             'store_fetch_hits': 0,
@@ -1606,10 +1956,10 @@ class DecodeEngine:
                 'prefill_chunks': self._prefill_chunks,
                 'chunked_admissions': self._chunked_admissions,
                 'prefix_evictions': self._prefix_evictions,
+                'prefix_fetch_hits': self._prefix_fetch_hits,
+                'prefix_fetch_misses': self._prefix_fetch_misses,
                 # Tiers not ported yet, read as the reference's with
                 # them off.
-                'prefix_fetch_hits': 0,
-                'prefix_fetch_misses': 0,
                 'handoffs_completed': 0,
                 'handoffs_degraded': 0,
                 'handoff_injections': 0,

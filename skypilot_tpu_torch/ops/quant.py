@@ -3,9 +3,9 @@
 Counterpart of ``skypilot_tpu/ops/quant.py``. For the same fp32 input
 the int8 values and the fp32 scales are bit-identical to the reference:
 amax → ``max(amax, 1e-8) / 127`` → fp32 divide → round half to even
-(``torch.round``, like ``jnp.round``) → clip to ±127 (activation rows:
-the scale as the reference's jitted steps compute it, see
-:func:`_symmetric_quantize`).
+(``torch.round``, like ``jnp.round``) → clip to ±127 (K/V and
+activation rows: the scale as the reference's jitted steps compute it,
+see :func:`_symmetric_quantize`).
 
 Int8 weights (the reference's weight + dynamic activation scheme):
 weights are quantised once per output channel (:func:`quantize_int8`),
@@ -96,8 +96,12 @@ def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., Hkv, hd] → (int8 [..., Hkv, hd], fp32 scales [..., Hkv]):
     one scale per (position, kv head), the granularity the decode
-    kernels dequantise at."""
-    q, scale = _symmetric_quantize(x, -1)
+    kernels dequantise at. The reference quantises K/V only inside its
+    jitted prefill and decode, so the scale takes XLA's reciprocal form,
+    as the activation rows do: a pool block reads the same bits on
+    either package, which is what lets a replica adopt blocks another
+    one wrote."""
+    q, scale = _symmetric_quantize(x, -1, reciprocal=True)
     return q, scale[..., 0]
 
 

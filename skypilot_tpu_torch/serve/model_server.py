@@ -40,8 +40,18 @@ the engine loop on its own thread. Endpoints:
   ``handoff``, ``store`` and ``steps`` blocks.
 * ``GET/POST /journal`` — filtered rows of this replica's journal
   (``trace_id``, ``kinds``, ``entity``, ``since_id``, ``limit``; the
-  reference's ``journal.serve_query``). 404 unless
-  ``SKYTPU_JOURNAL_PEERS`` names the hosts allowed to pull it.
+  reference's ``journal.serve_query``). 404 unless the replica has
+  prefix peers or ``SKYTPU_JOURNAL_PEERS`` names the hosts allowed to
+  pull it.
+* ``POST /prefix_blocks`` — the owner side of the cross-replica prefix
+  fetch: body ``{"prompt": [token ids], "from_tokens", "budget_seconds",
+  "instance"}``; the engine loop radix-matches the prompt and the reply
+  carries the matched pool blocks past ``from_tokens`` in the wire
+  format of ``models/prefix_transfer.py`` (an empty match when nothing
+  is cached past it; ``{"self": true}`` when ``instance`` is this
+  engine's own). 400 on an unpaged replica or a malformed body, 404
+  without prefix peers. ``GET /prefix_blocks`` answers 404: this replica
+  hosts no block store.
 
 Every ``/generate`` answers an ``X-Request-Id``: the client's header, or
 a minted trace id. It is the request's trace id (``X-Skytpu-Trace-Id``
@@ -56,7 +66,10 @@ reference's flag names. The engine runs on CUDA unless ``--device cpu``
 is given. Speculative decoding is on with ``--paged --spec-k K
 [--drafter-layers D]`` (or ``SKYTPU_SPEC_K`` / ``SKYTPU_SPEC_DRAFTER_LAYERS``),
 chunked prefill with ``--paged --prefill-chunk N`` (or
-``SKYTPU_PREFILL_CHUNK``). ``SKYTPU_CHAOS`` arms the fault points
+``SKYTPU_PREFILL_CHUNK``), the cross-replica prefix fetch with ``--paged
+--prefix-peers URL,URL`` (or ``SKYTPU_PREFIX_PEERS``; the list is the
+trust set: only its members are fetched from, and only a replica that
+has one exports its blocks). ``SKYTPU_CHAOS`` arms the fault points
 ``engine_step_raise``, ``slow_step``, ``drain_hang``, ``replica_500``,
 ``journal_write_stall`` and ``journal_disk_full`` (``utils/chaos.py``).
 ``--int8`` serves int8 weights (the seven per-layer GEMM weights
@@ -64,8 +77,8 @@ quantised per output channel, ``decode.quantize_params``);
 ``--checkpoint-dir DIR`` restores the newest complete params checkpoint
 under DIR (``models/checkpoint.save_params``) before quantising, or
 serves the random init with a warning when there is none. Flags of
-features later slices port (tensor parallelism, prefix
-fetch/store/handoff, roles) are rejected, never ignored.
+features later slices port (tensor parallelism, the block store, the
+handoff and its roles) are rejected, never ignored.
 
 Tokenizer note: the models are research checkpoints without a shipped
 tokenizer, so ``text`` uses a byte-level demo codec (UTF-8 bytes → ids;
@@ -89,7 +102,7 @@ import torch
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import checkpoint, decode
 from skypilot_tpu_torch.models import engine as engine_lib
-from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import llama, prefix_transfer
 from skypilot_tpu_torch.observability import journal
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import trace as trace_lib
@@ -118,10 +131,10 @@ DEFAULT_STOP_TIMEOUT_SECONDS = 10.0
 # this (unset, empty or unparseable: no bound).
 HEALTHZ_MAX_STALENESS_ENV = 'SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS'
 # The journal query plane's trust set: hosts allowed to pull this
-# replica's /journal. Unset, /journal answers 404: a replica outside any
-# fleet must not export its journal to whoever reaches its port. (The
-# reference also opens it to a replica with prefix peers, which the port
-# refuses.)
+# replica's /journal. /journal answers when the replica is configured
+# into a fleet (prefix peers) or this names the head(s); with neither it
+# answers 404: a replica outside any fleet must not export its journal
+# to whoever reaches its port.
 JOURNAL_PEERS_ENV = 'SKYTPU_JOURNAL_PEERS'
 # skytpu_server_state gauge values (/healthz carries the string).
 _STATE_VALUES = {'starting': 0, 'running': 0, 'draining': 1,
@@ -143,7 +156,6 @@ def _role(raw: str) -> str:
 # under the 'store' role, so refusing the role covers it.
 UNSUPPORTED_ENVS = {
     'SKYTPU_SERVE_TP': ('tensor parallelism', str, '1'),
-    'SKYTPU_PREFIX_PEERS': ('cross-replica prefix fetch', str, None),
     'SKYTPU_STORE_URL': ('the durable block store', str, None),
     'SKYTPU_REPLICA_ROLE': ('disaggregated serving roles (prefill, '
                             'decode, store)', _role, 'mixed'),
@@ -192,6 +204,7 @@ def build_engine(model: str, num_slots: int, max_len: int,
                  spec_k: Optional[int] = None,
                  drafter_layers: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
+                 prefix_peers: Optional[list] = None,
                  device: Optional[str] = None,
                  params: Optional[llama.Params] = None
                  ) -> engine_lib.DecodeEngine:
@@ -204,7 +217,8 @@ def build_engine(model: str, num_slots: int, max_len: int,
     ``drafter_layers`` default from ``SKYTPU_SPEC_K`` /
     ``SKYTPU_SPEC_DRAFTER_LAYERS``; the drafter depth is clamped to the
     model's layer count, as the reference does. ``prefill_chunk``
-    defaults from ``SKYTPU_PREFILL_CHUNK`` (paged only)."""
+    defaults from ``SKYTPU_PREFILL_CHUNK`` and ``prefix_peers`` from
+    ``SKYTPU_PREFIX_PEERS`` (both paged only)."""
     check_unsupported_env()
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
@@ -247,7 +261,8 @@ def build_engine(model: str, num_slots: int, max_len: int,
                                    num_slots, step_chunk=step_chunk,
                                    generator=sampler, name=model,
                                    paged=paged, num_blocks=num_blocks,
-                                   prefill_chunk=prefill_chunk)
+                                   prefill_chunk=prefill_chunk,
+                                   prefix_peers=prefix_peers)
 
 
 class _HTTPServer(http.server.ThreadingHTTPServer):
@@ -323,6 +338,8 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self.send_json(200, ms.slo())
         elif path == '/journal':
             ms.handle_journal(self, {})
+        elif path == '/prefix_blocks':
+            self.send_json(404, {'error': 'no block store hosted here'})
         else:
             self.send_json(404, {'error': f'no route {path}'})
 
@@ -331,6 +348,8 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         path = self.path.split('?', 1)[0]
         if path == '/generate':
             ms.handle_generate(self)
+        elif path == '/prefix_blocks':
+            ms.handle_prefix_blocks(self)
         elif path == '/journal':
             try:
                 length = int(self.headers.get('Content-Length') or 0)
@@ -393,6 +412,11 @@ class ModelServer:
     def _bind(self) -> None:
         self._httpd = _HTTPServer((self.host, self.port), self)
         self.port = self._httpd.server_address[1]
+        # URLs that plainly address this replica never enter its prefix
+        # fetches (a self-fetch would stall the loop for a whole budget);
+        # other aliases are caught by the instance-id echo.
+        for host in {self.host, '127.0.0.1', 'localhost'}:
+            self.engine.register_self_url(f'http://{host}:{self.port}')
         self._started_at = time.time()
         self._engine_thread = threading.Thread(
             target=self.engine.run_forever, args=(self._stop,),
@@ -579,8 +603,10 @@ class ModelServer:
         """Serve filtered rows of this replica's journal
         (``journal.serve_query``: trace id, kinds, entity, since-rowid
         cursor, hard row cap), after landing the engine's buffered rows.
-        404 unless ``SKYTPU_JOURNAL_PEERS`` is set."""
-        if not os.environ.get(JOURNAL_PEERS_ENV, '').strip():
+        404 unless the replica has prefix peers or
+        ``SKYTPU_JOURNAL_PEERS`` is set."""
+        if (not self.engine.prefix_peers and
+                not os.environ.get(JOURNAL_PEERS_ENV, '').strip()):
             h.send_json(404, {'error': 'journal query plane not '
                                        'configured (SKYTPU_JOURNAL_PEERS)'})
             return
@@ -590,6 +616,57 @@ class ModelServer:
                                   host=self._entity())
         out['role'] = self.role
         h.send_json(200, out)
+
+    def handle_prefix_blocks(self, h: '_Handler') -> None:
+        """The owner side of the prefix fetch: a peer whose radix cache
+        missed posts the block-aligned prompt prefix; the engine loop
+        matches it, and the reply carries the matched blocks past
+        ``from_tokens``, dtype for dtype. Only a replica configured into
+        the tier (prefix peers) exports: its tenants' cached KV must not
+        go to whoever reaches its port. Within the tier the port is the
+        trust domain of /generate."""
+        if not self.engine.paged:
+            h.send_json(400, {'error': 'replica is not paged'})
+            return
+        if not self.engine.prefix_peers:
+            h.send_json(404, {'error': 'prefix tier not configured '
+                                       '(SKYTPU_PREFIX_PEERS)'})
+            return
+        try:
+            length = int(h.headers.get('Content-Length') or 0)
+            body = json.loads(h.rfile.read(length))
+            tokens = [int(t) for t in body['prompt']]
+            from_tokens = int(body.get('from_tokens', 0))
+            budget = float(body.get('budget_seconds', 2.0))
+            instance = body.get('instance')
+        except (ValueError, UnicodeDecodeError, KeyError, TypeError,
+                AttributeError):
+            h.send_json(400, {'error': 'body needs "prompt" (token ids) '
+                                       'and optional "from_tokens"'})
+            return
+        try:
+            if instance and instance == self.engine.instance_id:
+                # The caller is this engine (a fleet-shared peers list):
+                # answer at once; it excludes this URL for good.
+                h.send_json(200, {'self': True})
+                return
+            # The export wait honours the fetcher's read window (about
+            # half its budget): past that nobody reads the reply.
+            result = self.engine.export_prefix_blocks(
+                tokens, from_tokens, min(2.0, max(budget / 2, 0.05)))
+            if result is None:
+                # Nothing cached past from_tokens: an honest empty
+                # match, which does not back this replica off.
+                h.send_json(200, prefix_transfer.empty_payload(
+                    from_tokens, self.engine.dcfg.kernel_block_k,
+                    self.engine.dcfg.kv_cache_dtype))
+                return
+            h.send_json(200, prefix_transfer.encode_payload(
+                result['matched_tokens'], result['from_tokens'],
+                result['block_k'], result['kv_cache_dtype'],
+                result['arrays']))
+        except (BrokenPipeError, ConnectionResetError):
+            logger.info('prefix fetcher went away before its reply')
 
     def parse_prompt_body(self, body):
         """``(tokens, max_new, None)`` or ``(None, 0, (status, error))``,
@@ -772,7 +849,6 @@ class ModelServer:
 # flag → (argparse kwargs, what it would enable).
 _UNSUPPORTED_FLAGS = {
     '--tp': (dict(type=int), 'tensor parallelism'),
-    '--prefix-peers': (dict(), 'cross-replica prefix fetch'),
     '--store-url': (dict(), 'the durable block store'),
     '--store-dir': (dict(), 'the durable block store'),
     '--role': (dict(), 'disaggregated prefill/decode roles'),
@@ -827,6 +903,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                              'uncached suffix exceeds this many tokens '
                              'prefill one chunk per engine step (default '
                              'SKYTPU_PREFILL_CHUNK or 0 = off)')
+    parser.add_argument('--prefix-peers', default=None,
+                        help='comma-separated peer replica URLs for the '
+                             'cross-replica prefix cache tier: on a '
+                             'local radix miss the engine pulls cached '
+                             'KV prefix blocks from a peer (or the '
+                             'LB-advertised owner) instead of '
+                             're-prefilling (default SKYTPU_PREFIX_PEERS '
+                             'or disabled)')
     parser.add_argument('--checkpoint-dir', default=None,
                         help='restore params from models/checkpoint '
                              'save_params layout (default: random init)')
@@ -857,6 +941,11 @@ def main(argv=None) -> None:
                           block_k=args.block_k, spec_k=args.spec_k,
                           drafter_layers=args.drafter_layers,
                           prefill_chunk=args.prefill_chunk,
+                          prefix_peers=(
+                              [u.strip()
+                               for u in args.prefix_peers.split(',')
+                               if u.strip()]
+                              if args.prefix_peers else None),
                           device=args.device)
     ModelServer(engine, args.port, host=args.host,
                 default_max_new_tokens=args.max_new_tokens).run_forever()

@@ -7,8 +7,14 @@ full-forward agreement, ragged prompts, EOS masking, int8 KV, the
 over-budget ValueError). Logits of the paged prefill, the prefix-
 skipping prefill and the decode steps agree within BF16_ATOL: two bf16
 ulps of the debug model's |logits| < 1 (every matmul output is rounded
-to bf16 on both sides, in another accumulation order).
+to bf16 on both sides, in another accumulation order). The int8 pool a
+paged prefill writes equals the reference's jitted one bit for bit in
+layer 0, and in every layer with XLA's excess precision off.
 """
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -177,3 +183,87 @@ def test_paged_prefill_and_prefix_prefill_match_reference(params, kv):
     tdecode.copy_block(tpool, 7, 9)
     for name in tpool:
         assert torch.equal(tpool[name][:, 9], tpool[name][:, 7])
+
+
+def _int8_pool_prefill(tp, prompt, p, row):
+    tpool = tdecode.init_block_pool(TCFG, 8, 8, 'int8')
+    tdecode.paged_prefill(tp, torch.from_numpy(prompt), p,
+                          torch.from_numpy(row), TCFG, tpool)
+    return {name: t.numpy() for name, t in tpool.items()}
+
+
+INT8_POOL_PROMPT = _prompt(5, 1, 32)
+INT8_POOL_ROW = np.array([3, 1, 6, 2], np.int32)
+
+
+def test_int8_paged_prefill_pool_matches_jitted_reference(params):
+    """The int8 pool the port's paged prefill writes against the one the
+    reference's jitted ``paged_prefill`` writes from the same prompt:
+    layer 0 (same inputs on both sides) bit for bit, values and both
+    scale planes; every layer's dequantised K/V within the bound
+    test_paged_prefill_and_prefix_prefill_match_reference holds them
+    to (later layers' inputs differ by XLA's excess precision; the
+    subprocess test below turns it off)."""
+    jp, tp = params
+    got = _int8_pool_prefill(tp, INT8_POOL_PROMPT, 29, INT8_POOL_ROW)
+    jpool = jdecode.init_block_pool(JCFG, 8, 8, 'int8')
+    _, jpool = jdecode.paged_prefill(
+        jp, jnp.asarray(INT8_POOL_PROMPT), jnp.int32(29),
+        jnp.asarray(INT8_POOL_ROW), JCFG, jpool)
+    ref = {name: np.asarray(a) for name, a in jpool.items()}
+    assert set(got) == set(ref) == {'k', 'v', 'k_scale', 'v_scale'}
+    for name in got:
+        np.testing.assert_array_equal(got[name][0].view(np.uint8),
+                                      ref[name][0].view(np.uint8))
+    for name in ('k', 'v'):
+        scale = ref[f'{name}_scale'][..., None]
+        deq_ref = ref[name].astype(np.float32) * scale
+        deq = got[name].astype(np.float32) * got[f'{name}_scale'][..., None]
+        assert (np.abs(deq - deq_ref) <= 2 * scale + BF16_ATOL).all()
+
+
+# The reference's int8 pool after one paged prefill, compiled with XLA's
+# excess precision off, written to an .npz (a fresh process: XLA reads
+# its flags once).
+_INT8_NO_EXCESS_PRECISION = """
+import sys
+import jax, jax.numpy as jnp, numpy as np
+from skypilot_tpu.models import decode, llama
+cfg = llama.CONFIGS['debug']
+params = llama.init_params(jax.random.PRNGKey(0), cfg)
+prompt, row = np.load(sys.argv[1]), np.load(sys.argv[2])
+pool = decode.init_block_pool(cfg, 8, 8, 'int8')
+_, pool = decode.paged_prefill(params, jnp.asarray(prompt), jnp.int32(29),
+                               jnp.asarray(row), cfg, pool)
+np.savez(sys.argv[3], **{k: np.asarray(v) for k, v in pool.items()})
+"""
+
+
+def test_int8_pool_bit_equal_to_reference_without_excess_precision(
+        params, tmp_path):
+    """With ``--xla_allow_excess_precision=false`` the reference's jitted
+    paged prefill writes the port's int8 pool bit for bit at every
+    layer: values and both scale planes."""
+    _, tp = params
+    np.save(tmp_path / 'prompt.npy', INT8_POOL_PROMPT)
+    np.save(tmp_path / 'row.npy', INT8_POOL_ROW)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # No persistent compile cache in the child: it is not hardened
+    # against a kill mid-write as the suite's own processes are.
+    env = {k: v for k, v in os.environ.items()
+           if k != 'JAX_COMPILATION_CACHE_DIR'}
+    env.update(JAX_PLATFORMS='cpu', PYTHONPATH=root,
+               JAX_ENABLE_COMPILATION_CACHE='false',
+               XLA_FLAGS='--xla_allow_excess_precision=false')
+    out = subprocess.run(
+        [sys.executable, '-c', _INT8_NO_EXCESS_PRECISION,
+         str(tmp_path / 'prompt.npy'), str(tmp_path / 'row.npy'),
+         str(tmp_path / 'ref.npz')],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    ref = np.load(tmp_path / 'ref.npz')
+    got = _int8_pool_prefill(tp, INT8_POOL_PROMPT, 29, INT8_POOL_ROW)
+    assert set(got) == set(ref.files)
+    for name in got:
+        np.testing.assert_array_equal(got[name].view(np.uint8),
+                                      ref[name].view(np.uint8))

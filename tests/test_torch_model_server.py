@@ -9,7 +9,12 @@ passed as the reference's CLI does them, a params checkpoint restored
 (with and without int8) to the reference's tokens for the same weights,
 no complete step serving the random init with the reference's warning,
 a trainer checkpoint refused with ValueError in both packages; and a
-stopped server releasing its engine without the cyclic collector.
+stopped server releasing its engine without the cyclic collector. The
+cross-replica prefix fetch over HTTP: two replicas on localhost, one
+pulling the other's blocks through ``/prefix_blocks`` to its tokens;
+the endpoint's refusals (400, 404, the self echo, GET 404), ``/journal``
+opening to a replica with peers, and ``--prefix-peers`` and the
+``SKYTPU_PREFIX_*`` knobs read as the reference reads them.
 """
 import gc
 import json
@@ -142,7 +147,7 @@ def test_bad_bodies_answer_400(served, body, raw, needle):
 
 
 def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
-    for argv in (['--tp', '2'], ['--prefix-peers', 'http://x'],
+    for argv in (['--tp', '2'],
                  ['--role', 'prefill'], ['--store-url', 'http://s'],
                  ['--store-dir', '/store']):
         with pytest.raises(SystemExit) as exc:
@@ -176,7 +181,6 @@ ENV_KNOB_CASES = [
     ('SKYTPU_REPLICA_ROLE', 'decode', 'disaggregated serving roles'),
     ('SKYTPU_REPLICA_ROLE', 'store', 'disaggregated serving roles'),
     ('SKYTPU_SERVE_TP', '2', 'tensor parallelism'),
-    ('SKYTPU_PREFIX_PEERS', 'http://peer:8000', 'cross-replica prefix'),
     ('SKYTPU_STORE_URL', 'http://store:8000', 'the durable block store'),
     ('SKYTPU_REPLICA_ROLE', 'mixed', None),
     ('SKYTPU_REPLICA_ROLE', 'MIXED ', None),
@@ -228,6 +232,24 @@ def _restarts_before_permanent(name):
     return n
 
 
+def _peers_reading(name):
+    """The peers a paged and a dense engine keep from the knob (the
+    reference keeps them only when paged)."""
+    paged = model_server.build_engine('debug', 1, 32, paged=True,
+                                      block_k=8, device='cpu')
+    dense = model_server.build_engine('debug', 1, 32, device='cpu')
+    return paged.prefix_peers, dense.prefix_peers
+
+
+def _fetch_knob_reading(name):
+    eng = model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                    device='cpu')
+    return {'SKYTPU_PREFIX_FETCH_BUDGET_SECONDS': eng.prefix_fetch_budget,
+            'SKYTPU_PREFIX_FETCH_MIN_TOKENS': eng._prefix_fetch_min_tokens,  # pylint: disable=protected-access
+            'SKYTPU_PREFIX_FETCH_BACKOFF_SECONDS':
+                eng._prefix_fetch_backoff}[name]  # pylint: disable=protected-access
+
+
 def _stop_wait(name):
     """How long stop() waits for an engine thread that will not end for
     5 s: the knob's 0.2 when it gave up after at least 0.2 s and well
@@ -266,6 +288,17 @@ ENV_READ_CASES = [
     ('SKYTPU_ENGINE_STEP_RING', 'big', _profiler_reading, 512),
     ('SKYTPU_ENGINE_STALL_FACTOR', '4', _profiler_reading, 4.0),
     ('SKYTPU_ENGINE_STALL_MIN_SECONDS', '0.5', _profiler_reading, 0.5),
+    ('SKYTPU_PREFIX_PEERS', 'http://peer:8000', _peers_reading,
+     (['http://peer:8000'], [])),
+    ('SKYTPU_PREFIX_PEERS', ' http://a:1/, ,http://b:2 ', _peers_reading,
+     (['http://a:1/', 'http://b:2'], [])),
+    ('SKYTPU_PREFIX_FETCH_BUDGET_SECONDS', '60', _fetch_knob_reading, 60.0),
+    ('SKYTPU_PREFIX_FETCH_BUDGET_SECONDS', 'long', _fetch_knob_reading,
+     0.5),
+    ('SKYTPU_PREFIX_FETCH_MIN_TOKENS', '32', _fetch_knob_reading, 32),
+    ('SKYTPU_PREFIX_FETCH_MIN_TOKENS', 'few', _fetch_knob_reading, 8),
+    ('SKYTPU_PREFIX_FETCH_BACKOFF_SECONDS', '2.5', _fetch_knob_reading,
+     2.5),
 ]
 
 
@@ -495,3 +528,145 @@ def test_stopped_server_releases_engine_without_cyclic_collector():
         assert alive() is None
     finally:
         gc.enable()
+
+
+def _paged_server(tparams, prefix_peers=None, port=0):
+    engine = model_server.build_engine('debug', 2, 64, step_chunk=2,
+                                       paged=True, block_k=8, device='cpu',
+                                       params=tparams,
+                                       prefix_peers=prefix_peers)
+    server = model_server.ModelServer(engine, port, host='127.0.0.1',
+                                      default_max_new_tokens=4)
+    port = server.start()
+    return server, engine, f'http://127.0.0.1:{port}'
+
+
+def _http(url, path, body=None, raw=None):
+    data = raw if raw is not None else (
+        None if body is None else json.dumps(body).encode())
+    req = urllib.request.Request(url + path, data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@pytest.fixture(scope='module')
+def bridged():
+    jparams = jllama.init_params(jax.random.PRNGKey(0), JCFG)
+    return convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                     tllama.CONFIGS['debug'])
+
+
+def test_cross_replica_prefix_fetch_http_e2e(bridged):
+    """Two port replicas on localhost: B, cold, pulls A's cached prefix
+    blocks through POST /prefix_blocks (served off A's engine loop) and
+    answers A's tokens; the endpoint's contract; /slo's cache block; B's
+    own address in its peers, under an alias only the instance-id echo
+    can catch, is excluded for good."""
+    from skypilot_tpu_torch.models import prefix_transfer
+    shared = np.random.RandomState(3).randint(0, 256, size=24).tolist()
+    srv_a = srv_b = None
+    try:
+        srv_a, _, url_a = _paged_server(
+            bridged, prefix_peers=['http://peer-placeholder:1'])
+        status, _ = _http(url_a, '/generate', {
+            'prompt': shared + [1, 2, 3], 'max_new_tokens': 4,
+            'stream': False})
+        assert status == 200
+        status, body = _http(url_a, '/prefix_blocks',
+                             {'prompt': shared, 'from_tokens': 0})
+        assert status == 200
+        payload = prefix_transfer.decode_payload(body)
+        assert payload['matched_tokens'] == len(shared)
+        assert payload['arrays']['k'].shape[1] == len(shared) // 8
+        status, body = _http(url_a, '/prefix_blocks', {'prompt': [9] * 24})
+        assert status == 200 and body['arrays'] == {}
+        assert body['matched_tokens'] == 0
+
+        srv_b, eng_b, url_b = _paged_server(bridged,
+                                            prefix_peers=['SELF', url_a])
+        # An alias of B's own address that URL guessing cannot know
+        # (the server registers 127.0.0.1 and localhost, not 0.0.0.0).
+        self_alias = url_b.replace('127.0.0.1', '0.0.0.0')
+        eng_b.prefix_peers[0] = self_alias
+        prompt = shared + [5, 6, 7, 8]
+        body = {'prompt': prompt, 'max_new_tokens': 6, 'stream': False}
+        _, out_a = _http(url_a, '/generate', body)
+        _, out_b = _http(url_b, '/generate', body)
+        assert out_b['tokens'] == out_a['tokens']
+        _, slo = _http(url_b, '/slo')
+        assert slo['cache']['prefix_fetch_hits'] == 1
+        assert slo['cache']['prefix_fetch_tokens'] == len(shared)
+        assert slo['cache']['prefill_tokens_saved'] >= len(shared)
+        assert slo['cache']['prefix_peers'] == 2
+        assert self_alias in eng_b._prefix_self_urls  # pylint: disable=protected-access
+    finally:
+        for srv in (srv_a, srv_b):
+            if srv is not None:
+                srv.stop()
+
+
+def test_prefix_blocks_refusals_and_journal_gate(bridged, monkeypatch):
+    """/prefix_blocks answers as the reference's: 400 on an unpaged
+    replica, 404 without peers, 400 on a malformed body, {"self": true}
+    at once for the replica's own instance, GET 404 (no block store
+    hosted); /journal opens to a replica that has peers."""
+    monkeypatch.delenv(model_server.JOURNAL_PEERS_ENV, raising=False)
+    servers = []
+    try:
+        dense = model_server.ModelServer(
+            model_server.build_engine('debug', 1, 32, device='cpu',
+                                      params=bridged), 0, host='127.0.0.1')
+        servers.append(dense)
+        url_dense = f'http://127.0.0.1:{dense.start()}'
+        status, body = _http(url_dense, '/prefix_blocks', {'prompt': [1]})
+        assert (status, body) == (400, {'error': 'replica is not paged'})
+        srv, _, url = _paged_server(bridged)
+        servers.append(srv)
+        status, body = _http(url, '/prefix_blocks', {'prompt': [1]})
+        assert status == 404 and 'SKYTPU_PREFIX_PEERS' in body['error']
+        assert _http(url, '/journal')[0] == 404
+        srv, eng, url = _paged_server(bridged, prefix_peers=['http://x:1'])
+        servers.append(srv)
+        for raw in (b'{not json', b'[1, 2]', b'{"from_tokens": 0}',
+                    b'{"prompt": "ab"}',
+                    b'{"prompt": [1], "budget_seconds": null}'):
+            status, body = _http(url, '/prefix_blocks', raw=raw)
+            assert status == 400 and 'needs "prompt"' in body['error'], raw
+        t0 = time.perf_counter()
+        status, body = _http(url, '/prefix_blocks', {
+            'prompt': [1] * 16, 'instance': eng.instance_id})
+        assert (status, body) == (200, {'self': True})
+        assert time.perf_counter() - t0 < 1.0
+        status, body = _http(url, '/prefix_blocks')
+        assert (status, body) == (404,
+                                  {'error': 'no block store hosted here'})
+        status, body = _http(url, '/journal')
+        assert status == 200 and body['role'] == 'mixed'
+    finally:
+        for srv in servers:
+            srv.stop()
+
+
+def test_prefix_peers_flag_reaches_the_engine(monkeypatch):
+    """``--prefix-peers`` parses as the reference's CLI declares it
+    (default None), and ``main()`` hands ``build_engine`` the list split
+    at commas with blanks dropped; absent, None (the engine then reads
+    SKYTPU_PREFIX_PEERS)."""
+    assert model_server.parse_args([]).prefix_peers is None
+    seen = []
+    build = model_server.build_engine
+
+    def fake_build(*a, **kw):
+        seen.append(kw['prefix_peers'])
+        return build('debug', 1, 32, device='cpu')
+
+    monkeypatch.setattr(model_server, 'build_engine', fake_build)
+    monkeypatch.setattr(model_server.ModelServer, 'run_forever',
+                        lambda self: None)
+    model_server.main(['--paged', '--prefix-peers',
+                       'http://a:1, ,http://b:2,', '--device', 'cpu'])
+    model_server.main(['--paged', '--device', 'cpu'])
+    assert seen == [['http://a:1', 'http://b:2'], None]

@@ -50,6 +50,7 @@ def test_importing_the_port_leaves_jax_out_of_the_process():
             'from skypilot_tpu_torch.serve import model_server\n'
             'from skypilot_tpu_torch.models import checkpoint, convert, data\n'
             'from skypilot_tpu_torch.models import decode, engine, train\n'
+            'from skypilot_tpu_torch.models import prefix_transfer\n'
             'from skypilot_tpu_torch.ops import cuda_build, flash_attention\n'
             'from skypilot_tpu_torch.observability import journal, metrics\n'
             'from skypilot_tpu_torch.observability import request_trace\n'
