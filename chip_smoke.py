@@ -210,17 +210,43 @@ port's package is not beside it. Phases (any failure exits non-zero):
    tokens are held to the control its outcome implies (the one above on
    a hit, the cold one otherwise).
 
+14. The trainers, run after phase 8; the flash launch counts are reset
+   just before and read just after. (a) bench-1b as phase 7 builds it,
+   once per remat policy ('full', 'dots', 'ffn', 'ffn1', 'attn'), each
+   from the seed-0 state, 3 steps on one fixed batch: the flash kernels
+   launch exactly [2L, L, L] a step under every policy (the reference
+   recomputes the flash forward under all five), every step's loss and
+   grad norm and the params after the last step equal 'full''s bit for
+   bit, and ``max_memory_allocated`` rises
+   full < attn < ffn1 < ffn < dots; each policy's step seconds,
+   tokens/s, MFU and peak GB are printed, with its peak over 'full''s
+   beside the bytes the reference's residual set predicts. (b)
+   ``train.train_loop`` for 4 steps with ``SKYTPU_PROFILE_DIR`` a
+   temporary directory and ``SKYTPU_PROFILE_STEPS=2``: a fresh registry
+   counts 4 steps, its MFU gauge equals ``tokens_per_second_to_mfu`` of
+   its tokens/s gauge at the card's peak from
+   ``utils/accelerator_registry`` (and is > 0), the gauge agrees with
+   the loop's own last step time within 1%, and one capture is
+   written, whose trace names the flash forward kernel. (c) ResNet-50 at
+   224 x 224, bf16, batch 128, 10 momentum-SGD steps on one fixed batch
+   at learning rate 1e-3: finite, falling losses; examples/s and peak
+   memory printed; then the debug ResNet in fp32 on the card against the
+   port on the CPU (TF32 off), held to ``tests/test_torch_resnet.py``'s
+   tolerances.
+
 Every replica journals into a temporary directory of the run, not into
 ``~/.skytpu``. Before phase 13 the whole run took 273.7 s on an H100
 (700 W), phase 12 88.9 s of it (its int8 step profile 36.9 s, the 16 GB
 save and restore 31.3 s), well inside its time limit, so every phase
-runs at full depth; ``PERF.md`` has the run with phase 13.
+runs at full depth; phase 14 adds ~45 s (~70 s alone with the build),
+and ``PERF.md`` has the whole run's time with phases 13 and 14.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
 """
 import atexit
 import gc
+import glob
 import json
 import logging
 import math
@@ -335,6 +361,25 @@ RESUME_REL_TOL = 1e-6
 TRAIN_E2E_TOL = {'fp32': dict(loss=1e-5, grad_norm=1e-4, grad=1e-4),
                  'bf16': dict(loss=1e-4, grad_norm=1e-3)}
 TRAIN_BF16_GRAD_RATIO = 1.2
+# Phase 14 (a): steps per remat policy, each from the seed-0 state on
+# one fixed batch; peak memory must rise in this order (the bytes each
+# policy keeps: the block input, then attn_out, w1's, w1's and w3's,
+# and the six GEMM outputs of 'dots').
+POLICY_STEPS = 3
+REMAT_MEMORY_ORDER = ('full', 'attn', 'ffn1', 'ffn', 'dots')
+# (b) train_loop steps with a profile capture of 2 of them.
+PROFILED_STEPS = 4
+# (c) ResNet-50 at ImageNet's 224 x 224, bf16. The reference's default
+# learning rate (0.1, no warm-up) diverges on one fixed batch in both
+# packages (a CPU run at batch 8 passed 1e18 by step 10), so the fixed-
+# batch check trains at 1e-3; the step's work is the same.
+RESNET_MODEL, RESNET_B, RESNET_SIZE = 'resnet50', 128, 224
+RESNET_STEPS, RESNET_LR = 10, 1e-3
+# The debug ResNet in fp32, card against CPU (TF32 off): only the
+# summation order differs, so tests/test_torch_resnet.py's rules, each
+# relative to the largest |value| of the CPU result.
+RESNET_PARITY_TOL = dict(logits=2e-5, loss=2e-5, grads=2e-4,
+                         step_loss=2e-5, params=2e-4)
 # Main-path and end-to-end phases run here (a rehearsal may point them
 # at the CPU and a small model; the kernel phase always needs the card).
 DEVICE = 'cuda'
@@ -2876,13 +2921,14 @@ def flash_kernel_phase(torch, fa):
 # --------------------------------------------------------------- phase 7
 
 
-def train_config(llama, dtype=None):
-    """bench-1b as bench.py trains it: flash attention, remat 'full',
-    ce_chunks 8 (the config's own)."""
+def train_config(llama, dtype=None, policy='full'):
+    """bench-1b as bench.py trains it: flash attention, remat ``policy``
+    ('full' unless phase 14 asks for another), ce_chunks 8 (the config's
+    own)."""
     import dataclasses
     cfg = dataclasses.replace(llama.CONFIGS[TRAIN_MODEL],
                               flash_attention=True, remat=True,
-                              remat_policy='full')
+                              remat_policy=policy)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     if cfg.ce_chunks != 8:
@@ -3113,6 +3159,303 @@ def train_e2e_phase(torch, llama, train):
     return worst
 
 
+# -------------------------------------------------------------- phase 14
+
+
+def saved_bytes_per_layer_token(torch, llama, cfg) -> int:
+    """What a policy keeps per layer per token beyond 'full' (which keeps
+    the block input): the outputs of llama.SAVED_GEMMS' weights, or the
+    attention output for 'attn', in the model dtype."""
+    elem = torch.finfo(cfg.dtype).bits // 8
+    if cfg.remat_policy == 'attn':
+        return elem * cfg.n_heads * cfg.head_dim
+    shapes = llama.param_shapes(cfg)['layers']
+    return elem * sum(shapes[name][-1]
+                      for name in llama.SAVED_GEMMS.get(cfg.remat_policy,
+                                                        ()))
+
+
+def remat_phase(torch, llama, train, fa, card, peak):
+    """(a) bench-1b as phase 7 trains it, once per remat policy, each
+    from the same seed-0 state on one fixed batch: exact flash launches
+    every step; every step's loss and grad norm, and the params after
+    the last step, equal to 'full''s bit for bit (step 1 runs at
+    learning rate 0, so its bf16 grad norm is the only reading of its
+    backward; the params carry step 2's); peak memory rising full <
+    attn < ffn1 < ffn < dots; each
+    policy's step seconds, tokens/s, MFU and peak GB printed, and its
+    peak over 'full''s against the bytes the reference's residual set
+    predicts."""
+    tc = train.TrainConfig(warmup_steps=10)
+    dev = torch.device(DEVICE)
+    tokens, targets = train.synthetic_batch(
+        llama.CONFIGS[TRAIN_MODEL].vocab_size, TRAIN_B, TRAIN_S, 1, 0)
+    runs = {}
+    full_params = None
+    for policy in llama.REMAT_POLICIES:
+        cfg = train_config(llama, policy=policy)
+        expect = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+        state = train.init_train_state(cfg, tc, dev)
+        step = train.make_train_step(cfg, tc)
+        sync(torch)
+        if dev.type == 'cuda':
+            torch.cuda.reset_peak_memory_stats()
+        base = allocated(torch)
+        losses, norms, secs = [], [], []
+        for i in range(POLICY_STEPS):
+            before = [fn.launches for fn in fa.KERNELS]
+            sync(torch)
+            t0 = time.perf_counter()
+            state, metrics = step(state, tokens, targets)
+            losses.append(float(metrics['loss']))
+            norms.append(float(metrics['grad_norm']))
+            sync(torch)
+            secs.append(time.perf_counter() - t0)
+            grew = [fn.launches - n for fn, n in zip(fa.KERNELS, before)]
+            if grew != expect:
+                fail(f'remat {policy!r} step {i + 1}: flash kernels '
+                     f'launched {grew}, expected {expect}')
+        peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+                   if dev.type == 'cuda' else float('nan'))
+        step_s = statistics.median(secs[1:])
+        tok_s = TRAIN_B * TRAIN_S / step_s
+        mfu = train.tokens_per_second_to_mfu(tok_s, cfg, TRAIN_S, peak)
+        runs[policy] = dict(
+            loss=losses, grad_norm=norms, step_s=step_s, tokens_per_s=tok_s,
+            mfu=mfu, peak_gb=peak_gb,
+            predicted_gb=saved_bytes_per_layer_token(torch, llama, cfg) *
+            TRAIN_B * TRAIN_S * cfg.n_layers / 1e9)
+        print(f'[remat] {policy}: losses {losses} grad norms {norms}; step '
+              f'{step_s:.4f}s (median of steps 2-{POLICY_STEPS}; '
+              f'{[round(x, 4) for x in secs]}), {tok_s:.1f} tokens/s, MFU '
+              f'{mfu:.4f}, peak {peak_gb:.3f} GB (max_memory_allocated; '
+              f'{base / 1e9:.3f} GB of params and Adam state before the '
+              f'steps), launches {expect} a step, on {card}', flush=True)
+        if not all(math.isfinite(x) for x in losses + norms):
+            fail(f'remat {policy!r}: non-finite losses or norms')
+        # Host copies, so no policy's peak holds another's params.
+        params = [p.cpu() for p in train.tree_leaves(state.params)]
+        if full_params is None:
+            full_params = params
+        runs[policy]['params_equal'] = all(
+            torch.equal(a, b) for a, b in zip(params, full_params))
+        del state, metrics, step, params
+        empty_cache(torch)
+    full = runs['full']
+    for policy, run in runs.items():
+        steps_equal = (run['loss'] == full['loss'] and
+                       run['grad_norm'] == full['grad_norm'])
+        print(f'[remat] {policy}: losses and grad norms of every step '
+              f'{"equal" if steps_equal else "DIFFER"} to full\'s, params '
+              f'after step {POLICY_STEPS} '
+              f'{"torch.equal" if run["params_equal"] else "DIFFER"}; peak '
+              f'over full {run["peak_gb"] - full["peak_gb"]:.3f} GB, the '
+              f'reference\'s residual set predicts '
+              f'{run["predicted_gb"]:.3f} GB', flush=True)
+        if not (steps_equal and run['params_equal']):
+            fail(f'remat {policy!r} differs from full: losses {run["loss"]}'
+                 f' vs {full["loss"]}, grad norms {run["grad_norm"]} vs '
+                 f'{full["grad_norm"]}, params equal {run["params_equal"]}')
+    if dev.type == 'cuda':
+        order = [runs[p]['peak_gb'] for p in REMAT_MEMORY_ORDER]
+        if order != sorted(order) or len(set(order)) != len(order):
+            fail(f'peak memory is not ordered {REMAT_MEMORY_ORDER}: '
+                 f'{order}')
+    return {p: {k: r[k] for k in ('step_s', 'tokens_per_s', 'mfu',
+                                  'peak_gb')} for p, r in runs.items()}
+
+
+def telemetry_train_phase(torch, llama, train, metrics, runtime_metrics,
+                          peak):
+    """(b) train_loop for PROFILED_STEPS steps with SKYTPU_PROFILE_DIR a
+    temporary directory and SKYTPU_PROFILE_STEPS=2: the registry counts
+    every step, its MFU gauge is the MFU of its tokens/s gauge, the gauge
+    agrees with the loop's own step times (read through on_step), and one
+    capture is written whose trace names the flash forward kernel."""
+    cfg = train_config(llama)
+    prev = metrics.set_registry(metrics.MetricsRegistry())
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_')
+    env = {runtime_metrics.PROFILE_DIR_ENV: tmp,
+           runtime_metrics.PROFILE_STEPS_ENV: '2'}
+    saved_env = {k: os.environ.get(k) for k in
+                 (*env, runtime_metrics.PEAK_FLOPS_ENV)}
+    os.environ.update(env)
+    os.environ.pop(runtime_metrics.PEAK_FLOPS_ENV, None)
+    stamps = []
+    try:
+        t0 = time.perf_counter()
+        end = train.train_loop(
+            cfg, train.TrainConfig(warmup_steps=10), PROFILED_STEPS,
+            TRAIN_B, TRAIN_S, log_every=0, device=torch.device(DEVICE),
+            on_step=lambda i, m: stamps.append(time.perf_counter()))
+        del end
+        empty_cache(torch)
+        wall = time.perf_counter() - t0
+        reg = metrics.get_registry()
+        steps = reg.get('skytpu_train_steps_total').value()
+        hist = reg.get('skytpu_train_step_seconds')
+        tps = reg.get('skytpu_train_tokens_per_second').value()
+        mfu = reg.get('skytpu_train_mfu').value()
+        captures = reg.get('skytpu_profile_captures_total')
+        captures = captures.value() if captures else 0
+        traces = sorted(glob.glob(os.path.join(tmp, 'train',
+                                               '*.pt.trace.json')))
+        trace_text = ''
+        if traces:
+            with open(traces[0]) as f:
+                trace_text = f.read()
+        loop_tps = TRAIN_B * TRAIN_S / (stamps[-1] - stamps[-2])
+        want_mfu = train.tokens_per_second_to_mfu(tps, cfg, TRAIN_S, peak)
+        print(f'[telemetry] train_loop {PROFILED_STEPS} steps in '
+              f'{wall:.1f}s: skytpu_train_steps_total {steps}, step seconds'
+              f' count {hist.count()} sum {hist.sum():.4f}, tokens/s gauge '
+              f'{tps:.1f} (the loop\'s last step by on_step: '
+              f'{loop_tps:.1f}), MFU gauge {mfu:.6f} (tokens_per_second_to_'
+              f'mfu at {peak:.4g}: {want_mfu:.6f}), captures {captures}, '
+              f'trace {[os.path.basename(t) for t in traces]} '
+              f'({len(trace_text)} bytes, flash_fwd_ '
+              f'{trace_text.count("flash_fwd_")} times)', flush=True)
+    finally:
+        metrics.set_registry(prev)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    if steps != PROFILED_STEPS or hist.count() != PROFILED_STEPS - 1:
+        fail(f'telemetry counted {steps} steps ({hist.count()} timed) of '
+             f'{PROFILED_STEPS}')
+    if not (mfu > 0 and mfu == want_mfu):
+        fail(f'skytpu_train_mfu {mfu} != tokens_per_second_to_mfu of its '
+             f'tokens/s gauge {want_mfu}')
+    if not abs(tps - loop_tps) <= 0.01 * loop_tps:
+        fail(f'tokens/s gauge {tps} vs the loop\'s {loop_tps}')
+    if captures != 1 or len(traces) != 1 or 'flash_fwd_' not in trace_text:
+        fail(f'profile: {captures} captures, traces {traces}, flash_fwd_ '
+             f'in the trace: {"flash_fwd_" in trace_text}')
+    return dict(steps=steps, tokens_per_s=tps, mfu=mfu,
+                trace_bytes=len(trace_text))
+
+
+def resnet_phase(torch, resnet, card):
+    """(c) ResNet-50 at 224 x 224 in bf16 (cuDNN convolutions, channels-
+    last), RESNET_STEPS momentum-SGD steps on one fixed batch: finite,
+    falling losses; examples/s and peak memory. Then the debug ResNet in
+    fp32 on the card against the same port on the CPU (TF32 off)."""
+    dev = torch.device(DEVICE)
+    cfg = resnet.CONFIGS[RESNET_MODEL]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = resnet.init_params(cfg, gen, dev)
+    momentum = resnet.zeros_momentum(params)
+    step = resnet.make_train_step(cfg, lr=RESNET_LR)
+    images = torch.randn((RESNET_B, RESNET_SIZE, RESNET_SIZE, 3),
+                         generator=gen, device=dev)
+    labels = torch.randint(0, cfg.num_classes, (RESNET_B,), generator=gen,
+                           device=dev)
+    sync(torch)
+    if dev.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(RESNET_STEPS):
+        sync(torch)
+        t0 = time.perf_counter()
+        params, momentum, loss = step(params, momentum, images, labels)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == 'cuda' else float('nan'))
+    ex_s = RESNET_B * (RESNET_STEPS - 1) / sum(secs[1:])
+    print(f'[resnet] {RESNET_MODEL} {RESNET_SIZE}x{RESNET_SIZE} bf16 batch '
+          f'{RESNET_B}, lr {RESNET_LR}: losses {[round(x, 4) for x in losses]}'
+          f'; {ex_s:.1f} examples/s (steps 2-{RESNET_STEPS}; first step '
+          f'{secs[0]:.2f}s), peak {peak_gb:.2f} GB (max_memory_allocated), '
+          f'on {card}', flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f'ResNet losses not finite: {losses}')
+    if not losses[-1] < losses[0]:
+        fail(f'ResNet loss did not fall on the fixed batch: {losses}')
+    del params, momentum, step, images, labels
+    empty_cache(torch)
+    return dict(examples_per_s=ex_s, peak_gb=peak_gb, losses=losses,
+                parity=resnet_parity(torch, resnet))
+
+
+def resnet_parity(torch, resnet):
+    """The debug ResNet in fp32 on DEVICE against the same port on the
+    CPU: logits, loss, every grad and two SGD steps, held to
+    tests/test_torch_resnet.py's rules (cuDNN against oneDNN: only the
+    summation order differs, TF32 is off)."""
+    import dataclasses
+    cfg = dataclasses.replace(resnet.CONFIGS['debug'], dtype=torch.float32)
+    params = resnet.init_params(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn((4, 32, 32, 3), generator=gen)
+    labels = torch.randint(0, cfg.num_classes, (4,), generator=gen)
+    results = {}
+    for dev in ('cpu', DEVICE):
+        # A copy per device: the steps below update it in place.
+        p = resnet.tree_map(lambda t, dev=dev: t.to(dev, copy=True), params)
+        x, y = images.to(dev), labels.to(dev)
+        logits = resnet.forward(p, x, cfg).cpu()
+        leaves = resnet.tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = resnet.loss_fn(p, x, y, cfg)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        for t in leaves:
+            t.requires_grad_(False)
+        m = resnet.zeros_momentum(p)
+        step = resnet.make_train_step(cfg)
+        for _ in range(2):
+            p, m, step_loss = step(p, m, x, y)
+        results[dev] = (logits, loss.item(), grads, step_loss.item(),
+                        [t.cpu() for t in resnet.tree_leaves(p)])
+    (cl, closs, cg, cs, cp), (gl, gloss, gg, gs, gp) = (results['cpu'],
+                                                       results[DEVICE])
+
+    def worst(got, want):
+        return max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(got, want))
+
+    err = dict(logits=worst([gl], [cl]),
+               loss=abs(gloss - closs) / abs(closs),
+               grads=worst(gg, cg), step_loss=abs(gs - cs) / abs(cs),
+               params=worst(gp, cp))
+    print(f'[resnet] debug fp32 {DEVICE} vs cpu: {err} (tolerances '
+          f'{RESNET_PARITY_TOL})', flush=True)
+    for key, value in err.items():
+        if not value <= RESNET_PARITY_TOL[key]:
+            fail(f'ResNet {DEVICE} vs cpu: {key} {value} > '
+                 f'{RESNET_PARITY_TOL[key]}')
+    return err
+
+
+def trainers_phase(torch, llama, train, fa, card):
+    """Phase 14: the remat policies, the trainer's telemetry and
+    profiler, the ResNet trainer."""
+    from skypilot_tpu_torch.models import resnet
+    from skypilot_tpu_torch.observability import metrics
+    from skypilot_tpu_torch.observability import runtime_metrics
+    from skypilot_tpu_torch.utils import accelerator_registry
+    peak = accelerator_registry.peak_bf16_flops(torch.device(DEVICE))
+    if torch.device(DEVICE).type == 'cuda' and not peak:
+        fail(f'no bf16 peak for {torch.cuda.get_device_name(0)!r} in '
+             'utils/accelerator_registry')
+    t0 = time.perf_counter()
+    remat = remat_phase(torch, llama, train, fa, card, peak or 1.0)
+    t1 = time.perf_counter()
+    tele = telemetry_train_phase(torch, llama, train, metrics,
+                                 runtime_metrics, peak or 1.0)
+    t2 = time.perf_counter()
+    res = resnet_phase(torch, resnet, card)
+    print(f'[time] phase 14: remat {t1 - t0:.1f}s, telemetry {t2 - t1:.1f}s'
+          f', resnet {time.perf_counter() - t2:.1f}s', flush=True)
+    return dict(remat=remat, telemetry=tele,
+                resnet={k: res[k] for k in ('examples_per_s', 'peak_gb')})
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3231,6 +3574,14 @@ def main() -> int:
     print(f'[train-e2e] worst relative differences: {train_worst}',
           flush=True)
     phase_done('phase 8')
+    fa.reset_launch_counts()
+    trainers = trainers_phase(torch, llama, train, fa, card)
+    phase14_counts = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    print(f'[phase 14] launches {phase14_counts}; {trainers}', flush=True)
+    if not all(phase14_counts.values()):
+        fail(f'a flash kernel was not launched in phase 14: '
+             f'{phase14_counts}')
+    phase_done('phase 14')
 
     kernels = []
     for kname, row in rows.items():
@@ -3277,9 +3628,10 @@ def main() -> int:
             'max_abs_err': main['max_abs_err'], 'ms': main['ms'],
             'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
             'bound_by': main['bound_by'],
-            'library_ms': main['library_ms'], 'fp32': row['fp32']})
+            'library_ms': main['library_ms'], 'fp32': row['fp32'],
+            'phase14_launches': phase14_counts[kname]})
     print(f'[done] {time.perf_counter() - t_start:.1f}s total; train '
-          f'{train_stats}', flush=True)
+          f'{train_stats}; trainers {trainers}', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

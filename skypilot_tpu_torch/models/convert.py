@@ -7,7 +7,9 @@ numpy arrays, which ``torch.from_numpy`` refuses; they are recognised by
 dtype name and reinterpreted through ``uint16`` — the same 16 bits —
 without importing ``ml_dtypes``. :func:`train_state_from_numpy` carries
 a reference train state (params and optax Adam moments) across the same
-way, so both trainers can start from one mid-run state. An int8 leaf
+way, so both trainers can start from one mid-run state, and
+:func:`resnet_params_from_numpy` a ResNet param tree (HWIO convolutions
+permuted to the port's OIHW). An int8 leaf
 of the reference's ``decode.quantize_params`` (its ``QuantizedTensor``
 with numpy ``values`` and ``scale``) is recognised by those two fields
 and becomes the port's ``ops/quant.QuantizedTensor``, bit for bit.
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import resnet
 from skypilot_tpu_torch.ops import quant
 
 
@@ -94,3 +97,34 @@ def train_state_from_numpy(params: Mapping[str, Any], adam_state: Any,
             mu=params_from_numpy(adam_state.mu, cfg, device),
             nu=params_from_numpy(adam_state.nu, cfg, device)),
         step=count if step is None else step)
+
+
+def resnet_params_from_numpy(tree: Mapping[str, Any],
+                             cfg: resnet.ResNetConfig,
+                             device='cpu') -> resnet.Params:
+    """The reference's ResNet params (numpy leaves; ``stages`` a list of
+    lists) → the port's on ``device``: convolution weights HWIO → OIHW
+    in channels-last memory, every other leaf as it is, each leaf's
+    shape checked against the config."""
+    def convert(node, shape, path):
+        if isinstance(shape, dict):
+            if set(node) != set(shape):
+                raise ValueError(f'{path or "params"}: keys {sorted(node)} '
+                                 f'!= {sorted(shape)}')
+            return {k: convert(node[k], shape[k], f'{path}/{k}')
+                    for k in shape}
+        if isinstance(shape, list):
+            if len(node) != len(shape):
+                raise ValueError(f'{path}: {len(node)} entries != '
+                                 f'{len(shape)} for this config')
+            return [convert(n, s, f'{path}/{i}')
+                    for i, (n, s) in enumerate(zip(node, shape))]
+        t = tensor_from_numpy(np.asarray(node), device)
+        if t.dim() == 4:
+            t = resnet.channels_last(t.permute(3, 2, 0, 1))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f'{path}: shape {tuple(t.shape)} != '
+                             f'{tuple(shape)} for this config')
+        return t
+
+    return convert(tree, resnet.param_shapes(cfg), '')

@@ -36,6 +36,8 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import metrics
+from skypilot_tpu_torch.observability import runtime_metrics
 from skypilot_tpu_torch.ops import decode_attention as decode_attention_ops
 from skypilot_tpu_torch.ops import quant
 
@@ -578,6 +580,15 @@ def generate(params: Params, prompt: torch.Tensor,
     device = prompt.device
     cache = init_kv_cache(cfg, b, dcfg.max_len, dcfg.kv_cache_dtype,
                           device)
+    # Host-side telemetry, as the reference's generate: KV-cache
+    # capacity/occupancy and dtype gauges and a request counter. Latency
+    # histograms belong to callers that own a sync boundary
+    # (runtime_metrics.record_decode_phase).
+    runtime_metrics.record_kv_cache(b, dcfg.max_len,
+                                    s_prompt + max_new_tokens,
+                                    dcfg.kv_cache_dtype)
+    metrics.counter('skytpu_decode_requests_total',
+                    'Decode requests (batched generate calls).').inc()
     lens = prompt_lens.to(device).long()
     last = prefill(params, prompt, cfg, cache, lens)
     token = sample(last, generator, dcfg.temperature)

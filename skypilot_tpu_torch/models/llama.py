@@ -19,17 +19,21 @@ model dtype, as in the reference.
 
 Training: :func:`loss_fn` (mean next-token cross-entropy, optionally in
 checkpointed sequence chunks), per-block rematerialisation through
-``torch.utils.checkpoint`` (policy ``'full'``), and the flash-attention
-kernels of ``ops/flash_attention.py`` when ``flash_attention`` is set —
-for prefill too, as in the reference. ``impl`` ('kernel' or 'plain')
+``torch.utils.checkpoint`` under the reference's five policies (see
+:func:`remat_block`), and the flash-attention kernels of
+``ops/flash_attention.py`` when ``flash_attention`` is set — for prefill
+too, as in the reference. ``impl`` ('kernel' or 'plain')
 picks the flash kernels or their plain twins; None takes the kernels on
 CUDA tensors.
 """
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
@@ -52,8 +56,9 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16
     # Remat each block's activations (trade FLOPs for device memory).
     remat: bool = True
-    # 'full' recomputes the whole block in backward. The reference's
-    # selective policies ('dots', 'ffn', 'ffn1', 'attn') are not ported.
+    # What backward keeps of a block (REMAT_POLICIES): 'full' only its
+    # input; 'dots' also the wq/wk/wv/wo/w1/w3 outputs; 'ffn' the w1 and
+    # w3 outputs; 'ffn1' the w1 output; 'attn' the attention output.
     remat_policy: str = 'full'
     # Causal attention through the flash kernels (training and prefill).
     flash_attention: bool = False
@@ -231,17 +236,36 @@ def full_sequence_attention(cfg: LlamaConfig, q: torch.Tensor,
     return attention_ops.gqa_attention(q, k, v, causal=True)
 
 
+def _attention_out(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
+                   cos: torch.Tensor, sin: torch.Tensor,
+                   impl: Optional[str]) -> torch.Tensor:
+    """Norm → QKV → RoPE → causal attention: the attention output
+    [B, S, H·hd] before ``wo`` (what the ``'attn'`` policy keeps)."""
+    return _attention(cfg, x, layer, cos, sin, impl)[0]
+
+
+def _attention(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
+               cos: torch.Tensor, sin: torch.Tensor, impl: Optional[str]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, s, _ = x.shape
+    q, k, v = qkv(cfg, x, layer, cos, sin)
+    attn = full_sequence_attention(cfg, q, k, v, impl)
+    return attn.reshape(b, s, cfg.n_heads * cfg.head_dim), k, v
+
+
 def attn_sublayer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
                   cos: torch.Tensor, sin: torch.Tensor,
                   impl: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Norm → QKV → RoPE → causal attention → residual. Returns
     (x, k, v) so prefill seeds the KV cache from the same code."""
-    b, s, _ = x.shape
-    q, k, v = qkv(cfg, x, layer, cos, sin)
-    attn = full_sequence_attention(cfg, q, k, v, impl)
-    attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return x + quant_mm(attn, layer['wo']).to(cfg.dtype), k, v
+    attn, k, v = _attention(cfg, x, layer, cos, sin, impl)
+    return _attn_residual(cfg, x, attn, layer), k, v
+
+
+def _attn_residual(cfg: LlamaConfig, x: torch.Tensor, attn: torch.Tensor,
+                   layer: Params) -> torch.Tensor:
+    return x + quant_mm(attn, layer['wo']).to(cfg.dtype)
 
 
 def ffn_sublayer(cfg: LlamaConfig, x: torch.Tensor,
@@ -262,20 +286,68 @@ def _block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
     return ffn_sublayer(cfg, x, layer)
 
 
-# The reference's selective remat policies (jax.checkpoint_policies).
-UNPORTED_REMAT_POLICIES = ('dots', 'ffn', 'ffn1', 'attn')
+def _after_attention(cfg: LlamaConfig, x: torch.Tensor, attn: torch.Tensor,
+                     layer: Params) -> torch.Tensor:
+    return ffn_sublayer(cfg, _attn_residual(cfg, x, attn, layer), layer)
+
+
+REMAT_POLICIES = ('full', 'dots', 'ffn', 'ffn1', 'attn')
+# The layer weights whose GEMM outputs a GEMM-saving policy keeps: what
+# the reference's jax.checkpoint_policies keep and its backward reads.
+# 'dots' (dots_with_no_batch_dims_saveable) leaves out w2, whose output
+# the backward never reads, so XLA drops it; 'ffn' and 'ffn1' are
+# save_only_these_names over the w1/w3 outputs.
+SAVED_GEMMS = {'dots': ('wq', 'wk', 'wv', 'wo', 'w1', 'w3'),
+               'ffn': ('w1', 'w3'),
+               'ffn1': ('w1',)}
 
 
 def _check_remat(cfg: LlamaConfig) -> None:
-    if not cfg.remat or cfg.remat_policy == 'full':
-        return
-    if cfg.remat_policy in UNPORTED_REMAT_POLICIES:
-        raise ValueError(f'remat_policy {cfg.remat_policy!r} is not ported '
-                         f'to skypilot_tpu_torch yet (selective policies '
-                         f'{UNPORTED_REMAT_POLICIES}); use \'full\' or '
-                         f'remat=False')
-    raise ValueError(f'unknown remat_policy: {cfg.remat_policy!r} '
-                     "(expected 'full', 'dots', 'ffn', 'ffn1' or 'attn')")
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f'unknown remat_policy: {cfg.remat_policy!r} '
+                         "(expected 'full', 'dots', 'ffn', 'ffn1' or 'attn')")
+
+
+def _saved_gemms_context(weights):
+    """Selective-checkpoint contexts that keep the output of every
+    ``aten.mm`` whose second operand lies in one of ``weights``'
+    storages (``x @ w`` on a [B, S, in] x reaches the dispatcher as an
+    ``mm`` of its [B·S, in] fold) and recompute everything else."""
+    storages = {w.untyped_storage().data_ptr() for w in weights}
+
+    def policy(ctx, op, *args, **kwargs):
+        del ctx, kwargs
+        if (op is torch.ops.aten.mm.default and
+                args[1].untyped_storage().data_ptr() in storages):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def remat_block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
+                cos: torch.Tensor, sin: torch.Tensor,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """One decoder block under ``torch.utils.checkpoint`` with
+    ``cfg.remat_policy``. Backward keeps exactly the reference's
+    residuals: the block input, plus the GEMM outputs of
+    :data:`SAVED_GEMMS` (selective checkpointing) or, for ``'attn'``,
+    the attention output (the block split at it into two checkpointed
+    segments). Everything else is recomputed, the flash forward under
+    every policy, as the reference recomputes it (it never keeps the
+    LSE). The policies change memory and recompute, never values."""
+    policy = cfg.remat_policy
+    if policy == 'attn':
+        attn = checkpoint(_attention_out, cfg, x, layer, cos, sin, impl,
+                          use_reentrant=False)
+        return checkpoint(_after_attention, cfg, x, attn, layer,
+                          use_reentrant=False)
+    kwargs = {}
+    if policy in SAVED_GEMMS:
+        kwargs['context_fn'] = functools.partial(
+            _saved_gemms_context, [layer[n] for n in SAVED_GEMMS[policy]])
+    return checkpoint(_block, cfg, x, layer, cos, sin, impl,
+                      use_reentrant=False, **kwargs)
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -284,10 +356,9 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     """tokens [B, S] → final normed hidden states [B, S, dim].
 
     With ``cfg.remat`` and autograd on, each block runs under
-    ``checkpoint``: backward keeps only the block inputs and recomputes
-    the rest. The stacked layer weights are unbound once, so their
-    gradients come back as one stack instead of one full-size tensor
-    per layer."""
+    :func:`remat_block`. The stacked layer weights are unbound once, so
+    their gradients come back as one stack instead of one full-size
+    tensor per layer."""
     _check_remat(cfg)
     s = tokens.shape[1]
     if positions is None:
@@ -297,14 +368,10 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     x = params['tok_embedding'][tokens.long()].to(cfg.dtype)
     names = sorted(params['layers'])
     per_layer = zip(*(params['layers'][n].unbind(0) for n in names))
-    remat = cfg.remat and torch.is_grad_enabled()
+    block = (remat_block if cfg.remat and torch.is_grad_enabled()
+             else _block)
     for weights in per_layer:
-        layer = dict(zip(names, weights))
-        if remat:
-            x = checkpoint(_block, cfg, x, layer, cos, sin, impl,
-                           use_reentrant=False)
-        else:
-            x = _block(cfg, x, layer, cos, sin, impl)
+        x = block(cfg, x, dict(zip(names, weights)), cos, sin, impl)
     return rms_norm(x, params['out_norm'], cfg.norm_eps)
 
 

@@ -34,6 +34,7 @@ import torch
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import checkpoint as ckpt_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import runtime_metrics
 
 Params = llama.Params
 
@@ -260,8 +261,11 @@ def train_loop(model_cfg: llama.LlamaConfig,
     If ``checkpoint_dir`` holds a complete checkpoint, params, Adam
     moments and step restore from it and the loop continues at step N.
     Batches are a pure function of ``(data_seed, step)``, so a resumed
-    run sees the stream it would have seen unpreempted. ``on_step(step,
-    metrics)`` is called after every step (telemetry is not ported)."""
+    run sees the stream it would have seen unpreempted. Each step is
+    published through ``observability/runtime_metrics.TrainTelemetry``
+    (step seconds, tokens/s, MFU, steps), ``SKYTPU_PROFILE_DIR`` arms a
+    ``StepProfiler`` capture, and ``on_step(step, metrics)`` is called
+    after every step."""
     dev = resolve_device(device)
     start_step = 0
     state = None
@@ -274,7 +278,14 @@ def train_loop(model_cfg: llama.LlamaConfig,
     if state is None:
         state = init_train_state(model_cfg, train_cfg, dev)
     step_fn = make_train_step(model_cfg, train_cfg)
+    # No explicit step_start(): the first record_step silently arms the
+    # timer, so the first step (kernel builds, allocator warm-up) never
+    # enters the step-time histogram.
+    telemetry = runtime_metrics.TrainTelemetry(model_cfg=model_cfg,
+                                               seq_len=seq_len, device=dev)
+    profiler = runtime_metrics.StepProfiler(tag='train')
     for step in range(start_step, num_steps):
+        profiler.step()
         if dataset is not None:
             tokens, targets = dataset.batch(step, batch_size, seq_len,
                                             seed=data_seed)
@@ -283,6 +294,7 @@ def train_loop(model_cfg: llama.LlamaConfig,
                                               batch_size, seq_len,
                                               data_seed, step)
         state, metrics = step_fn(state, tokens, targets)
+        telemetry.record_step(tokens=batch_size * seq_len)
         if on_step is not None:
             on_step(step + 1, metrics)
         if sleep_per_step:
@@ -293,6 +305,7 @@ def train_loop(model_cfg: llama.LlamaConfig,
         if checkpoint_dir and (step + 1) % save_every == 0:
             ckpt_lib.save(checkpoint_dir, state, step + 1, keep=keep)
             print(f'[train] checkpoint @ step {step + 1}', flush=True)
+    profiler.stop()
     if (checkpoint_dir and num_steps > start_step and
             num_steps % save_every != 0):  # loop already saved otherwise
         ckpt_lib.save(checkpoint_dir, state, num_steps, keep=keep)
