@@ -234,6 +234,37 @@ port's package is not beside it. Phases (any failure exits non-zero):
    port on the CPU (TF32 off), held to ``tests/test_torch_resnet.py``'s
    tolerances.
 
+15. The disaggregated prefill/decode handoff, run after phase 13 while
+   the llama3-8b weights are loaded; the launch counts are reset just
+   before and read just after. For bf16 and then int8 K/V, three paged
+   replicas of the port's ModelServer on local ports (8 slots, max_len
+   2048, block_k 128, prefill_chunk 256, one set of params): a prefill
+   replica (role ``prefill``, whose peer is the decode replica), a
+   decode replica (role ``decode``, whose peer is the prefill replica)
+   and a monolithic control (``mixed``). The prompts have 1,000 tokens:
+   7 full blocks and a 104-token tail, 4 chunks, so the prefill replica
+   pushes 2, 2, 2 and 1 blocks and the push of a chunk overlaps the next
+   chunk's prefill. (a) ``POST /prefill_handoff`` naming the decode
+   replica in ``X-Skytpu-Handoff-Target``, under a 60 s push budget
+   (``SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS``), answers ``complete``; the
+   prefill replica ran no decode step; ``/slo``'s handoff blocks count
+   896 tokens pushed and 896 injected; then ``/generate`` of the same
+   prompt on the decode replica saves at least 896 prompt tokens, gives
+   the control's tokens (its second answer of the prompt, which takes
+   the same path: 7 blocks from its radix cache, the tail prefilled
+   over them), and its 7 blocks equal the control's (``torch.equal``,
+   every plane). (b) The paged-decode kernel launched exactly n_layers x
+   the decode replica's steps during that ``/generate``, and over the
+   phase n_layers x every replica's steps; the dense and verify kernels
+   never. (c) An untrusted target, and ``SKYTPU_CHAOS=
+   handoff_decode_death`` on the decode side, answer ``degraded`` with
+   all 32 tokens, and the dead peer is in the prefill replica's backoff.
+   (d) Once, in bf16, the default 2 s budget: its outcome (``complete``
+   or ``degraded``) printed, the request answered in full either way.
+   Printed: the prefill leg's wall time, each push's blocks, raw bytes
+   and seconds, and the decode replica's first-token time against the
+   control's, cold and over its own cache.
+
 Every replica journals into a temporary directory of the run, not into
 ``~/.skytpu``. Before phase 13 the whole run took 273.7 s on an H100
 (700 W), phase 12 88.9 s of it (its int8 step profile 36.9 s, the 16 GB
@@ -2742,6 +2773,254 @@ def prefix_fetch_phase(torch, ms_lib, da, params, card):
     return out
 
 
+# -------------------------------------------------------------- phase 15
+
+
+# A prompt of 7 full blocks of 128 and a 104-token tail: at chunk 256 the
+# prefill replica pushes 2, 2, 2 and 1 blocks after its four chunks.
+HANDOFF_PROMPT = 1000
+HANDOFF_CHUNK = 256
+HANDOFF_TOKENS = (HANDOFF_PROMPT // 128) * 128
+# The explicit push budget of (a); (d) runs once at the default (2 s).
+HANDOFF_PUSH_BUDGET = 60.0
+PUSH_BUDGET_ENV = 'SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS'
+
+
+def handoff_post(port: int, body: dict, target) -> tuple:
+    """POST /prefill_handoff (unary), naming ``target`` in the handoff
+    header: (X-Skytpu-Handoff, the JSON reply, seconds)."""
+    headers = {'Content-Type': 'application/json'}
+    if target:
+        headers['X-Skytpu-Handoff-Target'] = target
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}/prefill_handoff',
+        data=json.dumps({**body, 'stream': False}).encode(), headers=headers)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        out = json.loads(resp.read())
+        mode = resp.headers.get('X-Skytpu-Handoff')
+    return mode, out, time.perf_counter() - t0
+
+
+class HandoffReplica:
+    """One paged llama3-8b replica of phase 15 on a local port, built the
+    way a user starts one (``build_engine`` with ``prefix_peers`` and the
+    chunk, ``ModelServer`` with the role)."""
+
+    def __init__(self, ms_lib, params, kv, role, port=0, peers=None):
+        self.engine = ms_lib.build_engine(
+            MODEL, 8, MAX_LEN, step_chunk=4, device=DEVICE, params=params,
+            paged=True, kv_int8=kv == 'int8', prefix_peers=peers,
+            prefill_chunk=HANDOFF_CHUNK)
+        self.server = ms_lib.ModelServer(self.engine, port,
+                                         host='127.0.0.1', role=role)
+        self.port = self.server.start()
+        self.url = f'http://127.0.0.1:{self.port}'
+
+    def steps(self) -> int:
+        return self.engine.stats()['decode_steps']
+
+    def handoff(self) -> dict:
+        return get_json(self.port, '/slo')['handoff']
+
+
+def handoff_phase(torch, ms_lib, da, params, card):
+    """Phase 15: the disaggregated handoff at llama3-8b width between a
+    prefill and a decode replica, bf16 and int8 K/V, beside a monolithic
+    control; launch counts reset by the caller. Returns the printed
+    numbers by K/V dtype."""
+    import random
+    cfg = ms_lib.llama.CONFIGS[MODEL]
+    rng = random.Random(15)
+    pushes = []
+    real_push = ms_lib.prefix_transfer.http_push
+
+    def timed_push(peer, tokens, payload, budget_seconds, instance=None):
+        # The transport as the server calls it, timed: raw bytes and the
+        # seconds of one push (serialising, the wire, the peer's install).
+        t0 = time.perf_counter()
+        ok = real_push(peer, tokens, payload, budget_seconds, instance)
+        pushes.append({'blocks': (payload['matched_tokens'] -
+                                  payload['from_tokens']) // 128,
+                       'raw_bytes': sum(a.nbytes for a in
+                                        payload['arrays'].values()),
+                       'seconds': time.perf_counter() - t0, 'ok': ok})
+        return ok
+
+    ms_lib.prefix_transfer.http_push = timed_push
+    n_layers = cfg.n_layers
+    decode_steps = 0
+    out = {}
+    try:
+        for kv in ('bf16', 'int8'):
+            replicas = []
+            try:
+                d_port = free_port()
+                d_url = f'http://127.0.0.1:{d_port}'
+                pre = HandoffReplica(ms_lib, params, kv, 'prefill',
+                                     peers=[d_url])
+                replicas.append(pre)
+                dec = HandoffReplica(ms_lib, params, kv, 'decode', d_port,
+                                     peers=[pre.url])
+                replicas.append(dec)
+                ctl = HandoffReplica(ms_lib, params, kv, 'mixed')
+                replicas.append(ctl)
+                prompt = rand_prompt(rng, cfg.vocab_size, HANDOFF_PROMPT)
+                body = {'prompt': prompt, 'max_new_tokens': N_NEW}
+                # The control: the prompt cold (a monolithic replica's
+                # TTFT), then again over its own cached prefix, which is
+                # the decode replica's path (7 blocks from the radix cache,
+                # the 104-token tail prefilled over them).
+                cold, cold_ttft = timed_stream(ctl.port, body,
+                                               f'p15-{kv}-cold')
+                want, warm_ttft = timed_stream(ctl.port, body,
+                                               f'p15-{kv}-warm')
+                # (a) the handoff under an explicit budget.
+                os.environ[PUSH_BUDGET_ENV] = str(HANDOFF_PUSH_BUDGET)
+                del pushes[:]
+                steps0, h0, d0 = pre.steps(), pre.handoff(), dec.handoff()
+                try:
+                    mode, reply, leg_s = handoff_post(pre.port, body, d_url)
+                finally:
+                    os.environ.pop(PUSH_BUDGET_ENV, None)
+                if mode != 'complete' or reply.get('handoff') != 'complete':
+                    fail(f'{kv}: /prefill_handoff answered {mode} {reply}')
+                h1, d1 = pre.handoff(), dec.handoff()
+                pushed = h1['tokens_pushed'] - h0['tokens_pushed']
+                injected = d1['tokens_injected'] - d0['tokens_injected']
+                if pre.steps() != steps0:
+                    fail(f'{kv}: the prefill replica ran '
+                         f'{pre.steps() - steps0} decode steps')
+                if not pushed == injected == HANDOFF_TOKENS:
+                    fail(f'{kv}: pushed {pushed}, injected {injected}, '
+                         f'expected {HANDOFF_TOKENS}')
+                if [p['blocks'] for p in pushes] != [2, 2, 2, 1]:
+                    fail(f'{kv}: pushes {pushes}')
+                push_log = list(pushes)
+                # (b) the decode leg, its launches counted alone.
+                saved0 = get_json(dec.port, '/slo')['cache'][
+                    'prefill_tokens_saved']
+                launched0 = da.paged_decode_attention_kernel.launches
+                dsteps0 = dec.steps()
+                got, dec_ttft = timed_stream(dec.port, body,
+                                             f'p15-{kv}-decode')
+                dec_launches = (da.paged_decode_attention_kernel.launches
+                                - launched0)
+                dec_steps = dec.steps() - dsteps0
+                if dec_launches != n_layers * dec_steps or not dec_steps:
+                    fail(f'{kv}: the decode replica launched the paged '
+                         f'decode kernel {dec_launches} times in '
+                         f'{dec_steps} steps')
+                saved = get_json(dec.port, '/slo')['cache'][
+                    'prefill_tokens_saved'] - saved0
+                if saved < HANDOFF_TOKENS:
+                    fail(f'{kv}: the decode replica saved {saved} tokens')
+                if got != want:
+                    fail(f'{kv}: handed-off tokens {got[:8]}..., the '
+                         f'control {want[:8]}...')
+                mine = dec.engine.export_prefix_blocks(
+                    prompt[:HANDOFF_TOKENS], 0, 60.0)
+                theirs = ctl.engine.export_prefix_blocks(
+                    prompt[:HANDOFF_TOKENS], 0, 60.0)
+                if (mine is None or theirs is None or
+                        mine['matched_tokens'] != HANDOFF_TOKENS or
+                        theirs['matched_tokens'] != HANDOFF_TOKENS):
+                    fail(f'{kv}: the prefix is not held whole by both')
+                for name, t in theirs['arrays'].items():
+                    if not torch.equal(mine['arrays'][name], t):
+                        fail(f'{kv}: injected {name} differs from the '
+                             f'control\'s')
+                del mine, theirs
+                # (d) the default budget, once: its outcome is printed,
+                # and either way the request is answered in full.
+                default = None
+                if kv == 'bf16':
+                    del pushes[:]
+                    dbody = {'prompt': rand_prompt(rng, cfg.vocab_size,
+                                                   HANDOFF_PROMPT),
+                             'max_new_tokens': N_NEW}
+                    mode, reply, dleg = handoff_post(pre.port, dbody, d_url)
+                    if mode == 'complete':
+                        toks, _ = timed_stream(dec.port, dbody,
+                                               f'p15-{kv}-default')
+                    else:
+                        toks = reply.get('tokens', [])
+                    if len(toks) != N_NEW:
+                        fail(f'default budget: {mode} with {len(toks)} '
+                             'tokens')
+                    default = {'outcome': mode, 'leg_s': dleg,
+                               'push_s': [round(p['seconds'], 3)
+                                          for p in pushes]}
+                    # A degrade backs the decode peer off; (c) needs it
+                    # back.
+                    pre.engine._peer_backoff_until.clear()  # pylint: disable=protected-access
+                # (c) degrades: an untrusted target, then the decode
+                # replica dying mid-handoff.
+                degraded = {}
+                for case, target in (('untrusted', 'http://127.0.0.1:1'),
+                                     ('decode_death', d_url)):
+                    cbody = {'prompt': rand_prompt(rng, cfg.vocab_size,
+                                                   HANDOFF_PROMPT),
+                             'max_new_tokens': N_NEW}
+                    if case == 'decode_death':
+                        os.environ['SKYTPU_CHAOS'] = 'handoff_decode_death'
+                    try:
+                        mode, reply, cs = handoff_post(pre.port, cbody,
+                                                       target)
+                    finally:
+                        os.environ.pop('SKYTPU_CHAOS', None)
+                    if (mode != 'degraded' or
+                            len(reply.get('tokens', [])) != N_NEW):
+                        fail(f'{kv} {case}: {mode}, '
+                             f'{len(reply.get("tokens", []))} tokens')
+                    degraded[case] = round(cs, 3)
+                if not pre.engine.peer_in_backoff(d_url):
+                    fail(f'{kv}: the dead decode peer is not in backoff')
+                for r in (pre, dec, ctl):
+                    decode_steps += r.steps()
+                replicas = []
+                for r in (pre, dec, ctl):
+                    r.server.stop()
+            finally:
+                for r in replicas:
+                    r.server.stop()
+            out[kv] = {
+                'prefill_leg_s': round(leg_s, 3),
+                'pushes': [{'blocks': p['blocks'],
+                            'raw_bytes': p['raw_bytes'],
+                            'seconds': round(p['seconds'], 3)}
+                           for p in push_log],
+                'decode_ttft_s': round(dec_ttft, 3),
+                'control_cold_ttft_s': round(cold_ttft, 3),
+                'control_warm_ttft_s': round(warm_ttft, 3),
+                'cold_tokens_equal': cold == want,
+                'decode_launches': dec_launches, 'decode_steps': dec_steps,
+                'degraded_s': degraded,
+            }
+            if default is not None:
+                out[kv]['default_budget'] = default
+            print(f'[handoff] {kv}: prefill leg {leg_s:.3f}s for '
+                  f'{HANDOFF_PROMPT} tokens, pushes (blocks, raw bytes, s) '
+                  f'{[(p["blocks"], p["raw_bytes"], round(p["seconds"], 3)) for p in push_log]}; '
+                  f'decode TTFT {dec_ttft:.3f}s against the control\'s '
+                  f'{cold_ttft:.3f}s cold and {warm_ttft:.3f}s over its '
+                  f'own cache; default budget {default}; degraded legs '
+                  f'{degraded}; on {card}', flush=True)
+            del replicas
+            gc.collect()
+            empty_cache(torch)
+    finally:
+        ms_lib.prefix_transfer.http_push = real_push
+    launched = da.paged_decode_attention_kernel.launches
+    if launched != n_layers * decode_steps or not decode_steps:
+        fail(f'phase 15: paged decode launched {launched} times, expected '
+             f'n_layers x decode steps = {n_layers * decode_steps}')
+    for fn in (da.decode_attention_kernel, da.paged_verify_attention_kernel):
+        if fn.launches:
+            fail(f'phase 15: {fn.__name__} launched {fn.launches} times')
+    return out
+
+
 # --------------------------------------------------------------- phase 6
 
 
@@ -3562,9 +3841,17 @@ def main() -> int:
     phase13_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
     print(f'[phase 13] launches {phase13_counts}; {prefix_report}',
           flush=True)
+    phase_done('phase 13')
+
+    # Phase 15 (the disaggregated handoff) while the weights are up.
+    da.reset_launch_counts()
+    handoff_report = handoff_phase(torch, ms_lib, da, params, card)
+    phase15_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    print(f'[phase 15] launches {phase15_counts}; {handoff_report}',
+          flush=True)
     del params, spec_runs, paged_results, dense_results
     torch.cuda.empty_cache()
-    phase_done('phase 13')
+    phase_done('phase 15')
 
     flash_rows = flash_kernel_phase(torch, fa)
     phase_done('phase 6')
@@ -3597,7 +3884,8 @@ def main() -> int:
             'phase10_launches': phase10_counts[kname],
             'phase11_launches': phase11_counts[kname],
             'phase12_launches': phase12_counts[kname],
-            'phase13_launches': phase13_counts[kname]})
+            'phase13_launches': phase13_counts[kname],
+            'phase15_launches': phase15_counts[kname]})
     kernels.append({
         'name': 'paged_verify_attention_kernel', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
@@ -3617,7 +3905,9 @@ def main() -> int:
         'phase12_launches':
             phase12_counts['paged_verify_attention_kernel'],
         'phase13_launches':
-            phase13_counts['paged_verify_attention_kernel']})
+            phase13_counts['paged_verify_attention_kernel'],
+        'phase15_launches':
+            phase15_counts['paged_verify_attention_kernel']})
     for kname, row in flash_rows.items():
         main = row['bf16']
         kernels.append({

@@ -4,9 +4,9 @@ Counterpart of ``skypilot_tpu/models/engine.py``'s ``DecodeEngine``:
 dense and paged modes, greedy and sampled decoding, radix prefix reuse,
 per-tenant round-robin admission, clamp/reject of over-budget requests,
 greedy speculative decoding and chunked prefill on the paged pool, the
-crash supervisor, the serving telemetry, and the cross-replica prefix
-fetch. Tensor parallelism, the handoff and the block store belong to
-later slices.
+crash supervisor, the serving telemetry, the cross-replica prefix fetch
+and the disaggregated prefill/decode handoff. Tensor parallelism and the
+block store belong to later slices.
 
 * **One persistent cache** of ``num_slots`` lanes (dense) or one block
   pool (paged), updated in place for the life of the engine.
@@ -68,10 +68,26 @@ prefill and is journaled as ``engine.prefix_fetch``. The owner side:
 the HTTP thread, and ``step()`` serves it on the loop thread, which
 owns the radix cache and the pool.
 
+**Disaggregated prefill/decode handoff** (paged): a request armed with
+``handoff_push`` (the model server's ``/prefill_handoff``) always admits
+through the chunked path; after each chunk its newly finished full
+blocks are copied to the host and pushed to the decode peer on a
+background executor, at most one push in flight per slot, and once every
+full block is acked the request finishes as ``'handoff'`` without a
+token and its blocks go back to the pool. Any failure (a short prompt, a
+failed or timed-out push, an export error) degrades the request to
+decode-in-place here. The decode side: :meth:`DecodeEngine.
+inject_handoff_blocks` queues a pushed chunk from the HTTP thread, and
+``step()`` installs it into the pool and the radix cache, so the same
+request sent there admits as a near-full prefix hit. Both directions are
+counted in ``skytpu_engine_handoffs_total{result}`` and journaled as
+``engine.handoff``.
+
 The allocator, radix cache and :class:`Request` are this package's own
 copies of the reference's pure-Python classes.
 """
 import collections
+import concurrent.futures
 import functools
 import heapq
 import itertools
@@ -353,6 +369,11 @@ class Request:
     ``prefix_hint`` (the load balancer's prefix-owner header) moves a
     configured peer of the same URL to the front of the prefix fetch's
     try order; it never adds one.
+    ``handoff_push(tokens_prefix, payload) -> bool`` (True: acked), when
+    set, streams the request's KV blocks to a decode peer as its prefill
+    chunks finish, and the request then finishes as ``'handoff'``
+    without decoding; any push failure degrades it to decode-in-place.
+    ``handoff_peer`` (the decode peer's URL) keys the peer's backoff.
     ``enqueue_ts``/``first_token_ts``/``finish_ts`` are
     ``time.perf_counter()`` stamps the telemetry plane reads."""
     _ids = itertools.count()
@@ -379,6 +400,8 @@ class Request:
         self.trace_id = trace_id
         self.span_id = span_id
         self.prefix_hint = prefix_hint
+        self.handoff_push: Optional[Callable[..., bool]] = None
+        self.handoff_peer: Optional[str] = None
         self.tokens: List[int] = []
         self.finish_reason: Optional[str] = None
         self.enqueue_ts: Optional[float] = None
@@ -579,9 +602,20 @@ class DecodeEngine:
         self._prefix_fetch_hits = 0
         self._prefix_fetch_misses = 0
         self._prefix_fetch_tokens = 0
-        # Peers' /prefix_blocks exports queue here from any thread and
-        # are served by the loop at the top of each step (the radix
-        # cache and the pool are loop-confined).
+        # Disaggregated handoff, both directions: pushes made as the
+        # prefill side, injections served as the decode side.
+        self._handoffs_completed = 0
+        self._handoffs_degraded = 0
+        self._handoff_tokens_pushed = 0
+        self._handoff_injections = 0
+        self._handoff_tokens_injected = 0
+        # The pushes' executor, made at the first handoff and shut down
+        # when the loop ends or the supervisor restarts.
+        self._handoff_pool: Optional[
+            concurrent.futures.ThreadPoolExecutor] = None
+        # Peers' /prefix_blocks exports and /handoff_blocks injections
+        # queue here from any thread and are served by the loop at the top
+        # of each step (the radix cache and the pool are loop-confined).
         self._export_lock = threading.Lock()
         self._export_jobs: List[dict] = []
         # engine.compile dedupe: dispatch shapes already noted. Restarts
@@ -709,7 +743,9 @@ class DecodeEngine:
                                                self.dcfg.kv_cache_dtype,
                                                self.device)
         # Chunked-prefill resume state: slot -> {'req', 'table', 'p',
-        # 'm', 'next'} while an admission is mid-prefill.
+        # 'm', 'next', 'chunk'} while an admission is mid-prefill, plus
+        # 'hand', 'pushed', 'hand_failed' (and 'hand_fut' while a push is
+        # in flight) for a handoff.
         self._prefill_state: List[Optional[dict]] = [None] * num_slots
         self._slots: List[Optional[Request]] = [None] * num_slots
         self._token = np.zeros((num_slots,), np.int64)
@@ -910,9 +946,19 @@ class DecodeEngine:
         reservation is made, the resume state parked, and
         :meth:`_advance_prefill` runs one chunk per step. Raises
         PoolExhausted with no state mutated when the reservation cannot
-        be met."""
+        be met. A handoff request always takes the chunked path, in one
+        chunk of the whole suffix when chunking is off, because the
+        per-chunk hook is where its blocks stream to the decode peer."""
         bk = self._block_k
         p = len(request.prompt)
+        handoff = request.handoff_push is not None
+        if handoff and p < bk:
+            # Nothing block-aligned to hand off: decode in place (the
+            # model server filters these only by trust, so a short prompt
+            # must degrade here, not wedge).
+            request.handoff_push = None
+            handoff = False
+            self._handoff_degrade(request, 'short_prompt', prompt_len=p)
         blocks, path = self._radix.match(request.prompt)
         m_full = len(blocks) * bk
         if self._should_prefix_fetch(p, m_full):
@@ -960,7 +1006,8 @@ class DecodeEngine:
         try:
             if needs_copy:
                 decode.copy_block(self._cache, cow_src, cow_dst)
-            if self.prefill_chunk and p - m > self.prefill_chunk:
+            if handoff or (self.prefill_chunk and
+                           p - m > self.prefill_chunk):
                 # Chunked admission: the reservation and the boundary
                 # copy happen now; the suffix runs one chunk per step.
                 # The slot's table row stays on scratch until the last
@@ -972,7 +1019,8 @@ class DecodeEngine:
                 self._slot_nodes[slot] = path
                 self._prefill_state[slot] = {
                     'req': request, 'table': table, 'p': p, 'm': m,
-                    'next': m}
+                    'next': m, 'chunk': self.prefill_chunk or (p - m),
+                    'hand': handoff, 'pushed': 0, 'hand_failed': False}
                 self._publish_block_gauges()
                 return None, m
             last = self._prefill_range(request.prompt, m, p, table)
@@ -1207,22 +1255,9 @@ class DecodeEngine:
             start = from_tokens // bk
             if matched <= from_tokens or start >= len(blocks):
                 return None
-            send = blocks[start:]
-            bucket = 1
-            while bucket < len(send):
-                bucket *= 2
-            self._note_compile('prefix_export', blocks=bucket)
             # The match's refs pin the blocks for the copy; the host copy
             # is a fresh buffer, safe to ship after they drop.
-            arrays = decode.export_pool_blocks(
-                self._cache, self._dev(np.asarray(send, np.int64)))
-            return {
-                'matched_tokens': matched,
-                'from_tokens': start * bk,
-                'block_k': bk,
-                'kv_cache_dtype': self.dcfg.kv_cache_dtype,
-                'arrays': arrays,
-            }
+            return self._export_slot_blocks(blocks[start:], start * bk)
         finally:
             if blocks:
                 self._allocator.decref(blocks)
@@ -1246,7 +1281,8 @@ class DecodeEngine:
         return None
 
     def _service_prefix_exports(self) -> None:
-        """Serve the queued exports (loop thread, top of every step)."""
+        """Serve the queued exports and handoff injections (loop thread,
+        top of every step)."""
         with self._export_lock:
             if not self._export_jobs:
                 return
@@ -1254,11 +1290,16 @@ class DecodeEngine:
         for job in jobs:
             if job['deadline'] >= time.monotonic():
                 try:
-                    job['result'] = self._export_prefix_now(job['tokens'],
-                                                            job['from'])
+                    if job.get('kind') == 'inject':
+                        job['result'] = self._inject_handoff_now(
+                            job['tokens'], job['payload'])
+                    else:
+                        job['result'] = self._export_prefix_now(
+                            job['tokens'], job['from'])
                 except Exception as e:  # pylint: disable=broad-except
-                    # Best effort for the peer: a failed read must not
-                    # crash this engine's loop (the peer gets None).
+                    # Best effort for the peer: a failed read or install
+                    # must not crash this engine's loop (the peer gets
+                    # None, and a pushing peer degrades).
                     self._journal_raw(
                         journal.EventKind.ENGINE_PREFIX_FETCH,
                         {'outcome': 'export_error',
@@ -1271,6 +1312,12 @@ class DecodeEngine:
         """A prefill is done: count it (``m`` tokens came from the prefix
         cache) and publish the prompt's whole blocks to the radix cache
         (a partial tail block and a copy-on-write clone stay private)."""
+        self._count_prompt(prompt, m)
+        full = len(prompt) // self._block_k
+        if full:
+            self._radix.insert(prompt[:full * self._block_k], table[:full])
+
+    def _count_prompt(self, prompt: Sequence[int], m: int) -> None:
         if m:
             self._prompt_tokens_saved += m
             self._m.counter(
@@ -1278,9 +1325,6 @@ class DecodeEngine:
                 'Prompt tokens NOT prefilled thanks to prefix-'
                 'cache hits.').inc(m)
         self._prompt_tokens_total += len(prompt)
-        full = len(prompt) // self._block_k
-        if full:
-            self._radix.insert(prompt[:full * self._block_k], table[:full])
 
     def _prefill_range(self, prompt: Sequence[int], start: int, end: int,
                        table: Sequence[int],
@@ -1425,6 +1469,221 @@ class DecodeEngine:
             self._journal(journal.EventKind.ENGINE_SLOW_REQUEST, req, slot,
                           **slow)
 
+    # ------------------------------------- disaggregated prefill/decode
+
+    def _count_handoff(self, result: str) -> None:
+        self._m.counter(
+            'skytpu_engine_handoffs_total',
+            'Full-request KV handoff attempts by outcome.',
+            labels=('result',)).inc(labels=(result,))
+
+    def _handoff_degrade(self, req: Request, reason: str,
+                         **payload) -> None:
+        """One degraded handoff: the request decodes in place on this
+        (prefill) replica, counted and journaled. Degrading is the only
+        failure mode: a handoff never turns into a hung stream."""
+        self._handoffs_degraded += 1
+        self._count_handoff('degraded')
+        self._journal(journal.EventKind.ENGINE_HANDOFF, req, -1,
+                      outcome='degraded', reason=reason, **payload)
+
+    def _export_slot_blocks(self, send: List[int],
+                            from_tokens: int) -> dict:
+        """LOOP THREAD ONLY: copy an explicit block list to the host in the
+        wire format's fields: a radix match's blocks (the export) or a
+        still-prefilling slot's (the handoff; they are not in the radix
+        cache yet, and ``_slot_refs`` pins them). The copy is a fresh host
+        buffer, so the push thread never sees a pool block the next chunk
+        overwrites."""
+        bucket = 1
+        while bucket < len(send):
+            bucket *= 2
+        self._note_compile('prefix_export', blocks=bucket)
+        arrays = decode.export_pool_blocks(
+            self._cache, self._dev(np.asarray(send, np.int64)))
+        return {
+            'matched_tokens': from_tokens + len(send) * self._block_k,
+            'from_tokens': from_tokens,
+            'block_k': self._block_k,
+            'kv_cache_dtype': self.dcfg.kv_cache_dtype,
+            'arrays': arrays,
+        }
+
+    def _handoff_executor(self) -> concurrent.futures.ThreadPoolExecutor:
+        """Lazy: an engine that never hands off never starts the
+        threads."""
+        if self._handoff_pool is None:
+            self._handoff_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=max(2, min(self.num_slots, 8)),
+                thread_name_prefix=f'{self.name}-handoff')
+        return self._handoff_pool
+
+    def _shutdown_handoff_executor(self) -> None:
+        """Stop the pushes' threads (loop end, supervisor restart). A push
+        already on the wire runs out its own budget; it holds only a host
+        snapshot and the transport, never the engine or the pool."""
+        pool, self._handoff_pool = self._handoff_pool, None
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+    def _await_handoff_ack(self, st: dict) -> bool:
+        """Resolve the slot's in-flight push, if any. On an ack the pushed
+        watermark advances and the peer's backoff clears; on a failure or
+        timeout the slot degrades to decode-in-place and the peer backs
+        off. Returns whether the handoff is still live."""
+        pend = st.pop('hand_fut', None)
+        if pend is None:
+            return not st.get('hand_failed')
+        fut, end_blocks, prev = pend
+        req = st['req']
+        bk = self._block_k
+        budget = env.env_float(prefix_transfer.PUSH_BUDGET_ENV,
+                               prefix_transfer.DEFAULT_PUSH_BUDGET_SECONDS)
+        try:
+            # The transport's budget bounds the push; this outer timeout
+            # only catches a wedged transport (an abandoned future holds
+            # a snapshot, nothing of the pool).
+            ok = bool(fut.result(timeout=max(2.0 * budget, 1.0)))
+            err = None
+        except Exception as e:  # pylint: disable=broad-except
+            ok = False
+            err = f'{type(e).__name__}: {e}'
+        if ok:
+            st['pushed'] = end_blocks
+            self._handoff_tokens_pushed += (end_blocks - prev) * bk
+            if req.handoff_peer:
+                self._peer_backoff_until.pop(req.handoff_peer, None)
+            return True
+        st['hand_failed'] = True
+        if req.handoff_peer:
+            self._note_peer_failure(req.handoff_peer)
+        self._handoff_degrade(req, 'push_failed', error=err,
+                              peer=req.handoff_peer,
+                              tokens_pushed=st['pushed'] * bk)
+        return False
+
+    def _push_handoff_chunk(self, st: dict) -> None:
+        """The prefill side: push the slot's newly finished FULL blocks to
+        the decode peer. The partial tail block never ships: the decode
+        replica prefills the unaligned suffix itself, so its first token
+        samples from logits it computed, as monolithic serving's does.
+
+        Double-buffered: the device read happens here on the loop thread
+        and the transfer on the handoff executor, so chunk k streams
+        while chunk k+1 prefills. At most one push is in flight per slot
+        (the previous ack is awaited before the next export), which keeps
+        the payloads in order (the decode side refuses a gap) and bounds
+        host memory to one chunk of blocks. Any failure degrades the
+        slot and backs the peer off; nothing raises into the step."""
+        req = st['req']
+        bk = self._block_k
+        end_blocks = min(st['next'], st['p']) // bk
+        if not self._await_handoff_ack(st):
+            return
+        pushed = st['pushed']
+        if end_blocks <= pushed:
+            return
+        send = st['table'][pushed:end_blocks]
+        try:
+            payload = self._export_slot_blocks(send, pushed * bk)
+        except Exception as e:  # pylint: disable=broad-except
+            st['hand_failed'] = True
+            if req.handoff_peer:
+                self._note_peer_failure(req.handoff_peer)
+            self._handoff_degrade(req, 'push_failed',
+                                  error=f'{type(e).__name__}: {e}',
+                                  peer=req.handoff_peer,
+                                  tokens_pushed=pushed * bk)
+            return
+        st['hand_fut'] = (
+            self._handoff_executor().submit(
+                req.handoff_push, req.prompt[:end_blocks * bk], payload),
+            end_blocks, pushed)
+
+    def inject_handoff_blocks(self, tokens: Sequence[int], payload: dict,
+                              timeout: float = 5.0) -> dict:
+        """Cross-thread handoff injection (the model server's
+        ``/handoff_blocks``): queue the pushed blocks for the loop to
+        install at its next step and wait at most ``timeout``. Returns
+        ``{'ok': bool, ...}``; a reply that is not ok makes the prefill
+        side degrade. The ``handoff_decode_death`` chaos point fires
+        here."""
+        chaos.maybe_raise('handoff_decode_death')
+        if not self.paged:
+            return {'ok': False, 'error': 'not_paged'}
+        job = {'kind': 'inject', 'tokens': list(tokens),
+               'payload': payload, 'event': threading.Event(),
+               'result': None,
+               'deadline': time.monotonic() + timeout}
+        with self._export_lock:
+            self._export_jobs.append(job)
+        if job['event'].wait(timeout):
+            res = job['result']
+            if res is None:
+                return {'ok': False, 'error': 'inject_failed'}
+            return res
+        return {'ok': False, 'error': 'timeout'}
+
+    def _inject_handoff_now(self, tokens: List[int],
+                            payload: dict) -> dict:
+        """LOOP THREAD ONLY: install one pushed chunk. Incremental and
+        idempotent against the radix cache: the pushed blocks extend the
+        prefix already cached for these tokens (a push that is already
+        covered is an ok no-op; one whose ``from_tokens`` lies past the
+        coverage would leave a hole and is refused as a ``gap``). The
+        validation (dtype, shapes, block_k) is the fetch's,
+        :meth:`_install_remote_blocks`. The match's refs come back on
+        every path."""
+        bk = self._block_k
+        tokens = [int(t) for t in tokens]
+        try:
+            matched = int(payload.get('matched_tokens', 0))
+            from_tokens = int(payload.get('from_tokens', 0))
+        except (TypeError, ValueError):
+            matched = from_tokens = -1
+        if (matched <= 0 or matched % bk or from_tokens < 0
+                or from_tokens % bk or matched > len(tokens)):
+            return self._handoff_inject_result(
+                {'ok': False, 'error': 'malformed'})
+        blocks, path = self._radix.match(tokens[:matched])
+        m_d = len(blocks) * bk
+        try:
+            if matched <= m_d:
+                # Already covered (an earlier push, or a warm cache).
+                return self._handoff_inject_result({'ok': True,
+                                                    'gained': 0})
+            if from_tokens > m_d:
+                # The push assumes blocks that were never installed (a
+                # lost earlier chunk): refusing keeps the tree hole-free.
+                return self._handoff_inject_result(
+                    {'ok': False, 'error': 'gap'})
+            skip = (m_d - from_tokens) // bk
+            arrays = payload.get('arrays') or {}
+            if skip:
+                arrays = {name: a[:, skip:] for name, a in arrays.items()}
+            gained = self._install_remote_blocks(
+                tokens[:matched], dict(payload, arrays=arrays,
+                                       from_tokens=m_d), blocks, m_d)
+        finally:
+            self._allocator.decref(blocks)
+            self._radix.release(path)
+        if gained == 'empty':
+            return self._handoff_inject_result({'ok': True, 'gained': 0})
+        if gained == 'pool_exhausted' or gained is None:
+            return self._handoff_inject_result(
+                {'ok': False, 'error': gained or 'mismatch'})
+        self._handoff_injections += 1
+        self._handoff_tokens_injected += gained
+        return self._handoff_inject_result({'ok': True, 'gained': gained})
+
+    def _handoff_inject_result(self, res: dict) -> dict:
+        result = 'inject' if res.get('ok') else 'inject_error'
+        self._count_handoff(result)
+        self._journal_raw(journal.EventKind.ENGINE_HANDOFF,
+                          {'outcome': result,
+                           **{k: v for k, v in res.items() if k != 'ok'}})
+        return res
+
     # -------------------------------------------------- chunked prefill
 
     def _advance_prefill(self) -> int:
@@ -1442,14 +1701,20 @@ class DecodeEngine:
         count. Positions [0, next) already in the pool are the chunk's
         prefix, exactly as a radix hit's are."""
         start = st['next']
-        end = min(start + self.prefill_chunk, st['p'])
+        chunk = st.get('chunk') or self.prefill_chunk
+        end = min(start + chunk, st['p'])
         last = self._prefill_range(st['req'].prompt, start, end,
-                                   st['table'], chunk=self.prefill_chunk)
+                                   st['table'], chunk=chunk)
         st['next'] = end
         self._prefill_chunks += 1
         self._m.counter(
             'skytpu_engine_prefill_chunks_total',
             'Prefill chunks executed by chunked admissions.').inc()
+        if st.get('hand') and not st.get('hand_failed'):
+            # Stream the chunk's newly finished full blocks before the
+            # finish check: by _finish_prefill every aligned block was
+            # acked, or the slot has degraded to decode-in-place.
+            self._push_handoff_chunk(st)
         if end >= st['p']:
             self._finish_prefill(slot, st, last)
         return end - start
@@ -1458,8 +1723,25 @@ class DecodeEngine:
                         last: torch.Tensor) -> None:
         """Last chunk done: publish the prompt to the prefix cache,
         install the real table row, deliver the first token and join the
-        decode lanes."""
+        decode lanes. A live handoff instead awaits its last ack and
+        finishes the request as ``'handoff'``: no radix publish and no
+        first token here, and every reserved block goes back to the
+        pool, so the prefill tier's pool turns over."""
         req, table = st['req'], st['table']
+        if st.get('hand') and not st.get('hand_failed'):
+            # An unacked tail would hand the stream to a peer that never
+            # got it: a failure here degrades and falls through.
+            self._await_handoff_ack(st)
+        if st.get('hand') and not st.get('hand_failed'):
+            self._count_prompt(req.prompt, st['m'])
+            self._handoffs_completed += 1
+            self._count_handoff('complete')
+            self._journal(journal.EventKind.ENGINE_HANDOFF, req, slot,
+                          outcome='complete',
+                          tokens_pushed=st['pushed'] * self._block_k,
+                          peer=req.handoff_peer)
+            self._evict(slot, 'handoff')
+            return
         self._publish_prompt(req.prompt, st['m'], table)
         self._block_table_np[slot, :] = SCRATCH_BLOCK
         self._block_table_np[slot, :len(table)] = table
@@ -1746,19 +2028,24 @@ class DecodeEngine:
         fails the in-flight requests, rebuilds and restarts within the
         budget, or else fails the engine for good and ends the loop."""
         idle = env.env_float(IDLE_SLEEP_ENV, 0.02)
-        while not stop_event.is_set():
-            self.profiler.beat()
-            try:
-                active = self.step()
-            except Exception as exc:  # pylint: disable=broad-except
-                if not self._recover_from_crash(exc):
-                    return
-                continue
-            if active == 0:
-                # One-token admissions while idle (non-blocking: the idle
-                # loop keeps beating through a journal stall).
-                self.flush_journal(wait=False)
-                stop_event.wait(idle)
+        try:
+            while not stop_event.is_set():
+                self.profiler.beat()
+                try:
+                    active = self.step()
+                except Exception as exc:  # pylint: disable=broad-except
+                    if not self._recover_from_crash(exc):
+                        return
+                    continue
+                if active == 0:
+                    # One-token admissions while idle (non-blocking: the
+                    # idle loop keeps beating through a journal stall).
+                    self.flush_journal(wait=False)
+                    stop_event.wait(idle)
+        finally:
+            # The pushes' threads must not outlive the loop that owns
+            # them.
+            self._shutdown_handoff_executor()
 
     # ------------------------------------------------------- supervision
 
@@ -1806,6 +2093,9 @@ class DecodeEngine:
         # The traceback's frames may hold the old cache (a crash inside a
         # decode call): clear them so the rebuild can reuse its memory.
         traceback.clear_frames(exc.__traceback__)
+        # A push still in flight belongs to a failed request: its state
+        # goes with the old pool, and its thread holds only a snapshot.
+        self._shutdown_handoff_executor()
         self._init_runtime_state()
         self._restarts += 1
         self._m.counter(
@@ -1910,15 +2200,15 @@ class DecodeEngine:
         }
 
     def handoff_stats(self) -> dict:
-        """The ``/slo`` ``handoff`` block. Disaggregated prefill/decode is
-        not ported: every counter reads 0, as on a reference replica that
-        never hands off."""
+        """The ``/slo`` ``handoff`` block: the disaggregated prefill/decode
+        counters of this engine, both directions (loop-owned ints, read
+        stale by a tick at worst)."""
         return {
-            'completed': 0,
-            'degraded': 0,
-            'tokens_pushed': 0,
-            'injections': 0,
-            'tokens_injected': 0,
+            'completed': self._handoffs_completed,
+            'degraded': self._handoffs_degraded,
+            'tokens_pushed': self._handoff_tokens_pushed,
+            'injections': self._handoff_injections,
+            'tokens_injected': self._handoff_tokens_injected,
         }
 
     def stats(self) -> dict:
@@ -1958,11 +2248,11 @@ class DecodeEngine:
                 'prefix_evictions': self._prefix_evictions,
                 'prefix_fetch_hits': self._prefix_fetch_hits,
                 'prefix_fetch_misses': self._prefix_fetch_misses,
-                # Tiers not ported yet, read as the reference's with
-                # them off.
-                'handoffs_completed': 0,
-                'handoffs_degraded': 0,
-                'handoff_injections': 0,
+                'handoffs_completed': self._handoffs_completed,
+                'handoffs_degraded': self._handoffs_degraded,
+                'handoff_injections': self._handoff_injections,
+                # The store tier is not ported yet: read as the
+                # reference's with it off.
                 'store_configured': False,
                 'store_fetch_hits': 0,
                 'store_spills': 0,

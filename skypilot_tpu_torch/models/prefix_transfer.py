@@ -1,9 +1,10 @@
-"""Cross-replica KV prefix-block transfer: the wire format and the fetch.
+"""Cross-replica KV block transfer: the wire format, the fetch and the push.
 
-Counterpart of ``skypilot_tpu/models/prefix_transfer.py``, the fetch
-direction only. A paged replica's radix cache holds the KV blocks of the
-prompt prefixes it has served; a replica whose cache misses pulls the
-matched blocks from a peer instead of prefilling them again:
+Counterpart of ``skypilot_tpu/models/prefix_transfer.py`` without the
+block store's transports. A paged replica's radix cache holds the KV
+blocks of the prompt prefixes it has served; a replica whose cache
+misses pulls the matched blocks from a peer instead of prefilling them
+again:
 
 * The OWNER side (``serve/model_server.py`` ``POST /prefix_blocks``)
   radix-matches the posted token prefix on the engine loop thread and
@@ -14,6 +15,11 @@ matched blocks from a peer instead of prefilling them again:
   (``SKYTPU_PREFIX_PEERS`` / ``--prefix-peers``), bounded by
   ``SKYTPU_PREFIX_FETCH_BUDGET_SECONDS``: a slow or dead peer degrades
   the admission to a local prefill, never stalls it.
+* The PUSH direction (disaggregated prefill/decode): a prefill replica
+  streams a request's finished pool blocks to a decode peer's
+  ``POST /handoff_blocks`` with :func:`http_push`, bounded by
+  ``SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS``; any failure degrades the
+  request to decode-in-place on the prefill replica.
 
 The wire format is the reference's, byte for byte, so blocks cross
 between the two packages in both directions: the same JSON keys, the
@@ -26,7 +32,7 @@ exactly (bf16 pools ship bf16 bytes, int8 pools int8 values plus their
 fp32 scale planes), so a fetched block decodes bit for bit as the
 owner's does.
 
-The transport is the standard library's ``http.client``, because the
+Both transports are the standard library's ``http.client``, because the
 card host has no ``requests``.
 """
 import base64
@@ -39,6 +45,8 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.utils import chaos
+
 # Engine-side knobs (read in models/engine.py).
 PREFIX_PEERS_ENV = 'SKYTPU_PREFIX_PEERS'
 FETCH_BUDGET_ENV = 'SKYTPU_PREFIX_FETCH_BUDGET_SECONDS'
@@ -49,6 +57,11 @@ FETCH_MIN_TOKENS_ENV = 'SKYTPU_PREFIX_FETCH_MIN_TOKENS'
 # eligible cold admission a budget's worth of engine-loop stall.
 FETCH_BACKOFF_ENV = 'SKYTPU_PREFIX_FETCH_BACKOFF_SECONDS'
 DEFAULT_FETCH_BACKOFF_SECONDS = 10.0
+# The handoff's push direction: the budget of one push of a chunk's
+# finished blocks to the decode peer. A slow decode peer degrades the
+# request to decode-in-place; it never wedges the prefill loop.
+PUSH_BUDGET_ENV = 'SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS'
+DEFAULT_PUSH_BUDGET_SECONDS = 2.0
 
 # Wire dtype name → (tensor dtype, numpy dtype carrying its bytes): the
 # dtypes a pool holds (bf16 or fp32 K/V, int8 K/V with fp32 scales).
@@ -183,3 +196,68 @@ def http_fetch(peer_url: str, tokens: Sequence[int], from_tokens: int,
     if isinstance(reply, dict) and reply.get('self'):
         return {'self': True}
     return decode_payload(reply)
+
+
+def http_push(peer_url: str, tokens: Sequence[int],
+              payload: Dict[str, Any], budget_seconds: float,
+              instance: Optional[str] = None) -> bool:
+    """The handoff's transport: ``POST <peer>/handoff_blocks`` with the
+    prompt prefix the payload's blocks cover. True only when the decode
+    peer answers 200 with ``ok`` (the blocks are installed); any failure
+    (connect error, timeout, non-200, an injection error, a malformed
+    reply) is False, and the prefill side degrades to decode-in-place.
+
+    The body is the fetch direction's wire format (:func:`encode_payload`
+    of the engine's host snapshot) plus ``prompt`` and ``instance``, as
+    the reference sends it. Half the budget bounds the connect and half
+    each socket operation, and the reply is read under a wall-clock
+    deadline of the whole budget from the connect (the serialising before
+    it is not counted). The ``handoff_truncate`` chaos point ships half
+    the serialised body."""
+    body = encode_payload(payload['matched_tokens'],
+                          payload['from_tokens'], payload['block_k'],
+                          payload['kv_cache_dtype'], payload['arrays'])
+    body['prompt'] = [int(t) for t in tokens]
+    body['instance'] = instance
+    data = json.dumps(body)
+    del body
+    if chaos.should_fire('handoff_truncate'):
+        # A truncated block stream: the decode side sees malformed JSON,
+        # answers 400, and the prefill side degrades.
+        data = data[:len(data) // 2]
+    data = data.encode()
+    half = max(budget_seconds / 2, 1e-3)
+    deadline = time.monotonic() + max(budget_seconds, 1e-3)
+    url = urllib.parse.urlsplit(peer_url.rstrip('/') + '/handoff_blocks')
+    if url.scheme not in ('http', 'https') or not url.hostname:
+        return False
+    conn_cls = (http.client.HTTPSConnection if url.scheme == 'https'
+                else http.client.HTTPConnection)
+    chunks = []
+    try:
+        conn = conn_cls(url.hostname, url.port, timeout=half)
+    except ValueError:
+        return False
+    try:
+        conn.request('POST', url.path, body=data,
+                     headers={'Content-Type': 'application/json'})
+        del data
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return False
+        while True:
+            chunk = resp.read1(_READ_CHUNK)
+            if not chunk:
+                break
+            chunks.append(chunk)
+            if time.monotonic() > deadline:
+                return False
+    except (OSError, ValueError, http.client.HTTPException):
+        return False
+    finally:
+        conn.close()
+    try:
+        reply = json.loads(b''.join(chunks))
+    except ValueError:
+        return False
+    return bool(isinstance(reply, dict) and reply.get('ok'))

@@ -32,6 +32,10 @@ SPAN_ID_HEADER = 'X-Skytpu-Span-Id'
 # rehashed a request away from (the engine keeps it as the request's
 # prefix_hint).
 PREFIX_OWNER_HEADER = 'X-Skytpu-Prefix-Owner'
+# Disaggregated prefill/decode: the load balancer names the decode
+# replica a /prefill_handoff streams the request's KV blocks to (the
+# replica honours it only within its configured peers).
+HANDOFF_TARGET_HEADER = 'X-Skytpu-Handoff-Target'
 
 _trace_id: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
     'skytpu_trace_id', default=None)

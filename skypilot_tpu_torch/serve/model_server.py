@@ -24,7 +24,7 @@ the engine loop on its own thread. Endpoints:
   the engine failed for good, the server is not running (draining,
   stopped), the engine thread died, or the engine loop's heartbeat is
   older than ``SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS`` (unset: no bound).
-  The stats part of the line starts with ``role=mixed``.
+  The stats part of the line starts with ``role=<role>``.
 * ``GET /stats`` — the engine's stats as JSON, with the speculative-
   decoding and chunked-prefill counters under ``spec``.
 * ``GET /metrics`` — the package registry's Prometheus text exposition
@@ -52,6 +52,26 @@ the engine loop on its own thread. Endpoints:
   engine's own). 400 on an unpaged replica or a malformed body, 404
   without prefix peers. ``GET /prefix_blocks`` answers 404: this replica
   hosts no block store.
+* ``POST /prefill_handoff`` — the prefill leg of disaggregated serving
+  (the load balancer's ``disagg`` policy): the ``/generate`` body, with
+  the decode replica named by ``X-Skytpu-Handoff-Target``. The prompt is
+  prefilled here in chunks and its full KV blocks are pushed to that
+  replica's ``/handoff_blocks`` as they finish, each push within
+  ``SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS`` (default 2). A completed handoff
+  answers ``{"handoff": "complete", "decode_url", "prompt_len",
+  "max_new_tokens"}`` with ``X-Skytpu-Handoff: complete``, and the same
+  ``/generate`` body sent to the decode replica is then a near-full
+  prefix hit there. Anything else (unpaged, no or an untrusted target,
+  a target in backoff, a short prompt, a failed push) degrades to
+  decode-in-place: the reply is this replica's ``/generate`` reply with
+  ``X-Skytpu-Handoff: degraded``. The target header only selects among
+  the configured prefix peers; it never adds a URL.
+* ``POST /handoff_blocks`` — the decode side: one pushed chunk (the wire
+  format plus ``prompt``), installed by the engine loop into the pool
+  and the radix cache; ``{"ok": ...}``. 400 on an unpaged replica or a
+  malformed body, 404 without prefix peers, 503 with ``Retry-After``
+  unless running, 500 when the ``handoff_decode_death`` chaos point
+  fires.
 
 Every ``/generate`` answers an ``X-Request-Id``: the client's header, or
 a minted trace id. It is the request's trace id (``X-Skytpu-Trace-Id``
@@ -68,23 +88,29 @@ is given. Speculative decoding is on with ``--paged --spec-k K
 chunked prefill with ``--paged --prefill-chunk N`` (or
 ``SKYTPU_PREFILL_CHUNK``), the cross-replica prefix fetch with ``--paged
 --prefix-peers URL,URL`` (or ``SKYTPU_PREFIX_PEERS``; the list is the
-trust set: only its members are fetched from, and only a replica that
-has one exports its blocks). ``SKYTPU_CHAOS`` arms the fault points
-``engine_step_raise``, ``slow_step``, ``drain_hang``, ``replica_500``,
-``journal_write_stall`` and ``journal_disk_full`` (``utils/chaos.py``).
+trust set: only its members are fetched from, pushed to or accepted
+from, and only a replica that has one exports its blocks). ``--role
+prefill|decode|mixed`` (or ``SKYTPU_REPLICA_ROLE``; anything unknown
+reads as ``mixed``) is the replica's disaggregated serving role, shown
+on ``/healthz`` and ``/slo``, where the load balancer learns it.
+``SKYTPU_CHAOS`` arms the fault points ``engine_step_raise``,
+``slow_step``, ``drain_hang``, ``replica_500``, ``handoff_decode_death``,
+``handoff_truncate``, ``journal_write_stall`` and ``journal_disk_full``
+(``utils/chaos.py``).
 ``--int8`` serves int8 weights (the seven per-layer GEMM weights
 quantised per output channel, ``decode.quantize_params``);
 ``--checkpoint-dir DIR`` restores the newest complete params checkpoint
 under DIR (``models/checkpoint.save_params``) before quantising, or
 serves the random init with a warning when there is none. Flags of
-features later slices port (tensor parallelism, the block store, the
-handoff and its roles) are rejected, never ignored.
+features later slices port (tensor parallelism, the block store and its
+``store`` role) are rejected, never ignored.
 
 Tokenizer note: the models are research checkpoints without a shipped
 tokenizer, so ``text`` uses a byte-level demo codec (UTF-8 bytes → ids;
 ids → bytes mod 256). Real deployments send token ids.
 """
 import argparse
+import functools
 import http.server
 import json
 import logging
@@ -136,29 +162,39 @@ HEALTHZ_MAX_STALENESS_ENV = 'SKYTPU_HEALTHZ_MAX_STALENESS_SECONDS'
 # answers 404: a replica outside any fleet must not export its journal
 # to whoever reaches its port.
 JOURNAL_PEERS_ENV = 'SKYTPU_JOURNAL_PEERS'
+# Disaggregated prefill/decode: this replica's serving role, shown on
+# /healthz and /slo (the load balancer's `disagg` policy reads it there).
+# 'mixed' is monolithic serving.
+REPLICA_ROLE_ENV = 'SKYTPU_REPLICA_ROLE'
+_ROLES = ('prefill', 'decode', 'mixed', 'store')
 # skytpu_server_state gauge values (/healthz carries the string).
 _STATE_VALUES = {'starting': 0, 'running': 0, 'draining': 1,
                  'stopped': 2}
 
 
-def _role(raw: str) -> str:
+def read_role(raw: Optional[str]) -> str:
     """The reference replica's reading of its role: stripped, lowercased,
     anything unknown degraded to 'mixed'."""
-    role = raw.strip().lower()
-    return role if role in ('prefill', 'decode', 'mixed', 'store') else (
-        'mixed')
+    role = (raw or 'mixed').strip().lower()
+    return role if role in _ROLES else 'mixed'
+
+
+def _is_store_role(raw: str) -> bool:
+    return read_role(raw) == 'store'
 
 
 # Environment knobs of the reference's replica whose features the port
 # does not have yet: name → (feature, the reference's reading of a set
 # value, the reading that leaves the feature as the port runs it). Any
 # other reading is refused, never ignored. SKYTPU_STORE_DIR is read only
-# under the 'store' role, so refusing the role covers it.
+# under the 'store' role, so refusing that role covers it; the prefill,
+# decode and mixed roles are ported.
 UNSUPPORTED_ENVS = {
     'SKYTPU_SERVE_TP': ('tensor parallelism', str, '1'),
     'SKYTPU_STORE_URL': ('the durable block store', str, None),
-    'SKYTPU_REPLICA_ROLE': ('disaggregated serving roles (prefill, '
-                            'decode, store)', _role, 'mixed'),
+    'SKYTPU_REPLICA_ROLE': ('the store role of disaggregated serving roles '
+                            '(the durable block store)', _is_store_role,
+                            False),
 }
 
 
@@ -350,6 +386,10 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             ms.handle_generate(self)
         elif path == '/prefix_blocks':
             ms.handle_prefix_blocks(self)
+        elif path == '/prefill_handoff':
+            ms.handle_generate(self, handoff=True)
+        elif path == '/handoff_blocks':
+            ms.handle_handoff_blocks(self)
         elif path == '/journal':
             try:
                 length = int(self.headers.get('Content-Length') or 0)
@@ -375,14 +415,20 @@ class ModelServer:
 
     def __init__(self, engine: engine_lib.DecodeEngine, port: int,
                  host: str = '0.0.0.0',
-                 default_max_new_tokens: int = 128):
+                 default_max_new_tokens: int = 128,
+                 role: Optional[str] = None):
         self.engine = engine
         # The journal file of this replica's direct writes and /journal
         # reads: the engine's (None: the host journal).
         self._journal_db = engine.journal_db
-        # Serving roles are not ported (SKYTPU_REPLICA_ROLE is refused
-        # unless it reads 'mixed'): the replica is monolithic.
-        self.role = 'mixed'
+        # Disaggregated serving role: the argument, else
+        # SKYTPU_REPLICA_ROLE, else mixed; a mistyped role serves as
+        # mixed rather than stopping the replica. 'store' (hosting the
+        # block store) is not ported.
+        self.role = read_role(role or os.environ.get(REPLICA_ROLE_ENV))
+        if self.role == 'store':
+            raise ValueError('role store: the durable block store is not '
+                             'ported to skypilot_tpu_torch yet')
         self.host = host
         self.port = port  # rebound to the OS-assigned port when 0
         self.default_max_new_tokens = default_max_new_tokens
@@ -573,8 +619,8 @@ class ModelServer:
     def slo(self) -> dict:
         """The ``/slo`` body: the request-telemetry SLO surface plus the
         reference's resilience, spec, cache, role, handoff, store and
-        step-profile blocks (store hosting and handoff are not ported and
-        read as a reference replica without them)."""
+        step-profile blocks (the store is not ported and reads as a
+        reference replica without one)."""
         body = self.engine.telemetry.slo()
         body['resilience'] = {
             'server_state': self._state,
@@ -668,6 +714,51 @@ class ModelServer:
         except (BrokenPipeError, ConnectionResetError):
             logger.info('prefix fetcher went away before its reply')
 
+    def handle_handoff_blocks(self, h: '_Handler') -> None:
+        """The decode side of the handoff: a prefill peer posts one
+        chunk's blocks of a request it is still prefilling (the wire
+        format plus ``prompt``); the engine loop installs them into the
+        pool and the radix cache, so the request sent here next admits as
+        a near-full prefix hit. The refusals are ``/prefix_blocks``'s,
+        plus 503 unless running: a draining replica must send the prefill
+        side into its degrade path rather than accept blocks it is about
+        to drop."""
+        if not self.engine.paged:
+            h.send_json(400, {'ok': False, 'error': 'replica is not paged'})
+            return
+        if not self.engine.prefix_peers:
+            # The trust rule of /prefix_blocks: a replica outside the
+            # tier accepts no KV from whoever reaches its port.
+            h.send_json(404, {'ok': False,
+                              'error': 'handoff tier not configured '
+                                       '(SKYTPU_PREFIX_PEERS)'})
+            return
+        if self._state != 'running':
+            h.send_json(503, {'ok': False,
+                              'error': f'server {self._state}'},
+                        headers={'Retry-After': '1'})
+            return
+        try:
+            length = int(h.headers.get('Content-Length') or 0)
+            body = json.loads(h.rfile.read(length))
+            tokens = [int(t) for t in body['prompt']]
+        except (ValueError, UnicodeDecodeError, KeyError, TypeError):
+            h.send_json(400, {'ok': False, 'error': 'malformed body'})
+            return
+        payload = prefix_transfer.decode_payload(body)
+        del body
+        if payload is None:
+            h.send_json(400, {'ok': False, 'error': 'malformed payload'})
+            return
+        try:
+            result = self.engine.inject_handoff_blocks(tokens, payload)
+        except chaos.ChaosError as e:
+            # handoff_decode_death: a 500 mid-handoff sends the prefill
+            # side into its degrade path, as a real peer death would.
+            h.send_json(500, {'ok': False, 'error': str(e)})
+            return
+        h.send_json(200, result)
+
     def parse_prompt_body(self, body):
         """``(tokens, max_new, None)`` or ``(None, 0, (status, error))``,
         the reference's validation."""
@@ -697,8 +788,39 @@ class ModelServer:
                                   f'max_len {self.engine.dcfg.max_len}')
         return tokens, max(1, min(max_new, limit)), None
 
-    def handle_generate(self, h: _Handler) -> None:
-        if chaos.should_fire('replica_500'):
+    @staticmethod
+    def push_budget() -> float:
+        """Seconds one handoff push may take (``SKYTPU_HANDOFF_PUSH_BUDGET_
+        SECONDS``, read per request as the reference reads it)."""
+        return env.env_float(prefix_transfer.PUSH_BUDGET_ENV,
+                             prefix_transfer.DEFAULT_PUSH_BUDGET_SECONDS)
+
+    def _handoff_target(self, h: '_Handler') -> tuple:
+        """``(target, peer, degrade reason or None)`` of a
+        ``/prefill_handoff``. The header only selects within the
+        configured peers: pushing a tenant's KV to a URL a client named
+        would exfiltrate its prompt. The peer entry, not the header, keys
+        the engine's backoff, which the fetch direction shares."""
+        target = (h.headers.get(trace_lib.HANDOFF_TARGET_HEADER)
+                  or '').strip().rstrip('/')
+        peer = {u.rstrip('/'): u for u in self.engine.prefix_peers}.get(
+            target)
+        if not self.engine.paged:
+            return target, peer, 'not_paged'
+        if not target:
+            return target, peer, 'no_target'
+        if peer is None:
+            return target, peer, 'untrusted_target'
+        if self.engine.peer_in_backoff(peer):
+            return target, peer, 'peer_backoff'
+        return target, peer, None
+
+    def handle_generate(self, h: _Handler, handoff: bool = False) -> None:
+        """``/generate``, or with ``handoff`` the prefill leg
+        ``/prefill_handoff``: the same body, checks and replies, with the
+        request armed to push its blocks to the target decode replica
+        (or degraded to a plain generate at admission)."""
+        if not handoff and chaos.should_fire('replica_500'):
             h.send_json(500, {'error': 'chaos: injected replica_500'})
             return
         # Draining or stopped: answer at once, so the client retries
@@ -735,6 +857,21 @@ class ModelServer:
                 h.send_json(429, {'error': f'queue full ({depth} waiting)'},
                             headers={'Retry-After': '1'})
                 return
+        degrade = peer = target = None
+        if handoff:
+            target, peer, degrade = self._handoff_target(h)
+            if degrade is not None:
+                # Counted and journaled here: the engine never sees a
+                # handoff it cannot arm; the request is a plain generate.
+                metrics_lib.counter(
+                    'skytpu_engine_handoffs_total',
+                    'Full-request KV handoff attempts by outcome.',
+                    labels=('result',)).inc(labels=('degraded',))
+                journal.event(journal.EventKind.ENGINE_HANDOFF,
+                              self._entity(),
+                              {'outcome': 'degraded', 'reason': degrade,
+                               'target': target or None},
+                              db_path=self._journal_db)
         tenant = h.headers.get('X-Tenant') or body.get('tenant') or 'default'
         # The client's X-Request-Id, else a minted trace id, is the
         # request's trace id; a load balancer's hop headers join its
@@ -751,17 +888,27 @@ class ModelServer:
             tokens, max_new, tenant=str(tenant),
             on_token=lambda token, done: events.put((token, done)),
             trace_id=trace_id, span_id=span_id,
-            prefix_hint=h.headers.get(trace_lib.PREFIX_OWNER_HEADER))
+            prefix_hint=(None if handoff else
+                         h.headers.get(trace_lib.PREFIX_OWNER_HEADER)))
         # Terminal sentinel: a rejected request finishes without a token.
         req.on_finish = lambda: events.put((None, True))
         rid = {'X-Request-Id': req.trace_id or req.id}
+        if handoff and degrade is None:
+            req.handoff_peer = peer
+            req.handoff_push = functools.partial(
+                prefix_transfer.http_push, peer,
+                budget_seconds=self.push_budget(),
+                instance=self.engine.instance_id)
         # The span rows ride the engine's batched journal buffer (one
         # transaction per engine tick), not a commit per request.
+        span = 'server.handoff' if handoff else 'server.request'
+        start = ({'target': target or None,
+                  'degraded_at_admission': degrade} if handoff
+                 else {'stream': stream})
         self.engine.journal_buffered(
             journal.EventKind.SPAN_START,
-            {'name': 'server.request', 'request': req.id,
-             'tenant': req.tenant, 'prompt_len': len(tokens),
-             'stream': stream},
+            {'name': span, 'request': req.id, 'tenant': req.tenant,
+             'prompt_len': len(tokens), **start},
             trace_id=trace_id, span_id=span_id,
             parent_span_id=parent_span, entity=self._entity())
         self.engine.submit(req)
@@ -770,23 +917,51 @@ class ModelServer:
                             labels=('stream',)).inc(
                                 labels=(str(stream).lower(),))
         try:
+            first = None
+            if handoff:
+                try:
+                    first = events.get(timeout=self.request_timeout)
+                except queue.Empty:
+                    h.send_json(504, {'error': 'timeout'}, headers=rid)
+                    return
+                if first[0] is None and req.finish_reason == 'handoff':
+                    # Every full block acked: the decode replica owns the
+                    # stream, and this replica's blocks are back in its
+                    # pool.
+                    h.send_json(200, {'handoff': 'complete',
+                                      'decode_url': peer,
+                                      'prompt_len': len(tokens),
+                                      'max_new_tokens': max_new},
+                                headers={'X-Skytpu-Handoff': 'complete',
+                                         **rid})
+                    return
+                rid['X-Skytpu-Handoff'] = 'degraded'
             if stream:
-                self._stream_response(h, req, events, rid)
+                self._stream_response(h, req, events, rid, first)
             else:
-                self._unary_response(h, req, events, rid)
+                self._unary_response(h, req, events, rid, first)
         except (BrokenPipeError, ConnectionResetError):
             logger.info('client of request %s went away', req.id)
         finally:
             self.engine.journal_buffered(
                 journal.EventKind.SPAN_END,
-                {'name': 'server.request',
+                {'name': span,
                  'finish_reason': req.finish_reason,
                  'generated': len(req.tokens)},
                 trace_id=trace_id, span_id=span_id,
                 parent_span_id=parent_span, entity=self._entity())
 
+    @staticmethod
+    def _next_event(events: queue.Queue, first, timeout: float):
+        """``first`` (an event the caller already took off the queue to
+        choose the reply's shape) once, then the queue's."""
+        if first is not None:
+            return first
+        return events.get(timeout=timeout)
+
     def _stream_response(self, h: _Handler, req: engine_lib.Request,
-                         events: queue.Queue, rid: dict) -> None:
+                         events: queue.Queue, rid: dict,
+                         first=None) -> None:
         h.send_response(200)
         h.send_header('Content-Type', 'text/event-stream')
         h.send_header('Cache-Control', 'no-cache')
@@ -800,10 +975,12 @@ class ModelServer:
 
         while True:
             try:
-                token, done = events.get(timeout=self.request_timeout)
+                token, done = self._next_event(events, first,
+                                               self.request_timeout)
             except queue.Empty:
                 write({'error': 'timeout'})
                 return
+            first = None
             if token is None:
                 # Terminal with no token: engine-side rejection/error.
                 write({'error': req.finish_reason, 'done': True})
@@ -818,11 +995,14 @@ class ModelServer:
                 return
 
     def _unary_response(self, h: _Handler, req: engine_lib.Request,
-                        events: queue.Queue, rid: dict) -> None:
+                        events: queue.Queue, rid: dict,
+                        first=None) -> None:
         token = None
         try:
             while True:
-                token, done = events.get(timeout=self.request_timeout)
+                token, done = self._next_event(events, first,
+                                               self.request_timeout)
+                first = None
                 if done:
                     break
         except queue.Empty:
@@ -851,7 +1031,6 @@ _UNSUPPORTED_FLAGS = {
     '--tp': (dict(type=int), 'tensor parallelism'),
     '--store-url': (dict(), 'the durable block store'),
     '--store-dir': (dict(), 'the durable block store'),
-    '--role': (dict(), 'disaggregated prefill/decode roles'),
 }
 
 
@@ -911,6 +1090,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                              'LB-advertised owner) instead of '
                              're-prefilling (default SKYTPU_PREFIX_PEERS '
                              'or disabled)')
+    parser.add_argument('--role', choices=_ROLES, default=None,
+                        help='disaggregated serving role (default '
+                             'SKYTPU_REPLICA_ROLE or mixed): prefill '
+                             'replicas hand requests off to a decode peer '
+                             'after prefill; decode replicas adopt them; '
+                             'mixed serves monolithically (store is not '
+                             'ported)')
     parser.add_argument('--checkpoint-dir', default=None,
                         help='restore params from models/checkpoint '
                              'save_params layout (default: random init)')
@@ -926,6 +1112,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         if getattr(args, flag[2:].replace('-', '_')) not in (None, False):
             parser.error(f'{flag}: {feature} is not ported to '
                          'skypilot_tpu_torch yet')
+    if args.role == 'store':
+        parser.error(f'--role store: {UNSUPPORTED_ENVS[REPLICA_ROLE_ENV][0]}'
+                     ' is not ported to skypilot_tpu_torch yet')
     return args
 
 
@@ -948,7 +1137,8 @@ def main(argv=None) -> None:
                               if args.prefix_peers else None),
                           device=args.device)
     ModelServer(engine, args.port, host=args.host,
-                default_max_new_tokens=args.max_new_tokens).run_forever()
+                default_max_new_tokens=args.max_new_tokens,
+                role=args.role).run_forever()
 
 
 if __name__ == '__main__':

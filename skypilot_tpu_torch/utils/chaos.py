@@ -28,6 +28,16 @@ Points the port checks:
                        idle, so it rides out ``SKYTPU_DRAIN_TIMEOUT_SECONDS``.
 ``replica_500``        the model server answers ``/generate`` with a 500
                        before touching the engine.
+``handoff_decode_death``  the decode replica "dies" mid-handoff:
+                       ``DecodeEngine.inject_handoff_blocks`` raises
+                       :class:`ChaosError` before touching the pool, so
+                       the prefill side's push fails and the request
+                       degrades to decode-in-place (answered, never
+                       hung).
+``handoff_truncate``   the prefill side's ``prefix_transfer.http_push``
+                       ships only half the serialised block payload: the
+                       decode side rejects the malformed body and the
+                       prefill side degrades.
 ``journal_write_stall``  ``JournalBuffer`` batch commits sleep
                        ``SKYTPU_CHAOS_JOURNAL_STALL_SECONDS`` (default
                        2.0) first: a wedged journal disk. The bounded
@@ -38,9 +48,10 @@ Points the port checks:
                        whole batch is counted as ``write_error`` drops.
 =====================  ====================================================
 
-The reference's other points belong to features the port does not have
-yet (handoff, block store). With ``SKYTPU_CHAOS`` unset every check is
-one dict lookup returning False.
+The reference's other points (``store_down``, ``store_torn_entry``,
+``store_slow``) belong to the block store, which the port does not have
+yet. With ``SKYTPU_CHAOS`` unset every check is one dict lookup
+returning False.
 """
 import os
 import random

@@ -148,7 +148,7 @@ def test_bad_bodies_answer_400(served, body, raw, needle):
 
 def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
     for argv in (['--tp', '2'],
-                 ['--role', 'prefill'], ['--store-url', 'http://s'],
+                 ['--role', 'store'], ['--store-url', 'http://s'],
                  ['--store-dir', '/store']):
         with pytest.raises(SystemExit) as exc:
             model_server.parse_args(argv)
@@ -177,9 +177,8 @@ def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
 # (knob, value, the feature its refusal names, or None where the value
 # is the reference's default or what the reference degrades to it).
 ENV_KNOB_CASES = [
-    ('SKYTPU_REPLICA_ROLE', 'prefill', 'disaggregated serving roles'),
-    ('SKYTPU_REPLICA_ROLE', 'decode', 'disaggregated serving roles'),
     ('SKYTPU_REPLICA_ROLE', 'store', 'disaggregated serving roles'),
+    ('SKYTPU_REPLICA_ROLE', ' Store', 'disaggregated serving roles'),
     ('SKYTPU_SERVE_TP', '2', 'tensor parallelism'),
     ('SKYTPU_STORE_URL', 'http://store:8000', 'the durable block store'),
     ('SKYTPU_REPLICA_ROLE', 'mixed', None),
@@ -250,6 +249,36 @@ def _fetch_knob_reading(name):
                 eng._prefix_fetch_backoff}[name]  # pylint: disable=protected-access
 
 
+def _role_reading(name):
+    """The role a server reads (the reference's: stripped, lowercased,
+    anything unknown is mixed), on /healthz's line and /slo."""
+    srv = model_server.ModelServer(
+        model_server.build_engine('debug', 1, 32, device='cpu'), 0)
+    assert srv.health()[1].split()[2] == f'role={srv.role}'
+    assert srv.slo()['role'] == srv.role
+    return srv.role
+
+
+def _push_budget_reading(name):
+    """The push budget the server hands each handoff's transport, and the
+    engine's wait for one push (twice the budget, at least 1 s)."""
+    budget = model_server.ModelServer.push_budget()
+    eng = model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                    device='cpu')
+    waits = []
+
+    class _Fut:
+        def result(self, timeout):
+            waits.append(timeout)
+            return True
+
+    st = {'req': engine_lib.Request([1], 1), 'pushed': 0,
+          'hand_fut': (_Fut(), 1, 0)}
+    assert eng._await_handoff_ack(st)  # pylint: disable=protected-access
+    assert waits == [max(2 * budget, 1.0)]
+    return budget
+
+
 def _stop_wait(name):
     """How long stop() waits for an engine thread that will not end for
     5 s: the knob's 0.2 when it gave up after at least 0.2 s and well
@@ -299,6 +328,18 @@ ENV_READ_CASES = [
     ('SKYTPU_PREFIX_FETCH_MIN_TOKENS', 'few', _fetch_knob_reading, 8),
     ('SKYTPU_PREFIX_FETCH_BACKOFF_SECONDS', '2.5', _fetch_knob_reading,
      2.5),
+    ('SKYTPU_REPLICA_ROLE', 'prefill', _role_reading, 'prefill'),
+    ('SKYTPU_REPLICA_ROLE', 'decode', _role_reading, 'decode'),
+    ('SKYTPU_REPLICA_ROLE', ' Decode ', _role_reading, 'decode'),
+    ('SKYTPU_REPLICA_ROLE', 'mixed', _role_reading, 'mixed'),
+    ('SKYTPU_REPLICA_ROLE', 'prefil', _role_reading, 'mixed'),
+    ('SKYTPU_REPLICA_ROLE', '', _role_reading, 'mixed'),
+    ('SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS', '60', _push_budget_reading,
+     60.0),
+    ('SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS', '0.25', _push_budget_reading,
+     0.25),
+    ('SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS', 'soon', _push_budget_reading,
+     2.0),
 ]
 
 
@@ -670,3 +711,24 @@ def test_prefix_peers_flag_reaches_the_engine(monkeypatch):
                        'http://a:1, ,http://b:2,', '--device', 'cpu'])
     model_server.main(['--paged', '--device', 'cpu'])
     assert seen == [['http://a:1', 'http://b:2'], None]
+
+
+def test_role_flag_reaches_the_server(monkeypatch):
+    """``--role`` parses with the reference's choices (default None) and
+    ``main()`` hands it to the server, which shows it; the argument wins
+    over ``SKYTPU_REPLICA_ROLE``; the store role is refused."""
+    assert model_server.parse_args([]).role is None
+    seen = []
+    monkeypatch.setattr(model_server.ModelServer, 'run_forever',
+                        lambda self: seen.append(self.role))
+    monkeypatch.setenv('SKYTPU_REPLICA_ROLE', 'decode')
+    for role in ('prefill', 'decode', 'mixed'):
+        model_server.main(['--role', role, '--device', 'cpu'])
+    model_server.main(['--device', 'cpu'])
+    assert seen == ['prefill', 'decode', 'mixed', 'decode']
+    with pytest.raises(SystemExit):
+        model_server.parse_args(['--role', 'leader'])
+    with pytest.raises(ValueError, match='store'):
+        model_server.ModelServer(
+            model_server.build_engine('debug', 1, 32, device='cpu'), 0,
+            role='store')
