@@ -265,12 +265,43 @@ port's package is not beside it. Phases (any failure exits non-zero):
    and seconds, and the decode replica's first-token time against the
    control's, cold and over its own cache.
 
+16. The durable block store, run after phase 15 while the llama3-8b
+   weights are loaded; the launch counts are reset just before and read
+   just after. For bf16 and then int8 K/V, phase 13's replicas and
+   prompts (a 1,024-token prefix, tails of 16-40 tokens, 32 new tokens),
+   built with ``store_url`` and the store's fetch and spill budgets at
+   60 s (``SKYTPU_STORE_FETCH_BUDGET_SECONDS``,
+   ``SKYTPU_STORE_SPILL_BUDGET_SECONDS``), beside a ``--role store``
+   server over a temporary directory (``SKYTPU_STORE_DIR``). (a) The
+   owner's write-behind spill persists its 8 blocks; the store counts
+   one entry. (b) The owner is stopped; a fresh replica without peers
+   answers the four prompts over the store's blocks: tokens equal the
+   owner's own answers over its cache (the same path), one fetch hit of
+   1,024 tokens, the blocks ``torch.equal`` to the owner's, and the
+   paged-decode kernel launched exactly n_layers x its decode steps.
+   (c) A new store server over the same directory holds the entry and
+   serves the same fetch to another fresh replica. (d) ``POST /prewarm``
+   with the prefix's family digest warms a fresh replica: its next
+   request is a radix hit with the control's tokens and no store fetch.
+   (e) ``SKYTPU_CHAOS=store_down``: the request is answered by plain
+   prefill on the card with a storeless replica's tokens, and the store
+   is backed off; ``store_torn_entry``: a 4-block spill the writer
+   believes landed reads back as a miss (one ``torn_dropped``), the
+   reader's tokens its own prefill's. (f) Once, in bf16, the default
+   budgets (2 s spill, 0.5 s fetch): outcomes printed, the requests
+   answered in full either way. Over the phase the paged-decode kernel
+   ran n_layers x every replica's steps, the dense and verify kernels
+   never. Printed: each spill's blocks, raw bytes and seconds, the
+   entry's bytes on disk, the store's stats, the fetch's seconds from
+   its journal row, and first-token times store-warmed, prewarmed and
+   cold.
+
 Every replica journals into a temporary directory of the run, not into
 ``~/.skytpu``. Before phase 13 the whole run took 273.7 s on an H100
 (700 W), phase 12 88.9 s of it (its int8 step profile 36.9 s, the 16 GB
 save and restore 31.3 s), well inside its time limit, so every phase
-runs at full depth; phase 14 adds ~45 s (~70 s alone with the build),
-and ``PERF.md`` has the whole run's time with phases 13 and 14.
+runs at full depth; ``PERF.md`` has the whole run's time with the later
+phases.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -2565,21 +2596,26 @@ def timed_stream(port: int, body: dict, rid: str) -> tuple:
 
 
 class PrefixReplica:
-    """One paged llama3-8b replica of phase 13 on a local port, built the
-    way a user starts one (``build_engine`` with ``prefix_peers``; the
-    budget through ``SKYTPU_PREFIX_FETCH_BUDGET_SECONDS``)."""
+    """One paged llama3-8b replica of phases 13 and 16 on a local port,
+    built the way a user starts one (``build_engine`` with
+    ``prefix_peers`` or ``store_url``; the prefix fetch's budget through
+    ``SKYTPU_PREFIX_FETCH_BUDGET_SECONDS``, other engine knobs through
+    ``knobs``, each set while the engine reads it)."""
 
-    def __init__(self, ms_lib, params, kv, port, peers=None, budget=None):
-        env_name = 'SKYTPU_PREFIX_FETCH_BUDGET_SECONDS'
+    def __init__(self, ms_lib, params, kv, port, peers=None, budget=None,
+                 store_url=None, knobs=None):
+        knobs = dict(knobs or {})
         if budget is not None:
-            os.environ[env_name] = str(budget)
+            knobs['SKYTPU_PREFIX_FETCH_BUDGET_SECONDS'] = str(budget)
+        os.environ.update(knobs)
         try:
             self.engine = ms_lib.build_engine(
                 MODEL, 8, MAX_LEN, step_chunk=4, device=DEVICE,
                 params=params, paged=True, kv_int8=kv == 'int8',
-                prefix_peers=peers)
+                prefix_peers=peers, store_url=store_url)
         finally:
-            os.environ.pop(env_name, None)
+            for name in knobs:
+                os.environ.pop(name, None)
         self.server = ms_lib.ModelServer(self.engine, port,
                                          host='127.0.0.1')
         self.port = self.server.start()
@@ -3018,6 +3054,383 @@ def handoff_phase(torch, ms_lib, da, params, card):
     for fn in (da.decode_attention_kernel, da.paged_verify_attention_kernel):
         if fn.launches:
             fail(f'phase 15: {fn.__name__} launched {fn.launches} times')
+    return out
+
+
+# -------------------------------------------------------------- phase 16
+
+
+# Store budgets that complete at llama3-8b width (one 8-block entry is
+# ~179 MB of base64 JSON in bf16), set through the knobs while each
+# replica is built, as phase 13 sets its fetch budget; (f) runs the
+# defaults (0.5 s fetch, 2 s spill) once, in bf16.
+STORE_BUDGET = 60.0
+STORE_KNOBS = {'SKYTPU_STORE_FETCH_BUDGET_SECONDS': str(STORE_BUDGET),
+               'SKYTPU_STORE_SPILL_BUDGET_SECONDS': str(STORE_BUDGET)}
+# The torn entry's prompt: 4 full blocks and a tail.
+TORN_LEN = 512
+
+
+class StoreServer:
+    """A ``--role store`` server over ``root``, started the way a user
+    starts one: ``SKYTPU_STORE_DIR`` set while the server is built, which
+    opens the block store there and rebuilds its index from disk. Its
+    engine, built for every role as the reference builds it, serves no
+    request."""
+
+    def __init__(self, ms_lib, params, root):
+        self.engine = ms_lib.build_engine(MODEL, 1, MAX_LEN, device=DEVICE,
+                                          params=params, paged=True)
+        os.environ['SKYTPU_STORE_DIR'] = root
+        try:
+            self.server = ms_lib.ModelServer(self.engine, 0,
+                                             host='127.0.0.1', role='store')
+        finally:
+            os.environ.pop('SKYTPU_STORE_DIR', None)
+        if self.server.store is None:
+            fail('the store role opened no block store')
+        self.port = self.server.start()
+        self.url = f'http://127.0.0.1:{self.port}'
+
+    def stats(self) -> dict:
+        """``GET /prefix_blocks``: the hosted store's counters."""
+        return get_json(self.port, '/prefix_blocks')
+
+    def stop(self) -> dict:
+        self.server.stop()
+        return self.engine.stats()
+
+
+def store_fetch_rows(ms_lib, replica, rid: str) -> list:
+    """The ``engine.store_fetch`` rows of request ``rid``."""
+    replica.engine.flush_journal()
+    return [r['payload'] for r in ms_lib.journal.query(
+        kinds=['engine.store_fetch'], trace_id=rid)]
+
+
+def spill_settled(replica) -> int:
+    """The spills the replica's loop has resolved, landed or failed."""
+    cache = replica.engine.cache_stats()
+    return cache['store_spills'] + cache['store_spill_failures']
+
+
+def store_phase(torch, ms_lib, da, params, card):
+    """Phase 16: the durable block store at llama3-8b width, bf16 and
+    int8 K/V; launch counts reset by the caller. Returns the printed
+    numbers by K/V dtype."""
+    import random
+    cfg = ms_lib.llama.CONFIGS[MODEL]
+    bs = ms_lib.block_store
+    rng = random.Random(16)
+    spills = []
+    real_spill = bs.http_store_spill
+
+    def timed_spill(store_url, tokens, payload, budget_seconds):
+        # The transport as the engine's spill thread calls it, timed: the
+        # client's encode, the wire, the store's decode, re-encode and
+        # write, the reply.
+        t0 = time.perf_counter()
+        ok = real_spill(store_url, tokens, payload, budget_seconds)
+        spills.append({'blocks': (payload['matched_tokens'] -
+                                  payload['from_tokens']) // BLOCK_K,
+                       'raw_bytes': sum(a.nbytes for a in
+                                        payload['arrays'].values()),
+                       'seconds': round(time.perf_counter() - t0, 3),
+                       'ok': ok})
+        return ok
+
+    # The engine binds its spill transport when it is built.
+    bs.http_store_spill = timed_spill
+    n_layers = cfg.n_layers
+    steps = [0]
+    out = {}
+    root = tempfile.mkdtemp(prefix='chip_smoke_store_')
+
+    def retire(r, live, spilled=False):
+        # A replica that published a run first resolves its spill, so no
+        # spill of a stopped replica runs beside the next measurement.
+        if spilled:
+            wait_for(lambda: spill_settled(r) >= 1, f'{kv}: a spill')
+        steps[0] += r.stop()['decode_steps']
+        live.remove(r)
+
+    def replica(live, store=None, knobs=STORE_KNOBS):
+        r = PrefixReplica(ms_lib, params, kv, 0,
+                          store_url=store.url if store else None,
+                          knobs=knobs if store else None)
+        live.append(r)
+        return r
+
+    try:
+        for kv in ('bf16', 'int8'):
+            live = []
+            del spills[:]
+            try:
+                prefix = rand_prompt(rng, cfg.vocab_size, PREFIX_LEN)
+
+                def body(tail, head=prefix):
+                    return {'prompt': head + rand_prompt(rng, cfg.vocab_size,
+                                                         tail),
+                            'max_new_tokens': N_NEW}
+
+                owner_body = body(PREFIX_OWNER_TAIL)
+                bodies = [body(n) for n in PREFIX_TAILS]
+                store = StoreServer(ms_lib, params, os.path.join(root, kv))
+                live.append(store)
+                # (a) The owner's write-behind spill of its 8-block run.
+                owner = replica(live, store)
+                (_, owner_ttft), = owner.serve([owner_body],
+                                               f'p16-{kv}-owner')
+                wait_for(lambda: spill_settled(owner) >= 1,
+                         f'{kv}: the owner\'s spill')
+                ocache = owner.engine.cache_stats()
+                if (ocache['store_spills'] != 1 or
+                        ocache['store_spill_tokens'] != PREFIX_LEN or
+                        ocache['store_fetch_misses'] != 1 or
+                        [sp['blocks'] for sp in spills] !=
+                        [PREFIX_LEN // BLOCK_K]):
+                    fail(f'{kv}: owner spill {ocache}, spills {spills}')
+                spill = dict(spills[0])
+                stats = store.stats()
+                if stats['entries'] != 1 or stats['spills'] != 1:
+                    fail(f'{kv}: store after the spill {stats}')
+                entry_bytes = stats['bytes']
+                print(f'[store] {kv} (a) spill: {spill["blocks"]} blocks, '
+                      f'{spill["raw_bytes"]} raw bytes, {entry_bytes} on '
+                      f'disk, {spill["seconds"]:.3f}s; store {stats}',
+                      flush=True)
+                # The control: the owner's answers over its own cache, the
+                # path a store-warmed replica takes (the prefix from its
+                # radix cache, the tail prefilled over it).
+                control = [t for t, _ in owner.serve(bodies,
+                                                     f'p16-{kv}-control')]
+                want = owner.engine.export_prefix_blocks(prefix, 0, 60.0)
+                if want is None or want['matched_tokens'] != PREFIX_LEN:
+                    fail(f'{kv}: the owner does not hold the prefix')
+                retire(owner, live)
+                # (b) The fleet is stopped: a fresh replica with no peers
+                # fetches the prefix from the store.
+                fetcher = replica(live, store)
+                launched0 = da.paged_decode_attention_kernel.launches
+                fetched = fetcher.serve(bodies, f'p16-{kv}-fetch')
+                f_steps = fetcher.engine.stats()['decode_steps']
+                f_launches = (da.paged_decode_attention_kernel.launches -
+                              launched0)
+                if f_launches != n_layers * f_steps or not f_steps:
+                    fail(f'{kv}: the store-warmed replica launched the paged '
+                         f'decode kernel {f_launches} times in {f_steps} '
+                         'steps')
+                for i, ((got, _), w) in enumerate(zip(fetched, control)):
+                    if got != w:
+                        fail(f'{kv}: prompt {i} over the store\'s prefix '
+                             f'gave {got[:8]}..., the control {w[:8]}...')
+                fcache = fetcher.engine.cache_stats()
+                hits = [r for r in store_fetch_rows(ms_lib, fetcher,
+                                                    f'p16-{kv}-fetch-0')
+                        if r.get('outcome') == 'hit']
+                if (fcache['store_fetch_hits'] != 1 or
+                        fcache['store_fetch_tokens'] != PREFIX_LEN or
+                        fcache['store_fetch_misses'] != 0 or len(hits) != 1
+                        or hits[0]['tokens_gained'] != PREFIX_LEN):
+                    fail(f'{kv}: store fetch counters {fcache}, rows {hits}')
+                mine = fetcher.engine.export_prefix_blocks(prefix, 0, 60.0)
+                if mine is None or mine['matched_tokens'] != PREFIX_LEN:
+                    fail(f'{kv}: the fetcher does not hold the prefix')
+                for name, t in want['arrays'].items():
+                    if not torch.equal(mine['arrays'][name], t):
+                        fail(f'{kv}: fetched {name} differs from the '
+                             'owner\'s')
+                planes = sorted(want['arrays'])
+                del mine
+                print(f'[store] {kv} (b) cold fetch: {hits[0]["seconds"]:.3f}s '
+                      f'for {PREFIX_LEN} tokens (journal), first token '
+                      f'{fetched[0][1]:.3f}s, paged-decode launches '
+                      f'{f_launches} in {f_steps} steps, tokens and blocks '
+                      'equal to the owner\'s', flush=True)
+                retire(fetcher, live, spilled=True)
+                # (c) A new store server over the same directory serves the
+                # same fetch.
+                retire(store, live)
+                store = StoreServer(ms_lib, params, os.path.join(root, kv))
+                live.append(store)
+                stats = store.stats()
+                if stats['entries'] != 1 or stats['bytes'] != entry_bytes:
+                    fail(f'{kv}: the restarted store holds {stats}')
+                again = replica(live, store)
+                (got, restart_ttft), = again.serve(bodies[:1],
+                                                   f'p16-{kv}-restart')
+                rrows = [r for r in store_fetch_rows(ms_lib, again,
+                                                     f'p16-{kv}-restart-0')
+                         if r.get('outcome') == 'hit']
+                if got != control[0] or len(rrows) != 1:
+                    fail(f'{kv}: after the restart {got[:8]}..., rows '
+                         f'{rrows}')
+                print(f'[store] {kv} (c) restart: {stats["entries"]} entry '
+                      f'loaded, fetch {rrows[0]["seconds"]:.3f}s, first token '
+                      f'{restart_ttft:.3f}s', flush=True)
+                retire(again, live, spilled=True)
+                # (d) /prewarm with the family digest warms a fresh
+                # replica; its next request is a local radix hit.
+                warm = replica(live, store)
+                os.environ['SKYTPU_PREWARM_BUDGET_SECONDS'] = str(STORE_BUDGET)
+                t0 = time.perf_counter()
+                try:
+                    status, _, text = http_status(
+                        warm.port, '/prewarm',
+                        {'digests': [bs.family_digest(prefix)]})
+                finally:
+                    os.environ.pop('SKYTPU_PREWARM_BUDGET_SECONDS', None)
+                prewarm_s = time.perf_counter() - t0
+                reply = json.loads(text)
+                if (status != 200 or reply.get('warmed') != 1 or
+                        reply.get('tokens') != PREFIX_LEN):
+                    fail(f'{kv}: /prewarm {status} {reply}')
+                slo = get_json(warm.port, '/slo')['store']
+                if (slo['prewarms'], slo['prewarm_tokens']) != (1,
+                                                                PREFIX_LEN):
+                    fail(f'{kv}: /slo store block {slo}')
+                c0 = warm.engine.cache_stats()
+                (got, prewarm_ttft), = warm.serve(bodies[:1],
+                                                  f'p16-{kv}-prewarmed')
+                c1 = warm.engine.cache_stats()
+                if (got != control[0] or c1['store_fetch_hits'] or
+                        c1['store_fetch_misses'] or
+                        c1['prefill_tokens_saved'] - c0[
+                            'prefill_tokens_saved'] < PREFIX_LEN):
+                    fail(f'{kv}: prewarmed replica {got[:8]}..., {c1}')
+                print(f'[store] {kv} (d) /prewarm: {prewarm_s:.3f}s, {reply}; '
+                      f'then a radix hit, first token {prewarm_ttft:.3f}s, no '
+                      'store fetch', flush=True)
+                retire(warm, live, spilled=True)
+                # (e) Degrades. store_down: plain prefill on the card,
+                # the store backed off, the tokens a replica without a
+                # store gives.
+                cold = replica(live)
+                (cold_tokens, cold_ttft), = cold.serve(bodies[:1],
+                                                       f'p16-{kv}-cold')
+                retire(cold, live)
+                down = replica(live, store)
+                os.environ['SKYTPU_CHAOS'] = 'store_down'
+                try:
+                    (got, _), = down.serve(bodies[:1], f'p16-{kv}-down')
+                finally:
+                    os.environ.pop('SKYTPU_CHAOS', None)
+                drows = store_fetch_rows(ms_lib, down, f'p16-{kv}-down-0')
+                if (got != cold_tokens or not down.engine.store_in_backoff()
+                        or [r['outcome'] for r in drows] != ['down']):
+                    fail(f'{kv}: store_down {got[:8]}... against '
+                         f'{cold_tokens[:8]}..., rows {drows}')
+                retire(down, live)
+                # store_torn_entry: the spill the writer believes landed
+                # reads as a miss, never as K/V.
+                tbody = body(PREFIX_OWNER_TAIL,
+                             rand_prompt(rng, cfg.vocab_size, TORN_LEN))
+                writer = replica(live, store)
+                torn0 = store.stats()['torn_dropped']
+                os.environ['SKYTPU_CHAOS'] = 'store_torn_entry'
+                try:
+                    (torn_tokens, _), = writer.serve([tbody],
+                                                     f'p16-{kv}-torn-write')
+                    wait_for(lambda: spill_settled(writer) >= 1,
+                             f'{kv}: the torn spill')
+                finally:
+                    os.environ.pop('SKYTPU_CHAOS', None)
+                if writer.engine.cache_stats()['store_spills'] != 1:
+                    fail(f'{kv}: the torn spill was not acknowledged')
+                retire(writer, live)
+                reader = replica(live, store)
+                (got, _), = reader.serve([tbody], f'p16-{kv}-torn-read')
+                trows = store_fetch_rows(ms_lib, reader,
+                                         f'p16-{kv}-torn-read-0')
+                torn = store.stats()['torn_dropped'] - torn0
+                if (got != torn_tokens or torn != 1 or
+                        [r['outcome'] for r in trows] != ['miss']):
+                    fail(f'{kv}: torn entry: {torn} dropped, rows {trows}, '
+                         f'tokens equal {got == torn_tokens}')
+                print(f'[store] {kv} (e) degrades: store_down answered by '
+                      f'prefill (cold first token {cold_ttft:.3f}s), the '
+                      'store backed off; store_torn_entry read as a miss '
+                      f'({torn} dropped)', flush=True)
+                retire(reader, live, spilled=True)
+                # (f) Once, in bf16: the default budgets' outcomes, the
+                # requests answered in full either way.
+                default = None
+                if kv == 'bf16':
+                    n0 = len(spills)
+                    dspill = replica(live, store, knobs={})
+                    dspill.serve([body(PREFIX_OWNER_TAIL,
+                                       rand_prompt(rng, cfg.vocab_size,
+                                                   PREFIX_LEN))],
+                                 f'p16-{kv}-default-spill')
+                    wait_for(lambda: spill_settled(dspill) >= 1,
+                             f'{kv}: the default-budget spill')
+                    retire(dspill, live)
+                    dfetch = replica(live, store, knobs={})
+                    (got, _), = dfetch.serve(bodies[:1],
+                                             f'p16-{kv}-default-fetch')
+                    frows = store_fetch_rows(ms_lib, dfetch,
+                                             f'p16-{kv}-default-fetch-0')
+                    retire(dfetch, live)
+                    outcome = frows[-1]['outcome'] if frows else None
+                    if got != (control[0] if outcome == 'hit'
+                               else cold_tokens):
+                        fail(f'default-budget fetch ({outcome}): tokens '
+                             'differ from its control')
+                    default = {
+                        'spill': 'ok' if spills[n0]['ok'] else 'failed',
+                        'spill_s': spills[n0]['seconds'],
+                        'fetch': outcome,
+                        'fetch_s': frows[-1]['seconds'] if frows else None}
+                    print(f'[store] {kv} (f) default budgets: {default}',
+                          flush=True)
+                stats = store.stats()
+                retire(store, live)
+            finally:
+                for r in live:
+                    r.server.stop()
+            out[kv] = {
+                'spill': spill, 'entry_disk_bytes': entry_bytes,
+                'spills': [(sp['blocks'], sp['seconds'], sp['ok'])
+                           for sp in spills],
+                'store_stats': stats,
+                'fetch_s': hits[0]['seconds'],
+                'fetch_s_per_block': round(hits[0]['seconds'] /
+                                           (PREFIX_LEN // BLOCK_K), 4),
+                'restart_fetch_s': rrows[0]['seconds'],
+                'store_warmed_ttft_s': round(fetched[0][1], 3),
+                'restart_ttft_s': round(restart_ttft, 3),
+                'cold_ttft_s': round(cold_ttft, 3),
+                'owner_cold_ttft_s': round(owner_ttft, 3),
+                'prewarm_s': round(prewarm_s, 3),
+                'prewarmed_ttft_s': round(prewarm_ttft, 3),
+                'fetcher_launches': f_launches, 'fetcher_steps': f_steps,
+                'planes': planes,
+            }
+            if default is not None:
+                out[kv]['default_budgets'] = default
+            print(f'[store] {kv}: spill of {spill["blocks"]} blocks '
+                  f'({spill["raw_bytes"]} raw bytes, {entry_bytes} on disk) '
+                  f'{spill["seconds"]:.3f}s, every spill (blocks, s, ok) '
+                  f'{out[kv]["spills"]}; store-warmed fetch '
+                  f'{hits[0]["seconds"]:.3f}s (journal), after a store '
+                  f'restart {rrows[0]["seconds"]:.3f}s; first token '
+                  f'{fetched[0][1]:.3f}s store-warmed, {prewarm_ttft:.3f}s '
+                  f'prewarmed (/prewarm {prewarm_s:.3f}s), {cold_ttft:.3f}s '
+                  f'cold; default budgets {default}; store {stats}; on '
+                  f'{card}', flush=True)
+            del want
+            gc.collect()
+            empty_cache(torch)
+    finally:
+        bs.http_store_spill = real_spill
+        shutil.rmtree(root, ignore_errors=True)
+    launched = da.paged_decode_attention_kernel.launches
+    if launched != n_layers * steps[0] or not steps[0]:
+        fail(f'phase 16: paged decode launched {launched} times, expected '
+             f'n_layers x decode steps = {n_layers * steps[0]}')
+    for fn in (da.decode_attention_kernel, da.paged_verify_attention_kernel):
+        if fn.launches:
+            fail(f'phase 16: {fn.__name__} launched {fn.launches} times')
     return out
 
 
@@ -3849,9 +4262,17 @@ def main() -> int:
     phase15_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
     print(f'[phase 15] launches {phase15_counts}; {handoff_report}',
           flush=True)
+    phase_done('phase 15')
+
+    # Phase 16 (the durable block store) while the weights are up.
+    da.reset_launch_counts()
+    store_report = store_phase(torch, ms_lib, da, params, card)
+    phase16_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    print(f'[phase 16] launches {phase16_counts}; {store_report}',
+          flush=True)
     del params, spec_runs, paged_results, dense_results
     torch.cuda.empty_cache()
-    phase_done('phase 15')
+    phase_done('phase 16')
 
     flash_rows = flash_kernel_phase(torch, fa)
     phase_done('phase 6')
@@ -3885,7 +4306,8 @@ def main() -> int:
             'phase11_launches': phase11_counts[kname],
             'phase12_launches': phase12_counts[kname],
             'phase13_launches': phase13_counts[kname],
-            'phase15_launches': phase15_counts[kname]})
+            'phase15_launches': phase15_counts[kname],
+            'phase16_launches': phase16_counts[kname]})
     kernels.append({
         'name': 'paged_verify_attention_kernel', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
@@ -3907,7 +4329,9 @@ def main() -> int:
         'phase13_launches':
             phase13_counts['paged_verify_attention_kernel'],
         'phase15_launches':
-            phase15_counts['paged_verify_attention_kernel']})
+            phase15_counts['paged_verify_attention_kernel'],
+        'phase16_launches':
+            phase16_counts['paged_verify_attention_kernel']})
     for kname, row in flash_rows.items():
         main = row['bf16']
         kernels.append({

@@ -4,9 +4,10 @@ Counterpart of ``skypilot_tpu/models/engine.py``'s ``DecodeEngine``:
 dense and paged modes, greedy and sampled decoding, radix prefix reuse,
 per-tenant round-robin admission, clamp/reject of over-budget requests,
 greedy speculative decoding and chunked prefill on the paged pool, the
-crash supervisor, the serving telemetry, the cross-replica prefix fetch
-and the disaggregated prefill/decode handoff. Tensor parallelism and the
-block store belong to later slices.
+crash supervisor, the serving telemetry, the cross-replica prefix fetch,
+the disaggregated prefill/decode handoff and the durable block store's
+fetch and write-behind spill. Tensor parallelism belongs to a later
+slice.
 
 * **One persistent cache** of ``num_slots`` lanes (dense) or one block
   pool (paged), updated in place for the life of the engine.
@@ -83,6 +84,21 @@ request sent there admits as a near-full prefix hit. Both directions are
 counted in ``skytpu_engine_handoffs_total{result}`` and journaled as
 ``engine.handoff``.
 
+**Durable block store** (paged, ``store_url`` or ``SKYTPU_STORE_URL``;
+``models/block_store.py``): the second level of the cold-miss lookup.
+Whatever the local match and the peers left uncovered is asked of the
+store within ``SKYTPU_STORE_FETCH_BUDGET_SECONDS`` and installed through
+the peer fetch's validation and injection, so a store-warmed decode is a
+local hit from then on. Each prompt's published run is spilled behind
+the loop: ``step()`` copies at most one queued run to the host a step
+and a worker thread POSTs it within ``SKYTPU_STORE_SPILL_BUDGET_SECONDS``.
+A failed fetch or spill backs the store off for
+``SKYTPU_STORE_BACKOFF_SECONDS`` (one window for both directions); a
+version-skewed entry is a ``mismatch`` and does not. Outcomes are counted
+in ``skytpu_store_fetches_total{result}`` and
+``skytpu_store_spills_total{result}`` and journaled as
+``engine.store_fetch`` and ``store.spill``.
+
 The allocator, radix cache and :class:`Request` are this package's own
 copies of the reference's pure-Python classes.
 """
@@ -101,7 +117,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.models import decode, llama, prefix_transfer
+from skypilot_tpu_torch.models import block_store, decode, llama
+from skypilot_tpu_torch.models import prefix_transfer
 from skypilot_tpu_torch.observability import journal
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import request_trace
@@ -489,7 +506,14 @@ class DecodeEngine:
     ``prefix_fetch_fn(peer_url, tokens, from_tokens, budget)`` is the
     transport (default: ``prefix_transfer.http_fetch`` carrying this
     engine's ``instance_id``); tests hand in direct engine-to-engine
-    calls."""
+    calls.
+
+    ``store_url`` (default ``SKYTPU_STORE_URL``; kept only when paged) is
+    the durable block store a cold miss asks after the peers and a
+    published run spills to. ``store_fetch_fn(url, tokens, from_tokens,
+    budget)`` and ``store_spill_fn(url, tokens, payload, budget)`` are its
+    transports (default: ``block_store.http_store_fetch`` carrying
+    ``instance_id`` and ``block_store.http_store_spill``)."""
 
     def __init__(self, params, cfg: llama.LlamaConfig,
                  dcfg: decode.DecodeConfig, num_slots: int,
@@ -502,6 +526,9 @@ class DecodeEngine:
                  prefix_peers: Optional[Sequence[str]] = None,
                  prefix_fetch_budget: Optional[float] = None,
                  prefix_fetch_fn: Optional[Callable] = None,
+                 store_url: Optional[str] = None,
+                 store_fetch_fn: Optional[Callable] = None,
+                 store_spill_fn: Optional[Callable] = None,
                  journal_db: Optional[str] = None):
         if num_slots < 1:
             raise ValueError(f'num_slots must be >= 1, got {num_slots}')
@@ -613,6 +640,48 @@ class DecodeEngine:
         # when the loop ends or the supervisor restarts.
         self._handoff_pool: Optional[
             concurrent.futures.ThreadPoolExecutor] = None
+        # Durable block-store tier (paged only): the second level of the
+        # cold-miss lookup and the write-behind spill target of published
+        # runs. Fetch and spill share one backoff, so a dead store costs
+        # at most one budget a window across both.
+        if store_url is None:
+            store_url = os.environ.get(block_store.STORE_URL_ENV,
+                                       '').strip() or None
+        self.store_url: Optional[str] = store_url if paged else None
+        self._store_fetch_fn = (
+            store_fetch_fn if store_fetch_fn is not None
+            else functools.partial(block_store.http_store_fetch,
+                                   instance=self.instance_id))
+        self._store_spill_fn = (store_spill_fn if store_spill_fn is not None
+                                else block_store.http_store_spill)
+        self._store_fetch_budget = env.env_float(
+            block_store.FETCH_BUDGET_ENV,
+            block_store.DEFAULT_FETCH_BUDGET_SECONDS)
+        self._store_spill_budget = env.env_float(
+            block_store.SPILL_BUDGET_ENV,
+            block_store.DEFAULT_SPILL_BUDGET_SECONDS)
+        self._store_backoff = env.env_float(
+            block_store.BACKOFF_ENV, block_store.DEFAULT_BACKOFF_SECONDS)
+        self._store_backoff_until = 0.0
+        self._store_spill_min_tokens = env.env_int(
+            block_store.SPILL_MIN_TOKENS_ENV, 0) or self._block_k
+        # Write-behind spill state (loop thread only): published runs
+        # queue here; one host copy and one POST in flight at a time, so
+        # a spill costs the loop at most one block export a step and the
+        # wire time rides the worker thread. The executor is made at the
+        # first spill and shut down when the loop ends.
+        self._spill_pending: List[List[int]] = []
+        self._spill_inflight: Optional[Tuple] = None
+        self._spill_seen: set = set()
+        self._spill_pool: Optional[
+            concurrent.futures.ThreadPoolExecutor] = None
+        self._store_fetch_hits = 0
+        self._store_fetch_misses = 0
+        self._store_fetch_tokens = 0
+        self._store_spills = 0
+        self._store_spill_tokens = 0
+        self._store_spill_failures = 0
+        self._store_spill_drops = 0
         # Peers' /prefix_blocks exports and /handoff_blocks injections
         # queue here from any thread and are served by the loop at the top
         # of each step (the radix cache and the pool are loop-confined).
@@ -971,6 +1040,16 @@ class DecodeEngine:
                 self._radix.release(path)
                 blocks, path = self._radix.match(request.prompt)
                 m_full = len(blocks) * bk
+        # The second level of the cold-miss lookup: what the peers (or no
+        # peers) left uncovered, the durable store may hold, so a cold
+        # start or a scale-up warms from disk. The same match-again
+        # contract as the peer fetch's.
+        if self._should_store_fetch(p, m_full):
+            if self._store_fetch_into_cache(request, blocks, m_full):
+                self._allocator.decref(blocks)
+                self._radix.release(path)
+                blocks, path = self._radix.match(request.prompt)
+                m_full = len(blocks) * bk
         # Keep >= 1 suffix token: the first generated token samples from
         # the last prompt position's logits, which only a forward pass
         # produces.
@@ -1241,6 +1320,186 @@ class DecodeEngine:
         self._publish_block_gauges()
         return matched - m_full
 
+    # ------------------------------------------- durable block-store tier
+
+    def _should_store_fetch(self, p: int, m_full: int) -> bool:
+        """The second-level lookup's gate: a store is configured and out
+        of backoff, and the miss left after the local match and any peer
+        fetch still holds the minimum block-aligned gain."""
+        if not self.paged or not self.store_url:
+            return False
+        if self._store_backoff_until > time.perf_counter():
+            return False
+        aligned = (p // self._block_k) * self._block_k
+        return aligned - m_full >= max(self._prefix_fetch_min_tokens,
+                                       self._block_k)
+
+    def _note_store_failure(self) -> None:
+        self._store_backoff_until = (time.perf_counter() +
+                                     self._store_backoff)
+
+    def store_in_backoff(self) -> bool:
+        """Is the durable store inside its failure-backoff window (shown
+        on /slo)?"""
+        return self._store_backoff_until > time.perf_counter()
+
+    def _store_fetch_into_cache(self, request: Request,
+                                local_blocks: List[int],
+                                m_full: int) -> bool:
+        """Pull the prompt's missing prefix blocks from the durable store
+        and install them through :meth:`_install_remote_blocks`, the peer
+        fetch's validation and injection; True when the cache now holds a
+        longer prefix. Every failure degrades to plain prefill; a
+        transport failure, a raise or a failed install back the store
+        off, a version-skewed entry (``mismatch``) does not."""
+        bk = self._block_k
+        aligned = (len(request.prompt) // bk) * bk
+        t0 = time.perf_counter()
+        outcome = 'miss'
+        gained = 0
+        try:
+            payload = self._store_fetch_fn(
+                self.store_url, request.prompt[:aligned], m_full,
+                self._store_fetch_budget)
+        except Exception as e:  # pylint: disable=broad-except
+            payload = None
+            self._note_store_failure()
+            outcome = 'error'
+            self._journal(journal.EventKind.ENGINE_STORE_FETCH, request, -1,
+                          outcome='error', store=self.store_url,
+                          error=f'{type(e).__name__}: {e}')
+        if outcome != 'error':
+            if payload is None:
+                # Down, timed out or garbage: one dead store must not cost
+                # every cold admission a budget of loop stall.
+                self._note_store_failure()
+                outcome = 'down'
+            elif payload.get('self'):
+                # The store URL addresses this replica: no store at all.
+                self.store_url = None
+            else:
+                try:
+                    gained = self._install_remote_blocks(
+                        request.prompt, payload, local_blocks, m_full)
+                except Exception as e:  # pylint: disable=broad-except
+                    self._note_store_failure()
+                    gained = 0
+                    outcome = 'error'
+                    self._journal(journal.EventKind.ENGINE_STORE_FETCH,
+                                  request, -1, outcome='error',
+                                  store=self.store_url,
+                                  error=f'{type(e).__name__}: {e}')
+                else:
+                    if gained is None:
+                        outcome = 'mismatch'
+                    elif gained == 'pool_exhausted':
+                        outcome = 'pool_exhausted'
+                    elif gained != 'empty':
+                        outcome = 'hit'
+        hit = outcome == 'hit'
+        if hit:
+            self._store_fetch_hits += 1
+            self._store_fetch_tokens += gained
+        else:
+            self._store_fetch_misses += 1
+        self._m.counter(
+            'skytpu_store_fetches_total',
+            'Durable-store prefix-block fetch attempts by outcome.',
+            labels=('result',)).inc(labels=(outcome,))
+        if outcome != 'error':
+            # (an error is journaled above, with the exception's text)
+            extra = ({'tokens_gained': gained, 'blocks_gained': gained // bk}
+                     if hit else {})
+            self._journal(journal.EventKind.ENGINE_STORE_FETCH, request, -1,
+                          outcome=outcome, store=self.store_url,
+                          seconds=round(time.perf_counter() - t0, 6),
+                          **extra)
+        return hit
+
+    def _queue_store_spill(self, tokens: Sequence[int]) -> None:
+        """LOOP THREAD ONLY: queue one newly published radix run for the
+        write-behind spill. Deduplicated (a shared system prompt publishes
+        on every admission that extends it: one spill per distinct run)
+        and bounded (the 16 newest runs; older ones are dropped and
+        counted)."""
+        if not (self.paged and self.store_url
+                and self._store_spill_fn is not None):
+            return
+        tokens = [int(t) for t in tokens]
+        if len(tokens) < max(self._store_spill_min_tokens, self._block_k):
+            return
+        key = (len(tokens), hash(tuple(tokens)))
+        if key in self._spill_seen:
+            return
+        if len(self._spill_seen) > 4096:
+            self._spill_seen.clear()
+        self._spill_seen.add(key)
+        self._spill_pending.append(tokens)
+        if len(self._spill_pending) > 16:
+            self._spill_pending.pop(0)
+            self._store_spill_drops += 1
+
+    def _spill_executor(self) -> concurrent.futures.ThreadPoolExecutor:
+        if self._spill_pool is None:
+            self._spill_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=f'{self.name}-spill')
+        return self._spill_pool
+
+    def _shutdown_spill_executor(self) -> None:
+        """Stop the spill thread (loop end). A POST already on the wire
+        runs out its own budget; it holds only a host copy and the
+        transport."""
+        pool, self._spill_pool = self._spill_pool, None
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+    def _count_store_spill(self, tokens: List[int], ok: bool) -> None:
+        result = 'ok' if ok else 'failed'
+        if ok:
+            self._store_spills += 1
+            self._store_spill_tokens += len(tokens)
+        else:
+            self._store_spill_failures += 1
+            # The run stays in the radix cache and an extension publishes
+            # it again; retrying here would hammer a dead store.
+            self._note_store_failure()
+        self._m.counter(
+            'skytpu_store_spills_total',
+            'Write-behind spills to the durable store by outcome.',
+            labels=('result',)).inc(labels=(result,))
+        self._journal_raw(journal.EventKind.STORE_SPILL,
+                          {'outcome': result, 'tokens': len(tokens),
+                           'store': self.store_url})
+
+    def _service_store_spills(self) -> None:
+        """LOOP THREAD ONLY (top of ``step()``): resolve the last spill
+        POST, then start at most one new one. The loop pays one radix
+        match and one host copy of the run's blocks; the worker thread
+        gets that copy, never a view of the pool the next step may
+        overwrite. A failed POST backs the store off."""
+        if self._spill_inflight is not None:
+            fut, tokens = self._spill_inflight
+            if not fut.done():
+                return
+            self._spill_inflight = None
+            try:
+                ok = bool(fut.result())
+            except Exception:  # pylint: disable=broad-except
+                ok = False
+            self._count_store_spill(tokens, ok)
+        if (not self._spill_pending or not self.store_url
+                or self._store_backoff_until > time.perf_counter()):
+            return
+        tokens = self._spill_pending.pop(0)
+        raw = self._export_prefix_now(tokens, 0)
+        if raw is None:
+            # Evicted between the publish and the spill: nothing to keep.
+            return
+        fut = self._spill_executor().submit(
+            self._store_spill_fn, self.store_url, tokens, raw,
+            self._store_spill_budget)
+        self._spill_inflight = (fut, tokens)
+
     def _export_prefix_now(self, tokens: Sequence[int],
                            from_tokens: int = 0) -> Optional[dict]:
         """LOOP THREAD ONLY: radix-match ``tokens`` and copy the matched
@@ -1311,11 +1570,13 @@ class DecodeEngine:
                         table: Sequence[int]) -> None:
         """A prefill is done: count it (``m`` tokens came from the prefix
         cache) and publish the prompt's whole blocks to the radix cache
-        (a partial tail block and a copy-on-write clone stay private)."""
+        (a partial tail block and a copy-on-write clone stay private),
+        then queue the published run for the store's write-behind spill."""
         self._count_prompt(prompt, m)
         full = len(prompt) // self._block_k
         if full:
             self._radix.insert(prompt[:full * self._block_k], table[:full])
+            self._queue_store_spill(prompt[:full * self._block_k])
 
     def _count_prompt(self, prompt: Sequence[int], m: int) -> None:
         if m:
@@ -1762,8 +2023,10 @@ class DecodeEngine:
         chaos.maybe_raise('engine_step_raise')
         chaos.maybe_slow_step()
         # Peers' /prefix_blocks exports, before admission, so a prefix
-        # published last step is exportable at once.
+        # published last step is exportable at once; then the store's
+        # write-behind spill: harvest the last POST, start at most one.
         self._service_prefix_exports()
+        self._service_store_spills()
         self._admit()
         active = self.active_slots()
         if active == 0:
@@ -2043,9 +2306,10 @@ class DecodeEngine:
                     self.flush_journal(wait=False)
                     stop_event.wait(idle)
         finally:
-            # The pushes' threads must not outlive the loop that owns
-            # them.
+            # The pushes' and the spills' threads must not outlive the
+            # loop that owns them.
             self._shutdown_handoff_executor()
+            self._shutdown_spill_executor()
 
     # ------------------------------------------------------- supervision
 
@@ -2173,8 +2437,8 @@ class DecodeEngine:
 
     def cache_stats(self) -> dict:
         """The ``/slo`` ``cache`` block: prefix-cache locality and pressure
-        counters, and the peer tier's. The store tier is not ported: its
-        fields read as the reference's do with it off."""
+        counters, the peer tier's and the store tier's (loop-owned ints,
+        read stale by a tick at worst)."""
         return {
             'paged': self.paged,
             'prefix_hit_ratio': round(self.prefix_hit_ratio(), 4),
@@ -2188,15 +2452,16 @@ class DecodeEngine:
             'prefix_fetch_misses': self._prefix_fetch_misses,
             'prefix_fetch_tokens': self._prefix_fetch_tokens,
             'prefix_peers': len(self.prefix_peers),
-            'store_configured': False,
-            'store_in_backoff': False,
-            'store_fetch_hits': 0,
-            'store_fetch_misses': 0,
-            'store_fetch_tokens': 0,
-            'store_spills': 0,
-            'store_spill_tokens': 0,
-            'store_spill_failures': 0,
-            'store_spill_drops': 0,
+            'store_configured': bool(self.store_url),
+            'store_in_backoff': (self.store_in_backoff()
+                                 if self.store_url else False),
+            'store_fetch_hits': self._store_fetch_hits,
+            'store_fetch_misses': self._store_fetch_misses,
+            'store_fetch_tokens': self._store_fetch_tokens,
+            'store_spills': self._store_spills,
+            'store_spill_tokens': self._store_spill_tokens,
+            'store_spill_failures': self._store_spill_failures,
+            'store_spill_drops': self._store_spill_drops,
         }
 
     def handoff_stats(self) -> dict:
@@ -2251,11 +2516,9 @@ class DecodeEngine:
                 'handoffs_completed': self._handoffs_completed,
                 'handoffs_degraded': self._handoffs_degraded,
                 'handoff_injections': self._handoff_injections,
-                # The store tier is not ported yet: read as the
-                # reference's with it off.
-                'store_configured': False,
-                'store_fetch_hits': 0,
-                'store_spills': 0,
+                'store_configured': bool(self.store_url),
+                'store_fetch_hits': self._store_fetch_hits,
+                'store_spills': self._store_spills,
             })
         if self.dcfg.spec_k:
             out.update({

@@ -112,13 +112,17 @@ def encode_payload(matched_tokens: int, from_tokens: int, block_k: int,
                    arrays: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The ``/prefix_blocks`` response body: the pool arrays covering
     blocks ``[from_tokens // block_k, matched_tokens // block_k)`` of the
-    posted prefix, each ``[L, n, block_k, ...]``."""
+    posted prefix, each ``[L, n, block_k, ...]``. The arrays go in name
+    order, the order of the reference's pool (a JAX pytree's keys), so
+    the serialised body, and a block-store entry, is the reference's
+    byte for byte."""
     return {
         'matched_tokens': int(matched_tokens),
         'from_tokens': int(from_tokens),
         'block_k': int(block_k),
         'kv_cache_dtype': kv_cache_dtype,
-        'arrays': {name: encode_array(a) for name, a in arrays.items()},
+        'arrays': {name: encode_array(a)
+                   for name, a in sorted(arrays.items())},
     }
 
 
@@ -139,39 +143,29 @@ def decode_payload(body: Dict[str, Any]) -> Optional[Dict[str, Any]]:
         return None
 
 
-def http_fetch(peer_url: str, tokens: Sequence[int], from_tokens: int,
-               budget_seconds: float,
-               instance: Optional[str] = None
-               ) -> Optional[Dict[str, Any]]:
-    """The default transport: ``POST <peer>/prefix_blocks`` with the
-    block-aligned prompt prefix. Returns the decoded payload, ``{'self':
-    True}`` when the peer is the calling engine (it echoes ``instance``),
-    or None on any failure (connect error, timeout, non-200, malformed
-    body). Half the budget bounds the connect and half each socket read,
-    and the body is read under a wall-clock deadline of the whole budget:
-    a peer that streams slowly, each read inside its timeout, still
-    costs at most about one budget."""
+def post(url: str, path: str, data: bytes,
+         budget_seconds: float) -> Optional[bytes]:
+    """``POST <url><path>`` with the JSON body ``data``: the reply body of
+    a 200, or None on any failure (a bad URL, connect error, timeout,
+    non-200). Half the budget bounds the connect and half each socket
+    operation (the reference's ``(budget/2, budget/2)`` timeout), and the
+    reply is read under a wall-clock deadline of the whole budget from
+    the connect: a peer that streams slowly, each read inside its
+    timeout, still costs at most about one budget."""
     half = max(budget_seconds / 2, 1e-3)
     deadline = time.monotonic() + max(budget_seconds, 1e-3)
-    url = urllib.parse.urlsplit(peer_url.rstrip('/') + '/prefix_blocks')
-    if url.scheme not in ('http', 'https') or not url.hostname:
+    split = urllib.parse.urlsplit(url.rstrip('/') + path)
+    if split.scheme not in ('http', 'https') or not split.hostname:
         return None
-    conn_cls = (http.client.HTTPSConnection if url.scheme == 'https'
+    conn_cls = (http.client.HTTPSConnection if split.scheme == 'https'
                 else http.client.HTTPConnection)
-    # budget_seconds rides along so the owner caps its export wait: past
-    # the fetcher's timeout nobody reads the reply. ``instance`` lets the
-    # owner answer "I am you" at once under a fleet-shared peers list.
-    body = json.dumps({'prompt': [int(t) for t in tokens],
-                       'from_tokens': int(from_tokens),
-                       'budget_seconds': float(budget_seconds),
-                       'instance': instance}).encode()
     chunks = []
     try:
-        conn = conn_cls(url.hostname, url.port, timeout=half)
+        conn = conn_cls(split.hostname, split.port, timeout=half)
     except ValueError:
         return None
     try:
-        conn.request('POST', url.path, body=body,
+        conn.request('POST', split.path, body=data,
                      headers={'Content-Type': 'application/json'})
         resp = conn.getresponse()
         if resp.status != 200:
@@ -189,8 +183,30 @@ def http_fetch(peer_url: str, tokens: Sequence[int], from_tokens: int,
         return None
     finally:
         conn.close()
+    return b''.join(chunks)
+
+
+def http_fetch(peer_url: str, tokens: Sequence[int], from_tokens: int,
+               budget_seconds: float,
+               instance: Optional[str] = None
+               ) -> Optional[Dict[str, Any]]:
+    """The default transport: ``POST <peer>/prefix_blocks`` with the
+    block-aligned prompt prefix, within ``budget_seconds`` (:func:`post`).
+    Returns the decoded payload, ``{'self': True}`` when the peer is the
+    calling engine (it echoes ``instance``), or None on any failure
+    (connect error, timeout, non-200, malformed body)."""
+    # budget_seconds rides along so the owner caps its export wait: past
+    # the fetcher's timeout nobody reads the reply. ``instance`` lets the
+    # owner answer "I am you" at once under a fleet-shared peers list.
+    body = json.dumps({'prompt': [int(t) for t in tokens],
+                       'from_tokens': int(from_tokens),
+                       'budget_seconds': float(budget_seconds),
+                       'instance': instance}).encode()
+    raw = post(peer_url, '/prefix_blocks', body, budget_seconds)
+    if raw is None:
+        return None
     try:
-        reply = json.loads(b''.join(chunks))
+        reply = json.loads(raw)
     except ValueError:
         return None
     if isinstance(reply, dict) and reply.get('self'):
@@ -209,11 +225,9 @@ def http_push(peer_url: str, tokens: Sequence[int],
 
     The body is the fetch direction's wire format (:func:`encode_payload`
     of the engine's host snapshot) plus ``prompt`` and ``instance``, as
-    the reference sends it. Half the budget bounds the connect and half
-    each socket operation, and the reply is read under a wall-clock
-    deadline of the whole budget from the connect (the serialising before
-    it is not counted). The ``handoff_truncate`` chaos point ships half
-    the serialised body."""
+    the reference sends it, within ``budget_seconds`` from the connect
+    (:func:`post`; the serialising before it is not counted). The
+    ``handoff_truncate`` chaos point ships half the serialised body."""
     body = encode_payload(payload['matched_tokens'],
                           payload['from_tokens'], payload['block_k'],
                           payload['kv_cache_dtype'], payload['arrays'])
@@ -225,39 +239,11 @@ def http_push(peer_url: str, tokens: Sequence[int],
         # A truncated block stream: the decode side sees malformed JSON,
         # answers 400, and the prefill side degrades.
         data = data[:len(data) // 2]
-    data = data.encode()
-    half = max(budget_seconds / 2, 1e-3)
-    deadline = time.monotonic() + max(budget_seconds, 1e-3)
-    url = urllib.parse.urlsplit(peer_url.rstrip('/') + '/handoff_blocks')
-    if url.scheme not in ('http', 'https') or not url.hostname:
-        return False
-    conn_cls = (http.client.HTTPSConnection if url.scheme == 'https'
-                else http.client.HTTPConnection)
-    chunks = []
-    try:
-        conn = conn_cls(url.hostname, url.port, timeout=half)
-    except ValueError:
+    raw = post(peer_url, '/handoff_blocks', data.encode(), budget_seconds)
+    if raw is None:
         return False
     try:
-        conn.request('POST', url.path, body=data,
-                     headers={'Content-Type': 'application/json'})
-        del data
-        resp = conn.getresponse()
-        if resp.status != 200:
-            return False
-        while True:
-            chunk = resp.read1(_READ_CHUNK)
-            if not chunk:
-                break
-            chunks.append(chunk)
-            if time.monotonic() > deadline:
-                return False
-    except (OSError, ValueError, http.client.HTTPException):
-        return False
-    finally:
-        conn.close()
-    try:
-        reply = json.loads(b''.join(chunks))
+        reply = json.loads(raw)
     except ValueError:
         return False
     return bool(isinstance(reply, dict) and reply.get('ok'))

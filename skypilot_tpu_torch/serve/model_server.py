@@ -50,8 +50,20 @@ the engine loop on its own thread. Endpoints:
   format of ``models/prefix_transfer.py`` (an empty match when nothing
   is cached past it; ``{"self": true}`` when ``instance`` is this
   engine's own). 400 on an unpaged replica or a malformed body, 404
-  without prefix peers. ``GET /prefix_blocks`` answers 404: this replica
-  hosts no block store.
+  without prefix peers. A server that hosts a block store (``store=``,
+  or ``--role store`` with ``--store-dir`` / ``SKYTPU_STORE_DIR``)
+  answers it from disk instead (``block_store.handle_store_post``: a body
+  with ``arrays`` is a spill, one with ``digest`` a pre-warm lookup, any
+  other a fetch; a malformed body is a 400, never a 500), and ``GET
+  /prefix_blocks`` answers the store's stats (404 without a store).
+* ``POST /prewarm`` — body ``{"digests": [family digests]}``: the replica
+  pulls each family's longest run from its configured store
+  (``SKYTPU_STORE_URL`` / ``--store-url``; never a URL from the request),
+  at most ``SKYTPU_PREWARM_MAX_DIGESTS`` (default 8) of them, each within
+  ``SKYTPU_PREWARM_BUDGET_SECONDS`` (default 2), and installs it as a
+  handoff, so its first request of the family is a prefix hit. Answers
+  ``{"ok": true, "warmed", "missed", "tokens"}``; 400 on an unpaged
+  replica or a malformed body, 404 without a store, 503 unless running.
 * ``POST /prefill_handoff`` — the prefill leg of disaggregated serving
   (the load balancer's ``disagg`` policy): the ``/generate`` body, with
   the decode replica named by ``X-Skytpu-Handoff-Target``. The prompt is
@@ -90,20 +102,26 @@ chunked prefill with ``--paged --prefill-chunk N`` (or
 --prefix-peers URL,URL`` (or ``SKYTPU_PREFIX_PEERS``; the list is the
 trust set: only its members are fetched from, pushed to or accepted
 from, and only a replica that has one exports its blocks). ``--role
-prefill|decode|mixed`` (or ``SKYTPU_REPLICA_ROLE``; anything unknown
-reads as ``mixed``) is the replica's disaggregated serving role, shown
-on ``/healthz`` and ``/slo``, where the load balancer learns it.
+prefill|decode|mixed|store`` (or ``SKYTPU_REPLICA_ROLE``; anything
+unknown reads as ``mixed``) is the replica's serving role, shown on
+``/healthz`` and ``/slo``, where the load balancer learns it; ``store``
+with ``--store-dir DIR`` (or ``SKYTPU_STORE_DIR``) hosts the durable
+block store over DIR. ``--store-url URL`` (or ``SKYTPU_STORE_URL``;
+paged only) makes a replica fetch cold prefixes from that store after
+its peers and spill its published runs to it
+(``models/block_store.py``).
 ``SKYTPU_CHAOS`` arms the fault points ``engine_step_raise``,
 ``slow_step``, ``drain_hang``, ``replica_500``, ``handoff_decode_death``,
-``handoff_truncate``, ``journal_write_stall`` and ``journal_disk_full``
+``handoff_truncate``, ``journal_write_stall``, ``journal_disk_full``,
+``store_down``, ``store_torn_entry`` and ``store_slow``
 (``utils/chaos.py``).
 ``--int8`` serves int8 weights (the seven per-layer GEMM weights
 quantised per output channel, ``decode.quantize_params``);
 ``--checkpoint-dir DIR`` restores the newest complete params checkpoint
 under DIR (``models/checkpoint.save_params``) before quantising, or
-serves the random init with a warning when there is none. Flags of
-features later slices port (tensor parallelism, the block store and its
-``store`` role) are rejected, never ignored.
+serves the random init with a warning when there is none. The flag and
+knob of tensor parallelism, which a later slice ports, are rejected,
+never ignored.
 
 Tokenizer note: the models are research checkpoints without a shipped
 tokenizer, so ``text`` uses a byte-level demo codec (UTF-8 bytes → ids;
@@ -126,7 +144,7 @@ from typing import Optional
 import torch
 
 from skypilot_tpu_torch.device import resolve_device
-from skypilot_tpu_torch.models import checkpoint, decode
+from skypilot_tpu_torch.models import block_store, checkpoint, decode
 from skypilot_tpu_torch.models import engine as engine_lib
 from skypilot_tpu_torch.models import llama, prefix_transfer
 from skypilot_tpu_torch.observability import journal
@@ -167,6 +185,13 @@ JOURNAL_PEERS_ENV = 'SKYTPU_JOURNAL_PEERS'
 # 'mixed' is monolithic serving.
 REPLICA_ROLE_ENV = 'SKYTPU_REPLICA_ROLE'
 _ROLES = ('prefill', 'decode', 'mixed', 'store')
+# Store-warmed scale-up: how many digest families one POST /prewarm may
+# pull from the durable store, and each one's fetch budget. Both bound a
+# prewarm's cost on a replica that is about to take traffic.
+PREWARM_MAX_DIGESTS_ENV = 'SKYTPU_PREWARM_MAX_DIGESTS'
+DEFAULT_PREWARM_MAX_DIGESTS = 8
+PREWARM_BUDGET_ENV = 'SKYTPU_PREWARM_BUDGET_SECONDS'
+DEFAULT_PREWARM_BUDGET_SECONDS = 2.0
 # skytpu_server_state gauge values (/healthz carries the string).
 _STATE_VALUES = {'starting': 0, 'running': 0, 'draining': 1,
                  'stopped': 2}
@@ -179,22 +204,12 @@ def read_role(raw: Optional[str]) -> str:
     return role if role in _ROLES else 'mixed'
 
 
-def _is_store_role(raw: str) -> bool:
-    return read_role(raw) == 'store'
-
-
 # Environment knobs of the reference's replica whose features the port
 # does not have yet: name → (feature, the reference's reading of a set
 # value, the reading that leaves the feature as the port runs it). Any
-# other reading is refused, never ignored. SKYTPU_STORE_DIR is read only
-# under the 'store' role, so refusing that role covers it; the prefill,
-# decode and mixed roles are ported.
+# other reading is refused, never ignored.
 UNSUPPORTED_ENVS = {
     'SKYTPU_SERVE_TP': ('tensor parallelism', str, '1'),
-    'SKYTPU_STORE_URL': ('the durable block store', str, None),
-    'SKYTPU_REPLICA_ROLE': ('the store role of disaggregated serving roles '
-                            '(the durable block store)', _is_store_role,
-                            False),
 }
 
 
@@ -241,6 +256,7 @@ def build_engine(model: str, num_slots: int, max_len: int,
                  drafter_layers: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_peers: Optional[list] = None,
+                 store_url: Optional[str] = None,
                  device: Optional[str] = None,
                  params: Optional[llama.Params] = None
                  ) -> engine_lib.DecodeEngine:
@@ -253,8 +269,9 @@ def build_engine(model: str, num_slots: int, max_len: int,
     ``drafter_layers`` default from ``SKYTPU_SPEC_K`` /
     ``SKYTPU_SPEC_DRAFTER_LAYERS``; the drafter depth is clamped to the
     model's layer count, as the reference does. ``prefill_chunk``
-    defaults from ``SKYTPU_PREFILL_CHUNK`` and ``prefix_peers`` from
-    ``SKYTPU_PREFIX_PEERS`` (both paged only)."""
+    defaults from ``SKYTPU_PREFILL_CHUNK``, ``prefix_peers`` from
+    ``SKYTPU_PREFIX_PEERS`` and ``store_url`` from ``SKYTPU_STORE_URL``
+    (all three paged only)."""
     check_unsupported_env()
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
@@ -298,7 +315,8 @@ def build_engine(model: str, num_slots: int, max_len: int,
                                    generator=sampler, name=model,
                                    paged=paged, num_blocks=num_blocks,
                                    prefill_chunk=prefill_chunk,
-                                   prefix_peers=prefix_peers)
+                                   prefix_peers=prefix_peers,
+                                   store_url=store_url)
 
 
 class _HTTPServer(http.server.ThreadingHTTPServer):
@@ -375,7 +393,7 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         elif path == '/journal':
             ms.handle_journal(self, {})
         elif path == '/prefix_blocks':
-            self.send_json(404, {'error': 'no block store hosted here'})
+            ms.handle_store_stats(self)
         else:
             self.send_json(404, {'error': f'no route {path}'})
 
@@ -390,6 +408,8 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             ms.handle_generate(self, handoff=True)
         elif path == '/handoff_blocks':
             ms.handle_handoff_blocks(self)
+        elif path == '/prewarm':
+            ms.handle_prewarm(self)
         elif path == '/journal':
             try:
                 length = int(self.headers.get('Content-Length') or 0)
@@ -416,19 +436,31 @@ class ModelServer:
     def __init__(self, engine: engine_lib.DecodeEngine, port: int,
                  host: str = '0.0.0.0',
                  default_max_new_tokens: int = 128,
-                 role: Optional[str] = None):
+                 role: Optional[str] = None,
+                 store: Optional[block_store.BlockStore] = None):
         self.engine = engine
         # The journal file of this replica's direct writes and /journal
         # reads: the engine's (None: the host journal).
         self._journal_db = engine.journal_db
-        # Disaggregated serving role: the argument, else
-        # SKYTPU_REPLICA_ROLE, else mixed; a mistyped role serves as
-        # mixed rather than stopping the replica. 'store' (hosting the
-        # block store) is not ported.
+        # Serving role: the argument, else SKYTPU_REPLICA_ROLE, else
+        # mixed; a mistyped role serves as mixed rather than stopping the
+        # replica.
         self.role = read_role(role or os.environ.get(REPLICA_ROLE_ENV))
-        if self.role == 'store':
-            raise ValueError('role store: the durable block store is not '
-                             'ported to skypilot_tpu_torch yet')
+        # Durable block store hosting: an explicit store, or the store
+        # role over SKYTPU_STORE_DIR. A hosting server answers
+        # /prefix_blocks from disk instead of the radix export: the same
+        # endpoint and wire format, so replicas fetch from peers and the
+        # store alike.
+        if store is None and self.role == 'store':
+            store_dir = os.environ.get(block_store.STORE_DIR_ENV,
+                                       '').strip()
+            if store_dir:
+                store = block_store.BlockStore(store_dir)
+        self.store = store
+        # /prewarm counters (handler threads run concurrently).
+        self._prewarm_lock = threading.Lock()
+        self._prewarms = 0
+        self._prewarm_tokens = 0
         self.host = host
         self.port = port  # rebound to the OS-assigned port when 0
         self.default_max_new_tokens = default_max_new_tokens
@@ -619,8 +651,7 @@ class ModelServer:
     def slo(self) -> dict:
         """The ``/slo`` body: the request-telemetry SLO surface plus the
         reference's resilience, spec, cache, role, handoff, store and
-        step-profile blocks (the store is not ported and reads as a
-        reference replica without one)."""
+        step-profile blocks."""
         body = self.engine.telemetry.slo()
         body['resilience'] = {
             'server_state': self._state,
@@ -633,12 +664,15 @@ class ModelServer:
         body['role'] = self.role
         body['handoff'] = self.engine.handoff_stats()
         body['store'] = {
-            'hosting': False,
-            'configured_url': None,
-            'in_backoff': False,
-            'prewarms': 0,
-            'prewarm_tokens': 0,
+            'hosting': self.store is not None,
+            'configured_url': self.engine.store_url,
+            'in_backoff': (self.engine.store_in_backoff()
+                           if self.engine.store_url else False),
+            'prewarms': self._prewarms,
+            'prewarm_tokens': self._prewarm_tokens,
         }
+        if self.store is not None:
+            body['store']['stats'] = self.store.stats()
         # Aggregates only, recomputed per call (heartbeat age included).
         steps = self.engine.profiler.snapshot(last_n=0)
         steps.pop('recent', None)
@@ -670,7 +704,27 @@ class ModelServer:
         ``from_tokens``, dtype for dtype. Only a replica configured into
         the tier (prefix peers) exports: its tenants' cached KV must not
         go to whoever reaches its port. Within the tier the port is the
-        trust domain of /generate."""
+        trust domain of /generate.
+
+        A store-hosting server answers from disk instead
+        (:func:`block_store.handle_store_post`): spills persist, pre-warm
+        bodies get a family's longest run, fetches the longest stored
+        prefix. The decode and encode run on this request's own handler
+        thread, never on the engine loop or the accept loop."""
+        if self.store is not None:
+            try:
+                length = int(h.headers.get('Content-Length') or 0)
+                body = json.loads(h.rfile.read(length))
+            except (ValueError, UnicodeDecodeError):
+                h.send_json(400, {'error': 'invalid JSON body'})
+                return
+            status, reply = block_store.handle_store_post(self.store, body)
+            del body
+            try:
+                h.send_json(status, reply)
+            except (BrokenPipeError, ConnectionResetError):
+                logger.info('store client went away before its reply')
+            return
         if not self.engine.paged:
             h.send_json(400, {'error': 'replica is not paged'})
             return
@@ -713,6 +767,85 @@ class ModelServer:
                 result['arrays']))
         except (BrokenPipeError, ConnectionResetError):
             logger.info('prefix fetcher went away before its reply')
+
+    def handle_store_stats(self, h: '_Handler') -> None:
+        """``GET /prefix_blocks``: the hosted store's occupancy and hit
+        counters; 404 when this server hosts no store."""
+        if self.store is None:
+            h.send_json(404, {'error': 'no block store hosted here'})
+            return
+        h.send_json(200, self.store.stats())
+
+    def handle_prewarm(self, h: '_Handler') -> None:
+        """``POST /prewarm``, the replica side of a store-warmed scale-up:
+        pull each posted digest family's longest run from the configured
+        store and install it through the handoff injection, so the first
+        request of the family admits as a prefix hit.
+
+        The body carries digests only: the store URL is this replica's
+        own configuration, never the request's, so whoever reaches the
+        port cannot point it at a poisoned store. A failed digest counts
+        as missed; prewarm is best effort and never answers 500."""
+        if not self.engine.paged:
+            h.send_json(400, {'ok': False, 'error': 'replica is not paged'})
+            return
+        if not self.engine.store_url:
+            h.send_json(404, {'ok': False,
+                              'error': 'no durable store configured '
+                                       '(SKYTPU_STORE_URL)'})
+            return
+        if self._state != 'running':
+            h.send_json(503, {'ok': False, 'error': f'server {self._state}'},
+                        headers={'Retry-After': '1'})
+            return
+        try:
+            length = int(h.headers.get('Content-Length') or 0)
+            body = json.loads(h.rfile.read(length))
+            digests = [str(d) for d in body['digests']]
+        except (ValueError, UnicodeDecodeError, KeyError, TypeError):
+            h.send_json(400, {'ok': False,
+                              'error': 'body needs "digests" (list)'})
+            return
+        max_digests = env.env_int(PREWARM_MAX_DIGESTS_ENV,
+                                  DEFAULT_PREWARM_MAX_DIGESTS)
+        budget = env.env_float(PREWARM_BUDGET_ENV,
+                               DEFAULT_PREWARM_BUDGET_SECONDS)
+        digests = digests[:max(0, max_digests)]
+        warmed = missed = tokens_gained = 0
+        for digest in digests:
+            got = block_store.http_store_prewarm_fetch(
+                self.engine.store_url, digest, budget)
+            if got is None:
+                missed += 1
+                continue
+            tokens, payload = got
+            try:
+                res = self.engine.inject_handoff_blocks(tokens, payload)
+            except chaos.ChaosError:
+                res = {'ok': False}
+            if res.get('ok'):
+                warmed += 1
+                tokens_gained += int(res.get('gained', 0))
+            else:
+                missed += 1
+        with self._prewarm_lock:
+            self._prewarms += 1
+            self._prewarm_tokens += tokens_gained
+        metrics_lib.counter(
+            'skytpu_prewarm_requests_total',
+            'POST /prewarm requests served (store-warmed '
+            'scale-up).').inc()
+        metrics_lib.counter(
+            'skytpu_prewarm_tokens_total',
+            'Prefix tokens installed from the durable store by '
+            '/prewarm.').inc(tokens_gained)
+        journal.event(journal.EventKind.AUTOSCALE_PREWARM, self._entity(),
+                      {'digests': digests, 'warmed': warmed,
+                       'missed': missed, 'tokens': tokens_gained,
+                       'store': self.engine.store_url},
+                      db_path=self._journal_db)
+        h.send_json(200, {'ok': True, 'warmed': warmed, 'missed': missed,
+                          'tokens': tokens_gained})
 
     def handle_handoff_blocks(self, h: '_Handler') -> None:
         """The decode side of the handoff: a prefill peer posts one
@@ -1029,8 +1162,6 @@ class ModelServer:
 # flag → (argparse kwargs, what it would enable).
 _UNSUPPORTED_FLAGS = {
     '--tp': (dict(type=int), 'tensor parallelism'),
-    '--store-url': (dict(), 'the durable block store'),
-    '--store-dir': (dict(), 'the durable block store'),
 }
 
 
@@ -1091,12 +1222,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                              're-prefilling (default SKYTPU_PREFIX_PEERS '
                              'or disabled)')
     parser.add_argument('--role', choices=_ROLES, default=None,
-                        help='disaggregated serving role (default '
-                             'SKYTPU_REPLICA_ROLE or mixed): prefill '
-                             'replicas hand requests off to a decode peer '
-                             'after prefill; decode replicas adopt them; '
-                             'mixed serves monolithically (store is not '
-                             'ported)')
+                        help='serving role (default SKYTPU_REPLICA_ROLE or '
+                             'mixed): prefill replicas hand requests off '
+                             'to a decode peer after prefill; decode '
+                             'replicas adopt them; mixed serves '
+                             'monolithically; store hosts the durable '
+                             'block store (with --store-dir or '
+                             'SKYTPU_STORE_DIR)')
+    parser.add_argument('--store-url', default=None,
+                        help='durable block-store URL: the second level '
+                             'of the cold-miss prefix lookup (peers first, '
+                             'store second) and the write-behind spill '
+                             'target of published radix runs (default '
+                             'SKYTPU_STORE_URL or disabled; paged only)')
+    parser.add_argument('--store-dir', default=None,
+                        help='host the durable block store from this '
+                             'directory: /prefix_blocks answers spills, '
+                             'fetches and pre-warm lookups from disk '
+                             '(default SKYTPU_STORE_DIR when --role '
+                             'store)')
     parser.add_argument('--checkpoint-dir', default=None,
                         help='restore params from models/checkpoint '
                              'save_params layout (default: random init)')
@@ -1112,9 +1256,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         if getattr(args, flag[2:].replace('-', '_')) not in (None, False):
             parser.error(f'{flag}: {feature} is not ported to '
                          'skypilot_tpu_torch yet')
-    if args.role == 'store':
-        parser.error(f'--role store: {UNSUPPORTED_ENVS[REPLICA_ROLE_ENV][0]}'
-                     ' is not ported to skypilot_tpu_torch yet')
     return args
 
 
@@ -1135,10 +1276,12 @@ def main(argv=None) -> None:
                                for u in args.prefix_peers.split(',')
                                if u.strip()]
                               if args.prefix_peers else None),
-                          device=args.device)
+                          store_url=args.store_url, device=args.device)
+    store = (block_store.BlockStore(args.store_dir)
+             if args.store_dir else None)
     ModelServer(engine, args.port, host=args.host,
                 default_max_new_tokens=args.max_new_tokens,
-                role=args.role).run_forever()
+                role=args.role, store=store).run_forever()
 
 
 if __name__ == '__main__':

@@ -46,12 +46,23 @@ Points the port checks:
                        row on recovery).
 ``journal_disk_full``  ``JournalBuffer`` batch commits fail outright: the
                        whole batch is counted as ``write_error`` drops.
+``store_down``         the block store's client transports
+                       (``http_store_fetch``, ``http_store_spill``,
+                       ``http_store_prewarm_fetch``) fail before any bytes
+                       move: the engine backs the store off and the
+                       request degrades to plain prefill.
+``store_torn_entry``   ``BlockStore.put`` writes only half the entry's
+                       bytes at the final path: the read side drops the
+                       torn entry on contact (counted ``torn_dropped``)
+                       and never decodes it.
+``store_slow``         ``BlockStore.get`` sleeps
+                       ``SKYTPU_CHAOS_STORE_SLOW_SECONDS`` (default 2.0)
+                       first: a slow store disk, which the fetcher's
+                       budget must bound.
 =====================  ====================================================
 
-The reference's other points (``store_down``, ``store_torn_entry``,
-``store_slow``) belong to the block store, which the port does not have
-yet. With ``SKYTPU_CHAOS`` unset every check is one dict lookup
-returning False.
+With ``SKYTPU_CHAOS`` unset every check is one dict lookup returning
+False.
 """
 import os
 import random
@@ -64,6 +75,8 @@ SLOW_STEP_SECONDS_ENV = 'SKYTPU_CHAOS_SLOW_STEP_SECONDS'
 DEFAULT_SLOW_STEP_SECONDS = 0.2
 JOURNAL_STALL_SECONDS_ENV = 'SKYTPU_CHAOS_JOURNAL_STALL_SECONDS'
 DEFAULT_JOURNAL_STALL_SECONDS = 2.0
+STORE_SLOW_SECONDS_ENV = 'SKYTPU_CHAOS_STORE_SLOW_SECONDS'
+DEFAULT_STORE_SLOW_SECONDS = 2.0
 
 
 class ChaosError(RuntimeError):
@@ -163,3 +176,12 @@ def journal_stall_seconds() -> float:
                                     str(DEFAULT_JOURNAL_STALL_SECONDS)))
     except ValueError:
         return DEFAULT_JOURNAL_STALL_SECONDS
+
+
+def store_slow_seconds() -> float:
+    """How long a fired ``store_slow`` wedges one store lookup."""
+    try:
+        return float(os.environ.get(STORE_SLOW_SECONDS_ENV,
+                                    str(DEFAULT_STORE_SLOW_SECONDS)))
+    except ValueError:
+        return DEFAULT_STORE_SLOW_SECONDS

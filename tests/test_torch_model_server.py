@@ -14,13 +14,19 @@ cross-replica prefix fetch over HTTP: two replicas on localhost, one
 pulling the other's blocks through ``/prefix_blocks`` to its tokens;
 the endpoint's refusals (400, 404, the self echo, GET 404), ``/journal``
 opening to a replica with peers, and ``--prefix-peers`` and the
-``SKYTPU_PREFIX_*`` knobs read as the reference reads them.
+``SKYTPU_PREFIX_*`` knobs read as the reference reads them. The durable
+block store's flags (``--store-url``, ``--store-dir``, ``--role store``)
+and knobs (``SKYTPU_STORE_*``, ``SKYTPU_PREWARM_*``, the store role of
+``SKYTPU_REPLICA_ROLE``) read as the reference reads them; its endpoints
+are in ``tests/test_torch_block_store.py``.
 """
 import gc
+import io
 import json
 import logging
 import os
 import re
+import tempfile
 import threading
 import time
 import urllib.error
@@ -39,7 +45,7 @@ from skypilot_tpu.models import engine as jengine
 from skypilot_tpu.models import llama as jllama
 from skypilot_tpu.models import train as jtrain
 from skypilot_tpu.serve import model_server as jserver
-from skypilot_tpu_torch.models import checkpoint
+from skypilot_tpu_torch.models import block_store, checkpoint
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import engine as engine_lib
 from skypilot_tpu_torch.models import llama as tllama
@@ -147,12 +153,9 @@ def test_bad_bodies_answer_400(served, body, raw, needle):
 
 
 def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
-    for argv in (['--tp', '2'],
-                 ['--role', 'store'], ['--store-url', 'http://s'],
-                 ['--store-dir', '/store']):
-        with pytest.raises(SystemExit) as exc:
-            model_server.parse_args(argv)
-        assert exc.value.code == 2
+    with pytest.raises(SystemExit) as exc:
+        model_server.parse_args(['--tp', '2'])
+    assert exc.value.code == 2
     args = model_server.parse_args(['--paged', '--kv-int8', '--attn',
                                     'plain', '--device', 'cpu',
                                     '--prefill-chunk', '64'])
@@ -177,10 +180,7 @@ def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
 # (knob, value, the feature its refusal names, or None where the value
 # is the reference's default or what the reference degrades to it).
 ENV_KNOB_CASES = [
-    ('SKYTPU_REPLICA_ROLE', 'store', 'disaggregated serving roles'),
-    ('SKYTPU_REPLICA_ROLE', ' Store', 'disaggregated serving roles'),
     ('SKYTPU_SERVE_TP', '2', 'tensor parallelism'),
-    ('SKYTPU_STORE_URL', 'http://store:8000', 'the durable block store'),
     ('SKYTPU_REPLICA_ROLE', 'mixed', None),
     ('SKYTPU_REPLICA_ROLE', 'MIXED ', None),
     ('SKYTPU_REPLICA_ROLE', 'prefil', None),
@@ -259,6 +259,76 @@ def _role_reading(name):
     return srv.role
 
 
+def _store_url_reading(name):
+    """The store URL a paged and a dense engine keep from the knob (the
+    reference keeps it only when paged; blank is no store)."""
+    paged = model_server.build_engine('debug', 1, 32, paged=True,
+                                      block_k=8, device='cpu')
+    dense = model_server.build_engine('debug', 1, 32, device='cpu')
+    return paged.store_url, dense.store_url
+
+
+def _store_knob_reading(name):
+    eng = model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                    device='cpu')
+    return {
+        'SKYTPU_STORE_FETCH_BUDGET_SECONDS': eng._store_fetch_budget,  # pylint: disable=protected-access
+        'SKYTPU_STORE_SPILL_BUDGET_SECONDS': eng._store_spill_budget,  # pylint: disable=protected-access
+        'SKYTPU_STORE_BACKOFF_SECONDS': eng._store_backoff,  # pylint: disable=protected-access
+        'SKYTPU_STORE_SPILL_MIN_TOKENS':
+            eng._store_spill_min_tokens}[name]  # pylint: disable=protected-access
+
+
+def _block_store_reading(name):
+    """What a block store opened with no arguments reads: its capacity
+    and its family window (the family digest's too)."""
+    with tempfile.TemporaryDirectory() as root:
+        store = block_store.BlockStore(root)
+    window = store._family_tokens  # pylint: disable=protected-access
+    run = list(range(300))
+    assert block_store.family_digest(run) == block_store.family_digest(
+        run, window)
+    return {'SKYTPU_STORE_CAPACITY_BYTES': store.capacity_bytes,
+            'SKYTPU_STORE_FAMILY_TOKENS': window}[name]
+
+
+class _PostHandler:
+    """A handler stand-in carrying one JSON body (the prewarm readings
+    run the handler without a socket)."""
+
+    def __init__(self, body):
+        data = json.dumps(body).encode()
+        self.headers = {'Content-Length': str(len(data))}
+        self.rfile = io.BytesIO(data)
+        self.sent = None
+
+    def send_json(self, status, obj, headers=None):
+        self.sent = (status, obj)
+
+
+def _prewarm_reading(name):
+    """(digests a /prewarm of ten pulls from the store, the budget each
+    pull gets), both read per request."""
+    srv = model_server.ModelServer(
+        model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                  device='cpu', store_url='http://store:1'),
+        0)
+    srv._state = 'running'  # pylint: disable=protected-access
+    calls = []
+    real = block_store.http_store_prewarm_fetch
+    block_store.http_store_prewarm_fetch = (
+        lambda url, digest, budget: calls.append(budget))
+    try:
+        h = _PostHandler({'digests': [str(i) for i in range(10)]})
+        srv.handle_prewarm(h)
+    finally:
+        block_store.http_store_prewarm_fetch = real
+    assert h.sent == (200, {'ok': True, 'warmed': 0, 'missed': len(calls),
+                            'tokens': 0})
+    assert len(set(calls)) == 1
+    return len(calls), calls[0]
+
+
 def _push_budget_reading(name):
     """The push budget the server hands each handoff's transport, and the
     engine's wait for one push (twice the budget, at least 1 s)."""
@@ -334,6 +404,27 @@ ENV_READ_CASES = [
     ('SKYTPU_REPLICA_ROLE', 'mixed', _role_reading, 'mixed'),
     ('SKYTPU_REPLICA_ROLE', 'prefil', _role_reading, 'mixed'),
     ('SKYTPU_REPLICA_ROLE', '', _role_reading, 'mixed'),
+    ('SKYTPU_REPLICA_ROLE', 'store', _role_reading, 'store'),
+    ('SKYTPU_REPLICA_ROLE', ' Store', _role_reading, 'store'),
+    ('SKYTPU_STORE_URL', 'http://store:8000', _store_url_reading,
+     ('http://store:8000', None)),
+    ('SKYTPU_STORE_URL', ' http://store:8000/ ', _store_url_reading,
+     ('http://store:8000/', None)),
+    ('SKYTPU_STORE_URL', '  ', _store_url_reading, (None, None)),
+    ('SKYTPU_STORE_FETCH_BUDGET_SECONDS', '60', _store_knob_reading, 60.0),
+    ('SKYTPU_STORE_FETCH_BUDGET_SECONDS', 'soon', _store_knob_reading, 0.5),
+    ('SKYTPU_STORE_SPILL_BUDGET_SECONDS', '5', _store_knob_reading, 5.0),
+    ('SKYTPU_STORE_SPILL_BUDGET_SECONDS', '', _store_knob_reading, 2.0),
+    ('SKYTPU_STORE_BACKOFF_SECONDS', '2.5', _store_knob_reading, 2.5),
+    ('SKYTPU_STORE_SPILL_MIN_TOKENS', '32', _store_knob_reading, 32),
+    ('SKYTPU_STORE_SPILL_MIN_TOKENS', '0', _store_knob_reading, 8),
+    ('SKYTPU_STORE_CAPACITY_BYTES', '4096', _block_store_reading, 4096),
+    ('SKYTPU_STORE_CAPACITY_BYTES', 'big', _block_store_reading, 1 << 30),
+    ('SKYTPU_STORE_FAMILY_TOKENS', '16', _block_store_reading, 16),
+    ('SKYTPU_STORE_FAMILY_TOKENS', 'x', _block_store_reading, 128),
+    ('SKYTPU_PREWARM_MAX_DIGESTS', '2', _prewarm_reading, (2, 2.0)),
+    ('SKYTPU_PREWARM_MAX_DIGESTS', 'lots', _prewarm_reading, (8, 2.0)),
+    ('SKYTPU_PREWARM_BUDGET_SECONDS', '7.5', _prewarm_reading, (8, 7.5)),
     ('SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS', '60', _push_budget_reading,
      60.0),
     ('SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS', '0.25', _push_budget_reading,
@@ -716,19 +807,57 @@ def test_prefix_peers_flag_reaches_the_engine(monkeypatch):
 def test_role_flag_reaches_the_server(monkeypatch):
     """``--role`` parses with the reference's choices (default None) and
     ``main()`` hands it to the server, which shows it; the argument wins
-    over ``SKYTPU_REPLICA_ROLE``; the store role is refused."""
+    over ``SKYTPU_REPLICA_ROLE``; the store role serves, hosting no store
+    without ``SKYTPU_STORE_DIR``, as the reference's does."""
     assert model_server.parse_args([]).role is None
     seen = []
     monkeypatch.setattr(model_server.ModelServer, 'run_forever',
                         lambda self: seen.append(self.role))
     monkeypatch.setenv('SKYTPU_REPLICA_ROLE', 'decode')
-    for role in ('prefill', 'decode', 'mixed'):
+    monkeypatch.delenv(block_store.STORE_DIR_ENV, raising=False)
+    for role in ('prefill', 'decode', 'mixed', 'store'):
         model_server.main(['--role', role, '--device', 'cpu'])
     model_server.main(['--device', 'cpu'])
-    assert seen == ['prefill', 'decode', 'mixed', 'decode']
+    assert seen == ['prefill', 'decode', 'mixed', 'store', 'decode']
     with pytest.raises(SystemExit):
         model_server.parse_args(['--role', 'leader'])
-    with pytest.raises(ValueError, match='store'):
-        model_server.ModelServer(
-            model_server.build_engine('debug', 1, 32, device='cpu'), 0,
-            role='store')
+    srv = model_server.ModelServer(
+        model_server.build_engine('debug', 1, 32, device='cpu'), 0,
+        role='store')
+    assert srv.role == 'store' and srv.store is None
+    assert srv.slo()['store']['hosting'] is False
+
+
+def test_store_flags_reach_main(monkeypatch, tmp_path):
+    """``--store-url`` and ``--store-dir`` parse as the reference's CLI
+    declares them (default None); ``main()`` hands ``build_engine`` the
+    URL and the server a block store opened on the directory, whatever
+    the role; absent, None (the engine then reads SKYTPU_STORE_URL, and
+    only the store role reads SKYTPU_STORE_DIR)."""
+    args = model_server.parse_args([])
+    assert args.store_url is None and args.store_dir is None
+    seen = []
+    build = model_server.build_engine
+
+    def fake_build(*a, **kw):
+        seen.append(kw['store_url'])
+        return build('debug', 1, 32, paged=True, block_k=8, device='cpu',
+                     store_url=kw['store_url'])
+
+    monkeypatch.setattr(model_server, 'build_engine', fake_build)
+    monkeypatch.setattr(
+        model_server.ModelServer, 'run_forever',
+        lambda self: seen.append((self.role, self.store and self.store.root,
+                                  self.engine.store_url)))
+    store_dir = str(tmp_path / 'store')
+    model_server.main(['--paged', '--store-url', 'http://s:1',
+                       '--store-dir', store_dir, '--device', 'cpu'])
+    model_server.main(['--paged', '--device', 'cpu'])
+    monkeypatch.setenv(block_store.STORE_DIR_ENV, store_dir)
+    model_server.main(['--role', 'store', '--device', 'cpu'])
+    model_server.main(['--role', 'mixed', '--device', 'cpu'])
+    assert seen == ['http://s:1', ('mixed', store_dir, 'http://s:1'),
+                    None, ('mixed', None, None),
+                    None, ('store', store_dir, None),
+                    None, ('mixed', None, None)]
+    assert os.path.isdir(store_dir)
