@@ -296,6 +296,27 @@ port's package is not beside it. Phases (any failure exits non-zero):
    its journal row, and first-token times store-warmed, prewarmed and
    cold.
 
+17. The compiled rounds, run after phase 16 while the llama3-8b weights
+   are loaded; the launch counts are reset just before and read just
+   after. Every engine of the earlier phases already runs its decode
+   rounds, spec steps and paged prefills as CUDA-graph replays (the
+   engine's default on the card); this phase holds them to the eager
+   path (``rounds='eager'``). (a) Phase 3's requests through a graph
+   and an eager replica each of dense bf16, paged bf16, paged int8 K/V,
+   paged int8 weights, spec (spec_k 4, drafter depth 1) and paged with
+   prefill_chunk 256 (phase 10's mix): tokens identical request by
+   request, each replica's launches exact as in phases 3, 9 and 12, the
+   graph replica capturing each of its keys once and replaying the
+   rest, the eager one capturing nothing, the chunks as phase 10
+   predicts; captures by kind, their seconds and the graph pool's bytes
+   printed. (b) The paged bf16 decode round (8 lanes at phase 5's
+   lengths, step_chunk 4) and (c) the spec round, graph against eager:
+   host ms a round and a decode step (windows in turns), then the
+   device's busy share, kernels and graph launches a round under
+   torch.profiler, exactly one graph launch a round on the graph path.
+   (d) The host ms a 256-token chunk of a 1,920-token prompt adds to a
+   round of 7 decoding lanes, both paths. The phase's seconds printed.
+
 Every replica journals into a temporary directory of the run, not into
 ``~/.skytpu``. Before phase 13 the whole run took 273.7 s on an H100
 (700 W), phase 12 88.9 s of it (its int8 step profile 36.9 s, the 16 GB
@@ -776,6 +797,7 @@ def serve_phase(torch, ms_lib, params, label, engine_kwargs, requests,
     stats['build_s'] = build_s
     stats['weights_bytes'] = engine._hbm_accounting()[  # pylint: disable=protected-access
         'per_device_bytes']['weights']
+    stats['graphs'] = engine.graph_stats()
     for body, res in results:
         n = body['max_new_tokens']
         if res is None or len(res['tokens']) != n or res['generated'] != n:
@@ -3434,6 +3456,282 @@ def store_phase(torch, ms_lib, da, params, card):
     return out
 
 
+# -------------------------------------------------------------- phase 17
+
+# (b)-(d): per path, rounds run after every lane decodes (the graph
+# path's captures happen there), then timed windows in turns (eager,
+# graph, graph, eager) on the host clock, then rounds under
+# torch.profiler. Lanes get GRAPH_MAX_NEW tokens, more than the rounds
+# take, so all 8 stay live.
+GRAPH_WARM_ROUNDS, GRAPH_TIMED_ROUNDS, GRAPH_PROFILED_ROUNDS = 3, 10, 5
+# The spec round warms longer: its longest lane (1,000 tokens, ~1 token a
+# round on random weights) crosses 1,024 positions within these rounds,
+# where the drafter's block bucket grows from 8 to 16 (one capture), so
+# the timed and profiled rounds all replay.
+GRAPH_SPEC_WARM_ROUNDS = 30
+GRAPH_MAX_NEW = 240
+# (d) two long prompts arrive while 7 lanes decode, one after the other:
+# the first captures the chunk shapes, the second's chunks are timed.
+GRAPH_CHUNK_PROMPT = 1920
+
+
+def graph_serve_phase(torch, ms_lib, quant, da, decode, params,
+                      dense_results, paged_batches, card):
+    """(a) Phase 3's requests through graph and eager replicas of the
+    port's ModelServer (``build_engine(rounds=...)``): dense bf16, paged
+    bf16, paged int8 K/V, paged int8 weights, spec (spec_k SPEC_K,
+    drafter depth 1), and paged with prefill_chunk PREFILL_CHUNK. Each
+    replica's launches exact (serve_phase; the int8 GEMM's 7 per layer
+    pass as phase 12 counts them, none elsewhere); tokens of the two
+    paths identical, request by request; the graph replica captured
+    each key once (its decode or spec kind and, paged, its prefill
+    kinds) and replayed the rest, the eager one captured nothing; the
+    chunked replicas' chunks as ``radix_chunks`` predicts. Returns the
+    graph replicas' ``graph_stats`` by label."""
+    cfg = ms_lib.llama.CONFIGS[MODEL]
+    n_w = len(decode.QUANTIZED_WEIGHTS)
+    dense_batch = [body for body, _ in dense_results]
+    qparams = decode.quantize_params(params)
+    dense_k, paged_k, verify_k = da.KERNELS
+    want_chunks = radix_chunks(paged_batches, BLOCK_K, PREFILL_CHUNK)
+    replicas = (
+        ('dense bf16', params, {}, [dense_batch], dense_k, False),
+        ('paged bf16', params, {'paged': True}, paged_batches, paged_k,
+         False),
+        ('paged int8-KV', params, {'paged': True, 'kv_int8': True},
+         paged_batches, paged_k, False),
+        ('paged int8-weights', qparams, {'paged': True}, paged_batches,
+         paged_k, True),
+        (f'spec k{SPEC_K} drafter 1', params,
+         {'paged': True, 'spec_k': SPEC_K, 'drafter_layers': 1},
+         paged_batches, verify_k, False),
+        (f'paged bf16 chunk {PREFILL_CHUNK}', params,
+         {'paged': True, 'prefill_chunk': PREFILL_CHUNK}, paged_batches,
+         paged_k, False))
+    report = {}
+    for label, p, kwargs, batches, kernel, int8 in replicas:
+        runs = {}
+        for rounds in ('graph', 'eager'):
+            name = f'{label} {rounds}'
+            before = quant.int8_gemm_library.launches
+            stats, results = serve_phase(
+                torch, ms_lib, p, name, {'rounds': rounds, **kwargs},
+                batches, kernel, card,
+                idle_fns=[k for k in da.KERNELS if k is not kernel])
+            gemms = quant.int8_gemm_library.launches - before
+            expect = (n_w * cfg.n_layers * (stats['decode_steps'] +
+                                            stats['admitted'])
+                      if int8 else 0)
+            if gemms != expect:
+                fail(f'{name}: the int8 GEMM launched {gemms} times, '
+                     f'expected {expect}')
+            g = stats['graphs']
+            if rounds == 'eager':
+                if g != {'rounds': 'eager'}:
+                    fail(f'{name}: {g}')
+            else:
+                kinds = set(g['captures'])
+                want = {'spec_step' if kernel is verify_k
+                        else 'decode_steps'}
+                if kwargs.get('paged'):
+                    want.add('paged_prefill')
+                if (g['rounds'] != 'graph' or not want <= kinds
+                        or g['graphs'] != sum(g['captures'].values())
+                        or g['replays'] <= 0):
+                    fail(f'{name}: graph stats {g}, captures of {want} '
+                         'expected')
+            if kwargs.get('prefill_chunk'):
+                got = (stats['chunked_admissions'], stats['prefill_chunks'])
+                if got != want_chunks:
+                    fail(f'{name}: (chunked admissions, chunks) {got}, '
+                         f'expected {want_chunks}')
+            runs[rounds] = (stats, results)
+        graph_toks = [r['tokens'] for _, r in runs['graph'][1]]
+        eager_toks = [r['tokens'] for _, r in runs['eager'][1]]
+        if graph_toks != eager_toks:
+            fail(f'{label}: graph tokens {graph_toks} differ from eager '
+                 f'{eager_toks}')
+        g = runs['graph'][0]['graphs']
+        report[label] = g
+        print(f'[phase 17] {label}: {len(graph_toks)} requests token-'
+              f'identical graph vs eager; graph replica: captures '
+              f'{g["captures"]} in {g["capture_seconds"]:.3f}s, '
+              f'{g["replays"]} replays, graph pool '
+              f'{g["pool_bytes"]} bytes reserved '
+              f'({g["pool_allocated_bytes"]} allocated), decode steps '
+              f'{runs["graph"][0]["decode_steps"]} vs eager '
+              f'{runs["eager"][0]["decode_steps"]}; on {card}', flush=True)
+    del qparams
+    empty_cache(torch)
+    return report
+
+
+def graph_rounds_profile(torch, eng, n):
+    """``n`` rounds of ``eng`` under torch.profiler: (wall ms, device
+    busy ms, kernels, graph launches) a round, and the rounds that
+    replayed and captured (a spec round whose drafter block bucket is
+    new captures)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def counts():
+        g = eng.graph_stats()
+        return g.get('replays', 0), sum(g.get('captures', {}).values())
+
+    replays, captures = counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync(torch)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        sync(torch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_time_by_kernel(torch, prof)
+    graph_launches = sum(evt.count for evt in prof.key_averages()
+                         if 'GraphLaunch' in evt.key)
+    replays2, captures2 = counts()
+    return (wall_ms / n, sum(r[0] for r in rows) / n,
+            sum(r[2] for r in rows) / n, graph_launches / n,
+            replays2 - replays, captures2 - captures)
+
+
+def graph_timing_phase(torch, ms_lib, params, card):
+    """(b) The paged bf16 decode round (8 lanes at PROFILE_LENS,
+    step_chunk 4) and (c) the spec round (spec_k SPEC_K, drafter depth
+    1), graph against eager: host ms a round and a decode step, median
+    and p90 of 2 x GRAPH_TIMED_ROUNDS in turns, then the device's busy
+    share, kernels and graph launches a round under torch.profiler; on
+    the graph path each profiled round replays one graph (one
+    ``cudaGraphLaunch``) or, once a new drafter bucket is reached,
+    captures, and the eager path launches none. (d) The host ms a
+    PREFILL_CHUNK-token chunk adds to a round of 7 decoding lanes (the
+    median round with one chunk of a GRAPH_CHUNK_PROMPT-token prompt
+    less the median round without), both paths."""
+    import random
+    cfg = ms_lib.llama.CONFIGS[MODEL]
+    rng = random.Random(17)
+    Request = ms_lib.engine_lib.Request
+
+    def engine(rounds, **kw):
+        return ms_lib.build_engine(MODEL, 8, MAX_LEN, step_chunk=4,
+                                   device=DEVICE, params=params, paged=True,
+                                   rounds=rounds, **kw)
+
+    def fill(eng, lens, warm=GRAPH_WARM_ROUNDS):
+        reqs = [Request(rand_prompt(rng, cfg.vocab_size, n), GRAPH_MAX_NEW)
+                for n in lens]
+        for r in reqs:
+            eng.submit(r)
+        while not all(r.tokens for r in reqs):
+            eng.step()
+        for _ in range(warm):
+            eng.step()
+        return reqs
+
+    def timed(eng, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            eng.step()          # ends in the round's host fetch
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def summary(v):
+        return statistics.median(v), statistics.quantiles(v, n=10)[-1]
+
+    out = {}
+    for label, kw, warm in (
+            ('decode', {}, GRAPH_WARM_ROUNDS),
+            ('spec', {'spec_k': SPEC_K, 'drafter_layers': 1},
+             GRAPH_SPEC_WARM_ROUNDS)):
+        engines = {r: engine(r, **kw) for r in ('eager', 'graph')}
+        reqs = {r: fill(e, PROFILE_LENS, warm) for r, e in engines.items()}
+        samples = {'eager': [], 'graph': []}
+        for r in ('eager', 'graph', 'graph', 'eager'):
+            samples[r] += timed(engines[r], GRAPH_TIMED_ROUNDS)
+        res = {}
+        for r, eng in engines.items():
+            wall, busy, kernels, graphs, replayed, captured = \
+                graph_rounds_profile(torch, eng, GRAPH_PROFILED_ROUNDS)
+            if eng.active_slots() != len(PROFILE_LENS) or any(
+                    q.done for q in reqs[r]):
+                fail(f'phase 17 {label} {r}: a lane finished while timed')
+            n_launched = round(graphs * GRAPH_PROFILED_ROUNDS)
+            if (n_launched != replayed or (r == 'graph' and replayed +
+                                           captured != GRAPH_PROFILED_ROUNDS)):
+                fail(f'phase 17 {label} {r}: {n_launched} graph launches '
+                     f'in {GRAPH_PROFILED_ROUNDS} profiled rounds, '
+                     f'{replayed} replays and {captured} captures')
+            med, p90 = summary(samples[r])
+            res[r] = dict(round_ms=med, round_p90_ms=p90,
+                          step_ms=med / 4 if label == 'decode' else None,
+                          profiled_round_ms=wall, busy_ms=busy,
+                          busy_share=busy / wall if wall else 0.0,
+                          kernels=kernels, graph_launches=graphs,
+                          captured=captured)
+            print(f'[phase 17] {label} round, {r}: host {med:.3f} ms '
+                  f'median / {p90:.3f} p90 of {len(samples[r])}'
+                  + (f' ({med / 4:.3f} ms a decode step)'
+                     if label == 'decode' else '')
+                  + f'; profiled {wall:.3f} ms a round, device busy '
+                  f'{busy:.3f} ms ({busy / wall:.3f} of the wall), '
+                  f'{kernels:.0f} kernels and {graphs:.1f} graph launches '
+                  f'a round ({captured} rounds captured); on {card}',
+                  flush=True)
+        res['graph_stats'] = engines['graph'].graph_stats()
+        out[label] = res
+        del engines, reqs
+        gc.collect()
+        empty_cache(torch)
+    res = {}
+    for r in ('graph', 'eager'):
+        eng = engine(r, prefill_chunk=PREFILL_CHUNK)
+        lanes = fill(eng, PROFILE_LENS[:7])
+        plain = timed(eng, GRAPH_TIMED_ROUNDS)
+        chunked = []
+        for i in range(2):
+            long = Request(rand_prompt(rng, cfg.vocab_size,
+                                       GRAPH_CHUNK_PROMPT), 1)
+            eng.submit(long)
+            while not long.done:
+                t = timed(eng, 1)
+                if i == 1:
+                    chunked += t
+        if any(q.done for q in lanes):
+            fail(f'phase 17 chunk {r}: a lane finished while timed')
+        n_chunks = -(-GRAPH_CHUNK_PROMPT // PREFILL_CHUNK)
+        if len(chunked) != n_chunks:
+            fail(f'phase 17 chunk {r}: {len(chunked)} rounds for a '
+                 f'{n_chunks}-chunk prompt')
+        added = statistics.median(chunked) - statistics.median(plain)
+        res[r] = dict(plain_round_ms=statistics.median(plain),
+                      chunk_round_ms=statistics.median(chunked),
+                      chunk_added_ms=added)
+        print(f'[phase 17] chunk {PREFILL_CHUNK}, {r}: a round of 7 '
+              f'decoding lanes {statistics.median(plain):.3f} ms, with one '
+              f'chunk {statistics.median(chunked):.3f} ms: the chunk adds '
+              f'{added:.3f} ms (host clock, medians of {len(plain)} and '
+              f'{len(chunked)}); on {card}', flush=True)
+        del eng, lanes
+        gc.collect()
+        empty_cache(torch)
+    out['chunk'] = res
+    return out
+
+
+def graph_phase(torch, ms_lib, quant, da, decode, params, dense_results,
+                paged_batches, card):
+    """Phase 17: the compiled rounds, (a) graph_serve_phase, (b)-(d)
+    graph_timing_phase; prints the phase's own seconds."""
+    t0 = time.perf_counter()
+    serve = graph_serve_phase(torch, ms_lib, quant, da, decode, params,
+                              dense_results, paged_batches, card)
+    timing = graph_timing_phase(torch, ms_lib, params, card)
+    seconds = time.perf_counter() - t0
+    print(f'[phase 17] {seconds:.1f}s', flush=True)
+    return {'serve': serve, 'timing': timing, 'seconds': seconds}
+
+
 # --------------------------------------------------------------- phase 6
 
 
@@ -4270,9 +4568,22 @@ def main() -> int:
     phase16_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
     print(f'[phase 16] launches {phase16_counts}; {store_report}',
           flush=True)
+    phase_done('phase 16')
+
+    # Phase 17 (the compiled rounds, graph against eager) while the
+    # weights are up.
+    da.reset_launch_counts()
+    graphs_report = graph_phase(torch, ms_lib, quant, da, decode, params,
+                                dense_results, paged_batches, card)
+    phase17_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    print(f'[phase 17] launches {phase17_counts}; {graphs_report}',
+          flush=True)
+    if not all(phase17_counts.values()):
+        fail(f'a decode kernel was not launched in phase 17: '
+             f'{phase17_counts}')
     del params, spec_runs, paged_results, dense_results
     torch.cuda.empty_cache()
-    phase_done('phase 16')
+    phase_done('phase 17')
 
     flash_rows = flash_kernel_phase(torch, fa)
     phase_done('phase 6')
@@ -4307,7 +4618,8 @@ def main() -> int:
             'phase12_launches': phase12_counts[kname],
             'phase13_launches': phase13_counts[kname],
             'phase15_launches': phase15_counts[kname],
-            'phase16_launches': phase16_counts[kname]})
+            'phase16_launches': phase16_counts[kname],
+            'phase17_launches': phase17_counts[kname]})
     kernels.append({
         'name': 'paged_verify_attention_kernel', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
@@ -4331,7 +4643,9 @@ def main() -> int:
         'phase15_launches':
             phase15_counts['paged_verify_attention_kernel'],
         'phase16_launches':
-            phase16_counts['paged_verify_attention_kernel']})
+            phase16_counts['paged_verify_attention_kernel'],
+        'phase17_launches':
+            phase17_counts['paged_verify_attention_kernel']})
     for kname, row in flash_rows.items():
         main = row['bf16']
         kernels.append({

@@ -16,7 +16,10 @@ Counterpart of ``skypilot_tpu/models/decode.py``, same semantics:
 * The reference donates its cache to every jitted call so XLA updates it
   in place; here the cache tensors are simply updated in place (every
   ``_write_kv``/``copy_block`` below), so callers keep one cache object
-  for the life of the engine.
+  for the life of the engine, and the engine's CUDA graphs
+  (``models/cuda_graphs.py``) are captured over it. The paged prefills
+  take their lengths as 0-d tensors too, and nothing here reads a device
+  value back to the host, so a captured call serves every length.
 * Greedy or temperature sampling; ``generate`` stops per sequence on EOS
   through a done mask.
 * Int8 weights (:func:`quantize_params`): the seven per-layer GEMM
@@ -284,27 +287,42 @@ def paged_decode_step(params: Params, token: torch.Tensor,
                           (blk, pos % block_k), tables)
 
 
-def paged_prefill(params: Params, tokens: torch.Tensor, prompt_len: int,
-                  block_row: torch.Tensor, cfg: llama.LlamaConfig,
-                  pool: Cache) -> torch.Tensor:
+def _length(n, device) -> torch.Tensor:
+    """A prefill length as a 0-d integer tensor on ``device``: the
+    engine passes its static buffers' (a captured prefill reads the
+    length from there), other callers may pass an int."""
+    return torch.as_tensor(n, device=device)
+
+
+def _row_at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Row ``i`` (a 0-d tensor) of ``x`` [S, D]: a gather on the device,
+    where ``x[i]`` would read ``i`` back to the host."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+def paged_prefill(params: Params, tokens: torch.Tensor,
+                  prompt_len, block_row: torch.Tensor,
+                  cfg: llama.LlamaConfig, pool: Cache) -> torch.Tensor:
     """Prefill ONE request into the pool blocks named by ``block_row``
     [S_bucket // block_k]: positions [j*block_k, (j+1)*block_k) land in
     block ``block_row[j]``. Bucket padding writes into whatever block
     covers it (the engine points rows past the allocation at scratch;
-    attention masks by length). Returns the last prompt logits."""
+    attention masks by length). ``prompt_len`` is an int or a 0-d
+    integer tensor. Returns the last prompt logits."""
     s = tokens.shape[1]
     block_k = pool['k'].shape[2]
+    prompt_len = _length(prompt_len, tokens.device)
     x, ks, vs = _prefill_forward(params, tokens, cfg)
     shp = (ks.shape[0], s // block_k, block_k) + ks.shape[3:]
     _write_kv(pool, (slice(None), block_row.long()),
               ks[:, 0].reshape(shp), vs[:, 0].reshape(shp))
-    return _logits(params, x[0, prompt_len - 1])
+    return _logits(params, _row_at(x[0], prompt_len - 1))
 
 
 def _prefix_suffix_attention(q: torch.Tensor, pk: torch.Tensor,
                              pv: torch.Tensor, sk: torch.Tensor,
                              sv: torch.Tensor,
-                             prefix_len: int) -> torch.Tensor:
+                             prefix_len: torch.Tensor) -> torch.Tensor:
     """Suffix queries attend the gathered prefix K/V (positions <
     prefix_len) plus the suffix itself (causal). q/sk/sv [1, S, ...],
     pk/pv [1, P_buf, Hkv, hd]; grouped GQA einsum."""
@@ -348,7 +366,7 @@ def _gather_prefix_kv(pool: Cache, prefix_blocks: torch.Tensor,
 
 
 def paged_prefill_with_prefix(params: Params, tokens: torch.Tensor,
-                              suffix_len: int, prefix_len: int,
+                              suffix_len, prefix_len,
                               prefix_blocks: torch.Tensor,
                               block_row: torch.Tensor,
                               cfg: llama.LlamaConfig,
@@ -358,11 +376,13 @@ def paged_prefill_with_prefix(params: Params, tokens: torch.Tensor,
     prefix K/V already in the pool blocks ``prefix_blocks`` (padded
     entries masked by ``prefix_len``). ``block_row`` [S_bucket // block_k
     + 1] names the blocks receiving the suffix writes, starting at the
-    block holding position ``prefix_len``. Returns the last suffix
-    token's logits [vocab]."""
+    block holding position ``prefix_len``. The lengths are ints or 0-d
+    integer tensors. Returns the last suffix token's logits [vocab]."""
     s = tokens.shape[1]
     block_k = pool['k'].shape[2]
     device = tokens.device
+    suffix_len = _length(suffix_len, device)
+    prefix_len = _length(prefix_len, device)
     positions = prefix_len + torch.arange(s, dtype=torch.int32,
                                           device=device)
     cos, sin = llama._rope_freqs(cfg, positions)  # pylint: disable=protected-access
@@ -384,7 +404,7 @@ def paged_prefill_with_prefix(params: Params, tokens: torch.Tensor,
     blk = block_row.long()[g // block_k]
     _write_kv(pool, (slice(None), blk, g % block_k), torch.stack(ks),
               torch.stack(vs))
-    return _logits(params, x[0, suffix_len - 1])
+    return _logits(params, _row_at(x[0], suffix_len - 1))
 
 
 # --------------------------------------------------- speculative decoding

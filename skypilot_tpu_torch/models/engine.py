@@ -15,8 +15,8 @@ slice.
   up to bucket shapes) into a free lane; the first token samples from
   the prefill logits.
 * **step()** runs ``step_chunk`` single-token decode steps across every
-  slot with per-slot positions — a Python loop on the device, one host
-  fetch per ``step()``. The step semantics are exactly the reference's
+  slot with per-slot positions, then one host fetch. The step semantics
+  are exactly the reference's
   ``_scan_engine_steps``: sample → EOS-force → done-fold, one budget
   unit per live step, done lanes freeze their position. Greedy engine
   output is therefore token-identical to ``decode.generate``.
@@ -44,9 +44,19 @@ slice.
   :class:`~skypilot_tpu_torch.observability.journal.JournalBuffer`
   (one transaction per tick, written off the loop thread), per-request
   phase records (``observability/request_trace.RequestTelemetry``), the
-  step profile, and the device-memory split (``engine.hbm``). The port
-  has no jit: ``engine.compile`` marks the first dispatch of each
-  distinct shape, which is also what a captured CUDA graph would key on.
+  step profile, and the device-memory split (``engine.hbm``).
+* **Compiled rounds** (``models/cuda_graphs.py``), the counterpart of
+  the reference's jitted, cache-donating dispatches: on the card the
+  decode round (dense and paged), the spec step and the paged prefills
+  (a whole suffix or one chunk) each run as one CUDA-graph replay per
+  distinct shape, from static input buffers the round fills from the
+  host mirrors. The first dispatch of a shape runs eagerly (its
+  ``engine.compile`` row) and is captured right after; a failed capture
+  or replay raises into the supervisor. ``rounds='eager'`` runs every
+  dispatch eagerly on the card through the same code (tests and
+  ``chip_smoke.py`` compare the two); on the CPU the rounds always run
+  eagerly. The dense ``prefill`` insert, the prefix inject/export and the
+  copy-on-write copy stay eager.
 
 **Paged mode**: a host-side :class:`BlockAllocator` (refcounts,
 copy-on-write) and :class:`RadixPrefixCache` (radix tree over block-
@@ -117,8 +127,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.models import block_store, decode, llama
-from skypilot_tpu_torch.models import prefix_transfer
+from skypilot_tpu_torch.models import block_store, cuda_graphs, decode
+from skypilot_tpu_torch.models import llama, prefix_transfer
 from skypilot_tpu_torch.observability import journal
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import request_trace
@@ -141,6 +151,10 @@ PREFILL_CHUNK_ENV = 'SKYTPU_PREFILL_CHUNK'
 # point at it so frozen lanes write harmlessly, and bucket-padding
 # prefill writes spill into it. The allocator never hands it out.
 SCRATCH_BLOCK = 0
+# How the engine's rounds run on the card: one CUDA-graph replay per
+# dispatch ('graph'), or eagerly ('eager', for comparisons). The CPU
+# always runs them eagerly.
+ROUNDS = ('graph', 'eager')
 
 
 class PoolExhausted(RuntimeError):
@@ -513,7 +527,13 @@ class DecodeEngine:
     published run spills to. ``store_fetch_fn(url, tokens, from_tokens,
     budget)`` and ``store_spill_fn(url, tokens, payload, budget)`` are its
     transports (default: ``block_store.http_store_fetch`` carrying
-    ``instance_id`` and ``block_store.http_store_spill``)."""
+    ``instance_id`` and ``block_store.http_store_spill``).
+
+    ``rounds`` (one of :data:`ROUNDS`): on a CUDA device the decode
+    rounds, spec steps and paged prefills replay CUDA graphs
+    (``'graph'``, the default) or run eagerly (``'eager'``); on the CPU
+    they run eagerly either way. The reference has no such switch, so
+    neither the CLI nor the environment sets it."""
 
     def __init__(self, params, cfg: llama.LlamaConfig,
                  dcfg: decode.DecodeConfig, num_slots: int,
@@ -529,11 +549,15 @@ class DecodeEngine:
                  store_url: Optional[str] = None,
                  store_fetch_fn: Optional[Callable] = None,
                  store_spill_fn: Optional[Callable] = None,
-                 journal_db: Optional[str] = None):
+                 journal_db: Optional[str] = None,
+                 rounds: str = 'graph'):
         if num_slots < 1:
             raise ValueError(f'num_slots must be >= 1, got {num_slots}')
         if step_chunk < 1:
             raise ValueError(f'step_chunk must be >= 1, got {step_chunk}')
+        if rounds not in ROUNDS:
+            raise ValueError(f'rounds must be one of {ROUNDS}, got '
+                             f'{rounds!r}')
         if dcfg.spec_k:
             # Verify is a multi-token decode over the block tables, and
             # the round commits the full model's argmax: paged and greedy
@@ -694,6 +718,14 @@ class DecodeEngine:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
         self._generator = generator
+        # The compiled dispatches (None: every round runs eagerly) and the
+        # host side of their static inputs.
+        self.rounds = rounds if self.device.type == 'cuda' else 'eager'
+        self._graphs: Optional[cuda_graphs.GraphCache] = (
+            cuda_graphs.GraphCache(cuda_graphs.CudaCapturer(self.device,
+                                                            generator))
+            if self.rounds == 'graph' else None)
+        self._staging = cuda_graphs.HostStaging(self.device)
         self._init_runtime_state()
         self._queue_lock = threading.Lock()
         self._queues: 'collections.OrderedDict[str, collections.deque]' \
@@ -763,16 +795,22 @@ class DecodeEngine:
         """Device byte split of this engine's footprint. Weights and the
         pool (or dense cache) are exact byte sums of their tensors;
         workspace is the rest of ``torch.cuda.memory_allocated`` on the
-        card (``workspace_measured: true``), and 0 on the CPU, which has
-        no device memory to meter (``workspace_measured: false``)."""
+        card plus the CUDA graphs' pool, whole (``workspace_measured:
+        true``), and 0 on the CPU, which has no device memory to meter
+        (``workspace_measured: false``). The ``engine.hbm`` row is taken
+        at engine start, before any capture."""
         weights = _tree_nbytes(self.params)
         pool = _tree_nbytes(self._cache)
         pool_kind = 'paged_pool' if self.paged else 'kv_cache'
         workspace = 0
         measured = self.device.type == 'cuda'
         if measured:
+            # The CUDA graphs' pool is workspace, whole: its reserved
+            # bytes, live or not, in place of its allocated ones.
+            reserved, allocated = ((0, 0) if self._graphs is None
+                                   else self._graphs.pool_bytes())
             workspace = max(0, torch.cuda.memory_allocated(self.device)
-                            - weights - pool)
+                            - weights - pool - allocated) + reserved
         return {
             'per_device_bytes': {'weights': weights,
                                  pool_kind: pool,
@@ -789,9 +827,12 @@ class DecodeEngine:
         queued requests re-prefill against the fresh cache."""
         num_slots = self.num_slots
         # Drop the old cache before allocating the new one: both at once
-        # would not fit beside the weights at full width.
+        # would not fit beside the weights at full width. The graphs
+        # captured over it go with it, and so does their pool.
         self._cache = None
-        self._block_table_dev = None
+        if self._graphs is not None:
+            self._graphs.reset()
+        self._staging.clear()
         if self.paged:
             self._cache = decode.init_block_pool(
                 self.cfg, self.num_blocks, self._block_k,
@@ -799,10 +840,11 @@ class DecodeEngine:
             self._allocator = BlockAllocator(self.num_blocks)
             self._radix = RadixPrefixCache(self._block_k, self._allocator)
             # Rows of free slots point at SCRATCH_BLOCK; the device copy
-            # is re-uploaded only after admission/eviction changes it.
+            # (the rounds' static ``tables``) is refilled only after
+            # admission/eviction changes it.
             self._block_table_np = np.zeros(
                 (num_slots, self._max_blocks), np.int32)
-            self._block_table_dev: Optional[torch.Tensor] = None
+            self._tables_dirty = True
             self._slot_refs: List[List[int]] = [[] for _ in
                                                 range(num_slots)]
             self._slot_nodes: List[list] = [[] for _ in range(num_slots)]
@@ -821,6 +863,22 @@ class DecodeEngine:
         self._pos = np.zeros((num_slots,), np.int64)
         self._done = np.ones((num_slots,), bool)
         self._remaining = np.zeros((num_slots,), np.int64)
+        # The decode round's and spec step's static inputs, filled from
+        # the host mirrors above before each dispatch; the paged
+        # prefills' are made per graph key (:meth:`_prefill_inputs`).
+        dev = self.device
+        self._round_in = {
+            'token': torch.zeros((num_slots,), dtype=torch.int64,
+                                 device=dev),
+            'pos': torch.zeros((num_slots,), dtype=torch.int64, device=dev),
+            'done': torch.ones((num_slots,), dtype=torch.bool, device=dev),
+            'remaining': torch.zeros((num_slots,), dtype=torch.int64,
+                                     device=dev)}
+        if self.paged:
+            self._round_in['tables'] = torch.zeros(
+                (num_slots, self._max_blocks), dtype=torch.int32,
+                device=dev)
+        self._prefill_in: dict = {}
 
     # ------------------------------------------------------------ intake
 
@@ -1114,7 +1172,7 @@ class DecodeEngine:
         self._slot_nodes[slot] = path
         self._block_table_np[slot, :] = SCRATCH_BLOCK
         self._block_table_np[slot, :n_total] = table
-        self._block_table_dev = None
+        self._tables_dirty = True
         self._publish_block_gauges()
         return self._sample_first(last), m
 
@@ -1594,10 +1652,13 @@ class DecodeEngine:
         ``table``, attending over positions [0, start) already there;
         returns the logits at ``end - 1``. One call serves a whole
         suffix and each chunk of a chunked admission (``chunk``, which
-        the ``engine.compile`` shape then carries). The bucket's padding
-        writes past ``end`` into the request's own blocks (or scratch);
-        nothing attends there before the next chunk or decode step
-        overwrites it."""
+        the ``engine.compile`` shape then carries; the graph's key
+        leaves it out, so a chunk and a whole suffix of one shape share
+        a graph). The bucket's padding writes past ``end`` into the
+        request's own blocks (or scratch); nothing attends there before
+        the next chunk or decode step overwrites it. The lengths travel
+        as 0-d tensors of the key's static buffers, so one graph serves
+        every length of its bucket."""
         bk = self._block_k
         suf = end - start
         bucket = self._bucket_for(suf)
@@ -1607,32 +1668,90 @@ class DecodeEngine:
         if start == 0:
             self._note_compile('paged_prefill', bucket=bucket,
                                **chunk_shape)
+            key = ('paged_prefill', bucket)
             row = np.full((bucket // bk,), SCRATCH_BLOCK, np.int64)
             nrow = min(len(table), len(row))
             row[:nrow] = table[:nrow]
-            return decode.paged_prefill(
-                self.params, self._dev(padded), suf, self._dev(row),
-                self.cfg, self._cache)
-        # Prefix block count buckets to powers of two (the reference's
-        # compile bound; padding rows point at scratch and are masked by
-        # prefix_len).
-        npb = -(-start // bk)
-        npb_bucket = 1
-        while npb_bucket < npb:
-            npb_bucket *= 2
-        self._note_compile('paged_prefill_with_prefix', bucket=bucket,
-                           npb_bucket=npb_bucket, **chunk_shape)
-        pref = np.full((npb_bucket,), SCRATCH_BLOCK, np.int64)
-        pref[:npb] = table[:npb]
-        # Writes start inside block start // bk at offset start % bk, so
-        # the row holds one block more than the bucket.
-        srow = start // bk
-        row = np.full((bucket // bk + 1,), SCRATCH_BLOCK, np.int64)
-        avail = table[srow:srow + len(row)]
-        row[:len(avail)] = avail
+            pref = None
+        else:
+            # Prefix block count buckets to powers of two (the
+            # reference's compile bound; padding rows point at scratch
+            # and are masked by prefix_len).
+            npb = -(-start // bk)
+            npb_bucket = 1
+            while npb_bucket < npb:
+                npb_bucket *= 2
+            self._note_compile('paged_prefill_with_prefix', bucket=bucket,
+                               npb_bucket=npb_bucket, **chunk_shape)
+            key = ('paged_prefill_with_prefix', bucket, npb_bucket)
+            pref = np.full((npb_bucket,), SCRATCH_BLOCK, np.int64)
+            pref[:npb] = table[:npb]
+            # Writes start inside block start // bk at offset start % bk,
+            # so the row holds one block more than the bucket.
+            srow = start // bk
+            row = np.full((bucket // bk + 1,), SCRATCH_BLOCK, np.int64)
+            avail = table[srow:srow + len(row)]
+            row[:len(avail)] = avail
+        buf = self._prefill_inputs(key, row.shape[0],
+                                   None if pref is None else pref.shape[0])
+        pairs = [(buf['tokens'], padded), (buf['row'], row),
+                 (buf['lens'], np.asarray([suf, start], np.int64))]
+        if pref is not None:
+            pairs.append((buf['pref'], pref))
+        self._staging.fill(pairs)
+        return self._dispatch(key, functools.partial(self._prefill_body, buf),
+                              buf.values())
+
+    def _prefill_inputs(self, key: tuple, n_row: int,
+                        n_pref: Optional[int]) -> dict:
+        """The static inputs of one paged-prefill key, made at its first
+        dispatch: tokens [1, bucket], the block row, the prefix blocks
+        (with-prefix only) and ``lens`` = [suffix length, prefix
+        length]."""
+        buf = self._prefill_in.get(key)
+        if buf is None:
+            dev = self.device
+            buf = {'tokens': torch.zeros((1, key[1]), dtype=torch.int64,
+                                         device=dev),
+                   'row': torch.zeros((n_row,), dtype=torch.int64,
+                                      device=dev),
+                   'lens': torch.zeros((2,), dtype=torch.int64, device=dev)}
+            if n_pref is not None:
+                buf['pref'] = torch.zeros((n_pref,), dtype=torch.int64,
+                                          device=dev)
+            self._prefill_in[key] = buf
+        return buf
+
+    def _prefill_body(self, buf: dict) -> torch.Tensor:
+        """One paged prefill from its static inputs (the captured body)."""
+        if 'pref' not in buf:
+            return decode.paged_prefill(self.params, buf['tokens'],
+                                        buf['lens'][0], buf['row'],
+                                        self.cfg, self._cache)
         return decode.paged_prefill_with_prefix(
-            self.params, self._dev(padded), suf, start, self._dev(pref),
-            self._dev(row), self.cfg, self._cache)
+            self.params, buf['tokens'], buf['lens'][0], buf['lens'][1],
+            buf['pref'], buf['row'], self.cfg, self._cache)
+
+    def _dispatch(self, key: tuple, fn: Callable[[], torch.Tensor],
+                  inputs) -> torch.Tensor:
+        """Run one engine dispatch: on the card its CUDA graph's replay
+        (captured at the key's first dispatch, which runs eagerly), else
+        ``fn()``. ``inputs`` are the static buffers ``fn`` reads; they
+        and the pool must be the ones the graph was captured over."""
+        if self._graphs is None:
+            return fn()
+        ptrs = tuple(t.data_ptr() for t in
+                     itertools.chain(self._cache.values(), inputs))
+        return self._graphs.run(key, fn, ptrs)
+
+    def graph_stats(self) -> dict:
+        """The compiled rounds: ``rounds`` ('graph' or 'eager'), and on
+        the graph path the graphs held, captures by kind since start
+        (restarts capture again), their seconds, replays and the pool's
+        reserved and allocated bytes."""
+        if self._graphs is None:
+            return {'rounds': self.rounds}
+        return {'rounds': self.rounds, **self._graphs.stats()}
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -2006,7 +2125,7 @@ class DecodeEngine:
         self._publish_prompt(req.prompt, st['m'], table)
         self._block_table_np[slot, :] = SCRATCH_BLOCK
         self._block_table_np[slot, :len(table)] = table
-        self._block_table_dev = None
+        self._tables_dirty = True
         self._prefill_state[slot] = None
         self._publish_block_gauges()
         self._deliver_first(slot, req, self._sample_first(last))
@@ -2079,25 +2198,53 @@ class DecodeEngine:
         self.flush_journal(wait=False)
         return active
 
-    def _tables_dev(self) -> torch.Tensor:
-        if self._block_table_dev is None:
-            self._block_table_dev = self._dev(self._block_table_np)
-        return self._block_table_dev
+    def _fill_round_inputs(self) -> None:
+        """Copy the host mirrors (and the block tables, when an admission
+        or eviction changed them) into the round's static inputs."""
+        b = self._round_in
+        pairs = [(b['token'], self._token), (b['pos'], self._pos),
+                 (b['done'], self._done), (b['remaining'], self._remaining)]
+        if self.paged and self._tables_dirty:
+            pairs.append((b['tables'], self._block_table_np))
+            self._tables_dirty = False
+        self._staging.fill(pairs)
 
     def _decode_round(self) -> int:
         """``step_chunk`` single-token steps over every slot, then one
         host fetch and delivery; returns the steps run. Per-step
         semantics are the reference's ``_scan_engine_steps``: sample →
         EOS-force → done-fold, one budget unit per live step, done lanes
-        freeze their position."""
-        eos = self.dcfg.eos_id
+        freeze their position. One dispatch (:meth:`_decode_body`) per
+        ``(paged, step_chunk)``: the reference's ``_engine_steps_impl``
+        and ``_engine_paged_steps_impl``."""
         self._note_compile('decode_steps', n_steps=self.step_chunk,
                            paged=self.paged)
-        token = self._dev(self._token)
-        pos = self._dev(self._pos)
-        done = self._dev(self._done)
-        remaining = self._dev(self._remaining)
-        tables = self._tables_dev() if self.paged else None
+        self._fill_round_inputs()
+        out = self._dispatch(('decode_steps', self.step_chunk, self.paged),
+                             self._decode_body, self._round_in.values())
+        # One fused host fetch (the step's only sync point).
+        host = out.cpu().numpy()
+        n, b = self.step_chunk, self.num_slots
+        toks_np = host[:n * b].reshape(n, b)
+        self._token, self._pos, done_np, self._remaining = (
+            host[n * b + i * b:n * b + (i + 1) * b].copy()
+            for i in range(4))
+        self._done = done_np.astype(bool)
+        # Counted before delivery: a client woken by its last token may
+        # read stats() or /metrics at once.
+        self._count_steps(n)
+        self._deliver_chunk(toks_np)
+        return n
+
+    def _decode_body(self) -> torch.Tensor:
+        """The decode round from its static inputs (the captured body):
+        [step_chunk x num_slots tokens, then token, pos, done,
+        remaining], the one tensor the host fetches."""
+        eos = self.dcfg.eos_id
+        b = self._round_in
+        token, pos, done, remaining = (b['token'], b['pos'], b['done'],
+                                       b['remaining'])
+        tables = b['tables'] if self.paged else None
         toks = []
         for _ in range(self.step_chunk):
             if self.paged:
@@ -2121,20 +2268,8 @@ class DecodeEngine:
             pos = torch.where(done, pos, pos + 1)
             token, done = nxt, done_new
             toks.append(nxt)
-        # One fused host fetch (the step's only sync point).
-        host = torch.cat([torch.stack(toks).flatten(), token, pos,
-                          done.long(), remaining]).cpu().numpy()
-        n, b = self.step_chunk, self.num_slots
-        toks_np = host[:n * b].reshape(n, b)
-        self._token, self._pos, done_np, self._remaining = (
-            host[n * b + i * b:n * b + (i + 1) * b].copy()
-            for i in range(4))
-        self._done = done_np.astype(bool)
-        # Counted before delivery: a client woken by its last token may
-        # read stats() or /metrics at once.
-        self._count_steps(n)
-        self._deliver_chunk(toks_np)
-        return n
+        return torch.cat([torch.stack(toks).flatten(), token, pos,
+                          done.long(), remaining])
 
     def _count_steps(self, n: int) -> None:
         self._decode_steps += n
@@ -2155,7 +2290,6 @@ class DecodeEngine:
         attended, and are overwritten when a real token reaches them.
         Idle lanes run too (their tables are all scratch) and deliver
         nothing."""
-        tables = self._tables_dev()
         k = self.dcfg.spec_k
         # The drafter attends positions < pos only: gather just the live
         # blocks (power-of-two bucketed, as the reference bounds its
@@ -2170,12 +2304,12 @@ class DecodeEngine:
         self._note_compile('spec_step', spec_k=k,
                            drafter_layers=self.dcfg.spec_drafter_layers,
                            draft_blocks=nb_bucket)
-        drafts, vtok = _spec_step(self.params, self._dev(self._token),
-                                  self._dev(self._pos),
-                                  tables[:, :nb_bucket], tables,
-                                  self._cache, self.cfg, self.dcfg)
+        self._fill_round_inputs()
+        out = self._dispatch(('spec_step', nb_bucket),
+                             functools.partial(self._spec_body, nb_bucket),
+                             self._round_in.values())
         # One host fetch per round.
-        host = torch.cat([drafts, vtok], dim=1).cpu().numpy()
+        host = out.cpu().numpy()
         drafts, vtok = host[:, :k], host[:, k:]
         runs = []
         for slot, req in enumerate(self._slots):
@@ -2212,6 +2346,17 @@ class DecodeEngine:
                 self._token[slot] = last_tok
                 self._pos[slot] += delivered
                 self._remaining[slot] -= delivered
+
+    def _spec_body(self, nb_bucket: int) -> torch.Tensor:
+        """One spec step from the round's static inputs (the captured
+        body, one per drafter block bucket): the drafter reads the
+        tables' first ``nb_bucket`` columns, the verify all of them.
+        Returns [drafts | verify argmax], [B, 2 * spec_k + 1]."""
+        b = self._round_in
+        drafts, vtok = _spec_step(self.params, b['token'], b['pos'],
+                                  b['tables'][:, :nb_bucket], b['tables'],
+                                  self._cache, self.cfg, self.dcfg)
+        return torch.cat([drafts, vtok], dim=1)
 
     def _deliver_run(self, slot: int, req: Request,
                      tokens) -> Tuple[int, int, bool]:
@@ -2267,7 +2412,7 @@ class DecodeEngine:
             self._slot_nodes[slot] = []
             self._prefill_state[slot] = None
             self._block_table_np[slot, :] = SCRATCH_BLOCK
-            self._block_table_dev = None
+            self._tables_dirty = True
             self._publish_block_gauges()
         self._count_evicted()
         self._journal(journal.EventKind.ENGINE_EVICT, req, slot,
@@ -2562,9 +2707,14 @@ class DecodeEngine:
     def _note_compile(self, kind: str, **shape) -> None:
         """Journal ``engine.compile`` once per distinct dispatch shape,
         just before its first dispatch, with the reference's kinds and
-        keys. The port runs eagerly: the row marks the first launch of a
-        shape (where a CUDA-graph capture would happen), not a trace.
-        The dedupe set survives supervisor restarts."""
+        keys. The row marks the dispatch that runs a shape eagerly for
+        the first time; for a compiled kind (``decode_steps``,
+        ``spec_step``, ``paged_prefill``, ``paged_prefill_with_prefix``)
+        on the card its CUDA graph is captured right after it
+        (:meth:`_dispatch`), the counterpart of the reference's trace.
+        The dedupe set survives supervisor restarts, as the reference's
+        process-global jit cache does; the graphs do not, so a rebuilt
+        engine captures again without a second row."""
         key = (kind, tuple(sorted(shape.items())))
         if key in self._traced_shapes:
             return

@@ -34,8 +34,9 @@ or when the caller asks for ``'plain'``; for a CUDA tensor they launch
 the kernel or raise — there is no fallback.
 
 Every kernel wrapper counts its launches in a plain integer attribute
-(``decode_attention_kernel.launches``), so a run can show that the
-serving path went through the kernel.
+(``decode_attention_kernel.launches``, through ``ops/launch_counts``), so
+a run can show that the serving path went through the kernel; a CUDA
+graph that captured a launch counts it at each replay.
 """
 import ctypes
 import functools
@@ -43,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from skypilot_tpu_torch.ops import cuda_build
+from skypilot_tpu_torch.ops import cuda_build, launch_counts
 
 NEG_INF = -1e30
 # Block size of the paged pool (and the prefill bucket granularity).
@@ -362,7 +363,7 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     lens = _lengths(cur_len, q)
     out = _launch(q, k_cache, v_cache, k_scale, v_scale, lens, None,
                   block_k=max_len, max_blocks=1, n_pool_blocks=b)
-    decode_attention_kernel.launches += 1
+    launch_counts.count(decode_attention_kernel)
     return out
 
 
@@ -387,7 +388,7 @@ def paged_decode_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, lens, tables,
                   block_k=block_k, max_blocks=tables.shape[1],
                   n_pool_blocks=n_pool_blocks)
-    paged_decode_attention_kernel.launches += 1
+    launch_counts.count(paged_decode_attention_kernel)
     return out
 
 
@@ -414,7 +415,7 @@ def paged_verify_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, start, tables,
                   block_k=block_k, max_blocks=tables.shape[1],
                   n_pool_blocks=n_pool_blocks, verify=True)
-    paged_verify_attention_kernel.launches += 1
+    launch_counts.count(paged_verify_attention_kernel)
     return out
 
 

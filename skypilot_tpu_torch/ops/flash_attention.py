@@ -20,8 +20,8 @@ twins only for CPU tensors or when the caller asks for ``'plain'``. For
 a CUDA tensor it launches the kernels or raises: there is no fallback.
 
 Every kernel wrapper counts its launches in a plain integer attribute
-(``flash_forward_kernel.launches``), so a run can show that the training
-path went through the kernels.
+(``flash_forward_kernel.launches``, through ``ops/launch_counts``), so a
+run can show that the training path went through the kernels.
 """
 import ctypes
 import functools
@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from skypilot_tpu_torch.ops import cuda_build
+from skypilot_tpu_torch.ops import cuda_build, launch_counts
 
 NEG_INF = -1e30
 IMPLS = ('kernel', 'plain')
@@ -203,7 +203,7 @@ def flash_forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _launch('forward', (q, k, v, out, lse), q, k, causal)
-    flash_forward_kernel.launches += 1
+    launch_counts.count(flash_forward_kernel)
     return out, lse
 
 
@@ -233,7 +233,7 @@ def flash_bwd_dq_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, dout, lse, dsum = _bwd_operands(q, k, v, dout, lse, dsum)
     dq = torch.empty_like(q)
     _launch('dq', (q, k, v, dout, lse, dsum, dq), q, k, causal)
-    flash_bwd_dq_kernel.launches += 1
+    launch_counts.count(flash_bwd_dq_kernel)
     return dq
 
 
@@ -251,7 +251,7 @@ def flash_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, dout, lse, dsum = _bwd_operands(q, k, v, dout, lse, dsum)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch('dkv', (q, k, v, dout, lse, dsum, dk, dv), q, k, causal)
-    flash_bwd_dkv_kernel.launches += 1
+    launch_counts.count(flash_bwd_dkv_kernel)
     return dk, dv
 
 

@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from skypilot_tpu_torch.ops import launch_counts
+
 _INT8_MAX = 127.0
 # torch._int_mm on CUDA refuses 16 rows or fewer.
 LIBRARY_MIN_ROWS = 17
@@ -134,7 +136,7 @@ def int8_gemm_library(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     if m < LIBRARY_MIN_ROWS:
         xq = torch.nn.functional.pad(xq, (0, 0, 0, LIBRARY_MIN_ROWS - m))
     acc = torch._int_mm(xq.contiguous(), wq)  # pylint: disable=protected-access
-    int8_gemm_library.launches += 1
+    launch_counts.count(int8_gemm_library)
     return acc[:m]
 
 

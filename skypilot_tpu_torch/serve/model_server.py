@@ -258,7 +258,8 @@ def build_engine(model: str, num_slots: int, max_len: int,
                  prefix_peers: Optional[list] = None,
                  store_url: Optional[str] = None,
                  device: Optional[str] = None,
-                 params: Optional[llama.Params] = None
+                 params: Optional[llama.Params] = None,
+                 rounds: str = 'graph'
                  ) -> engine_lib.DecodeEngine:
     """Assemble params + configs into a DecodeEngine (CLI, tests and
     ``chip_smoke.py``). Params are random from ``seed`` unless given;
@@ -271,7 +272,8 @@ def build_engine(model: str, num_slots: int, max_len: int,
     model's layer count, as the reference does. ``prefill_chunk``
     defaults from ``SKYTPU_PREFILL_CHUNK``, ``prefix_peers`` from
     ``SKYTPU_PREFIX_PEERS`` and ``store_url`` from ``SKYTPU_STORE_URL``
-    (all three paged only)."""
+    (all three paged only). ``rounds`` is the engine's (CUDA graphs or
+    eager on the card); the CLI leaves it at its default."""
     check_unsupported_env()
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
@@ -316,7 +318,7 @@ def build_engine(model: str, num_slots: int, max_len: int,
                                    paged=paged, num_blocks=num_blocks,
                                    prefill_chunk=prefill_chunk,
                                    prefix_peers=prefix_peers,
-                                   store_url=store_url)
+                                   store_url=store_url, rounds=rounds)
 
 
 class _HTTPServer(http.server.ThreadingHTTPServer):
