@@ -317,6 +317,32 @@ port's package is not beside it. Phases (any failure exits non-zero):
    (d) The host ms a 256-token chunk of a 1,920-token prompt adds to a
    round of 7 decoding lanes, both paths. The phase's seconds printed.
 
+18. The TP replica, run after phase 17 while the llama3-8b weights are
+   loaded; the launch counts are reset just before and read just after.
+   (a) Kernels 2-3 against their twins at a rank's shard shape (H 16,
+   Hkv 4, hd 128, block_k 128), bf16 and int8 K/V, verify at S 5. (b)
+   llama3-8b at full width and depth served at tp=2 with both ranks on
+   the one card (``parallel/tp.local_group`` over two ``cuda:0`` ranks,
+   gloo, whose collectives copy through host tensors, and eager rounds:
+   the CLI's ``--tp`` takes a card a rank over NCCL, which one card
+   cannot show), built through ``build_engine`` and the ModelServer,
+   each case beside a tp=1 control on phase 3's paged requests: bf16 and
+   int8 K/V, spec_k 4 at drafter depth 1, prefill_chunk 256 and int8
+   weights. Tokens equal the control's request by request, a difference
+   allowed only at a near-tie of the control's logits (phase 9's rule,
+   printed); every rank's pool is [32, n_blocks, 128, 4, 128]; each
+   rank launched the case's kernel n_layers x the decode steps and the
+   worker every kernel as often as rank 0; per-rank peak memory printed.
+   The same cases but int8 weights in fp32 at 8 layers (phase 9's cut),
+   where the TP sums round in fp32: tokens equal in every request.
+   (c) In bf16, the tp=2 replica's export of the shared 256-token prefix
+   against the control's: the same fields, planes, shapes and dtypes,
+   layer 0 bit-equal; a fresh tp=1 engine installs it and continues as
+   the control did. (d) The host ms of an eager decode step at 8 lanes,
+   tp=2 against tp=1 (printed as what it is: gloo through the host on
+   one shared card). (e) A one-rank NCCL group captures its all_reduce
+   and all_gather in a CUDA graph and replays them over new inputs.
+
 Every replica journals into a temporary directory of the run, not into
 ``~/.skytpu``. Before phase 13 the whole run took 273.7 s on an H100
 (700 W), phase 12 88.9 s of it (its int8 step profile 36.9 s, the 16 GB
@@ -742,13 +768,14 @@ def post(port: int, body: dict, timeout: float = 600.0, headers=None):
 
 
 def serve_phase(torch, ms_lib, params, label, engine_kwargs, requests,
-                kernel_fn, card, idle_fns=()):
+                kernel_fn, card, idle_fns=(), on_engine=None):
     """One replica: start the port's server, answer ``requests`` (lists
     of (body) batches sent concurrently), check counts: ``kernel_fn``
     launched n_layers times per decode step (a speculative round is one
     step), each of ``idle_fns`` never. Returns (stats, [(body, reply)]);
     the stats add the engine's build seconds (``build_s``) and its
-    weights' bytes in the HBM split (``weights_bytes``)."""
+    weights' bytes in the HBM split (``weights_bytes``). ``on_engine``
+    gets the engine last, its loop stopped."""
     t_build = time.perf_counter()
     engine = ms_lib.build_engine(MODEL, 8, MAX_LEN, step_chunk=4,
                                  device=DEVICE, params=params,
@@ -817,6 +844,8 @@ def serve_phase(torch, ms_lib, params, label, engine_kwargs, requests,
         if fn.launches != n:
             fail(f'{label}: {fn.__name__} launched {fn.launches - n} times, '
                  'expected none')
+    if on_engine is not None:
+        on_engine(engine)
     tok_s = stats['decode_tokens'] / wall
     print(f'[serve] {label}: {len(results)} requests, decode_steps='
           f'{stats["decode_steps"]} decode_tokens={stats["decode_tokens"]} '
@@ -3735,6 +3764,356 @@ def graph_phase(torch, ms_lib, quant, da, decode, params, dense_results,
 # --------------------------------------------------------------- phase 6
 
 
+# -------------------------------------------------------------- phase 18
+
+TP = 2
+# Phase 18 runs both ranks on the one card, over gloo (each collective
+# copies through host tensors) and eager rounds: a correctness run.
+TP_DEVICES = ('cuda:0', 'cuda:0')
+TP_BACKEND = 'gloo'
+# Host ms of an eager decode step, tp=2 against tp=1: lanes, prompt
+# length, steps timed.
+TP_STEP_LANES, TP_STEP_PROMPT, TP_STEP_TIMED = 8, 64, 16
+
+
+def tp_kernel_check(torch, da, quant):
+    """Kernels 2-3 against their twins at a rank's shard shape: Hkv/tp
+    KV heads and H/tp query heads (llama3-8b at tp=2: 4 and 16), the
+    serving block size and table width, bf16 and int8 K/V, verify at
+    S = SPEC_K + 1. Returns {kernel: max abs err}."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1818)
+    h, hkv = H // TP, HKV // TP
+    nb = MAX_LEN // BLOCK_K
+    n_pool = B * nb + 1
+    tables = (torch.randperm(B * nb, generator=gen, device=dev) + 1).reshape(
+        B, nb).to(torch.int32)
+    k, v = (torch.randn(n_pool, BLOCK_K, hkv, HD, generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    (kq, ks), (vq, vs) = quant.quantize_kv(k), quant.quantize_kv(v)
+    pools = {'bf16': (k, v, None, None), 'int8': (kq, vq, ks, vs)}
+    cur = torch.tensor(CUR_LENS, dtype=torch.int32, device=dev)
+    start = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=dev)
+    errs = {}
+    for name, s, lens in (('paged_decode_attention_kernel', 1, cur),
+                          ('paged_verify_attention_kernel', SPEC_K + 1,
+                           start)):
+        q = torch.randn(B, s, h, HD, generator=gen, device=dev).bfloat16()
+        kernel = getattr(da, name)
+        plain = getattr(da, name.replace('_kernel', '_plain'))
+        for kind, (kk, vv, kss, vss) in pools.items():
+            args = (q, kk, vv, tables, lens, kss, vss)
+            out = kernel(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            err = (out.float() - want.float()).abs().max().item()
+            tol = KERNEL_ATOL[kind]
+            print(f'[tp] {name} at the shard shape (H {h}, Hkv {hkv}) '
+                  f'{kind}: max_abs_err={err:.3e} (tol {tol})', flush=True)
+            if not (torch.isfinite(out).all() and err <= tol):
+                fail(f'{name} at the shard shape {kind}: err {err} > {tol}')
+            errs[f'{name} {kind}'] = err
+    return errs
+
+
+def tp_case(torch, ms_lib, llama, params, group, label, kwargs, batches,
+            kernel_fn, card, export_prompt=None):
+    """One phase-18 case: a tp=1 control replica and a tp=2 replica on
+    ``group``, both through build_engine and the ModelServer, on the same
+    requests. Checks: greedy tokens equal, a difference only at a near-
+    tie of the control's logits (first_divergences, at most
+    SPEC_PARITY_BF16_ULPS bf16 ulps; printed); every rank's pool holds
+    [L, n_blocks, block_k, Hkv/tp, hd]; each rank launched ``kernel_fn``
+    n_layers x decode steps in the tp=2 run, and the worker every kernel
+    as often as rank 0 (``rank_stats``: each rank's launches since the
+    engine was built). With ``export_prompt``: the tp=2 replica's export of it
+    against the control's (fields, planes, shapes, dtypes; layer 0 bit-
+    equal), and a fresh tp=1 engine that installs it continues as the
+    control did. Returns a summary."""
+    cfg = llama.CONFIGS[MODEL]
+    seen = {}
+
+    def keep(side):
+        def on_engine(engine):
+            if export_prompt is not None:
+                seen[side + '_export'] = engine._export_prefix_now(  # pylint: disable=protected-access
+                    export_prompt)
+            if side == 'tp2':
+                seen['ranks'] = engine.rank_stats(reset=True)
+                engine.close()
+        return on_engine
+
+    ctl_stats, ctl = serve_phase(torch, ms_lib, params, f'{label} tp=1',
+                                 kwargs, batches, kernel_fn, card,
+                                 on_engine=keep('tp1'))
+    group_kwargs = dict(kwargs, tp=TP, tp_group=group, rounds='eager')
+    stats, got = serve_phase(torch, ms_lib, params, f'{label} tp={TP}',
+                             group_kwargs, batches, kernel_fn, card,
+                             on_engine=keep('tp2'))
+    if stats['tp'] != TP:
+        fail(f'{label}: stats tp {stats["tp"]}')
+    pairs = [(body['prompt'], a['tokens'], b['tokens'])
+             for (body, a), (_, b) in zip(ctl, got)]
+    div = first_divergences(torch, llama, params, cfg, pairs,
+                            SPEC_PARITY_BF16_ULPS, f'{label} tp={TP}')
+    ranks = seen['ranks']
+    n_blocks = stats['blocks_total'] + 1
+    want_shape = (cfg.n_layers, n_blocks, BLOCK_K, cfg.n_kv_heads // TP,
+                  cfg.head_dim)
+    deltas = [r['launches'] for r in ranks]
+    for r in ranks:
+        if tuple(r['pool_shapes']['k']) != want_shape:
+            fail(f'{label}: rank {r["rank"]} pool {r["pool_shapes"]}, '
+                 f'expected k {want_shape}')
+    expect = cfg.n_layers * stats['decode_steps']
+    for r, d in zip(ranks, deltas):
+        if d != deltas[0] or d[kernel_fn.__name__] != expect:
+            fail(f'{label}: rank {r["rank"]} launched {d}; rank 0 '
+                 f'{deltas[0]}; {kernel_fn.__name__} expected {expect}')
+    peaks = [r['max_memory_allocated'] for r in ranks]
+    print(f'[tp] {label}: {len(pairs) - len(div)}/{len(pairs)} requests '
+          f'token-identical to tp=1, {len(div)} near-tie divergences '
+          f'{div}; every rank pool k {want_shape}; per-rank launches '
+          f'{deltas} ({kernel_fn.__name__} = n_layers x '
+          f'{stats["decode_steps"]} steps); per-rank peak memory '
+          f'{[round(p / 2**30, 2) for p in peaks]} GiB (gloo through the '
+          f'host, both ranks on one card); on {card}', flush=True)
+    launched = deltas[0][kernel_fn.__name__]
+    out = {'identical': len(pairs) - len(div), 'requests': len(pairs),
+           'near_ties': div, 'launches': launched,
+           'peak_gib': [round(p / 2**30, 3) for p in peaks],
+           'tp1_decode_steps': ctl_stats['decode_steps'],
+           'tp2_decode_steps': stats['decode_steps']}
+    if export_prompt is not None:
+        out['export'] = tp_export_check(torch, ms_lib, llama, params,
+                                        seen['tp1_export'],
+                                        seen['tp2_export'], export_prompt,
+                                        ctl, kwargs, label)
+    return out
+
+
+def tp_export_check(torch, ms_lib, llama, params, p1, p2, prompt, ctl,
+                    kwargs, label):
+    """The tp=2 export against the tp=1 control's: the same fields and
+    planes, shapes and dtypes (the unsharded [L, n, block_k, Hkv, ...]),
+    layer 0 bit-equal (no reduction reaches it; the later layers carry
+    the row-parallel sums' rounding). A fresh tp=1 engine installs the
+    tp=2 payload and continues a request that extends the prefix: its
+    tokens against the control's, near-tie rule as above."""
+    if p1 is None or p2 is None:
+        fail(f'{label}: no export ({p1 is None}, {p2 is None})')
+    if {k: v for k, v in p2.items() if k != 'arrays'} != \
+            {k: v for k, v in p1.items() if k != 'arrays'}:
+        fail(f'{label}: export fields differ')
+    worst = {}
+    for name, a in p1['arrays'].items():
+        b = p2['arrays'].get(name)
+        if b is None or (b.shape, b.dtype) != (a.shape, a.dtype):
+            fail(f'{label}: export plane {name} differs in form')
+        if not torch.equal(b[0], a[0]):
+            fail(f'{label}: export plane {name} layer 0 differs')
+        worst[name] = (b.float() - a.float()).abs().max().item()
+    engine = ms_lib.build_engine(MODEL, 8, MAX_LEN, step_chunk=4,
+                                 device=DEVICE, params=params, **kwargs)
+    gained = engine._install_remote_blocks(prompt, p2, [], 0)  # pylint: disable=protected-access
+    if gained != p2['matched_tokens']:
+        fail(f'{label}: the tp=1 engine installed {gained} tokens')
+    body, want = next((b, r) for b, r in ctl
+                      if b['prompt'][:len(prompt)] == prompt)
+    tokens = drain_engine(ms_lib, engine, [body['prompt']])[0]
+    saved = engine.stats()['prefill_tokens_saved']
+    del engine
+    empty_cache(torch)
+    div = first_divergences(torch, llama, params, llama.CONFIGS[MODEL],
+                            [(body['prompt'], want['tokens'], tokens)],
+                            SPEC_PARITY_BF16_ULPS, f'{label} tp=2 export')
+    print(f'[tp] {label}: export of {p2["matched_tokens"]} tokens, '
+          f'planes {sorted(p2["arrays"])} of shape '
+          f'{tuple(p2["arrays"]["k"].shape)}, layer 0 bit-equal to '
+          f'tp=1, max |diff| by plane {worst}; a tp=1 engine installed it '
+          f'({saved} prompt tokens saved) and continued '
+          f'{"token-identical" if not div else div} to the control',
+          flush=True)
+    if saved < p2['matched_tokens']:
+        fail(f'{label}: the installed prefix was not reused ({saved})')
+    return {'tokens': p2['matched_tokens'], 'max_diff': worst,
+            'continued_identical': not div}
+
+
+def tp_fp32_phase(torch, ms_lib, decode, llama, params, group, prompts,
+                  card):
+    """tp=2 against tp=1 where no near-tie can hide a fault: fp32 at
+    llama3-8b's width and SPEC_PARITY_LAYERS layers (phase 9's cut),
+    whose TP sums round in fp32, far below any top-1/top-2 gap. Paged,
+    int8 K/V, spec (spec_k SPEC_K, drafter depth 1) and chunked
+    (PREFILL_CHUNK) engines, tp=2 on ``group`` (eager rounds) and tp=1,
+    N_NEW tokens for each prompt: identical in every request."""
+    cfg32, p32 = fp32_cut(torch, params, llama.CONFIGS[MODEL])
+    cases = {'paged': ({}, 0), 'int8-KV': ({'kv_cache_dtype': 'int8'}, 0),
+             'spec': ({'spec_k': SPEC_K, 'spec_drafter_layers': 1}, 0),
+             'chunked': ({}, PREFILL_CHUNK)}
+    out = {}
+    for label, (dcfg_kw, chunk) in cases.items():
+        dcfg = decode.DecodeConfig(max_len=MAX_LEN, **dcfg_kw)
+        tokens = {}
+        for tp in (1, TP):
+            eng = ms_lib.engine_lib.DecodeEngine(
+                p32, cfg32, dcfg, 8, step_chunk=4, paged=True,
+                prefill_chunk=chunk, tp=tp,
+                tp_group=group if tp > 1 else None,
+                rounds='eager' if tp > 1 else 'graph')
+            tokens[tp] = drain_engine(ms_lib, eng, prompts)
+            eng.close()
+            del eng
+        pairs = list(zip(prompts, tokens[1], tokens[TP]))
+        first_divergences(torch, llama, p32, cfg32, pairs, None,
+                          f'tp fp32 {label}')
+        print(f'[tp] fp32 {SPEC_PARITY_LAYERS} layers {label}: tp={TP} '
+              f'tokens equal tp=1\'s in all {len(pairs)} requests '
+              f'({N_NEW} each) on {card}', flush=True)
+        out[label] = len(pairs)
+    del p32
+    empty_cache(torch)
+    return out
+
+
+def tp_step_ms(torch, ms_lib, params, group, card):
+    """Host ms of one eager decode step (step_chunk 1, every lane
+    decoding), tp=2 on ``group`` against tp=1, in one call: gloo through
+    the host on one shared card, a correctness run, not a TP speed
+    number."""
+    import random
+    rng = random.Random(18)
+    vocab = ms_lib.llama.CONFIGS[MODEL].vocab_size
+    prompts = [[rng.randrange(vocab) for _ in range(TP_STEP_PROMPT)]
+               for _ in range(TP_STEP_LANES)]
+    out = {}
+    for tp in (1, TP, 1):
+        kw = dict(tp=TP, tp_group=group) if tp > 1 else {}
+        eng = ms_lib.build_engine(MODEL, TP_STEP_LANES, MAX_LEN,
+                                  step_chunk=1, device=DEVICE,
+                                  params=params, paged=True,
+                                  rounds='eager', **kw)
+        reqs = [ms_lib.engine_lib.Request(p, 4 * TP_STEP_TIMED)
+                for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        while eng.active_slots() < TP_STEP_LANES or any(
+                st is not None for st in eng._prefill_state):  # pylint: disable=protected-access
+            eng.step()
+        eng.step()
+        sync(torch)
+        t0 = time.perf_counter()
+        for _ in range(TP_STEP_TIMED):
+            eng.step()
+        sync(torch)
+        out.setdefault(f'tp{tp}', []).append(
+            (time.perf_counter() - t0) / TP_STEP_TIMED * 1e3)
+        eng.close()
+        del eng, reqs
+        empty_cache(torch)
+    print(f'[tp] host ms of an eager decode step ({TP_STEP_LANES} lanes, '
+          f'llama3-8b): tp=1 {out["tp1"]}, tp={TP} {out[f"tp{TP}"]} '
+          f'(tp={TP}: two ranks on one card, collectives over gloo '
+          f'through the host: {group.path}; a correctness run, not a TP '
+          f'speed number) on {card}', flush=True)
+    return out
+
+
+def nccl_graph_check(torch, tp_lib, card):
+    """The only NCCL check one card allows: a one-rank NCCL group whose
+    all_reduce and all_gather are captured in a CUDA graph and replayed
+    over new inputs."""
+    group = tp_lib.local_group(1, ['cuda:0'], 'nccl')
+    try:
+        x = torch.zeros(4096, device='cuda')
+        group.all_reduce(x.clone())          # the communicator, eagerly
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            group.all_reduce(x * 2)
+            group.all_gather(x[None], dim=0)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = group.all_reduce(x * 2)
+            z = group.all_gather(x[None] + 1, dim=0)
+        for value in (1.0, 3.0):
+            x.fill_(value)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not (torch.equal(y, x * 2) and torch.equal(z[0], x + 1)):
+                fail(f'nccl graph replay: {y[:2]} {z[0, :2]} for {value}')
+        print(f'[tp] a one-rank nccl group ({group.path}): all_reduce and '
+              'all_gather captured in a CUDA graph, replayed over two '
+              f'inputs, results equal; on {card}', flush=True)
+    finally:
+        group.close()
+    return 'captured and replayed'
+
+
+def tp_phase(torch, ms_lib, da, quant, decode, llama, params, paged_batches,
+             card):
+    """Phase 18: the TP replica. llama3-8b at full width and depth served
+    tensor-parallel at tp=2 with both ranks on the one card (gloo, eager
+    rounds; the CLI's --tp takes a card a rank over NCCL, which one card
+    cannot show), each case against a tp=1 control: bf16 and int8 K/V,
+    spec_k SPEC_K at drafter depth 1, chunked prefill PREFILL_CHUNK and
+    int8 weights; the same in fp32 at SPEC_PARITY_LAYERS layers, tokens
+    exactly equal. Before them kernels 2-3 at the shard shape; after,
+    the host ms of an eager decode step and a one-rank NCCL group's
+    captured collectives. The bf16 engines share one set of slices (the
+    group's shard cache). Returns the report."""
+    from skypilot_tpu_torch.parallel import tp as tp_lib
+    report = {}
+    if DEVICE == 'cuda':
+        report['shard_kernels'] = tp_kernel_check(torch, da, quant)
+    group = tp_lib.local_group(TP, [DEVICE] * TP if DEVICE == 'cpu'
+                               else list(TP_DEVICES), TP_BACKEND)
+    print(f'[tp] group: {TP} ranks on {[str(d) for d in group.devices]}, '
+          f'collectives {group.path}', flush=True)
+    if DEVICE == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+
+    def case(label, kwargs, kernel_fn, p=params, **kw):
+        return tp_case(torch, ms_lib, llama, p, group, label, kwargs,
+                       paged_batches, kernel_fn, card, **kw)
+
+    try:
+        shared = paged_batches[0][0]['prompt'][:256]
+        report['bf16'] = case('tp paged bf16', {'paged': True},
+                              da.paged_decode_attention_kernel,
+                              export_prompt=shared)
+        report['int8_kv'] = case('tp paged int8-KV',
+                                 {'paged': True, 'kv_int8': True},
+                                 da.paged_decode_attention_kernel)
+        report['spec'] = case('tp spec', {'paged': True, 'spec_k': SPEC_K,
+                                          'drafter_layers': 1},
+                              da.paged_verify_attention_kernel)
+        report['chunked'] = case('tp chunked',
+                                 {'paged': True,
+                                  'prefill_chunk': PREFILL_CHUNK},
+                                 da.paged_decode_attention_kernel)
+        report['step_ms'] = tp_step_ms(torch, ms_lib, params, group, card)
+        report['fp32'] = tp_fp32_phase(
+            torch, ms_lib, decode, llama, params, group,
+            [body['prompt'] for batch in paged_batches for body in batch],
+            card)
+        qparams = decode.quantize_params(params)
+        report['int8_weights'] = case('tp int8 weights', {'paged': True},
+                                      da.paged_decode_attention_kernel,
+                                      p=qparams)
+        del qparams
+        group.shard_cache = None
+        empty_cache(torch)
+    finally:
+        group.close()
+    if DEVICE == 'cuda':
+        report['nccl_graph'] = nccl_graph_check(torch, tp_lib, card)
+    return report
+
+
 def flash_bounds(b, s, h, hkv, d, causal, elem_bytes, peak_flops):
     """Least time per flash kernel, (ms, what sets it, flops): max(bytes
     each input read once and each output written once / HBM rate,
@@ -4581,9 +4960,21 @@ def main() -> int:
     if not all(phase17_counts.values()):
         fail(f'a decode kernel was not launched in phase 17: '
              f'{phase17_counts}')
+    phase_done('phase 17')
+
+    # Phase 18 (the TP replica) while the weights are up.
+    da.reset_launch_counts()
+    tp_report = tp_phase(torch, ms_lib, da, quant, decode, llama, params,
+                         paged_batches, card)
+    phase18_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    print(f'[phase 18] launches {phase18_counts}; {tp_report}', flush=True)
+    for kname in ('paged_decode_attention_kernel',
+                  'paged_verify_attention_kernel'):
+        if not phase18_counts[kname]:
+            fail(f'{kname} was not launched in phase 18: {phase18_counts}')
     del params, spec_runs, paged_results, dense_results
     torch.cuda.empty_cache()
-    phase_done('phase 17')
+    phase_done('phase 18')
 
     flash_rows = flash_kernel_phase(torch, fa)
     phase_done('phase 6')
@@ -4619,7 +5010,8 @@ def main() -> int:
             'phase13_launches': phase13_counts[kname],
             'phase15_launches': phase15_counts[kname],
             'phase16_launches': phase16_counts[kname],
-            'phase17_launches': phase17_counts[kname]})
+            'phase17_launches': phase17_counts[kname],
+            'phase18_launches': phase18_counts[kname]})
     kernels.append({
         'name': 'paged_verify_attention_kernel', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
@@ -4645,7 +5037,9 @@ def main() -> int:
         'phase16_launches':
             phase16_counts['paged_verify_attention_kernel'],
         'phase17_launches':
-            phase17_counts['paged_verify_attention_kernel']})
+            phase17_counts['paged_verify_attention_kernel'],
+        'phase18_launches':
+            phase18_counts['paged_verify_attention_kernel']})
     for kname, row in flash_rows.items():
         main = row['bf16']
         kernels.append({

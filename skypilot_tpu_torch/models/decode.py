@@ -129,11 +129,14 @@ def init_kv_cache(cfg: llama.LlamaConfig, batch: int, max_len: int,
 
 
 def init_block_pool(cfg: llama.LlamaConfig, num_blocks: int, block_k: int,
-                    kv_cache_dtype: str = 'bf16', device='cpu') -> Cache:
+                    kv_cache_dtype: str = 'bf16', device='cpu',
+                    tp: int = 1) -> Cache:
     """Global paged pool [L, num_blocks, block_k, Hkv, hd] (+ scale
     planes when int8). Block 0 is the engine's write-off scratch block,
-    so usable capacity is ``num_blocks - 1`` blocks."""
-    shape = (cfg.n_layers, num_blocks, block_k, cfg.n_kv_heads,
+    so usable capacity is ``num_blocks - 1`` blocks. A tensor-parallel
+    rank's pool holds its ``Hkv / tp`` heads (``parallel/mesh.
+    kv_cache_spec``)."""
+    shape = (cfg.n_layers, num_blocks, block_k, cfg.n_kv_heads // tp,
              cfg.head_dim)
     return _empty_cache(cfg, shape, kv_cache_dtype, device)
 
@@ -160,8 +163,9 @@ def _write_kv(cache: Cache, idx, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Final hidden rows → fp32 logits (lm_head in the model dtype)."""
-    return (x @ params['lm_head']).float()
+    """Final hidden rows → fp32 logits (lm_head in the model dtype; a
+    tensor-parallel rank's vocab slice gathers the whole row)."""
+    return llama.quant_mm(x, params['lm_head']).float()
 
 
 def _embed(params: Params, tokens: torch.Tensor,
@@ -173,7 +177,7 @@ def _attend_out(cfg: llama.LlamaConfig, x: torch.Tensor,
                 attn: torch.Tensor, layer: Params) -> torch.Tensor:
     """Attention output projection + residual, then the FFN sublayer."""
     b, s = x.shape[:2]
-    attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    attn = attn.reshape(b, s, -1)
     x = x + llama.quant_mm(attn, layer['wo']).to(cfg.dtype)
     return llama.ffn_sublayer(cfg, x, layer)
 
@@ -469,7 +473,8 @@ def spec_draft_tokens(params: Params, token: torch.Tensor,
     layers = [llama.layer_params(params, i) for i in range(d)]
     hist = [gather_layer_kv(_layer_cache(pool, i), block_tables, cfg.dtype)
             for i in range(d)]
-    buf_shape = (b, k_spec, cfg.n_kv_heads, cfg.head_dim)
+    # [Hkv, hd] of the pool: a tensor-parallel rank's Hkv/tp heads.
+    buf_shape = (b, k_spec) + tuple(pool['k'].shape[3:])
     device = token.device
     buf_k = [torch.zeros(buf_shape, dtype=cfg.dtype, device=device)
              for _ in range(d)]

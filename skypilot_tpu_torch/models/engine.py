@@ -5,9 +5,8 @@ dense and paged modes, greedy and sampled decoding, radix prefix reuse,
 per-tenant round-robin admission, clamp/reject of over-budget requests,
 greedy speculative decoding and chunked prefill on the paged pool, the
 crash supervisor, the serving telemetry, the cross-replica prefix fetch,
-the disaggregated prefill/decode handoff and the durable block store's
-fetch and write-behind spill. Tensor parallelism belongs to a later
-slice.
+the disaggregated prefill/decode handoff, the durable block store's
+fetch and write-behind spill, and tensor-parallel serving.
 
 * **One persistent cache** of ``num_slots`` lanes (dense) or one block
   pool (paged), updated in place for the life of the engine.
@@ -109,6 +108,24 @@ in ``skytpu_store_fetches_total{result}`` and
 ``skytpu_store_spills_total{result}`` and journaled as
 ``engine.store_fetch`` and ``store.spill``.
 
+**Tensor parallelism** (paged, ``tp > 1``; ``parallel/``): one process
+a rank over ``torch.distributed``. This engine is rank 0: the scheduler,
+the allocator, the radix cache and the block tables stay here, whole, as
+the reference keeps paging host-global. Every rank holds its slice of
+the params (``parallel/mesh``: wq/wk/wv/w1/w3 by output column, wo/w2 by
+contraction row, lm_head by vocab column) and a pool of its ``Hkv / tp``
+heads; the worker ranks hold an :class:`EngineShard` each and replay
+every device operation this engine makes (``_device_op``: the rounds'
+dispatches with their host inputs, copy-on-write, inject, export, the
+first-token sample, the supervisor's reset), so each rank runs the same
+kernels on its heads and the same collectives in the same order. Export
+gathers every rank's heads into the unsharded payload and inject
+scatters them, so prefix fetch, handoff and store keep the unsharded
+engine's wire format. Sampled decoding stays in lockstep without a
+broadcast: every rank samples the all-gathered logits with a generator
+in the state of this engine's. A lost rank fails the engine for good
+through the supervisor.
+
 The allocator, radix cache and :class:`Request` are this package's own
 copies of the reference's pure-Python classes.
 """
@@ -122,6 +139,7 @@ import threading
 import time
 import traceback
 import uuid
+import weakref
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -133,7 +151,10 @@ from skypilot_tpu_torch.observability import journal
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import request_trace
 from skypilot_tpu_torch.observability import runtime_metrics
+from skypilot_tpu_torch.ops import decode_attention as decode_attention_ops
 from skypilot_tpu_torch.ops import quant
+from skypilot_tpu_torch.parallel import mesh
+from skypilot_tpu_torch.parallel import tp as tp_lib
 from skypilot_tpu_torch.utils import chaos, env
 
 IDLE_SLEEP_ENV = 'SKYTPU_ENGINE_IDLE_SLEEP_SECONDS'
@@ -155,6 +176,9 @@ SCRATCH_BLOCK = 0
 # dispatch ('graph'), or eagerly ('eager', for comparisons). The CPU
 # always runs them eagerly.
 ROUNDS = ('graph', 'eager')
+# The pool's dim that tensor parallelism splits (the KV heads of
+# ``[L, n_blocks, block_k, Hkv, hd]`` and of its scale planes).
+_HEAD_DIM = mesh.kv_cache_spec().index(mesh.MODEL_AXIS)
 
 
 class PoolExhausted(RuntimeError):
@@ -483,12 +507,50 @@ def _spec_step(params, token: torch.Tensor, pos: torch.Tensor,
 
 def _tree_nbytes(tree) -> int:
     """Bytes of every tensor in a nest of dicts, lists and tuples (an
-    int8 weight counts its values and its scales)."""
-    if isinstance(tree, (torch.Tensor, quant.QuantizedTensor)):
+    int8 weight counts its values and its scales, a tensor-parallel
+    slice its own bytes)."""
+    if isinstance(tree, (torch.Tensor, quant.QuantizedTensor,
+                         mesh.RowParallel, mesh.VocabParallel)):
         return tree.nbytes
     if isinstance(tree, dict):
         tree = tree.values()
     return sum(_tree_nbytes(t) for t in tree)
+
+
+def _launch_counts() -> dict:
+    """This process's launch counters of the serving kernels (the decode
+    and verify kernels, the int8 GEMM), by wrapper name."""
+    return {fn.__name__: fn.launches
+            for fn in decode_attention_ops.KERNELS +
+            (quant.int8_gemm_library,)}
+
+
+def check_tp(tp: int, group: Optional[tp_lib.TPGroup],
+             cfg: llama.LlamaConfig, paged: bool, rounds: str) -> None:
+    """The reference's TP validation, and the port's own: a given group
+    must have ``tp`` ranks, and graph rounds need collectives a CUDA
+    graph can capture (NCCL), never gloo's host copies."""
+    if tp < 1:
+        raise ValueError(f'tp must be >= 1, got {tp}')
+    if tp > 1:
+        # Tensor-parallel serving shards the PAGED pool by KV head, and
+        # a shard must own whole GQA groups.
+        if not paged:
+            raise ValueError('tensor-parallel serving (tp > 1) requires '
+                             'paged=True')
+        if cfg.n_kv_heads % tp or cfg.n_heads % tp:
+            raise ValueError(
+                f'tp={tp} must divide n_kv_heads ({cfg.n_kv_heads}) and '
+                f'n_heads ({cfg.n_heads})')
+    if group is None:
+        return
+    if group.size != tp:
+        raise ValueError(f'a TP group of {group.size} ranks for tp={tp}')
+    if (rounds == 'graph' and group.device.type == 'cuda' and
+            group.backend != 'nccl'):
+        raise ValueError(f"rounds='graph' needs an nccl group: {group.path} "
+                         "collectives cannot be captured in a CUDA graph "
+                         "(pass rounds='eager')")
 
 
 def _default_buckets(max_len: int) -> Tuple[int, ...]:
@@ -503,7 +565,297 @@ def _default_buckets(max_len: int) -> Tuple[int, ...]:
     return tuple(buckets)
 
 
-class DecodeEngine:
+class EngineShard:
+    """The engine's device half: the params, the pool (or dense cache),
+    the rounds' static inputs and their CUDA graphs, and the operations
+    that touch them (:meth:`_apply`). A :class:`DecodeEngine` is one; under
+    tensor parallelism each worker rank holds one more, built by the TP
+    worker loop (``parallel/tp.serve``) from the engine's ``build``
+    message, and the engine sends each operation to the workers before it
+    runs it on its own shard (:meth:`DecodeEngine._device_op`), so every
+    rank runs the same dispatches in the same order. The host state (the
+    scheduler, the allocator, the radix cache, the block tables' host
+    mirror) lives on the engine only."""
+
+    def _init_shard(self, params, cfg: llama.LlamaConfig,
+                    dcfg: decode.DecodeConfig, num_slots: int,
+                    step_chunk: int, paged: bool, num_blocks: int,
+                    generator: torch.Generator, rounds: str,
+                    group) -> None:
+        self.params = params
+        self.device = params['tok_embedding'].device
+        self.cfg = cfg
+        self.dcfg = dcfg
+        self.num_slots = num_slots
+        self.step_chunk = step_chunk
+        self.paged = paged
+        self.num_blocks = num_blocks
+        self._block_k = dcfg.kernel_block_k
+        self._max_blocks = dcfg.max_len // self._block_k if paged else 0
+        self._group = group
+        self.tp = group.size if group is not None else 1
+        self._generator = generator
+        # The compiled dispatches (None: every round runs eagerly) and the
+        # host side of their static inputs.
+        self.rounds = rounds if self.device.type == 'cuda' else 'eager'
+        self._graphs: Optional[cuda_graphs.GraphCache] = (
+            cuda_graphs.GraphCache(cuda_graphs.CudaCapturer(self.device,
+                                                            generator))
+            if self.rounds == 'graph' else None)
+        self._staging = cuda_graphs.HostStaging(self.device)
+        self._cache = None
+        # The last dispatch's output (a worker's first-token sample reads
+        # it, as the engine reads its own).
+        self._last_out: Optional[torch.Tensor] = None
+        self._launches_at_build = _launch_counts()
+
+    @staticmethod
+    def params_from_message(group, args: dict,
+                            tensors: List[torch.Tensor]) -> dict:
+        """A worker's param slices from the engine's ``build`` message (in
+        ``args['names']`` order), on its device, int8 values K-major."""
+        shard = mesh.unflatten(
+            [(n, t.to(group.device)) for n, t in zip(args['names'],
+                                                      tensors)])
+        for name, w in shard['layers'].items():
+            if isinstance(w, quant.QuantizedTensor):
+                shard['layers'][name] = quant.QuantizedTensor(
+                    values=quant.k_major(w.values, 1), scale=w.scale)
+        return mesh.wrap_serving_params(shard, group)
+
+    @classmethod
+    def from_message(cls, group, args: dict, params: dict) -> 'EngineShard':
+        """A worker's shard from the engine's ``build`` message: its
+        params (:meth:`params_from_message`, or the last build's when the
+        message says ``reuse``), the configs and the sampling generator's
+        state. The pool is made by the ``reset`` that follows."""
+        generator = torch.Generator(device=group.device)
+        generator.set_state(args['generator_state'])
+        self = cls.__new__(cls)
+        self._init_shard(params, args['cfg'], args['dcfg'],
+                         args['num_slots'], args['step_chunk'], True,
+                         args['num_blocks'], generator, args['rounds'],
+                         group)
+        return self
+
+    def serve_op(self, op: str, args: dict,
+                 tensors: List[torch.Tensor]) -> None:
+        """A worker runs one operation and replies where rank 0 waits for
+        its part (``export``, ``rank_stats``)."""
+        out = self._apply(op, args, tensors)
+        if op == 'export':
+            self._group.reply_tensors(out)
+        elif op == 'rank_stats':
+            self._group.reply_object(out)
+
+    def _apply(self, op: str, args: dict, tensors: List[torch.Tensor]):
+        """One device operation on this rank's shard."""
+        if op == 'dispatch':
+            return self._run_dispatch(args['key'], args['fills'])
+        if op == 'sample_first':
+            return self._sample(self._last_out)
+        if op == 'copy_block':
+            return decode.copy_block(self._cache, args['src'], args['dst'])
+        if op == 'inject':
+            return decode.inject_pool_blocks(
+                self._cache, self._dev(args['ids']),
+                dict(zip(sorted(self._cache), tensors)))
+        if op == 'export':
+            arrays = decode.export_pool_blocks(self._cache,
+                                               self._dev(args['ids']))
+            return [arrays[name] for name in sorted(arrays)]
+        if op == 'reset':
+            return self._reset_device()
+        if op == 'rank_stats':
+            return self._rank_stats(args.get('reset', False))
+        raise ValueError(f'unknown engine operation {op!r}')
+
+    def _reset_device(self) -> None:
+        """(Re)make the pool or dense cache and the rounds' static inputs.
+        The old cache is dropped before the new one is allocated (both at
+        once would not fit beside the weights at full width), and the
+        graphs captured over it go with it, with their pool."""
+        self._cache = None
+        self._last_out = None
+        if self._graphs is not None:
+            self._graphs.reset()
+        self._staging.clear()
+        num_slots = self.num_slots
+        dev = self.device
+        if self.paged:
+            self._cache = decode.init_block_pool(
+                self.cfg, self.num_blocks, self._block_k,
+                self.dcfg.kv_cache_dtype, dev, self.tp)
+        else:
+            self._cache = decode.init_kv_cache(self.cfg, num_slots,
+                                               self.dcfg.max_len,
+                                               self.dcfg.kv_cache_dtype,
+                                               dev)
+        # The decode round's and spec step's static inputs, filled from
+        # the host mirrors before each dispatch; the paged prefills' are
+        # made per graph key (:meth:`_prefill_inputs`).
+        self._round_in = {
+            'token': torch.zeros((num_slots,), dtype=torch.int64,
+                                 device=dev),
+            'pos': torch.zeros((num_slots,), dtype=torch.int64, device=dev),
+            'done': torch.ones((num_slots,), dtype=torch.bool, device=dev),
+            'remaining': torch.zeros((num_slots,), dtype=torch.int64,
+                                     device=dev)}
+        if self.paged:
+            self._round_in['tables'] = torch.zeros(
+                (num_slots, self._max_blocks), dtype=torch.int32,
+                device=dev)
+        self._prefill_in: dict = {}
+
+    def _run_dispatch(self, key: tuple, fills: dict) -> torch.Tensor:
+        """Fill a dispatch's static inputs from host arrays (by buffer
+        name) and run it (:meth:`_dispatch`): the decode round, the spec
+        step or a paged prefill, by the key's kind."""
+        kind = key[0]
+        if kind == 'decode_steps':
+            buf, fn = self._round_in, self._decode_body
+        elif kind == 'spec_step':
+            buf = self._round_in
+            fn = functools.partial(self._spec_body, key[1])
+        else:
+            pref = fills.get('pref')
+            buf = self._prefill_inputs(
+                key, fills['row'].shape[0],
+                None if pref is None else pref.shape[0])
+            fn = functools.partial(self._prefill_body, buf)
+        self._fill(buf, fills)
+        self._last_out = self._dispatch(key, fn, buf.values())
+        return self._last_out
+
+    def _fill(self, buf: dict, fills: dict) -> None:
+        """Copy host arrays into the static input buffers of ``buf`` that
+        they name."""
+        self._staging.fill([(buf[name], a) for name, a in fills.items()])
+
+    def _prefill_inputs(self, key: tuple, n_row: int,
+                        n_pref: Optional[int]) -> dict:
+        """The static inputs of one paged-prefill key, made at its first
+        dispatch: tokens [1, bucket], the block row, the prefix blocks
+        (with-prefix only) and ``lens`` = [suffix length, prefix
+        length]."""
+        buf = self._prefill_in.get(key)
+        if buf is None:
+            dev = self.device
+            buf = {'tokens': torch.zeros((1, key[1]), dtype=torch.int64,
+                                         device=dev),
+                   'row': torch.zeros((n_row,), dtype=torch.int64,
+                                      device=dev),
+                   'lens': torch.zeros((2,), dtype=torch.int64, device=dev)}
+            if n_pref is not None:
+                buf['pref'] = torch.zeros((n_pref,), dtype=torch.int64,
+                                          device=dev)
+            self._prefill_in[key] = buf
+        return buf
+
+    def _prefill_body(self, buf: dict) -> torch.Tensor:
+        """One paged prefill from its static inputs (the captured body)."""
+        if 'pref' not in buf:
+            return decode.paged_prefill(self.params, buf['tokens'],
+                                        buf['lens'][0], buf['row'],
+                                        self.cfg, self._cache)
+        return decode.paged_prefill_with_prefix(
+            self.params, buf['tokens'], buf['lens'][0], buf['lens'][1],
+            buf['pref'], buf['row'], self.cfg, self._cache)
+
+    def _dispatch(self, key: tuple, fn: Callable[[], torch.Tensor],
+                  inputs) -> torch.Tensor:
+        """Run one engine dispatch: on the card its CUDA graph's replay
+        (captured at the key's first dispatch, which runs eagerly), else
+        ``fn()``. ``inputs`` are the static buffers ``fn`` reads; they
+        and the pool must be the ones the graph was captured over."""
+        if self._graphs is None:
+            return fn()
+        ptrs = tuple(t.data_ptr() for t in
+                     itertools.chain(self._cache.values(), inputs))
+        return self._graphs.run(key, fn, ptrs)
+
+    def graph_stats(self) -> dict:
+        """The compiled rounds: ``rounds`` ('graph' or 'eager'), and on
+        the graph path the graphs held, captures by kind since start
+        (restarts capture again), their seconds, replays and the pool's
+        reserved and allocated bytes."""
+        if self._graphs is None:
+            return {'rounds': self.rounds}
+        return {'rounds': self.rounds, **self._graphs.stats()}
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _sample(self, last_logits: torch.Tensor) -> int:
+        return int(decode.sample(last_logits[None], self._generator,
+                                 self.dcfg.temperature)[0])
+
+    def _rank_stats(self, reset: bool) -> dict:
+        """This rank's pool shapes, the decode-attention and int8-GEMM
+        launches its process counted since this shard was built, and its
+        peak device bytes (``reset``: start the peak again after
+        reading)."""
+        now = _launch_counts()
+        out = {'rank': self._group.rank if self._group else 0,
+               'pool_shapes': {name: tuple(t.shape)
+                               for name, t in self._cache.items()},
+               'launches': {name: n - self._launches_at_build[name]
+                            for name, n in now.items()},
+               'max_memory_allocated': (
+                   torch.cuda.max_memory_allocated(self.device)
+                   if self.device.type == 'cuda' else 0)}
+        if reset and self.device.type == 'cuda':
+            torch.cuda.reset_peak_memory_stats(self.device)
+        return out
+
+    def _decode_body(self) -> torch.Tensor:
+        """The decode round from its static inputs (the captured body):
+        [step_chunk x num_slots tokens, then token, pos, done,
+        remaining], the one tensor the host fetches."""
+        eos = self.dcfg.eos_id
+        b = self._round_in
+        token, pos, done, remaining = (b['token'], b['pos'], b['done'],
+                                       b['remaining'])
+        tables = b['tables'] if self.paged else None
+        toks = []
+        for _ in range(self.step_chunk):
+            if self.paged:
+                logits = decode.paged_decode_step(
+                    self.params, token, pos, tables, self.cfg, self.dcfg,
+                    self._cache)
+            else:
+                logits = decode.decode_step(self.params, token, pos,
+                                            self.cfg, self.dcfg,
+                                            self._cache)
+            nxt = decode.sample(logits, self._generator,
+                                self.dcfg.temperature)
+            if eos is not None:
+                nxt = torch.where(done, eos, nxt)
+                done_new = done | (nxt == eos)
+            else:
+                nxt = torch.where(done, token, nxt)
+                done_new = done
+            remaining = remaining - (~done).long()
+            done_new = done_new | (remaining <= 0)
+            pos = torch.where(done, pos, pos + 1)
+            token, done = nxt, done_new
+            toks.append(nxt)
+        return torch.cat([torch.stack(toks).flatten(), token, pos,
+                          done.long(), remaining])
+
+    def _spec_body(self, nb_bucket: int) -> torch.Tensor:
+        """One spec step from the round's static inputs (the captured
+        body, one per drafter block bucket): the drafter reads the
+        tables' first ``nb_bucket`` columns, the verify all of them.
+        Returns [drafts | verify argmax], [B, 2 * spec_k + 1]."""
+        b = self._round_in
+        drafts, vtok = _spec_step(self.params, b['token'], b['pos'],
+                                  b['tables'][:, :nb_bucket], b['tables'],
+                                  self._cache, self.cfg, self.dcfg)
+        return torch.cat([drafts, vtok], dim=1)
+
+
+class DecodeEngine(EngineShard):
     """Slot-based continuous-batching engine over ``models/decode``.
 
     ``submit()`` is thread-safe (the server's handlers call it);
@@ -533,7 +885,15 @@ class DecodeEngine:
     rounds, spec steps and paged prefills replay CUDA graphs
     (``'graph'``, the default) or run eagerly (``'eager'``); on the CPU
     they run eagerly either way. The reference has no such switch, so
-    neither the CLI nor the environment sets it."""
+    neither the CLI nor the environment sets it.
+
+    ``tp`` > 1 (paged only; it must divide both head counts) serves
+    tensor-parallel over ``tp_group`` (``parallel/tp.TPGroup``, this
+    process its rank 0), or over a group made here with one card a rank
+    over NCCL (CPU params: CPU ranks over gloo), which :meth:`close`
+    ends; ``own_group`` hands a given group's end to the engine too. A
+    group whose collectives copy through the host (gloo on cards)
+    refuses ``rounds='graph'``."""
 
     def __init__(self, params, cfg: llama.LlamaConfig,
                  dcfg: decode.DecodeConfig, num_slots: int,
@@ -550,7 +910,9 @@ class DecodeEngine:
                  store_fetch_fn: Optional[Callable] = None,
                  store_spill_fn: Optional[Callable] = None,
                  journal_db: Optional[str] = None,
-                 rounds: str = 'graph'):
+                 rounds: str = 'graph', tp: int = 1,
+                 tp_group: Optional[tp_lib.TPGroup] = None,
+                 own_group: bool = False):
         if num_slots < 1:
             raise ValueError(f'num_slots must be >= 1, got {num_slots}')
         if step_chunk < 1:
@@ -573,15 +935,9 @@ class DecodeEngine:
                 raise ValueError(
                     f'spec_drafter_layers must be in [1, '
                     f'{cfg.n_layers}], got {dcfg.spec_drafter_layers}')
-        self.params = params
-        self.device = params['tok_embedding'].device
-        self.cfg = cfg
-        self.dcfg = dcfg
-        self.num_slots = num_slots
-        self.step_chunk = step_chunk
+        check_tp(tp, tp_group, cfg, paged, rounds)
         self.name = name
-        self.paged = paged
-        self._block_k = dcfg.kernel_block_k
+        bk = dcfg.kernel_block_k
         self._buckets = (tuple(sorted(int(b) for b in prefill_buckets))
                          if prefill_buckets
                          else _default_buckets(dcfg.max_len))
@@ -589,7 +945,6 @@ class DecodeEngine:
             raise ValueError(f'prefill buckets {self._buckets} exceed '
                              f'max_len {dcfg.max_len}')
         if paged:
-            bk = self._block_k
             if dcfg.max_len % bk:
                 raise ValueError(
                     f'paged mode needs max_len ({dcfg.max_len}) '
@@ -599,12 +954,30 @@ class DecodeEngine:
             self._buckets = tuple(sorted({
                 min(-(-b // bk) * bk, dcfg.max_len)
                 for b in self._buckets}))
-            self._max_blocks = dcfg.max_len // bk
             # Default pool: the dense cache's token capacity + scratch.
-            self.num_blocks = (num_blocks if num_blocks is not None
-                               else num_slots * self._max_blocks + 1)
+            if num_blocks is None:
+                num_blocks = num_slots * (dcfg.max_len // bk) + 1
         else:
-            self.num_blocks = 0
+            num_blocks = 0
+        # Tensor parallelism: this process is rank 0 of the group (made
+        # here, one card a rank, unless the caller hands one in), holds
+        # its own slice of the params and the pool, and sends the workers
+        # theirs in the ``build`` message.
+        self._owns_group = own_group or (tp > 1 and tp_group is None)
+        if tp > 1 and tp_group is None:
+            tp_group = tp_lib.local_group(
+                tp, platform=params['tok_embedding'].device.type)
+        device = (tp_group.device if tp_group is not None
+                  else params['tok_embedding'].device)
+        if generator is None:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(0)
+        if tp_group is not None:
+            params = self._build_workers(params, tp_group, cfg, dcfg,
+                                         num_slots, step_chunk, num_blocks,
+                                         generator, rounds)
+        self._init_shard(params, cfg, dcfg, num_slots, step_chunk, paged,
+                         num_blocks, generator, rounds, tp_group)
         # A paged-admission policy: the chunk calls name their block rows
         # explicitly, which the dense cache has no use for.
         if prefill_chunk is None:
@@ -714,18 +1087,6 @@ class DecodeEngine:
         # engine.compile dedupe: dispatch shapes already noted. Restarts
         # keep it, as the reference's process-global jit cache does.
         self._traced_shapes: set = set()
-        if generator is None:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(0)
-        self._generator = generator
-        # The compiled dispatches (None: every round runs eagerly) and the
-        # host side of their static inputs.
-        self.rounds = rounds if self.device.type == 'cuda' else 'eager'
-        self._graphs: Optional[cuda_graphs.GraphCache] = (
-            cuda_graphs.GraphCache(cuda_graphs.CudaCapturer(self.device,
-                                                            generator))
-            if self.rounds == 'graph' else None)
-        self._staging = cuda_graphs.HostStaging(self.device)
         self._init_runtime_state()
         self._queue_lock = threading.Lock()
         self._queues: 'collections.OrderedDict[str, collections.deque]' \
@@ -759,25 +1120,31 @@ class DecodeEngine:
         self._m.gauge('skytpu_engine_num_slots',
                       'Configured KV-cache lanes.').set(num_slots)
         self._publish_slot_gauges()
-        # One device and no mesh: the reference's unsharded engine.
+        # The serving group's topology: one rank (the unsharded engine)
+        # or one process a rank.
+        devices = (self._group.devices if self._group is not None
+                   else [self.device])
         self._m.gauge(
             'skytpu_engine_tp_degree',
             'Tensor-parallel degree of the serving mesh (1 = '
-            'unsharded).').set(1)
+            'unsharded).').set(self.tp)
         self._m.gauge(
             'skytpu_engine_mesh_devices',
-            'Devices in the engine serving mesh.').set(1)
+            'Devices in the engine serving mesh.').set(len(devices))
         cuda = self.device.type == 'cuda'
         # engine.mesh and engine.hbm: journaled once at engine start (the
-        # supervisor's rebuild makes an identically sized cache).
+        # supervisor's rebuild makes an identically sized cache). The
+        # reference counts processes of its runtime (1 on one host); here
+        # each rank is a process.
         self._journal_raw(journal.EventKind.ENGINE_MESH, {
-            'tp': 1,
-            'mesh_shape': {'model': 1},
-            'devices': 1,
-            'device_kinds': [torch.cuda.get_device_name(self.device)
-                             if cuda else 'cpu'],
+            'tp': self.tp,
+            'mesh_shape': {'model': self.tp},
+            'devices': len(devices),
+            'device_kinds': sorted({torch.cuda.get_device_name(d)
+                                    if d.type == 'cuda' else 'cpu'
+                                    for d in devices}),
             'platform': 'gpu' if cuda else 'cpu',
-            'process_count': 1,
+            'process_count': self.tp,
             'paged': self.paged,
         })
         hbm = self._hbm_accounting()
@@ -788,7 +1155,8 @@ class DecodeEngine:
             'residual.', labels=('kind',))
         for kind, nbytes in hbm['per_device_bytes'].items():
             hbm_g.set(nbytes, labels=(kind,))
-        self._journal_raw(journal.EventKind.ENGINE_HBM, {'tp': 1, **hbm})
+        self._journal_raw(journal.EventKind.ENGINE_HBM,
+                          {'tp': self.tp, **hbm})
         self.flush_journal()
 
     def _hbm_accounting(self) -> dict:
@@ -821,22 +1189,14 @@ class DecodeEngine:
 
     def _init_runtime_state(self) -> None:
         """(Re)build what a crashed step may have left inconsistent: the
-        device cache/pool, the allocator + radix cache, block tables and
-        the per-slot host mirrors. Called at construction and by the
-        supervisor's restart; the queues and cumulative stats stay, so
-        queued requests re-prefill against the fresh cache."""
+        device cache/pool on every rank (:meth:`_reset_device`), the
+        allocator + radix cache, block tables and the per-slot host
+        mirrors. Called at construction and by the supervisor's restart;
+        the queues and cumulative stats stay, so queued requests
+        re-prefill against the fresh cache."""
         num_slots = self.num_slots
-        # Drop the old cache before allocating the new one: both at once
-        # would not fit beside the weights at full width. The graphs
-        # captured over it go with it, and so does their pool.
-        self._cache = None
-        if self._graphs is not None:
-            self._graphs.reset()
-        self._staging.clear()
+        self._device_op('reset')
         if self.paged:
-            self._cache = decode.init_block_pool(
-                self.cfg, self.num_blocks, self._block_k,
-                self.dcfg.kv_cache_dtype, self.device)
             self._allocator = BlockAllocator(self.num_blocks)
             self._radix = RadixPrefixCache(self._block_k, self._allocator)
             # Rows of free slots point at SCRATCH_BLOCK; the device copy
@@ -848,11 +1208,6 @@ class DecodeEngine:
             self._slot_refs: List[List[int]] = [[] for _ in
                                                 range(num_slots)]
             self._slot_nodes: List[list] = [[] for _ in range(num_slots)]
-        else:
-            self._cache = decode.init_kv_cache(self.cfg, num_slots,
-                                               self.dcfg.max_len,
-                                               self.dcfg.kv_cache_dtype,
-                                               self.device)
         # Chunked-prefill resume state: slot -> {'req', 'table', 'p',
         # 'm', 'next', 'chunk'} while an admission is mid-prefill, plus
         # 'hand', 'pushed', 'hand_failed' (and 'hand_fut' while a push is
@@ -863,22 +1218,133 @@ class DecodeEngine:
         self._pos = np.zeros((num_slots,), np.int64)
         self._done = np.ones((num_slots,), bool)
         self._remaining = np.zeros((num_slots,), np.int64)
-        # The decode round's and spec step's static inputs, filled from
-        # the host mirrors above before each dispatch; the paged
-        # prefills' are made per graph key (:meth:`_prefill_inputs`).
-        dev = self.device
-        self._round_in = {
-            'token': torch.zeros((num_slots,), dtype=torch.int64,
-                                 device=dev),
-            'pos': torch.zeros((num_slots,), dtype=torch.int64, device=dev),
-            'done': torch.ones((num_slots,), dtype=torch.bool, device=dev),
-            'remaining': torch.zeros((num_slots,), dtype=torch.int64,
-                                     device=dev)}
-        if self.paged:
-            self._round_in['tables'] = torch.zeros(
-                (num_slots, self._max_blocks), dtype=torch.int32,
-                device=dev)
-        self._prefill_in: dict = {}
+
+    # ------------------------------------------------ tensor parallelism
+
+    def _build_workers(self, params, group: 'tp_lib.TPGroup',
+                       cfg: llama.LlamaConfig, dcfg: decode.DecodeConfig,
+                       num_slots: int, step_chunk: int, num_blocks: int,
+                       generator: torch.Generator, rounds: str):
+        """Send every worker of ``group`` its param slices, the configs
+        and the sampler's state (``build``), and return rank 0's own
+        slices. A worker's slices are cut on the host one worker at a
+        time, so the host holds at most one worker's share. When
+        ``params`` are the very tensors the group's last engine was built
+        from, every rank keeps the slices it holds and nothing is sent
+        (``group.shard_cache``)."""
+        specs = mesh.serving_param_specs(cfg)
+        leaves = [t for _, t in mesh.flatten(params)]
+        cached = group.shard_cache
+        reuse = (cached is not None and len(cached[0]) == len(leaves) and
+                 all(ref() is t for ref, t in zip(cached[0], leaves)))
+        if reuse:
+            local = cached[1]
+        else:
+            group.shard_cache = None
+            local = mesh.shard_serving_params(params, specs, 0, group.size,
+                                              group.device)
+
+        def worker_slices(rank):
+            return [t for _, t in mesh.flatten(mesh.shard_serving_params(
+                params, specs, rank, group.size, 'cpu'))]
+
+        with group.lock:
+            # The workers now serve this engine; another engine's
+            # operations on the group raise.
+            group.owner = self
+            group.post('build', {
+                'names': [n for n, _ in mesh.flatten(local)],
+                'reuse': reuse, 'cfg': cfg, 'dcfg': dcfg,
+                'num_slots': num_slots, 'step_chunk': step_chunk,
+                'num_blocks': num_blocks, 'rounds': rounds,
+                'generator_state': generator.get_state()},
+                {} if reuse else {r: functools.partial(worker_slices, r)
+                                  for r in range(1, group.size)})
+        group.shard_cache = ([weakref.ref(t) for t in leaves], local)
+        return mesh.wrap_serving_params(local, group)
+
+    def _device_op(self, op: str, tensors=None, **args):
+        """Run one device operation (:meth:`EngineShard._apply`) on every
+        rank: the workers get it first (``tensors``: rank -> that rank's
+        tensors, rank 0's included), then this rank runs it. Without a
+        group it just runs here."""
+        tensors = tensors or {}
+        group = self._group
+        if group is None:
+            return self._apply(op, args, tensors.get(0, []))
+        with group.lock:
+            if group.owner is not self:
+                raise RuntimeError(f'the TP group serves another engine; '
+                                   f'{self.name} was closed or replaced')
+            group.post(op, args, {r: t for r, t in tensors.items() if r})
+            return self._apply(op, args, tensors.get(0, []))
+
+    def _head_slices(self, arrays: dict) -> dict:
+        """Unsharded pool planes ``[L, n, block_k, Hkv, ...]`` → each
+        rank's list of its ``Hkv / tp`` heads (sorted plane names)."""
+        out = {}
+        for r in range(self.tp):
+            out[r] = []
+            for name in sorted(arrays):
+                a = arrays[name]
+                start, stop = mesh.split_range(a.shape[_HEAD_DIM], r,
+                                               self.tp)
+                out[r].append(a.narrow(_HEAD_DIM, start, stop - start))
+        return out
+
+    def _pool_shape(self, name: str) -> Tuple[int, ...]:
+        """The unsharded shape of one pool plane: what export payloads
+        carry and injection takes, whatever the TP degree."""
+        shape = list(self._cache[name].shape)
+        shape[_HEAD_DIM] *= self.tp
+        return tuple(shape)
+
+    def _export_blocks(self, blocks: Sequence[int]) -> dict:
+        """Pool blocks ``blocks`` of every plane copied to the host,
+        ``[L, n, block_k, Hkv, ...]``: under TP each rank exports its
+        heads and rank 0 joins them, so the payload's bytes are the
+        unsharded engine's."""
+        ids = np.asarray(blocks, np.int64)
+        names = sorted(self._cache)
+        group = self._group
+        if group is None:
+            return dict(zip(names, self._apply('export', {'ids': ids}, [])))
+        with group.lock:
+            local = self._device_op('export', ids=ids)
+            parts = group.collect_tensors(local)
+        return {name: torch.cat([local[i]] + [p[i] for p in parts],
+                                dim=_HEAD_DIM)
+                for i, name in enumerate(names)}
+
+    def rank_stats(self, reset: bool = False) -> List[dict]:
+        """Each rank's pool shapes, the decode-attention and int8-GEMM
+        launches its process counted since this engine was built (on rank
+        0 other engines of the process count too), and its peak device
+        bytes, rank 0 first (``reset``: start the peaks again after
+        reading). One entry without tensor parallelism."""
+        group = self._group
+        if group is None:
+            return [self._rank_stats(reset)]
+        with group.lock:
+            own = self._device_op('rank_stats', reset=reset)
+            return group.collect_objects(own)
+
+    def close(self) -> None:
+        """Free the workers' shards (the group can build another engine)
+        and close the group if this engine made it. Idempotent; a no-op
+        without tensor parallelism."""
+        group = self._group
+        if group is None:
+            return
+        if group.owner is self:
+            group.owner = None
+            if group.alive():
+                try:
+                    group.post('close')
+                except Exception:  # pylint: disable=broad-except
+                    pass
+        if self._owns_group:
+            group.close()
 
     # ------------------------------------------------------------ intake
 
@@ -1142,7 +1608,7 @@ class DecodeEngine:
         table = blocks[:first_owned] + owned
         try:
             if needs_copy:
-                decode.copy_block(self._cache, cow_src, cow_dst)
+                self._device_op('copy_block', src=cow_src, dst=cow_dst)
             if handoff or (self.prefill_chunk and
                            p - m > self.prefill_chunk):
                 # Chunked admission: the reservation and the boundary
@@ -1342,7 +1808,8 @@ class DecodeEngine:
         n_new = (matched - m_full) // bk
         for name, pool_arr in self._cache.items():
             a = arrays[name]
-            want = (pool_arr.shape[0], n_new) + tuple(pool_arr.shape[2:])
+            shape = self._pool_shape(name)
+            want = (shape[0], n_new) + shape[2:]
             # The dtype must match exactly: bytes decoded under another
             # dtype would pass for plausible K/V.
             if (not isinstance(a, torch.Tensor) or tuple(a.shape) != want
@@ -1362,9 +1829,8 @@ class DecodeEngine:
             while bucket < n_new:
                 bucket *= 2
             self._note_compile('prefix_inject', blocks=bucket)
-            decode.inject_pool_blocks(
-                self._cache, self._dev(np.asarray(new_blocks, np.int64)),
-                arrays)
+            self._device_op('inject', self._head_slices(arrays),
+                            ids=np.asarray(new_blocks, np.int64))
             # Publish [0, matched): the cached part dedupes, the fetched
             # suffix is adopted (the tree takes its refs)...
             self._radix.insert(list(prompt_tokens[:matched]),
@@ -1692,69 +2158,11 @@ class DecodeEngine:
             row = np.full((bucket // bk + 1,), SCRATCH_BLOCK, np.int64)
             avail = table[srow:srow + len(row)]
             row[:len(avail)] = avail
-        buf = self._prefill_inputs(key, row.shape[0],
-                                   None if pref is None else pref.shape[0])
-        pairs = [(buf['tokens'], padded), (buf['row'], row),
-                 (buf['lens'], np.asarray([suf, start], np.int64))]
+        fills = {'tokens': padded, 'row': row,
+                 'lens': np.asarray([suf, start], np.int64)}
         if pref is not None:
-            pairs.append((buf['pref'], pref))
-        self._staging.fill(pairs)
-        return self._dispatch(key, functools.partial(self._prefill_body, buf),
-                              buf.values())
-
-    def _prefill_inputs(self, key: tuple, n_row: int,
-                        n_pref: Optional[int]) -> dict:
-        """The static inputs of one paged-prefill key, made at its first
-        dispatch: tokens [1, bucket], the block row, the prefix blocks
-        (with-prefix only) and ``lens`` = [suffix length, prefix
-        length]."""
-        buf = self._prefill_in.get(key)
-        if buf is None:
-            dev = self.device
-            buf = {'tokens': torch.zeros((1, key[1]), dtype=torch.int64,
-                                         device=dev),
-                   'row': torch.zeros((n_row,), dtype=torch.int64,
-                                      device=dev),
-                   'lens': torch.zeros((2,), dtype=torch.int64, device=dev)}
-            if n_pref is not None:
-                buf['pref'] = torch.zeros((n_pref,), dtype=torch.int64,
-                                          device=dev)
-            self._prefill_in[key] = buf
-        return buf
-
-    def _prefill_body(self, buf: dict) -> torch.Tensor:
-        """One paged prefill from its static inputs (the captured body)."""
-        if 'pref' not in buf:
-            return decode.paged_prefill(self.params, buf['tokens'],
-                                        buf['lens'][0], buf['row'],
-                                        self.cfg, self._cache)
-        return decode.paged_prefill_with_prefix(
-            self.params, buf['tokens'], buf['lens'][0], buf['lens'][1],
-            buf['pref'], buf['row'], self.cfg, self._cache)
-
-    def _dispatch(self, key: tuple, fn: Callable[[], torch.Tensor],
-                  inputs) -> torch.Tensor:
-        """Run one engine dispatch: on the card its CUDA graph's replay
-        (captured at the key's first dispatch, which runs eagerly), else
-        ``fn()``. ``inputs`` are the static buffers ``fn`` reads; they
-        and the pool must be the ones the graph was captured over."""
-        if self._graphs is None:
-            return fn()
-        ptrs = tuple(t.data_ptr() for t in
-                     itertools.chain(self._cache.values(), inputs))
-        return self._graphs.run(key, fn, ptrs)
-
-    def graph_stats(self) -> dict:
-        """The compiled rounds: ``rounds`` ('graph' or 'eager'), and on
-        the graph path the graphs held, captures by kind since start
-        (restarts capture again), their seconds, replays and the pool's
-        reserved and allocated bytes."""
-        if self._graphs is None:
-            return {'rounds': self.rounds}
-        return {'rounds': self.rounds, **self._graphs.stats()}
-
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+            fills['pref'] = pref
+        return self._device_op('dispatch', key=key, fills=fills)
 
     def _bucket_for(self, n: int) -> int:
         """Smallest prefill bucket covering ``n`` tokens (ValueError —
@@ -1766,8 +2174,13 @@ class DecodeEngine:
                          f'(buckets: {self._buckets})')
 
     def _sample_first(self, last_logits: torch.Tensor) -> int:
-        return int(decode.sample(last_logits[None], self._generator,
-                                 self.dcfg.temperature)[0])
+        """The first token from a prefill's last logits. Every rank
+        samples its own copy of the (gathered) logits with a generator in
+        lockstep with this one, so a sampled engine's ranks agree on
+        every token without a broadcast."""
+        if self._group is not None:
+            self._group.post('sample_first')
+        return self._sample(last_logits)
 
     def _admit(self) -> int:
         """Fill free slots from the tenant queues (round-robin); over-
@@ -1879,8 +2292,7 @@ class DecodeEngine:
         while bucket < len(send):
             bucket *= 2
         self._note_compile('prefix_export', blocks=bucket)
-        arrays = decode.export_pool_blocks(
-            self._cache, self._dev(np.asarray(send, np.int64)))
+        arrays = self._export_blocks(send)
         return {
             'matched_tokens': from_tokens + len(send) * self._block_k,
             'from_tokens': from_tokens,
@@ -2198,16 +2610,16 @@ class DecodeEngine:
         self.flush_journal(wait=False)
         return active
 
-    def _fill_round_inputs(self) -> None:
-        """Copy the host mirrors (and the block tables, when an admission
-        or eviction changed them) into the round's static inputs."""
-        b = self._round_in
-        pairs = [(b['token'], self._token), (b['pos'], self._pos),
-                 (b['done'], self._done), (b['remaining'], self._remaining)]
+    def _round_fills(self) -> dict:
+        """The host mirrors (and the block tables, when an admission or
+        eviction changed them) that a round copies into its static
+        inputs, by buffer name."""
+        fills = {'token': self._token, 'pos': self._pos, 'done': self._done,
+                 'remaining': self._remaining}
         if self.paged and self._tables_dirty:
-            pairs.append((b['tables'], self._block_table_np))
+            fills['tables'] = self._block_table_np
             self._tables_dirty = False
-        self._staging.fill(pairs)
+        return fills
 
     def _decode_round(self) -> int:
         """``step_chunk`` single-token steps over every slot, then one
@@ -2219,9 +2631,10 @@ class DecodeEngine:
         and ``_engine_paged_steps_impl``."""
         self._note_compile('decode_steps', n_steps=self.step_chunk,
                            paged=self.paged)
-        self._fill_round_inputs()
-        out = self._dispatch(('decode_steps', self.step_chunk, self.paged),
-                             self._decode_body, self._round_in.values())
+        out = self._device_op('dispatch',
+                              key=('decode_steps', self.step_chunk,
+                                   self.paged),
+                              fills=self._round_fills())
         # One fused host fetch (the step's only sync point).
         host = out.cpu().numpy()
         n, b = self.step_chunk, self.num_slots
@@ -2235,41 +2648,6 @@ class DecodeEngine:
         self._count_steps(n)
         self._deliver_chunk(toks_np)
         return n
-
-    def _decode_body(self) -> torch.Tensor:
-        """The decode round from its static inputs (the captured body):
-        [step_chunk x num_slots tokens, then token, pos, done,
-        remaining], the one tensor the host fetches."""
-        eos = self.dcfg.eos_id
-        b = self._round_in
-        token, pos, done, remaining = (b['token'], b['pos'], b['done'],
-                                       b['remaining'])
-        tables = b['tables'] if self.paged else None
-        toks = []
-        for _ in range(self.step_chunk):
-            if self.paged:
-                logits = decode.paged_decode_step(
-                    self.params, token, pos, tables, self.cfg, self.dcfg,
-                    self._cache)
-            else:
-                logits = decode.decode_step(self.params, token, pos,
-                                            self.cfg, self.dcfg,
-                                            self._cache)
-            nxt = decode.sample(logits, self._generator,
-                                self.dcfg.temperature)
-            if eos is not None:
-                nxt = torch.where(done, eos, nxt)
-                done_new = done | (nxt == eos)
-            else:
-                nxt = torch.where(done, token, nxt)
-                done_new = done
-            remaining = remaining - (~done).long()
-            done_new = done_new | (remaining <= 0)
-            pos = torch.where(done, pos, pos + 1)
-            token, done = nxt, done_new
-            toks.append(nxt)
-        return torch.cat([torch.stack(toks).flatten(), token, pos,
-                          done.long(), remaining])
 
     def _count_steps(self, n: int) -> None:
         self._decode_steps += n
@@ -2304,10 +2682,8 @@ class DecodeEngine:
         self._note_compile('spec_step', spec_k=k,
                            drafter_layers=self.dcfg.spec_drafter_layers,
                            draft_blocks=nb_bucket)
-        self._fill_round_inputs()
-        out = self._dispatch(('spec_step', nb_bucket),
-                             functools.partial(self._spec_body, nb_bucket),
-                             self._round_in.values())
+        out = self._device_op('dispatch', key=('spec_step', nb_bucket),
+                              fills=self._round_fills())
         # One host fetch per round.
         host = out.cpu().numpy()
         drafts, vtok = host[:, :k], host[:, k:]
@@ -2346,17 +2722,6 @@ class DecodeEngine:
                 self._token[slot] = last_tok
                 self._pos[slot] += delivered
                 self._remaining[slot] -= delivered
-
-    def _spec_body(self, nb_bucket: int) -> torch.Tensor:
-        """One spec step from the round's static inputs (the captured
-        body, one per drafter block bucket): the drafter reads the
-        tables' first ``nb_bucket`` columns, the verify all of them.
-        Returns [drafts | verify argmax], [B, 2 * spec_k + 1]."""
-        b = self._round_in
-        drafts, vtok = _spec_step(self.params, b['token'], b['pos'],
-                                  b['tables'][:, :nb_bucket], b['tables'],
-                                  self._cache, self.cfg, self.dcfg)
-        return torch.cat([drafts, vtok], dim=1)
 
     def _deliver_run(self, slot: int, req: Request,
                      tokens) -> Tuple[int, int, bool]:
@@ -2479,6 +2844,9 @@ class DecodeEngine:
                              if now - t <= window]
         self._crash_times.append(now)
         permanent = len(self._crash_times) > budget
+        # A tensor-parallel rank that is gone takes its shard with it:
+        # nothing here can rebuild the replica, so the failure is final.
+        rank_lost = self._group is not None and not self._group.alive()
         exc_text = str(exc) or type(exc).__name__
         self._journal_raw(journal.EventKind.ENGINE_CRASH, {
             'error': exc_text,
@@ -2488,24 +2856,37 @@ class DecodeEngine:
             'queued': self.queue_depth(),
             'crashes_in_window': len(self._crash_times),
             'max_restarts': budget,
-            'permanent': permanent,
+            'permanent': permanent or rank_lost,
         })
         self._fail_in_flight(f'error: engine crashed: {exc_text}')
-        if permanent:
+        if not (permanent or rank_lost):
+            # The traceback's frames may hold the old cache (a crash
+            # inside a decode call): clear them so the rebuild can reuse
+            # its memory.
+            traceback.clear_frames(exc.__traceback__)
+            # A push still in flight belongs to a failed request: its
+            # state goes with the old pool, and its thread holds only a
+            # snapshot.
+            self._shutdown_handoff_executor()
+            try:
+                self._init_runtime_state()
+            except Exception as rebuild_exc:  # pylint: disable=broad-except
+                if self._group is None:
+                    raise
+                # Under TP the rebuild reaches every rank: one that fails
+                # it is lost.
+                rank_lost = True
+                exc_text = f'rebuild failed: {rebuild_exc}'
+        if permanent or rank_lost:
             self.failed = True
             self.fail_reason = (
+                f'a tensor-parallel rank is lost; last: {exc_text}'
+                if rank_lost else
                 f'{len(self._crash_times)} crashes within {window:.0f}s '
                 f'(budget {budget}); last: {exc_text}')
             self._fail_queued()
             self.flush_journal()
             return False
-        # The traceback's frames may hold the old cache (a crash inside a
-        # decode call): clear them so the rebuild can reuse its memory.
-        traceback.clear_frames(exc.__traceback__)
-        # A push still in flight belongs to a failed request: its state
-        # goes with the old pool, and its thread holds only a snapshot.
-        self._shutdown_handoff_executor()
-        self._init_runtime_state()
         self._restarts += 1
         self._m.counter(
             'skytpu_engine_restarts_total',
@@ -2640,7 +3021,7 @@ class DecodeEngine:
             'kv_cache_dtype': self.dcfg.kv_cache_dtype,
             'max_len': self.dcfg.max_len,
             'paged': self.paged,
-            'tp': 1,
+            'tp': self.tp,
             'device': str(self.device),
             'decode_attention': self.dcfg.decode_attention,
         }

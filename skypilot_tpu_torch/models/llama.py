@@ -38,6 +38,7 @@ from torch.utils.checkpoint import create_selective_checkpoint_contexts
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.ops import quant
+from skypilot_tpu_torch.parallel import mesh
 
 Params = Dict[str, Any]
 
@@ -200,16 +201,21 @@ def qkv(cfg: LlamaConfig, x: torch.Tensor, layer: Params, cos: torch.Tensor,
     hd = cfg.head_dim
     h = rms_norm(x, layer['attn_norm'], cfg.norm_eps)
     q, k, v = quant_mms(h, layer['wq'], layer['wk'], layer['wv'])
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    # The head counts come from the weights: a tensor-parallel rank's
+    # wq/wk/wv hold its H/tp and Hkv/tp heads.
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def quant_mm(x: torch.Tensor, w) -> torch.Tensor:
     """Matmul that dispatches on int8-quantized weights (the serving
-    path, ``ops/quant.py``); a plain tensor is ``x @ w``. The
-    reference's ``quant_mm``."""
+    path, ``ops/quant.py``) and on tensor-parallel slices that carry a
+    collective (``parallel/mesh.RowParallel``, ``VocabParallel``); a
+    plain tensor is ``x @ w``. The reference's ``quant_mm``."""
+    if isinstance(w, (mesh.RowParallel, mesh.VocabParallel)):
+        return w.matmul(x)
     if isinstance(w, quant.QuantizedTensor):
         return quant.int8_matmul(x, w)
     return x @ w
@@ -250,7 +256,7 @@ def _attention(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
     b, s, _ = x.shape
     q, k, v = qkv(cfg, x, layer, cos, sin)
     attn = full_sequence_attention(cfg, q, k, v, impl)
-    return attn.reshape(b, s, cfg.n_heads * cfg.head_dim), k, v
+    return attn.reshape(b, s, -1), k, v
 
 
 def attn_sublayer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,

@@ -57,14 +57,17 @@ class QuantizedTensor:
 
 
 def _symmetric_quantize(x: torch.Tensor, axis: int,
-                        reciprocal: bool = False
+                        reciprocal: bool = False, group=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """amax → floored scale → round/clip; returns (int8, fp32 scale).
     ``reciprocal``: the scale is ``floored * (1/127)``, what XLA folds
     the reference's ``floored / 127`` into under ``jit`` (one ulp apart
-    in ~5% of scales)."""
+    in ~5% of scales). ``group``: ``x`` is this rank's slice of ``axis``
+    and the amax is MAX-reduced over the group's ranks first."""
     x32 = x.float()
     amax = x32.abs().amax(dim=axis, keepdim=True)
+    if group is not None:
+        amax = group.all_reduce(amax, op='max')
     floored = torch.clamp(amax, min=1e-8)
     scale = (floored * (1.0 / _INT8_MAX) if reciprocal else
              floored / _INT8_MAX)
@@ -87,12 +90,15 @@ def quantize_int8(w: torch.Tensor, axis: int = 0) -> QuantizedTensor:
     return QuantizedTensor(values=k_major(q, axis), scale=scale)
 
 
-def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_rows(x: torch.Tensor,
+                   group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row activation quantization: [..., K] → int8 +
     scale [..., 1]. The reference quantises activations only inside its
     jitted steps, so the scale takes XLA's reciprocal form; weights
-    (:func:`quantize_int8`) are quantised eagerly there and divide."""
-    return _symmetric_quantize(x, -1, reciprocal=True)
+    (:func:`quantize_int8`) are quantised eagerly there and divide.
+    ``group``: ``x`` holds this rank's slice of K (a row-parallel
+    product), and each row's amax is that of the whole row."""
+    return _symmetric_quantize(x, -1, reciprocal=True, group=group)
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -163,21 +169,28 @@ def _product(device):
     return int8_gemm_library
 
 
-def _int8_matmuls(x: torch.Tensor, qws, out_dtype, product) -> list:
+def _int8_matmuls(x: torch.Tensor, qws, out_dtype, product,
+                  group=None) -> list:
     """x @ each of ``qws``, x's rows quantised once: the same rows and
-    scales as one call per weight, with fewer launches."""
+    scales as one call per weight, with fewer launches. ``group``: a
+    row-parallel product (x and each weight hold this rank's slice of
+    K): the row amax is MAX-reduced before quantising and the int32
+    accumulator SUM-reduced, exactly, before the rescale, where the
+    reference's partitioned program reduces them."""
     for qw in qws:
         if qw.values.ndim != 2:
             raise ValueError(f'int8_matmul takes a 2-D quantized weight '
                              f'(one layer of a stacked one); got shape '
                              f'{tuple(qw.values.shape)}')
     out_dtype = out_dtype or x.dtype
-    xq, sx = _quantize_rows(x)
+    xq, sx = _quantize_rows(x, group)
     rows = xq.reshape(-1, xq.shape[-1])
     out = []
     for qw in qws:
         n = qw.values.shape[1]
         acc = product(rows, qw.values).reshape(x.shape[:-1] + (n,))
+        if group is not None:
+            acc = group.all_reduce(acc)
         y = acc.float() * sx * qw.scale.reshape((1,) * (acc.ndim - 1) +
                                                 (-1,))
         out.append(y.to(out_dtype))
@@ -194,10 +207,13 @@ def int8_matmuls(x: torch.Tensor, qws,
 
 
 def int8_matmul(x: torch.Tensor, qw: QuantizedTensor,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                group=None) -> torch.Tensor:
     """``x @ w`` with both operands int8 (:func:`int8_matmuls` of one
-    weight): the reference's ``int8_matmul``."""
-    return int8_matmuls(x, (qw,), out_dtype)[0]
+    weight): the reference's ``int8_matmul``. ``group``: x and qw are
+    this rank's slices of K (``parallel/mesh.RowParallel``)."""
+    return _int8_matmuls(x, (qw,), out_dtype, _product(x.device),
+                         group)[0]
 
 
 def int8_matmul_plain(x: torch.Tensor, qw: QuantizedTensor,

@@ -119,9 +119,13 @@ its peers and spill its published runs to it
 quantised per output channel, ``decode.quantize_params``);
 ``--checkpoint-dir DIR`` restores the newest complete params checkpoint
 under DIR (``models/checkpoint.save_params``) before quantising, or
-serves the random init with a warning when there is none. The flag and
-knob of tensor parallelism, which a later slice ports, are rejected,
-never ignored.
+serves the random init with a warning when there is none. ``--tp N``
+(or ``SKYTPU_SERVE_TP``, parsed strictly: a malformed value stops the
+start) serves a paged replica tensor-parallel over N ranks, one card
+each over NCCL (``parallel/tp.py``): this process is rank 0 and starts
+the N - 1 workers. Under a gang (``parallel/distributed.py``) every
+process runs this entry point: process 0 serves and the others run the
+TP worker loop.
 
 Tokenizer note: the models are research checkpoints without a shipped
 tokenizer, so ``text`` uses a byte-level demo codec (UTF-8 bytes → ids;
@@ -150,6 +154,8 @@ from skypilot_tpu_torch.models import llama, prefix_transfer
 from skypilot_tpu_torch.observability import journal
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import trace as trace_lib
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import tp as tp_lib
 from skypilot_tpu_torch.utils import chaos, env
 
 logger = logging.getLogger(__name__)
@@ -159,6 +165,7 @@ REQUEST_TIMEOUT_ENV = 'SKYTPU_MODEL_SERVER_REQUEST_TIMEOUT'
 # Speculative decoding: draft tokens per engine step (0 disables) and the
 # truncated-layer drafter's depth, when the CLI does not give them.
 SPEC_K_ENV = 'SKYTPU_SPEC_K'
+SERVE_TP_ENV = 'SKYTPU_SERVE_TP'
 SPEC_DRAFTER_LAYERS_ENV = 'SKYTPU_SPEC_DRAFTER_LAYERS'
 # Admission-queue backpressure: at this queue depth /generate answers
 # 429 + Retry-After instead of queueing without bound. 0 disables.
@@ -204,15 +211,6 @@ def read_role(raw: Optional[str]) -> str:
     return role if role in _ROLES else 'mixed'
 
 
-# Environment knobs of the reference's replica whose features the port
-# does not have yet: name → (feature, the reference's reading of a set
-# value, the reading that leaves the feature as the port runs it). Any
-# other reading is refused, never ignored.
-UNSUPPORTED_ENVS = {
-    'SKYTPU_SERVE_TP': ('tensor parallelism', str, '1'),
-}
-
-
 def encode_text(text: str, vocab_size: int) -> list:
     """Demo byte-level codec: UTF-8 bytes → token ids (< vocab_size)."""
     return [b % vocab_size for b in text.encode('utf-8')]
@@ -224,12 +222,15 @@ def decode_tokens(tokens) -> str:
                                                  errors='replace')
 
 
-def check_unsupported_env() -> None:
-    for name, (feature, parse, default) in UNSUPPORTED_ENVS.items():
-        raw = os.environ.get(name, '').strip()
-        if raw and parse(raw) != default:
-            raise ValueError(f'{name}={raw!r}: {feature} is not ported to '
-                             'skypilot_tpu_torch yet')
+def serve_tp(tp: Optional[int] = None) -> int:
+    """The TP degree: ``tp`` when given, else ``SKYTPU_SERVE_TP`` or 1.
+    The knob is parsed strictly, as the reference parses it: a malformed
+    value raises instead of starting a replica unsharded, and a
+    nonpositive one passes through for the engine to refuse."""
+    if tp is not None:
+        return int(tp)
+    raw = os.environ.get(SERVE_TP_ENV, '')
+    return int(raw) if raw else 1
 
 
 def _param_template(cfg: llama.LlamaConfig) -> llama.Params:
@@ -259,7 +260,10 @@ def build_engine(model: str, num_slots: int, max_len: int,
                  store_url: Optional[str] = None,
                  device: Optional[str] = None,
                  params: Optional[llama.Params] = None,
-                 rounds: str = 'graph'
+                 rounds: str = 'graph', tp: Optional[int] = None,
+                 tp_group: Optional[tp_lib.TPGroup] = None,
+                 tp_devices: Optional[list] = None,
+                 tp_backend: Optional[str] = None
                  ) -> engine_lib.DecodeEngine:
     """Assemble params + configs into a DecodeEngine (CLI, tests and
     ``chip_smoke.py``). Params are random from ``seed`` unless given;
@@ -273,8 +277,16 @@ def build_engine(model: str, num_slots: int, max_len: int,
     defaults from ``SKYTPU_PREFILL_CHUNK``, ``prefix_peers`` from
     ``SKYTPU_PREFIX_PEERS`` and ``store_url`` from ``SKYTPU_STORE_URL``
     (all three paged only). ``rounds`` is the engine's (CUDA graphs or
-    eager on the card); the CLI leaves it at its default."""
-    check_unsupported_env()
+    eager on the card); the CLI leaves it at its default.
+
+    ``tp`` (default ``SKYTPU_SERVE_TP`` or 1, :func:`serve_tp`) serves
+    the replica tensor-parallel. The group is ``tp_group`` when given
+    (its ranks and backend are the caller's); else the gang's, when
+    ``parallel/distributed.maybe_initialize`` formed one; else one made
+    here over ``tp_devices`` (one a rank, default the visible cards, or
+    CPU ranks when ``device`` is the CPU) with ``tp_backend`` (default
+    NCCL on cards, gloo on the CPU). The engine closes a group it was
+    not given (:meth:`DecodeEngine.close`)."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
     if checkpoint_dir:
@@ -309,16 +321,34 @@ def build_engine(model: str, num_slots: int, max_len: int,
         dcfg_kwargs['spec_k'] = spec_k
         dcfg_kwargs['spec_drafter_layers'] = min(drafter_layers,
                                                  cfg.n_layers)
-    sampler = torch.Generator(device=dev)
+    tp = serve_tp(tp)
+    owns_group = False
+    if tp > 1 and tp_group is None:
+        # Validated before any worker starts.
+        engine_lib.check_tp(tp, None, cfg, paged, rounds)
+        if distributed.maybe_initialize(
+                'gloo' if dev.type == 'cpu' else None):
+            tp_group = tp_lib.gang_group(tp, dev.type)
+        else:
+            tp_group = tp_lib.local_group(tp, tp_devices, tp_backend,
+                                          platform=dev.type)
+        owns_group = True
+    sampler = torch.Generator(device=(tp_group.device if tp_group
+                                      else dev))
     sampler.manual_seed(seed)
-    return engine_lib.DecodeEngine(params, cfg,
-                                   decode.DecodeConfig(**dcfg_kwargs),
-                                   num_slots, step_chunk=step_chunk,
-                                   generator=sampler, name=model,
-                                   paged=paged, num_blocks=num_blocks,
-                                   prefill_chunk=prefill_chunk,
-                                   prefix_peers=prefix_peers,
-                                   store_url=store_url, rounds=rounds)
+    try:
+        eng = engine_lib.DecodeEngine(
+            params, cfg, decode.DecodeConfig(**dcfg_kwargs), num_slots,
+            step_chunk=step_chunk, generator=sampler, name=model,
+            paged=paged, num_blocks=num_blocks,
+            prefill_chunk=prefill_chunk, prefix_peers=prefix_peers,
+            store_url=store_url, rounds=rounds, tp=tp, tp_group=tp_group,
+            own_group=owns_group)
+    except BaseException:
+        if owns_group:
+            tp_group.close()
+        raise
+    return eng
 
 
 class _HTTPServer(http.server.ThreadingHTTPServer):
@@ -1160,13 +1190,6 @@ class ModelServer:
                           'generated': len(req.tokens)}, headers=rid)
 
 
-# Flags of the reference CLI whose features later slices port:
-# flag → (argparse kwargs, what it would enable).
-_UNSUPPORTED_FLAGS = {
-    '--tp': (dict(type=int), 'tensor parallelism'),
-}
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         description='Continuous-batching model server (PyTorch/CUDA).')
@@ -1250,20 +1273,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--device', default=None,
                         help='torch device (default: cuda; a machine '
                              'without a card needs --device cpu)')
-    for flag, (kwargs, _) in _UNSUPPORTED_FLAGS.items():
-        parser.add_argument(flag, default=None, help=argparse.SUPPRESS,
-                            **kwargs)
-    args = parser.parse_args(argv)
-    for flag, (_, feature) in _UNSUPPORTED_FLAGS.items():
-        if getattr(args, flag[2:].replace('-', '_')) not in (None, False):
-            parser.error(f'{flag}: {feature} is not ported to '
-                         'skypilot_tpu_torch yet')
-    return args
+    parser.add_argument('--tp', type=int, default=None,
+                        help='tensor-parallel degree: shard the weights '
+                             'and the paged KV pool over this many ranks, '
+                             'one card each over NCCL (requires --paged; '
+                             'default SKYTPU_SERVE_TP or 1 = unsharded; '
+                             'under a gang every process is a rank)')
+    return parser.parse_args(argv)
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
+    # A gang: join its process group before the first device access;
+    # every process but 0 then serves as a TP worker. No-op elsewhere.
+    platform = 'cpu' if args.device == 'cpu' else 'cuda'
+    if (distributed.maybe_initialize('gloo' if platform == 'cpu' else None)
+            and distributed.process_index()):
+        tp_lib.serve_gang(platform)
+        return
     engine = build_engine(args.model, args.num_slots, args.max_len,
                           temperature=args.temperature, eos_id=args.eos_id,
                           kv_int8=args.kv_int8, int8=args.int8,
@@ -1278,12 +1306,16 @@ def main(argv=None) -> None:
                                for u in args.prefix_peers.split(',')
                                if u.strip()]
                               if args.prefix_peers else None),
-                          store_url=args.store_url, device=args.device)
+                          store_url=args.store_url, device=args.device,
+                          tp=args.tp)
     store = (block_store.BlockStore(args.store_dir)
              if args.store_dir else None)
-    ModelServer(engine, args.port, host=args.host,
-                default_max_new_tokens=args.max_new_tokens,
-                role=args.role, store=store).run_forever()
+    try:
+        ModelServer(engine, args.port, host=args.host,
+                    default_max_new_tokens=args.max_new_tokens,
+                    role=args.role, store=store).run_forever()
+    finally:
+        engine.close()
 
 
 if __name__ == '__main__':

@@ -140,7 +140,7 @@ def test_static_inputs_keep_addresses_and_take_table_edits(tparams):
         for key, buf in eng._prefill_in.items():  # pylint: disable=protected-access
             got = [t.data_ptr() for t in buf.values()]
             assert prefill_ptrs.setdefault(key, got) == got
-        eng._fill_round_inputs()  # pylint: disable=protected-access
+        eng._fill(eng._round_in, eng._round_fills())  # pylint: disable=protected-access
         tables = eng._round_in['tables']  # pylint: disable=protected-access
         assert np.array_equal(tables.numpy(), eng._block_table_np)  # pylint: disable=protected-access
         tables_seen.append(tables.numpy().copy())

@@ -153,9 +153,24 @@ def test_bad_bodies_answer_400(served, body, raw, needle):
 
 
 def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
+    # Nothing of the reference's CLI is refused any more: --tp is read as
+    # the reference reads it (SKYTPU_SERVE_TP when absent, the flag
+    # winning over the env, a malformed env value refused at start).
+    assert model_server.parse_args(['--tp', '2']).tp == 2
+    assert model_server.parse_args([]).tp is None
     with pytest.raises(SystemExit) as exc:
-        model_server.parse_args(['--tp', '2'])
+        model_server.parse_args(['--tp', 'two'])
     assert exc.value.code == 2
+    monkeypatch.setenv(model_server.SERVE_TP_ENV, '4')
+    assert model_server.serve_tp(None) == 4
+    assert model_server.serve_tp(2) == 2
+    monkeypatch.setenv(model_server.SERVE_TP_ENV, 'two')
+    with pytest.raises(ValueError):
+        model_server.serve_tp(None)
+    with pytest.raises(ValueError):
+        model_server.build_engine('debug', 1, 32, paged=True, block_k=8,
+                                  device='cpu')
+    monkeypatch.delenv(model_server.SERVE_TP_ENV)
     args = model_server.parse_args(['--paged', '--kv-int8', '--attn',
                                     'plain', '--device', 'cpu',
                                     '--prefill-chunk', '64'])
@@ -178,13 +193,13 @@ def test_cli_refuses_unported_features_and_needs_a_device(monkeypatch):
 
 
 # (knob, value, the feature its refusal names, or None where the value
-# is the reference's default or what the reference degrades to it).
+# is the reference's default or what the reference degrades to it). The
+# port refuses no knob of the reference's any more; SKYTPU_SERVE_TP is
+# read (ENV_READ_CASES).
 ENV_KNOB_CASES = [
-    ('SKYTPU_SERVE_TP', '2', 'tensor parallelism'),
     ('SKYTPU_REPLICA_ROLE', 'mixed', None),
     ('SKYTPU_REPLICA_ROLE', 'MIXED ', None),
     ('SKYTPU_REPLICA_ROLE', 'prefil', None),
-    ('SKYTPU_SERVE_TP', '1', None),
 ]
 
 
@@ -349,6 +364,17 @@ def _push_budget_reading(name):
     return budget
 
 
+def _tp_reading(name):
+    """The TP degree a built replica reads from the knob: the engine's at
+    1; above 1, the refusal a dense replica gives exactly as the
+    reference's does (the degree was read, and TP needs a paged pool)."""
+    try:
+        return model_server.build_engine('debug', 1, 32, device='cpu').tp
+    except ValueError as e:
+        assert 'requires paged' in str(e), e
+        return model_server.serve_tp()
+
+
 def _stop_wait(name):
     """How long stop() waits for an engine thread that will not end for
     5 s: the knob's 0.2 when it gave up after at least 0.2 s and well
@@ -366,7 +392,8 @@ def _stop_wait(name):
 
 # (knob, value, how to read it, what the reference reads): the knobs of
 # ported features, each read as the reference reads it (an unparseable
-# value gives the default).
+# value gives the default, except SKYTPU_SERVE_TP's, which the reference
+# refuses: test_cli_refuses_unported_features_and_needs_a_device).
 ENV_READ_CASES = [
     ('SKYTPU_SERVE_MAX_QUEUE', '64', _server_reading, 64),
     ('SKYTPU_SERVE_MAX_QUEUE', '0', _server_reading, 0),
@@ -431,6 +458,10 @@ ENV_READ_CASES = [
      0.25),
     ('SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS', 'soon', _push_budget_reading,
      2.0),
+    ('SKYTPU_SERVE_TP', '1', _tp_reading, 1),
+    ('SKYTPU_SERVE_TP', '', _tp_reading, 1),
+    ('SKYTPU_SERVE_TP', '2', _tp_reading, 2),
+    ('SKYTPU_SERVE_TP', ' 4 ', _tp_reading, 4),
 ]
 
 

@@ -38,6 +38,10 @@ def _imported_modules(path):
 def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
     assert len(files) >= 10, files
+    # The walk reaches every subpackage, parallel/ included.
+    rel = {os.path.relpath(f, PORT_DIR) for f in files}
+    assert {'parallel/distributed.py', 'parallel/mesh.py',
+            'parallel/tp.py'} <= rel, sorted(rel)
     bad = [(os.path.relpath(path, REPO_ROOT), mod)
            for path in files for mod in _imported_modules(path)
            if mod.split('.')[0] in FORBIDDEN]
@@ -57,6 +61,7 @@ def test_importing_the_port_leaves_jax_out_of_the_process():
             'from skypilot_tpu_torch.observability import request_trace\n'
             'from skypilot_tpu_torch.observability import runtime_metrics\n'
             'from skypilot_tpu_torch.observability import trace\n'
+            'from skypilot_tpu_torch.parallel import distributed, mesh, tp\n'
             'from skypilot_tpu_torch.utils import chaos, db_utils, env\n'
             'bad = sorted(m for m in sys.modules\n'
             "             if m.split('.')[0] in ('jax', 'jaxlib',\n"

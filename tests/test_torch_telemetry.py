@@ -606,7 +606,6 @@ def test_telemetry_knobs_are_read_not_refused(params, tmp_path, monkeypatch):
     monkeypatch.setenv(ttrace.TTFT_SLO_ENV, '1e-6')
     monkeypatch.setenv(ttrace.CAPACITY_ENV, '2')
     monkeypatch.setenv(tjournal.DB_PATH_ENV, str(tmp_path / 'env.db'))
-    tserver.check_unsupported_env()
     eng = tserver.build_engine('debug', 2, 64, step_chunk=2, device='cpu',
                                params=tp, paged=True, block_k=8)
     assert eng.telemetry.capacity == 2
