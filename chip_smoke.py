@@ -326,21 +326,27 @@ port's package is not beside it. Phases (any failure exits non-zero):
    gloo, whose collectives copy through host tensors, and eager rounds:
    the CLI's ``--tp`` takes a card a rank over NCCL, which one card
    cannot show), built through ``build_engine`` and the ModelServer,
-   each case beside a tp=1 control on phase 3's paged requests: bf16 and
-   int8 K/V, spec_k 4 at drafter depth 1, prefill_chunk 256 and int8
-   weights. Tokens equal the control's request by request, a difference
-   allowed only at a near-tie of the control's logits (phase 9's rule,
-   printed); every rank's pool is [32, n_blocks, 128, 4, 128]; each
-   rank launched the case's kernel n_layers x the decode steps and the
+   each case beside an eager tp=1 control on phase 3's paged requests cut
+   to 8 new tokens: bf16 and int8 K/V, spec_k 4 at drafter depth 1,
+   prefill_chunk 256 and int8 weights. The numeric check: the first-token logits of three fresh
+   prompts (24, 300 and 1,100 tokens; the last position of each
+   prefill) within 0.09 of the largest logit of the control's, bf16
+   weights (sound readings 0.052-0.060, one all-reduce left out
+   >= 0.13), and bit-equal with int8 weights. Tokens equal the
+   control's request by request, a difference allowed only at a
+   near-tie of the control's logits (phase 9's rule, printed; random
+   llama3-8b logits sit a few ulps apart, so this rule alone would pass
+   nearly anything in bf16); every rank's pool is [32, n_blocks, 128,
+   4, 128]; each rank launched the case's kernel n_layers x the decode steps and the
    worker every kernel as often as rank 0; per-rank peak memory printed.
-   The same cases but int8 weights in fp32 at 8 layers (phase 9's cut),
-   where the TP sums round in fp32: tokens equal in every request.
+   The same cases but int8 weights in fp32 at 4 layers, where the TP
+   sums round in fp32: 32 tokens a request, equal in every request.
    (c) In bf16, the tp=2 replica's export of the shared 256-token prefix
    against the control's: the same fields, planes, shapes and dtypes,
    layer 0 bit-equal; a fresh tp=1 engine installs it and continues as
-   the control did. (d) The host ms of an eager decode step at 8 lanes,
-   tp=2 against tp=1 (printed as what it is: gloo through the host on
-   one shared card). (e) A one-rank NCCL group captures its all_reduce
+   the control did. (d) On the bf16 case's two replicas, the host ms of
+   an eager decode round (8 lanes, step_chunk 4), tp=2 against tp=1
+   (printed as what it is: gloo through the host on one shared card). (e) A one-rank NCCL group captures its all_reduce
    and all_gather in a CUDA graph and replays them over new inputs.
 
 Every replica journals into a temporary directory of the run, not into
@@ -1333,29 +1339,32 @@ def first_divergences(torch, llama, params, cfg, pairs, max_ulps, label):
     return found
 
 
-def fp32_cut(torch, params, cfg16):
-    """llama3-8b's width at SPEC_PARITY_LAYERS layers in fp32: (config,
-    params cut from the bf16 ones)."""
+def fp32_cut(torch, params, cfg16, layers=None):
+    """llama3-8b's width at ``layers`` (default SPEC_PARITY_LAYERS)
+    layers in fp32: (config, params cut from the bf16 ones)."""
     import dataclasses
-    cfg32 = dataclasses.replace(cfg16, n_layers=SPEC_PARITY_LAYERS,
+    layers = layers or SPEC_PARITY_LAYERS
+    cfg32 = dataclasses.replace(cfg16, n_layers=layers,
                                 dtype=torch.float32)
-    p32 = {'layers': {k: w[:SPEC_PARITY_LAYERS].float()
+    p32 = {'layers': {k: w[:layers].float()
                       for k, w in params['layers'].items()},
            **{k: w.float() for k, w in params.items() if k != 'layers'}}
     return cfg32, p32
 
 
-def drain_engine(ms_lib, eng, prompts):
-    """Submit N_NEW-token requests for ``prompts`` all at once and step
-    the engine until every one finished; returns their tokens."""
-    reqs = [ms_lib.engine_lib.Request(p, N_NEW) for p in prompts]
+def drain_engine(ms_lib, eng, prompts, n_new=None):
+    """Submit ``n_new``-token (default N_NEW) requests for ``prompts``
+    all at once and step the engine until every one finished; returns
+    their tokens."""
+    n_new = n_new or N_NEW
+    reqs = [ms_lib.engine_lib.Request(p, n_new) for p in prompts]
     for r in reqs:
         eng.submit(r)
     steps = 0
     while not all(r.done for r in reqs):
         eng.step()
         steps += 1
-        if steps > 10 * N_NEW:
+        if steps > 10 * n_new:
             fail(f'{eng.name} engine did not finish')
     return [r.tokens for r in reqs]
 
@@ -3771,9 +3780,24 @@ TP = 2
 # copies through host tensors) and eager rounds: a correctness run.
 TP_DEVICES = ('cuda:0', 'cuda:0')
 TP_BACKEND = 'gloo'
-# Host ms of an eager decode step, tp=2 against tp=1: lanes, prompt
-# length, steps timed.
-TP_STEP_LANES, TP_STEP_PROMPT, TP_STEP_TIMED = 8, 64, 16
+# Tokens a request of the served cases generates (bf16 tp=2 meets a
+# near-tie within 0-18 tokens; the numeric check below is the bound).
+TP_NEW = 8
+# The fp32 cases' depth: exact parity needs no more layers.
+TP_FP32_LAYERS = 4
+# Host ms of an eager decode round (the served replicas' 8 lanes and
+# step_chunk 4), tp=2 against tp=1: prompt length, rounds timed.
+TP_STEP_PROMPT, TP_STEP_TIMED = 64, 8
+# The numeric check of every case: the prompts' lengths (random tokens,
+# no prefix shared with anything served before) and the bound on
+# max |logit(tp=2) - logit(tp=1)| / max |logit(tp=1)| over the last
+# position of each prompt's prefill. Set from H100 readings of llama3-8b
+# (PERF.md, PR 17): sound bf16 tp=2 0.0516-0.0598 in every case; with
+# one all-reduce left out on every rank 0.1306-0.1345 (the last layer's
+# w2), 0.2529-0.2932 (layer 15's w2), 1.4561-1.6189 (layer 0's wo).
+# Int8 weights sum exactly on every rank: their logits are bit-equal.
+TP_PROBE_LENS = (24, 300, 1100)
+TP_LOGITS_REL_TOL = {'bf16': 0.09, 'int8': 0.0}
 
 
 def tp_kernel_check(torch, da, quant):
@@ -3818,10 +3842,13 @@ def tp_kernel_check(torch, da, quant):
 
 
 def tp_case(torch, ms_lib, llama, params, group, label, kwargs, batches,
-            kernel_fn, card, export_prompt=None):
+            kernel_fn, card, export_prompt=None, weights='bf16',
+            time_rounds=False):
     """One phase-18 case: a tp=1 control replica and a tp=2 replica on
-    ``group``, both through build_engine and the ModelServer, on the same
-    requests. Checks: greedy tokens equal, a difference only at a near-
+    ``group``, both through build_engine and the ModelServer with eager
+    rounds, on the same requests. Checks: the first-token logits of TP_PROBE_LENS fresh
+    prompts within TP_LOGITS_REL_TOL[weights] of the control's
+    (logits_rel_err); greedy tokens equal, a difference only at a near-
     tie of the control's logits (first_divergences, at most
     SPEC_PARITY_BF16_ULPS bf16 ulps; printed); every rank's pool holds
     [L, n_blocks, block_k, Hkv/tp, hd]; each rank launched ``kernel_fn``
@@ -3830,9 +3857,12 @@ def tp_case(torch, ms_lib, llama, params, group, label, kwargs, batches,
     engine was built). With ``export_prompt``: the tp=2 replica's export of it
     against the control's (fields, planes, shapes, dtypes; layer 0 bit-
     equal), and a fresh tp=1 engine that installs it continues as the
-    control did. Returns a summary."""
+    control did. With ``time_rounds``: the host ms of an eager decode
+    round on each replica (:func:`round_ms`). Returns a summary."""
+    t0 = time.perf_counter()
     cfg = llama.CONFIGS[MODEL]
     seen = {}
+    probes = tp_probe_prompts(cfg)
 
     def keep(side):
         def on_engine(engine):
@@ -3841,18 +3871,26 @@ def tp_case(torch, ms_lib, llama, params, group, label, kwargs, batches,
                     export_prompt)
             if side == 'tp2':
                 seen['ranks'] = engine.rank_stats(reset=True)
+            seen[side + '_logits'] = first_logits(torch, ms_lib, engine,
+                                                  probes)
+            if time_rounds:
+                seen[side + '_round_ms'] = round_ms(torch, ms_lib, engine)
+            if side == 'tp2':
                 engine.close()
         return on_engine
 
     ctl_stats, ctl = serve_phase(torch, ms_lib, params, f'{label} tp=1',
-                                 kwargs, batches, kernel_fn, card,
-                                 on_engine=keep('tp1'))
+                                 dict(kwargs, rounds='eager'), batches,
+                                 kernel_fn, card, on_engine=keep('tp1'))
     group_kwargs = dict(kwargs, tp=TP, tp_group=group, rounds='eager')
     stats, got = serve_phase(torch, ms_lib, params, f'{label} tp={TP}',
                              group_kwargs, batches, kernel_fn, card,
                              on_engine=keep('tp2'))
     if stats['tp'] != TP:
         fail(f'{label}: stats tp {stats["tp"]}')
+    rel = logits_rel_err(torch, seen['tp1_logits'], seen['tp2_logits'],
+                         TP_LOGITS_REL_TOL[weights], f'{label} tp={TP}',
+                         card)
     pairs = [(body['prompt'], a['tokens'], b['tokens'])
              for (body, a), (_, b) in zip(ctl, got)]
     div = first_divergences(torch, llama, params, cfg, pairs,
@@ -3881,16 +3919,118 @@ def tp_case(torch, ms_lib, llama, params, group, label, kwargs, batches,
           f'host, both ranks on one card); on {card}', flush=True)
     launched = deltas[0][kernel_fn.__name__]
     out = {'identical': len(pairs) - len(div), 'requests': len(pairs),
-           'near_ties': div, 'launches': launched,
+           'logits_rel_err': rel, 'near_ties': div, 'launches': launched,
            'peak_gib': [round(p / 2**30, 3) for p in peaks],
            'tp1_decode_steps': ctl_stats['decode_steps'],
            'tp2_decode_steps': stats['decode_steps']}
+    if time_rounds:
+        out['round_ms'] = {'tp1': seen['tp1_round_ms'],
+                           f'tp{TP}': seen['tp2_round_ms']}
+        print(f'[tp] {label}: host ms of an eager decode round (8 lanes, '
+              f'step_chunk 4, llama3-8b; median of {TP_STEP_TIMED}): '
+              f'tp=1 {seen["tp1_round_ms"]:.3f}, tp={TP} '
+              f'{seen["tp2_round_ms"]:.3f} (tp={TP}: two ranks on one '
+              f'card, collectives over gloo through the host: '
+              f'{group.path}; a correctness run, not a TP speed number) '
+              f'on {card}', flush=True)
     if export_prompt is not None:
         out['export'] = tp_export_check(torch, ms_lib, llama, params,
                                         seen['tp1_export'],
                                         seen['tp2_export'], export_prompt,
                                         ctl, kwargs, label)
+    out['seconds'] = round(time.perf_counter() - t0, 1)
+    print(f'[time] phase 18 {label}: {out["seconds"]}s', flush=True)
     return out
+
+
+def round_ms(torch, ms_lib, engine):
+    """Median host ms of one eager decode round of ``engine`` (its loop
+    stopped; every lane decoding): TP_STEP_TIMED rounds after one warm
+    round, each timed to the card's sync."""
+    import random
+    import statistics
+    rng = random.Random(18)
+    vocab = ms_lib.llama.CONFIGS[MODEL].vocab_size
+    lanes = engine.num_slots
+    reqs = [ms_lib.engine_lib.Request(
+        [rng.randrange(vocab) for _ in range(TP_STEP_PROMPT)],
+        engine.step_chunk * (TP_STEP_TIMED + 16)) for _ in range(lanes)]
+    for r in reqs:
+        engine.submit(r)
+    while engine.active_slots() < lanes or any(
+            st is not None for st in engine._prefill_state):  # pylint: disable=protected-access
+        engine.step()
+    engine.step()
+    times = []
+    for _ in range(TP_STEP_TIMED):
+        sync(torch)
+        t0 = time.perf_counter()
+        engine.step()
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    if any(r.done for r in reqs):
+        fail(f'{engine.name}: a lane finished inside the timed rounds')
+    return statistics.median(times)
+
+
+def tp_probe_prompts(cfg):
+    """The numeric check's prompts: random tokens of TP_PROBE_LENS."""
+    import random
+    rng = random.Random(1818)
+    return [[rng.randrange(cfg.vocab_size) for _ in range(n)]
+            for n in TP_PROBE_LENS]
+
+
+def first_logits(torch, ms_lib, engine, prompts):
+    """Each prompt's first-token logits [V] (fp32, on the host): the
+    last position of its prefill, taken where the engine samples the
+    first token, one 1-token request at a time through ``submit`` and
+    ``step`` (the engine's loop stopped). Under TP rank 0 holds them
+    gathered over the vocab slices, after every row-parallel sum of
+    the forward."""
+    got = []
+    sample = engine._sample_first  # pylint: disable=protected-access
+
+    def record(last):
+        got.append(last.float().cpu())
+        return sample(last)
+
+    engine._sample_first = record  # pylint: disable=protected-access
+    try:
+        for p in prompts:
+            req = engine.submit(ms_lib.engine_lib.Request(p, 1))
+            for _ in range(10 * len(p)):
+                if req.done:
+                    break
+                engine.step()
+            if not req.done or req.finish_reason != 'length':
+                fail(f'{engine.name}: probe request {req.finish_reason}')
+    finally:
+        del engine._sample_first  # pylint: disable=protected-access
+    if len(got) != len(prompts):
+        fail(f'{engine.name}: {len(got)} first-token logits for '
+             f'{len(prompts)} prompts')
+    return torch.stack(got)
+
+
+def logits_rel_err(torch, want, got, tol, label, card):
+    """max |got - want| / max |want| of each prompt's first-token
+    logits (tp=2 against tp=1), each at most ``tol``; returns the
+    per-prompt errors."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f'{label}: first-token logits {tuple(got.shape)} vs '
+             f'{tuple(want.shape)}, finite {torch.isfinite(got).all()}')
+    rel = ((got - want).abs().amax(-1) /
+           want.abs().amax(-1)).tolist()
+    same = (got.argmax(-1) == want.argmax(-1)).tolist()
+    print(f'[tp] {label}: first-token logits of {len(rel)} prompts '
+          f'(lengths {list(TP_PROBE_LENS)}) against tp=1: max|diff| / '
+          f'max|logit| = {rel} (tol {tol}), argmax equal {same}; on '
+          f'{card}', flush=True)
+    if not max(rel) <= tol:
+        fail(f'{label}: first-token logits differ from tp=1 by '
+             f'{max(rel)} of the largest logit > {tol}')
+    return rel
 
 
 def tp_export_check(torch, ms_lib, llama, params, p1, p2, prompt, ctl,
@@ -3921,7 +4061,8 @@ def tp_export_check(torch, ms_lib, llama, params, p1, p2, prompt, ctl,
         fail(f'{label}: the tp=1 engine installed {gained} tokens')
     body, want = next((b, r) for b, r in ctl
                       if b['prompt'][:len(prompt)] == prompt)
-    tokens = drain_engine(ms_lib, engine, [body['prompt']])[0]
+    tokens = drain_engine(ms_lib, engine, [body['prompt']],
+                          len(want['tokens']))[0]
     saved = engine.stats()['prefill_tokens_saved']
     del engine
     empty_cache(torch)
@@ -3944,12 +4085,13 @@ def tp_export_check(torch, ms_lib, llama, params, p1, p2, prompt, ctl,
 def tp_fp32_phase(torch, ms_lib, decode, llama, params, group, prompts,
                   card):
     """tp=2 against tp=1 where no near-tie can hide a fault: fp32 at
-    llama3-8b's width and SPEC_PARITY_LAYERS layers (phase 9's cut),
-    whose TP sums round in fp32, far below any top-1/top-2 gap. Paged,
+    llama3-8b's width and TP_FP32_LAYERS layers, whose TP sums round in
+    fp32, far below any top-1/top-2 gap. Paged,
     int8 K/V, spec (spec_k SPEC_K, drafter depth 1) and chunked
     (PREFILL_CHUNK) engines, tp=2 on ``group`` (eager rounds) and tp=1,
     N_NEW tokens for each prompt: identical in every request."""
-    cfg32, p32 = fp32_cut(torch, params, llama.CONFIGS[MODEL])
+    cfg32, p32 = fp32_cut(torch, params, llama.CONFIGS[MODEL],
+                          TP_FP32_LAYERS)
     cases = {'paged': ({}, 0), 'int8-KV': ({'kv_cache_dtype': 'int8'}, 0),
              'spec': ({'spec_k': SPEC_K, 'spec_drafter_layers': 1}, 0),
              'chunked': ({}, PREFILL_CHUNK)}
@@ -3969,55 +4111,12 @@ def tp_fp32_phase(torch, ms_lib, decode, llama, params, group, prompts,
         pairs = list(zip(prompts, tokens[1], tokens[TP]))
         first_divergences(torch, llama, p32, cfg32, pairs, None,
                           f'tp fp32 {label}')
-        print(f'[tp] fp32 {SPEC_PARITY_LAYERS} layers {label}: tp={TP} '
+        print(f'[tp] fp32 {TP_FP32_LAYERS} layers {label}: tp={TP} '
               f'tokens equal tp=1\'s in all {len(pairs)} requests '
               f'({N_NEW} each) on {card}', flush=True)
         out[label] = len(pairs)
     del p32
     empty_cache(torch)
-    return out
-
-
-def tp_step_ms(torch, ms_lib, params, group, card):
-    """Host ms of one eager decode step (step_chunk 1, every lane
-    decoding), tp=2 on ``group`` against tp=1, in one call: gloo through
-    the host on one shared card, a correctness run, not a TP speed
-    number."""
-    import random
-    rng = random.Random(18)
-    vocab = ms_lib.llama.CONFIGS[MODEL].vocab_size
-    prompts = [[rng.randrange(vocab) for _ in range(TP_STEP_PROMPT)]
-               for _ in range(TP_STEP_LANES)]
-    out = {}
-    for tp in (1, TP, 1):
-        kw = dict(tp=TP, tp_group=group) if tp > 1 else {}
-        eng = ms_lib.build_engine(MODEL, TP_STEP_LANES, MAX_LEN,
-                                  step_chunk=1, device=DEVICE,
-                                  params=params, paged=True,
-                                  rounds='eager', **kw)
-        reqs = [ms_lib.engine_lib.Request(p, 4 * TP_STEP_TIMED)
-                for p in prompts]
-        for r in reqs:
-            eng.submit(r)
-        while eng.active_slots() < TP_STEP_LANES or any(
-                st is not None for st in eng._prefill_state):  # pylint: disable=protected-access
-            eng.step()
-        eng.step()
-        sync(torch)
-        t0 = time.perf_counter()
-        for _ in range(TP_STEP_TIMED):
-            eng.step()
-        sync(torch)
-        out.setdefault(f'tp{tp}', []).append(
-            (time.perf_counter() - t0) / TP_STEP_TIMED * 1e3)
-        eng.close()
-        del eng, reqs
-        empty_cache(torch)
-    print(f'[tp] host ms of an eager decode step ({TP_STEP_LANES} lanes, '
-          f'llama3-8b): tp=1 {out["tp1"]}, tp={TP} {out[f"tp{TP}"]} '
-          f'(tp={TP}: two ranks on one card, collectives over gloo '
-          f'through the host: {group.path}; a correctness run, not a TP '
-          f'speed number) on {card}', flush=True)
     return out
 
 
@@ -4060,11 +4159,11 @@ def tp_phase(torch, ms_lib, da, quant, decode, llama, params, paged_batches,
     rounds; the CLI's --tp takes a card a rank over NCCL, which one card
     cannot show), each case against a tp=1 control: bf16 and int8 K/V,
     spec_k SPEC_K at drafter depth 1, chunked prefill PREFILL_CHUNK and
-    int8 weights; the same in fp32 at SPEC_PARITY_LAYERS layers, tokens
-    exactly equal. Before them kernels 2-3 at the shard shape; after,
-    the host ms of an eager decode step and a one-rank NCCL group's
-    captured collectives. The bf16 engines share one set of slices (the
-    group's shard cache). Returns the report."""
+    int8 weights, TP_NEW tokens a request (the bf16 case also times an
+    eager decode round on both); the same in fp32 at TP_FP32_LAYERS
+    layers, tokens exactly equal. Before them kernels 2-3 at the shard
+    shape; after, a one-rank NCCL group's captured collectives. Returns
+    the report."""
     from skypilot_tpu_torch.parallel import tp as tp_lib
     report = {}
     if DEVICE == 'cuda':
@@ -4076,15 +4175,18 @@ def tp_phase(torch, ms_lib, da, quant, decode, llama, params, paged_batches,
     if DEVICE == 'cuda':
         torch.cuda.reset_peak_memory_stats()
 
+    batches = [[dict(body, max_new_tokens=TP_NEW) for body in batch]
+               for batch in paged_batches]
+
     def case(label, kwargs, kernel_fn, p=params, **kw):
         return tp_case(torch, ms_lib, llama, p, group, label, kwargs,
-                       paged_batches, kernel_fn, card, **kw)
+                       batches, kernel_fn, card, **kw)
 
     try:
         shared = paged_batches[0][0]['prompt'][:256]
         report['bf16'] = case('tp paged bf16', {'paged': True},
                               da.paged_decode_attention_kernel,
-                              export_prompt=shared)
+                              export_prompt=shared, time_rounds=True)
         report['int8_kv'] = case('tp paged int8-KV',
                                  {'paged': True, 'kv_int8': True},
                                  da.paged_decode_attention_kernel)
@@ -4095,17 +4197,18 @@ def tp_phase(torch, ms_lib, da, quant, decode, llama, params, paged_batches,
                                  {'paged': True,
                                   'prefill_chunk': PREFILL_CHUNK},
                                  da.paged_decode_attention_kernel)
-        report['step_ms'] = tp_step_ms(torch, ms_lib, params, group, card)
+        t0 = time.perf_counter()
         report['fp32'] = tp_fp32_phase(
             torch, ms_lib, decode, llama, params, group,
             [body['prompt'] for batch in paged_batches for body in batch],
             card)
+        print(f'[time] phase 18 fp32: {time.perf_counter() - t0:.1f}s',
+              flush=True)
         qparams = decode.quantize_params(params)
         report['int8_weights'] = case('tp int8 weights', {'paged': True},
                                       da.paged_decode_attention_kernel,
-                                      p=qparams)
+                                      p=qparams, weights='int8')
         del qparams
-        group.shard_cache = None
         empty_cache(torch)
     finally:
         group.close()

@@ -139,7 +139,6 @@ import threading
 import time
 import traceback
 import uuid
-import weakref
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -609,11 +608,14 @@ class EngineShard:
         self._last_out: Optional[torch.Tensor] = None
         self._launches_at_build = _launch_counts()
 
-    @staticmethod
-    def params_from_message(group, args: dict,
-                            tensors: List[torch.Tensor]) -> dict:
-        """A worker's param slices from the engine's ``build`` message (in
-        ``args['names']`` order), on its device, int8 values K-major."""
+    @classmethod
+    def from_message(cls, group, args: dict,
+                     tensors: List[torch.Tensor]) -> 'EngineShard':
+        """A worker's shard from the engine's ``build`` message: its
+        param slices (``tensors``, in ``args['names']`` order; moved to
+        its device, int8 values K-major), the configs and the sampling
+        generator's state. The pool is made by the ``reset`` that
+        follows."""
         shard = mesh.unflatten(
             [(n, t.to(group.device)) for n, t in zip(args['names'],
                                                       tensors)])
@@ -621,14 +623,7 @@ class EngineShard:
             if isinstance(w, quant.QuantizedTensor):
                 shard['layers'][name] = quant.QuantizedTensor(
                     values=quant.k_major(w.values, 1), scale=w.scale)
-        return mesh.wrap_serving_params(shard, group)
-
-    @classmethod
-    def from_message(cls, group, args: dict, params: dict) -> 'EngineShard':
-        """A worker's shard from the engine's ``build`` message: its
-        params (:meth:`params_from_message`, or the last build's when the
-        message says ``reuse``), the configs and the sampling generator's
-        state. The pool is made by the ``reset`` that follows."""
+        params = mesh.wrap_serving_params(shard, group)
         generator = torch.Generator(device=group.device)
         generator.set_state(args['generator_state'])
         self = cls.__new__(cls)
@@ -888,12 +883,11 @@ class DecodeEngine(EngineShard):
     neither the CLI nor the environment sets it.
 
     ``tp`` > 1 (paged only; it must divide both head counts) serves
-    tensor-parallel over ``tp_group`` (``parallel/tp.TPGroup``, this
-    process its rank 0), or over a group made here with one card a rank
-    over NCCL (CPU params: CPU ranks over gloo), which :meth:`close`
-    ends; ``own_group`` hands a given group's end to the engine too. A
-    group whose collectives copy through the host (gloo on cards)
-    refuses ``rounds='graph'``."""
+    tensor-parallel over ``tp_group`` (``parallel/tp.TPGroup`` of ``tp``
+    ranks, this process its rank 0; ``serve/model_server.build_engine``
+    makes one). :meth:`close` ends the group only when ``own_group``
+    hands it to the engine. A group whose collectives copy through the
+    host (gloo on cards) refuses ``rounds='graph'``."""
 
     def __init__(self, params, cfg: llama.LlamaConfig,
                  dcfg: decode.DecodeConfig, num_slots: int,
@@ -936,6 +930,9 @@ class DecodeEngine(EngineShard):
                     f'spec_drafter_layers must be in [1, '
                     f'{cfg.n_layers}], got {dcfg.spec_drafter_layers}')
         check_tp(tp, tp_group, cfg, paged, rounds)
+        if tp > 1 and tp_group is None:
+            raise ValueError(f'tp={tp} needs a TP group (tp_group; '
+                             'build_engine makes one)')
         self.name = name
         bk = dcfg.kernel_block_k
         self._buckets = (tuple(sorted(int(b) for b in prefill_buckets))
@@ -959,14 +956,10 @@ class DecodeEngine(EngineShard):
                 num_blocks = num_slots * (dcfg.max_len // bk) + 1
         else:
             num_blocks = 0
-        # Tensor parallelism: this process is rank 0 of the group (made
-        # here, one card a rank, unless the caller hands one in), holds
+        # Tensor parallelism: this process is rank 0 of the group, holds
         # its own slice of the params and the pool, and sends the workers
         # theirs in the ``build`` message.
-        self._owns_group = own_group or (tp > 1 and tp_group is None)
-        if tp > 1 and tp_group is None:
-            tp_group = tp_lib.local_group(
-                tp, platform=params['tok_embedding'].device.type)
+        self._owns_group = own_group
         device = (tp_group.device if tp_group is not None
                   else params['tok_embedding'].device)
         if generator is None:
@@ -1228,21 +1221,10 @@ class DecodeEngine(EngineShard):
         """Send every worker of ``group`` its param slices, the configs
         and the sampler's state (``build``), and return rank 0's own
         slices. A worker's slices are cut on the host one worker at a
-        time, so the host holds at most one worker's share. When
-        ``params`` are the very tensors the group's last engine was built
-        from, every rank keeps the slices it holds and nothing is sent
-        (``group.shard_cache``)."""
+        time, so the host holds at most one worker's share."""
         specs = mesh.serving_param_specs(cfg)
-        leaves = [t for _, t in mesh.flatten(params)]
-        cached = group.shard_cache
-        reuse = (cached is not None and len(cached[0]) == len(leaves) and
-                 all(ref() is t for ref, t in zip(cached[0], leaves)))
-        if reuse:
-            local = cached[1]
-        else:
-            group.shard_cache = None
-            local = mesh.shard_serving_params(params, specs, 0, group.size,
-                                              group.device)
+        local = mesh.shard_serving_params(params, specs, 0, group.size,
+                                          group.device)
 
         def worker_slices(rank):
             return [t for _, t in mesh.flatten(mesh.shard_serving_params(
@@ -1254,13 +1236,12 @@ class DecodeEngine(EngineShard):
             group.owner = self
             group.post('build', {
                 'names': [n for n, _ in mesh.flatten(local)],
-                'reuse': reuse, 'cfg': cfg, 'dcfg': dcfg,
+                'cfg': cfg, 'dcfg': dcfg,
                 'num_slots': num_slots, 'step_chunk': step_chunk,
                 'num_blocks': num_blocks, 'rounds': rounds,
                 'generator_state': generator.get_state()},
-                {} if reuse else {r: functools.partial(worker_slices, r)
-                                  for r in range(1, group.size)})
-        group.shard_cache = ([weakref.ref(t) for t in leaves], local)
+                {r: functools.partial(worker_slices, r)
+                 for r in range(1, group.size)})
         return mesh.wrap_serving_params(local, group)
 
     def _device_op(self, op: str, tensors=None, **args):
@@ -1331,7 +1312,8 @@ class DecodeEngine(EngineShard):
 
     def close(self) -> None:
         """Free the workers' shards (the group can build another engine)
-        and close the group if this engine made it. Idempotent; a no-op
+        and close the group if it was handed over (``own_group``).
+        Idempotent; a no-op
         without tensor parallelism."""
         group = self._group
         if group is None:

@@ -27,26 +27,17 @@ from typing import Optional
 
 import torch
 
-from skypilot_tpu_torch.utils import env as env_lib
-
 logger = logging.getLogger(__name__)
 
 COORDINATOR_ENV = 'JAX_COORDINATOR_ADDRESS'
 NUM_PROCESSES_ENV = 'JAX_NUM_PROCESSES'
 PROCESS_ID_ENV = 'JAX_PROCESS_ID'
 DISABLE_ENV = 'SKYTPU_DISABLE_JAX_DISTRIBUTED'
-# Seconds a collective or a rendezvous may wait on a peer before it
+# How long a collective or a rendezvous may wait on a peer before it
 # raises (a dead rank fails the engine instead of hanging it).
-TIMEOUT_ENV = 'SKYTPU_TP_TIMEOUT_SECONDS'
-DEFAULT_TIMEOUT_SECONDS = 300.0
+TP_TIMEOUT = datetime.timedelta(seconds=300)
 
 _initialized = False
-
-
-def timeout() -> datetime.timedelta:
-    """The collectives' timeout (``SKYTPU_TP_TIMEOUT_SECONDS``)."""
-    return datetime.timedelta(
-        seconds=env_lib.env_float(TIMEOUT_ENV, DEFAULT_TIMEOUT_SECONDS))
 
 
 def distributed_env() -> Optional[dict]:
@@ -94,7 +85,7 @@ def maybe_initialize(backend: Optional[str] = None) -> bool:
         backend=backend,
         init_method=f'tcp://{env["coordinator_address"]}',
         world_size=env['num_processes'], rank=env['process_id'],
-        timeout=timeout())
+        timeout=TP_TIMEOUT)
     _initialized = True
     return True
 

@@ -32,14 +32,12 @@ interpreters, never a fork of this threaded process) or are the other
 processes of a gang (:func:`gang_group`, after
 ``parallel/distributed.maybe_initialize``). A worker serves one engine
 after another (``build`` replaces the last one), so one group can carry
-many engines; an engine built over the same params as the last one
-reuses every rank's slices instead of sending them again. A worker
-whose operation raises exits, and so does a worker whose rank 0 is
-gone; rank 0 sees a dead worker at its next
-message or collective as an exception (gloo reports the closed
-connection at once; a silent peer raises after ``SKYTPU_TP_TIMEOUT_
-SECONDS``), which the engine's supervisor turns into a permanent
-failure.
+many engines, each sent its slices when it is built. A worker whose
+operation raises exits, and so does a worker whose rank 0 is gone;
+rank 0 sees a dead worker at its next message or collective as an
+exception (gloo reports the closed connection at once; a silent peer
+raises after ``distributed.TP_TIMEOUT``), which the engine's supervisor
+turns into a permanent failure.
 
 Run a worker by hand: ``python -m skypilot_tpu_torch.parallel.tp --rank
 1 --size 2 --init-method tcp://127.0.0.1:PORT --backend gloo --devices
@@ -104,9 +102,6 @@ class TPGroup:
         # The engine the workers hold now (rank 0): a message from any
         # other engine raises.
         self.owner: Any = None
-        # (weak refs to the params an engine was last built from, rank
-        # 0's slices of them): see DecodeEngine._build_workers.
-        self.shard_cache: Any = None
 
     @property
     def path(self) -> str:
@@ -273,7 +268,7 @@ def _join(rank: int, devices, backend: str, init_method: str,
         torch.cuda.set_device(devices[rank])
     dist.init_process_group(backend, init_method=init_method,
                             world_size=len(devices), rank=rank,
-                            timeout=distributed.timeout())
+                            timeout=distributed.TP_TIMEOUT)
     return dist.new_group(backend='gloo', timeout=ctrl_timeout)
 
 
@@ -305,7 +300,7 @@ def local_group(tp: int, devices: Optional[Sequence] = None,
     procs = [subprocess.Popen(cmd + ['--rank', str(r)], env=env)
              for r in range(1, tp)]
     try:
-        ctrl = _join(0, devices, backend, init_method, distributed.timeout())
+        ctrl = _join(0, devices, backend, init_method, distributed.TP_TIMEOUT)
     except BaseException:
         for p in procs:
             p.kill()
@@ -325,7 +320,7 @@ def gang_group(tp: int, platform: str = 'cuda') -> TPGroup:
     return TPGroup(dist.get_rank(), _gang_devices(world, platform),
                    dist.get_backend(),
                    dist.new_group(backend='gloo',
-                                  timeout=distributed.timeout()))
+                                  timeout=distributed.TP_TIMEOUT))
 
 
 def _gang_devices(world: int, platform: str) -> List[torch.device]:
@@ -352,9 +347,6 @@ def serve(group: TPGroup) -> None:
     ends the process (rank 0 then sees the closed connection)."""
     from skypilot_tpu_torch.models import engine as engine_lib  # pylint: disable=import-outside-toplevel
     shard = None
-    # The last build's param slices: kept after ``close``, so an engine
-    # rebuilt over the same params needs none sent (``reuse``).
-    params = None
     while True:
         try:
             op, args, tensors = group.receive()
@@ -366,13 +358,9 @@ def serve(group: TPGroup) -> None:
         try:
             if op == 'build':
                 shard = None
-                if not args['reuse']:
-                    params = None
-                    gc.collect()
-                    params = engine_lib.EngineShard.params_from_message(
-                        group, args, tensors)
+                gc.collect()
                 shard = engine_lib.EngineShard.from_message(group, args,
-                                                            params)
+                                                            tensors)
             elif op == 'close':
                 shard = None
                 gc.collect()

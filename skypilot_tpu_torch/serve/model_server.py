@@ -1286,12 +1286,20 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
     # A gang: join its process group before the first device access;
-    # every process but 0 then serves as a TP worker. No-op elsewhere.
+    # every process is a rank of one TP replica, so each checks the
+    # degree before process 0 serves and the others run the TP worker
+    # loop. No-op elsewhere.
     platform = 'cpu' if args.device == 'cpu' else 'cuda'
-    if (distributed.maybe_initialize('gloo' if platform == 'cpu' else None)
-            and distributed.process_index()):
-        tp_lib.serve_gang(platform)
-        return
+    if distributed.maybe_initialize('gloo' if platform == 'cpu' else None):
+        tp, world = serve_tp(args.tp), torch.distributed.get_world_size()
+        if tp != world:
+            raise ValueError(
+                f'a gang of {world} processes serves one replica at '
+                f'tp={world} (--tp or {SERVE_TP_ENV}), got tp={tp}; '
+                f'{distributed.DISABLE_ENV}=1 serves a replica a process')
+        if distributed.process_index():
+            tp_lib.serve_gang(platform)
+            return
     engine = build_engine(args.model, args.num_slots, args.max_len,
                           temperature=args.temperature, eos_id=args.eos_id,
                           kv_int8=args.kv_int8, int8=args.int8,

@@ -378,6 +378,12 @@ def test_tp_must_divide_heads(params):
         tengine.DecodeEngine(params[1], CFG, _dcfg(), 2, paged=True, tp=4)
 
 
+def test_tp_engine_needs_a_group(params):
+    # The engine makes no group of its own: build_engine does.
+    with pytest.raises(ValueError, match='needs a TP group'):
+        tengine.DecodeEngine(params[1], CFG, _dcfg(), 2, paged=True, tp=2)
+
+
 def test_tp_exceeding_devices_raises():
     with pytest.raises(ValueError, match='exceeds'):
         mesh.serving_devices(3, ['cpu', 'cpu'])
@@ -467,7 +473,7 @@ def test_maybe_initialize_forms_the_process_group_once(monkeypatch):
     assert calls == [{'backend': 'gloo',
                       'init_method': 'tcp://10.0.0.1:8476',
                       'world_size': 2, 'rank': 0,
-                      'timeout': distributed.timeout()}]
+                      'timeout': distributed.TP_TIMEOUT}]
     assert distributed.maybe_initialize() is True  # idempotent
     assert len(calls) == 1
     monkeypatch.setattr(distributed, '_initialized', False)
@@ -536,6 +542,41 @@ def test_gang_processes_serve_one_tp_replica(group):
     finally:
         eng.close()
     assert got['tokens'] == want.tokens
+
+
+@pytest.mark.parametrize('args,error', [
+    (['--paged'], 'serves one replica at tp=2'),
+    (['--paged', '--tp', '1'], 'serves one replica at tp=2'),
+    (['--tp', '2'], 'requires paged=True'),
+], ids=['no-tp', 'tp-1', 'tp-2-dense'])
+def test_gang_fails_together_instead_of_hanging(args, error):
+    """A gang is one TP replica. A degree other than its process count
+    (none given is 1) fails every process before any serves; a replica
+    that process 0 refuses to build (tp > 1 needs paged) fails the
+    worker too, which never waits on a peer that is gone."""
+    import subprocess  # pylint: disable=import-outside-toplevel
+    import sys  # pylint: disable=import-outside-toplevel
+    env = dict(os.environ, **{
+        distributed.COORDINATOR_ENV: f'127.0.0.1:{_free_port()}',
+        distributed.NUM_PROCESSES_ENV: '2'})
+    env.pop(model_server.SERVE_TP_ENV, None)
+    env.pop(distributed.DISABLE_ENV, None)
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.serve.model_server',
+           '--model', 'debug', '--device', 'cpu', '--block-k', '8',
+           '--max-len', '64', '--port', str(_free_port())] + args
+    procs = [subprocess.Popen(cmd, env=dict(env, **{
+        distributed.PROCESS_ID_ENV: str(r)}), stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE) for r in (1, 0)]
+    try:
+        errs = [p.communicate(timeout=60)[1].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert procs[0].returncode != 0 and procs[1].returncode != 0
+    # Process 0 (procs[1]) names the cause.
+    assert error in errs[1], errs[1][-2000:]
 
 
 # --------------------------------------------------------------- card
