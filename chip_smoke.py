@@ -213,7 +213,7 @@ port's package is not beside it. Phases (any failure exits non-zero):
 14. The trainers, run after phase 8; the flash launch counts are reset
    just before and read just after. (a) bench-1b as phase 7 builds it,
    once per remat policy ('full', 'dots', 'ffn', 'ffn1', 'attn'), each
-   from the seed-0 state, 3 steps on one fixed batch: the flash kernels
+   from the seed-0 state, 2 steps on one fixed batch: the flash kernels
    launch exactly [2L, L, L] a step under every policy (the reference
    recomputes the flash forward under all five), every step's loss and
    grad norm and the params after the last step equal 'full''s bit for
@@ -339,7 +339,7 @@ port's package is not beside it. Phases (any failure exits non-zero):
    nearly anything in bf16); every rank's pool is [32, n_blocks, 128,
    4, 128]; each rank launched the case's kernel n_layers x the decode steps and the
    worker every kernel as often as rank 0; per-rank peak memory printed.
-   The same cases but int8 weights in fp32 at 4 layers, where the TP
+   The same cases but int8 weights in fp32 at 2 layers, where the TP
    sums round in fp32: 32 tokens a request, equal in every request.
    (c) In bf16, the tp=2 replica's export of the shared 256-token prefix
    against the control's: the same fields, planes, shapes and dtypes,
@@ -348,6 +348,31 @@ port's package is not beside it. Phases (any failure exits non-zero):
    an eager decode round (8 lanes, step_chunk 4), tp=2 against tp=1
    (printed as what it is: gloo through the host on one shared card). (e) A one-rank NCCL group captures its all_reduce
    and all_gather in a CUDA graph and replays them over new inputs.
+
+19. The sharded trainer, run after phase 14. (a) Kernels 4-6 against
+   their twins at a rank's shard shape (B 2, S 2048, H 8, Hkv 4, D 128),
+   bf16 and fp32, under phase 6's ``twin_error``. The flash launch
+   counts are then reset, and read after (b)-(c). (b) bench-1b at full
+   width and depth (flash, remat 'full', ce_chunks 8, seq 2048) trained
+   by the port's sharded trainer on a (data 1, fsdp 2, model 2) mesh of
+   four ranks sharing the one card (``parallel/distributed.local_ranks``
+   over four ``cuda:0`` ranks, gloo, whose collectives copy through
+   host tensors: the CLI's default, NCCL with a card a rank, needs four
+   cards), a global batch of 4, 3 steps from the seed-0 state (each rank
+   drawing leaf by leaf), against a one-rank control (the unsharded
+   ``make_train_step`` on the same state and batches): each step's loss
+   and grad norm and the params after 3 steps (gathered; their distance
+   from the control's over the control's own update) within
+   ``SHARD_TOL``, the step-1 loss within the reference's rtol 5e-3, and
+   every rank launching the flash forward exactly 2L times a step and
+   dq, dk/dv L times; per-rank peak memory and step seconds printed.
+   (c) The same at 4 layers in fp32: losses and grad norms within 2e-5
+   of the control's. (d) (b)'s ranks save a checkpoint at step 2; a
+   one-rank ``train_loop`` resumes it, and its step 3 matches (b)'s
+   step 3 within (b)'s loss bound. (e) ResNet-50 (phase 14's 224 x 224,
+   bf16, batch 128, learning rate) data parallel over two of (b)'s four
+   ranks (a mesh over ranks 0-1; sync BN), 2 steps, against a one-rank
+   control on the same batch: losses within ``RESNET_DP_TOL``.
 
 Every replica journals into a temporary directory of the run, not into
 ``~/.skytpu``. Before phase 13 the whole run took 273.7 s on an H100
@@ -480,7 +505,8 @@ TRAIN_BF16_GRAD_RATIO = 1.2
 # one fixed batch; peak memory must rise in this order (the bytes each
 # policy keeps: the block input, then attn_out, w1's, w1's and w3's,
 # and the six GEMM outputs of 'dots').
-POLICY_STEPS = 3
+# 3 before phase 19 was added; cut to keep the run inside its limit.
+POLICY_STEPS = 2
 REMAT_MEMORY_ORDER = ('full', 'attn', 'ffn1', 'ffn', 'dots')
 # (b) train_loop steps with a profile capture of 2 of them.
 PROFILED_STEPS = 4
@@ -1027,6 +1053,9 @@ def e2e_phase(torch, decode, llama, params):
 
 
 PROFILE_LENS = [16, 200, 1000, 77, 512, 333, 700, 900]
+# Host-clock samples a window (two windows an implementation). 20 before
+# phase 19 was added; cut to keep the run inside its time limit.
+PROFILE_TIMED_STEPS = 10
 
 
 def profile_phase(torch, decode, llama, params, card, weights='bf16'):
@@ -1065,14 +1094,14 @@ def profile_phase(torch, decode, llama, params, card, weights='bf16'):
 
         # Per-step host clock, each step synchronised (the engine syncs
         # once per step too); impls in turns: kernel, plain, plain,
-        # kernel, 20 steps each after 3 warm-up steps.
+        # kernel, PROFILE_TIMED_STEPS each after 3 warm-up steps.
         samples = {'kernel': [], 'plain': []}
         for impl in ('kernel', 'plain', 'plain', 'kernel'):
             dcfg = decode.DecodeConfig(max_len=MAX_LEN, decode_attention=impl)
             for _ in range(3):
                 step(dcfg)
             sync(torch)
-            for _ in range(20):
+            for _ in range(PROFILE_TIMED_STEPS):
                 t0 = time.perf_counter()
                 step(dcfg)
                 sync(torch)
@@ -1081,7 +1110,8 @@ def profile_phase(torch, decode, llama, params, card, weights='bf16'):
                         statistics.quantiles(v, n=10)[-1])
                  for impl, v in samples.items()}
         print(f'[profile] {label} decode step, 8 slots, live lengths '
-              f'{PROFILE_LENS}, host clock (median / p90 of 40): kernel '
+              f'{PROFILE_LENS}, host clock (median / p90 of '
+              f'{2 * PROFILE_TIMED_STEPS}): kernel '
               f'path {stats["kernel"][0]:.3f} / {stats["kernel"][1]:.3f} '
               f'ms, plain path {stats["plain"][0]:.3f} / '
               f'{stats["plain"][1]:.3f} ms, on {card}', flush=True)
@@ -3783,8 +3813,9 @@ TP_BACKEND = 'gloo'
 # Tokens a request of the served cases generates (bf16 tp=2 meets a
 # near-tie within 0-18 tokens; the numeric check below is the bound).
 TP_NEW = 8
-# The fp32 cases' depth: exact parity needs no more layers.
-TP_FP32_LAYERS = 4
+# The fp32 cases' depth: exact parity needs no more layers (4 before
+# phase 19 was added; cut to keep the run inside its time limit).
+TP_FP32_LAYERS = 2
 # Host ms of an eager decode round (the served replicas' 8 lanes and
 # step_chunk 4), tp=2 against tp=1: prompt length, rounds timed.
 TP_STEP_PROMPT, TP_STEP_TIMED = 64, 8
@@ -4928,6 +4959,437 @@ def trainers_phase(torch, llama, train, fa, card):
                 resnet={k: res[k] for k in ('examples_per_s', 'peak_gb')})
 
 
+# -------------------------------------------------------------- phase 19
+
+# bench-1b on a (data 1, fsdp 2, model 2) mesh of four ranks sharing the
+# one card over gloo (host copies; the CLI's default, NCCL with a card a
+# rank, needs four cards), a global batch of 4 x 2048.
+SHARD_MESH = dict(data=1, fsdp=2, model=2)
+SHARD_RANKS = 4
+SHARD_B = 4
+SHARD_STEPS = 3
+SHARD_SAVE_AT = 2
+SHARD_FP32_LAYERS = 4
+# Adam at a visible rate: step 1 runs at 0 (the warm-up's first count),
+# steps 2-3 at ~3e-4, so the params after 3 steps moved by a few bf16
+# ulps.
+SHARD_TRAIN = dict(learning_rate=3e-4, warmup_steps=1)
+# Kernels 4-6 at a rank's shard shape: (B/fsdp, S, H/model, Hkv/model,
+# D, causal).
+SHARD_FLASH_CASE = (2, 2048, 8, 4, 128, True)
+# The sharded run against the one-rank control, relative: each step's
+# loss and grad norm, and the params after the last step as
+# ||p - p_control|| / ||p_control - p_0|| (the difference against the
+# control's own update). bf16: set between the sound readings on an
+# H100 (700 W; loss <= 5.7e-5, grad norms equal, params 0.111) and those
+# with one row-parallel all-reduce left out on every rank (layer 0's wo:
+# loss >= 4.6e-4, grad norm >= 0.19, params 1.37; the last layer's w2:
+# loss 1.2e-4 at step 3, grad norm >= 0.012, params 0.133); one bf16
+# ulp of a norm near 5 is 0.006. fp32 loss and grad norm: the training
+# contract; its params read 9.0e-5.
+SHARD_TOL = {'bf16': dict(loss=1e-4, grad_norm=8e-3, params=0.5),
+             'fp32': dict(loss=2e-5, grad_norm=2e-5, params=1e-3)}
+# The reference's own bound on its sharded step's first bf16 loss
+# (tests/unit_tests/test_models.py::test_sharded_train_step_dp_fsdp_tp).
+SHARD_STEP1_RTOL = 5e-3
+SHARD_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              'build', 'chip_smoke_shard_ckpt')
+# (e) ResNet-50 data parallel over two ranks on the card (phase 14's
+# model, size, batch and learning rate) against a one-rank control on
+# the same batch: each step's loss, relative, at the reference's bf16
+# rtol. The second rank's rows are scaled and shifted, so each rank
+# normalising its own rows (local BN) reads far from the control while
+# sync BN, exact in the math, stays near it (readings: PERF.md section
+# 6, PR 18).
+RESNET_DP_SKEW = (3.0, 1.0)
+RESNET_DP_RANKS, RESNET_DP_STEPS = 2, 2
+RESNET_DP_TOL = 5e-3
+
+
+def shard_kernel_check(torch, fa):
+    """(a) Kernels 4-6 against their twins at a rank's shard shape,
+    bf16 and fp32, under twin_error's bounds. Returns the worst max abs
+    error of each kernel by dtype."""
+    b, s, h, hkv, d, causal = SHARD_FLASH_CASE
+    dev = torch.device('cuda')
+    worst = {}
+    for dtype_name, dtype in (('bf16', torch.bfloat16),
+                              ('fp32', torch.float32)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(19)
+        q, k, v, g = (torch.randn(shape, generator=gen,
+                                  device=dev).to(dtype)
+                      for shape in ((b, s, h, d), (b, s, hkv, d),
+                                    (b, s, hkv, d), (b, s, h, d)))
+        out, lse = fa.flash_forward_kernel(q, k, v, causal)
+        dsum = fa.row_dot(g, out)
+        dq = fa.flash_bwd_dq_kernel(q, k, v, g, lse, dsum, causal)
+        dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, g, lse, dsum, causal)
+        p_out, p_lse = fa.flash_forward_plain(q, k, v, causal)
+        grads = fa.flash_backward_plain(q, k, v, out, lse, g, causal)
+        if not (lse - p_lse).abs().max().item() <= 1e-4:
+            fail(f'phase 19 flash forward {dtype_name}: LSE differs')
+        for name, got, want in (
+                ('flash_forward_kernel', out, p_out),
+                ('flash_bwd_dq_kernel', dq, grads[0]),
+                ('flash_bwd_dkv_kernel dk', dk, grads[1]),
+                ('flash_bwd_dkv_kernel dv', dv, grads[2])):
+            err, msg = twin_error(got, want, dtype_name)
+            print(f'[phase 19] {name} at the shard shape '
+                  f'{SHARD_FLASH_CASE} {dtype_name}: {msg}', flush=True)
+            if err is not None:
+                fail(f'phase 19 {name} {dtype_name}: {err}')
+            key = f'{name.split()[0]} {dtype_name}'
+            worst[key] = max(worst.get(key, 0.0),
+                             (got.float() - want.float()).abs().max().item())
+        del q, k, v, g, out, lse, dsum, dq, dk, dv, p_out, p_lse, grads
+    torch.cuda.empty_cache()
+    return worst
+
+
+def shard_config(llama, model, dtype_name, layers=None):
+    """``model`` as phase 7 trains it (flash, remat 'full', its own
+    ce_chunks), in ``dtype_name``, cut to ``layers`` when given."""
+    import dataclasses
+    import torch
+    cfg = dataclasses.replace(llama.CONFIGS[model], flash_attention=True,
+                              remat=True, remat_policy='full')
+    if dtype_name == 'fp32':
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def shard_rank_runs(spec):
+    """Rank function of (b)-(d), run by every rank of the phase's
+    ``local_ranks``. For each run of ``spec['runs']``: the port's
+    sharded trainer from the seed-0 state (``init_train_state(mesh=)``,
+    each rank drawing leaf by leaf and keeping its slices), ``steps``
+    steps of the global (data seed 0, step) batches, a checkpoint at
+    ``save_at``; each step's loss, grad norm and seconds; the params
+    after the last step gathered leaf by leaf to rank 0's host; every
+    rank's flash launches a step, seconds and peak memory. Returns rank
+    0's readings."""
+    import torch
+    from skypilot_tpu_torch.models import checkpoint, llama, train
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(spec['device'])
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**spec['mesh']))
+    tc = train.TrainConfig(**spec['train'])
+    out = []
+    for run in spec['runs']:
+        cfg = shard_config(llama, spec['model'], run['dtype'],
+                           run['layers'])
+        if dev.type == 'cuda':
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train.init_train_state(cfg, tc, dev, mesh)
+        _sync(torch, dev)
+        init_s = time.perf_counter() - t0
+        step = train.make_train_step(cfg, tc, mesh)
+        losses, norms, secs, grew = [], [], [], []
+        save_s = None
+        for i in range(run['steps']):
+            tokens, targets = train.synthetic_batch(
+                cfg.vocab_size, spec['batch'], spec['seq'], 0, i)
+            before = [fn.launches for fn in fa.KERNELS]
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, tokens, targets)
+            losses.append(float(metrics['loss']))
+            norms.append(float(metrics['grad_norm']))
+            _sync(torch, dev)
+            secs.append(time.perf_counter() - t0)
+            grew.append([fn.launches - n
+                         for fn, n in zip(fa.KERNELS, before)])
+            if run.get('save_at') == i + 1:
+                t0 = time.perf_counter()
+                checkpoint.save(spec['ckpt_dir'], state, i + 1, keep=1,
+                                mesh=mesh)
+                save_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() if dev.type == 'cuda'
+                else float('nan'))
+        params = train.tree_leaves(train.gather_tree(state.params, mesh))
+        ranks = [None] * mesh.num_ranks
+        torch.distributed.all_gather_object(ranks, dict(
+            launches=grew, secs=secs, init_s=init_s, peak_bytes=peak))
+        out.append(dict(label=run['label'], losses=losses, norms=norms,
+                        params=params, ranks=ranks, save_s=save_s,
+                        layers=cfg.n_layers))
+        del state, step, params
+        if dev.type == 'cuda':
+            torch.cuda.empty_cache()
+    return dict(runs=out, resnet=resnet_dp_steps(spec['resnet']))
+
+
+def shard_control(torch, llama, train, dtype_name, layers):
+    """The one-rank control of a run: the port's unsharded trainer from
+    the same seed-0 state on the same batches. Returns its losses, grad
+    norms, step seconds, and its initial and final params (host
+    copies)."""
+    dev = torch.device(DEVICE)
+    cfg = shard_config(llama, TRAIN_MODEL, dtype_name, layers)
+    state = train.init_train_state(cfg, train.TrainConfig(**SHARD_TRAIN),
+                                   dev)
+    first = [p.to('cpu', copy=True)
+             for p in train.tree_leaves(state.params)]
+    step = train.make_train_step(cfg, train.TrainConfig(**SHARD_TRAIN))
+    losses, norms, secs = [], [], []
+    for i in range(SHARD_STEPS):
+        tokens, targets = train.synthetic_batch(cfg.vocab_size, SHARD_B,
+                                                TRAIN_S, 0, i)
+        sync(torch)
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens, targets)
+        losses.append(float(metrics['loss']))
+        norms.append(float(metrics['grad_norm']))
+        sync(torch)
+        secs.append(time.perf_counter() - t0)
+    last = [p.to('cpu', copy=True) for p in train.tree_leaves(state.params)]
+    del state, step
+    empty_cache(torch)
+    return dict(losses=losses, norms=norms, secs=secs, first=first,
+                last=last)
+
+
+def rel_diff(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def params_distance(torch, got, want, first):
+    """(||got - want|| / ||want - first|| over every leaf, max |got -
+    want|), in fp32 on DEVICE leaf by leaf."""
+    dev = torch.device(DEVICE)
+    diff2 = move2 = worst = 0.0
+    for g, w, f in zip(got, want, first):
+        g, w, f = (t.to(dev).float() for t in (g, w, f))
+        diff2 += (g - w).square().sum().item()
+        move2 += (w - f).square().sum().item()
+        worst = max(worst, (g - w).abs().max().item())
+    return (math.sqrt(diff2 / move2) if move2 else float('inf')), worst
+
+
+def shard_compare(torch, run, control, dtype_name, card):
+    """A sharded run against its control under SHARD_TOL; prints both
+    and returns the worst relative readings."""
+    tol = SHARD_TOL[dtype_name]
+    loss_rel = [rel_diff(a, b) for a, b in zip(run['losses'],
+                                               control['losses'])]
+    norm_rel = [rel_diff(a, b) for a, b in zip(run['norms'],
+                                               control['norms'])]
+    params_rel, params_max = params_distance(torch, run['params'],
+                                             control['last'],
+                                             control['first'])
+    worst = dict(loss=max(loss_rel), grad_norm=max(norm_rel),
+                 params=params_rel)
+    print(f'[phase 19] {run["label"]}: losses {run["losses"]} against the '
+          f'one-rank control\'s {control["losses"]} (rel {loss_rel}, tol '
+          f'{tol["loss"]}); grad norms {run["norms"]} against '
+          f'{control["norms"]} (rel {norm_rel}, tol {tol["grad_norm"]}); '
+          f'params after step {SHARD_STEPS}: ||p - p_control|| / '
+          f'||p_control - p_0|| {params_rel:.4e} (tol {tol["params"]}), '
+          f'max |p - p_control| {params_max:.4e}; on {card}', flush=True)
+    for key, value in worst.items():
+        if not value <= tol[key]:
+            fail(f'phase 19 {run["label"]}: {key} {value} > {tol[key]}')
+    return worst
+
+
+def shard_ranks_report(run, expect_per_step, control_secs):
+    """Print each rank's launches, step seconds and peak memory; fail
+    unless every rank launched the flash kernels exactly
+    ``expect_per_step`` a step."""
+    for r, rank in enumerate(run['ranks']):
+        print(f'[phase 19] {run["label"]} rank {r}: launches a step '
+              f'{rank["launches"]}, step seconds '
+              f'{[round(s, 3) for s in rank["secs"]]} (init '
+              f'{rank["init_s"]:.1f}s), peak {rank["peak_bytes"] / 2**30:.2f}'
+              f' GiB (max_memory_allocated)', flush=True)
+        if any(g != expect_per_step for g in rank['launches']):
+            fail(f'phase 19 {run["label"]} rank {r}: flash launches '
+                 f'{rank["launches"]}, expected {expect_per_step} a step')
+    step_s = statistics.median(run['ranks'][0]['secs'][1:])
+    print(f'[phase 19] {run["label"]}: a step {step_s:.3f}s on four ranks '
+          f'(gloo through the host) against '
+          f'{statistics.median(control_secs[1:]):.3f}s on one', flush=True)
+
+
+def resnet_dp_steps(spec):
+    """(e), run by every rank of the phase's ``local_ranks`` after
+    (b)-(c): ResNet-50 momentum SGD over a 'data' mesh of the first
+    ``spec['ranks']`` ranks (the others idle), from the seed-0 params on
+    phase 14's batch (every rank draws the same global batch and keeps
+    its rows). Returns rank 0's losses and each mesh rank's step seconds
+    and peak memory."""
+    import torch
+    from skypilot_tpu_torch.models import resnet
+    dev = torch.device(spec['device'])
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = resnet.data_mesh(range(spec['ranks']))
+    losses, mine = [], None
+    if mesh is not None:
+        cfg = resnet.CONFIGS[spec['model']]
+        params, momentum, images, labels = resnet_batch(
+            torch, resnet, cfg, dev, spec['batch'], spec['size'])
+        step = resnet.make_train_step(cfg, lr=spec['lr'], mesh=mesh)
+        if dev.type == 'cuda':
+            torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(spec['steps']):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            params, momentum, loss = step(params, momentum, images, labels)
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - t0)
+        mine = dict(secs=secs, peak_bytes=(
+            torch.cuda.max_memory_allocated() if dev.type == 'cuda'
+            else float('nan')))
+        del params, momentum, images, labels, step
+    ranks = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(ranks, mine)
+    return dict(losses=losses, ranks=ranks[:spec['ranks']])
+
+
+def resnet_batch(torch, resnet, cfg, dev, batch, size):
+    """Phase 14's ResNet state and batch: params from seed 0, then the
+    images and labels from the same generator; the second half of the
+    images scaled and shifted (RESNET_DP_SKEW), so the rows of rank 0
+    and rank 1 differ in their statistics."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = resnet.init_params(cfg, gen, dev)
+    images = torch.randn((batch, size, size, 3), generator=gen, device=dev)
+    scale, shift = RESNET_DP_SKEW
+    images[batch // 2:] = images[batch // 2:] * scale + shift
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen,
+                           device=dev)
+    return params, resnet.zeros_momentum(params), images, labels
+
+
+def resnet_dp_control(torch, card, got):
+    """(e) checked: the ranks' ResNet-50 losses (``resnet_dp_steps``)
+    against a one-rank control on the same params and batch."""
+    from skypilot_tpu_torch.models import resnet
+    dev = torch.device(DEVICE)
+    cfg = resnet.CONFIGS[RESNET_MODEL]
+    params, momentum, images, labels = resnet_batch(torch, resnet, cfg, dev,
+                                                    RESNET_B, RESNET_SIZE)
+    step = resnet.make_train_step(cfg, lr=RESNET_LR)
+    control = []
+    for _ in range(RESNET_DP_STEPS):
+        params, momentum, loss = step(params, momentum, images, labels)
+        control.append(float(loss))
+    del params, momentum, images, labels, step
+    empty_cache(torch)
+    rels = [rel_diff(a, b) for a, b in zip(got['losses'], control)]
+    print(f'[phase 19] (e) {RESNET_MODEL} {RESNET_SIZE}x{RESNET_SIZE} bf16, '
+          f'global batch {RESNET_B} over {RESNET_DP_RANKS} ranks (sync BN): '
+          f'losses {got["losses"]} against one rank\'s {control} (rel '
+          f'{rels}, tol {RESNET_DP_TOL}); ' + '; '.join(
+              f'rank {r} step seconds {[round(s, 3) for s in x["secs"]]}, '
+              f'peak {x["peak_bytes"] / 2**30:.2f} GiB'
+              for r, x in enumerate(got['ranks'])) + f'; on {card}',
+          flush=True)
+    if len(got['losses']) != RESNET_DP_STEPS or not max(rels) <= (
+            RESNET_DP_TOL):
+        fail(f'phase 19 (e): losses {got["losses"]} against {control}')
+    return dict(losses=got['losses'], control=control, rel=max(rels))
+
+
+def rank_devices(n):
+    """local_ranks' placement: every rank on the one card over gloo, or
+    CPU ranks in a rehearsal."""
+    if DEVICE == 'cpu':
+        return dict(platform='cpu')
+    return dict(devices=['cuda:0'] * n, backend='gloo')
+
+
+def shard_phase(torch, llama, train, fa, card):
+    """Phase 19: the sharded trainer; (a) before, (b)-(e) after the
+    launch counts are reset (they are read by the caller)."""
+    from skypilot_tpu_torch.parallel import distributed
+    t_start = time.perf_counter()
+    kernels = shard_kernel_check(torch, fa) if DEVICE == 'cuda' else {}
+    controls = {'bf16': shard_control(torch, llama, train, 'bf16', None),
+                'fp32': shard_control(torch, llama, train, 'fp32',
+                                      SHARD_FP32_LAYERS)}
+    t_controls = time.perf_counter()
+    shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+    spec = dict(device=DEVICE, model=TRAIN_MODEL, mesh=SHARD_MESH,
+                train=SHARD_TRAIN, batch=SHARD_B, seq=TRAIN_S,
+                ckpt_dir=SHARD_CKPT_DIR, runs=[
+                    dict(label='(b) bf16', dtype='bf16', layers=None,
+                         steps=SHARD_STEPS, save_at=SHARD_SAVE_AT),
+                    dict(label=f'(c) fp32 {SHARD_FP32_LAYERS} layers',
+                         dtype='fp32', layers=SHARD_FP32_LAYERS,
+                         steps=SHARD_STEPS)],
+                resnet=dict(device=DEVICE, ranks=RESNET_DP_RANKS,
+                            model=RESNET_MODEL, batch=RESNET_B,
+                            size=RESNET_SIZE, lr=RESNET_LR,
+                            steps=RESNET_DP_STEPS))
+    fa.reset_launch_counts()
+    ranked = distributed.local_ranks(SHARD_RANKS, shard_rank_runs, (spec,),
+                                     **rank_devices(SHARD_RANKS))
+    counts = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    runs = ranked['runs']
+    t_ranks = time.perf_counter()
+    report = {}
+    for run, dtype_name in zip(runs, ('bf16', 'fp32')):
+        control = controls[dtype_name]
+        layers = run['layers']
+        shard_ranks_report(run, [2 * layers, layers, layers],
+                           control['secs'])
+        report[run['label']] = shard_compare(torch, run, control,
+                                             dtype_name, card)
+    step1 = rel_diff(runs[0]['losses'][0], controls['bf16']['losses'][0])
+    print(f'[phase 19] (b) step-1 loss rel {step1:.3e} (the reference\'s '
+          f'rtol {SHARD_STEP1_RTOL}); the step-2 checkpoint written in '
+          f'{runs[0]["save_s"]:.1f}s', flush=True)
+    if not step1 <= SHARD_STEP1_RTOL:
+        fail(f'phase 19 (b): step-1 loss {runs[0]["losses"][0]} against '
+             f'{controls["bf16"]["losses"][0]}')
+    # (d) One rank resumes the four-rank checkpoint.
+    resumed = {}
+    t0 = time.perf_counter()
+    end = train.train_loop(
+        shard_config(llama, TRAIN_MODEL, 'bf16'),
+        train.TrainConfig(**SHARD_TRAIN), SHARD_STEPS, SHARD_B, TRAIN_S,
+        checkpoint_dir=SHARD_CKPT_DIR, save_every=SHARD_STEPS, keep=1,
+        log_every=0, device=torch.device(DEVICE),
+        on_step=lambda i, m: resumed.__setitem__(i, float(m['loss'])))
+    del end
+    empty_cache(torch)
+    shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+    want = runs[0]['losses'][SHARD_STEPS - 1]
+    got = resumed.get(SHARD_STEPS)
+    resume_rel = rel_diff(got, want) if got is not None else float('inf')
+    print(f'[phase 19] (d) one rank resumed the four-rank step-'
+          f'{SHARD_SAVE_AT} checkpoint: steps {sorted(resumed)}, step-'
+          f'{SHARD_STEPS} loss {got} against the four ranks\' {want} (rel '
+          f'{resume_rel:.3e}, tol {SHARD_TOL["bf16"]["loss"]}) in '
+          f'{time.perf_counter() - t0:.1f}s', flush=True)
+    if sorted(resumed) != [SHARD_STEPS] or not (
+            resume_rel <= SHARD_TOL['bf16']['loss']):
+        fail(f'phase 19 (d): resumed {resumed}, four ranks {want}')
+    t_resume = time.perf_counter()
+    report['resnet'] = resnet_dp_control(torch, card, ranked['resnet'])
+    print(f'[time] phase 19: kernels and controls '
+          f'{t_controls - t_start:.1f}s, four ranks (with (e)) '
+          f'{t_ranks - t_controls:.1f}s, resume {t_resume - t_ranks:.1f}s, '
+          f'resnet control {time.perf_counter() - t_resume:.1f}s',
+          flush=True)
+    report.update(kernels=kernels, step1=step1, resume=resume_rel)
+    return counts, report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5095,6 +5557,13 @@ def main() -> int:
         fail(f'a flash kernel was not launched in phase 14: '
              f'{phase14_counts}')
     phase_done('phase 14')
+    phase19_counts, sharded = shard_phase(torch, llama, train, fa, card)
+    print(f'[phase 19] launches in rank 0\'s process {phase19_counts}; '
+          f'{sharded}', flush=True)
+    if not all(phase19_counts.values()):
+        fail(f'a flash kernel was not launched in phase 19: '
+             f'{phase19_counts}')
+    phase_done('phase 19')
 
     kernels = []
     for kname, row in rows.items():
@@ -5154,7 +5623,8 @@ def main() -> int:
             'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
             'bound_by': main['bound_by'],
             'library_ms': main['library_ms'], 'fp32': row['fp32'],
-            'phase14_launches': phase14_counts[kname]})
+            'phase14_launches': phase14_counts[kname],
+            'phase19_launches': phase19_counts[kname]})
     print(f'[done] {time.perf_counter() - t_start:.1f}s total; train '
           f'{train_stats}; trainers {trainers}', flush=True)
     print(json.dumps({'kernels': kernels}))

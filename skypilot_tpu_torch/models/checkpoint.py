@@ -14,6 +14,13 @@ interrupted save is never restored. The trainer saves its ``TrainState``
 shapes and dtypes, or ``ValueError``, as orbax raises in the reference.
 So a trainer checkpoint handed to a replica raises, in both packages.
 Reading the JAX package's orbax checkpoints is not ported.
+
+A sharded ``TrainState`` (on a training mesh, ``parallel/mesh.py``)
+saves in the one-device format, so every mesh resumes every other
+mesh's checkpoint, as orbax reshards into any abstract state in the
+reference: :func:`save` gathers leaf by leaf and rank 0 writes (the
+commit marker last), and :func:`restore` slices each leaf to the
+restoring rank's shard.
 """
 import json
 import os
@@ -22,6 +29,7 @@ import shutil
 from typing import Any, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from skypilot_tpu_torch.device import resolve_device
 
@@ -74,13 +82,27 @@ def _write(root: str, obj: Any, step: int, keep: int) -> str:
     return path
 
 
-def save(root: str, state: Any, step: int, keep: int = 3) -> str:
+def save(root: str, state: Any, step: int, keep: int = 3,
+         mesh=None) -> str:
     """Write ``state`` (a ``train.TrainState``) as step ``step`` under
-    root; prune to the newest ``keep``."""
+    root; prune to the newest ``keep``. With a ``mesh`` every rank calls
+    it with its slices: each leaf is gathered in turn to rank 0's host
+    (``train.gather_tree``: a layer-stacked leaf a layer at a time, so
+    its card holds one layer whole; the host holds the whole state, as
+    the one-file format writes it), rank 0 writes, and every rank
+    returns once the step is committed."""
     opt = state.opt_state
-    return _write(root, {'params': state.params, 'mu': opt.mu,
-                         'nu': opt.nu, 'count': opt.count,
-                         'step': state.step}, step, keep)
+    trees = {'params': state.params, 'mu': opt.mu, 'nu': opt.nu}
+    if mesh is not None:
+        from skypilot_tpu_torch.models import train
+        trees = {k: train.gather_tree(t, mesh) for k, t in trees.items()}
+    path = _ckpt_dir(_root(root), step)
+    if mesh is None or mesh.rank == 0:
+        path = _write(root, dict(trees, count=opt.count, step=state.step),
+                      step, keep)
+    if mesh is not None and dist.is_initialized():
+        dist.barrier()
+    return path
 
 
 def save_params(root: str, params: Any, step: int, keep: int = 3) -> str:
@@ -104,29 +126,71 @@ def _prune(root: str, keep: int) -> None:
         shutil.rmtree(_ckpt_dir(root, step), ignore_errors=True)
 
 
-def restore(root: str, step: int, device=None) -> Any:
+def restore(root: str, step: int, device=None, mesh=None,
+            abstract: Any = None) -> Any:
     """The ``train.TrainState`` saved at ``step``, on ``device``
-    (default CUDA; without a card only ``device='cpu'`` runs)."""
+    (default CUDA; without a card only ``device='cpu'`` runs). With a
+    ``mesh``, this rank's slices of it. With ``abstract`` (from
+    :func:`abstract_train_state`), a tree, shape or dtype that differs
+    raises ValueError, as orbax raises."""
     from skypilot_tpu_torch.models import train
     device = resolve_device(device)
     path = _ckpt_dir(_root(root), step)
     if not _is_complete(path):
         raise FileNotFoundError(f'no complete checkpoint at {path}')
-    saved = torch.load(os.path.join(path, STATE_FILE), map_location=device,
-                       weights_only=True)
-    return train.TrainState(
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location='cpu',
+                       weights_only=True, mmap=True)
+    state = train.TrainState(
         params=saved['params'],
         opt_state=train.AdamState(count=saved['count'], mu=saved['mu'],
                                   nu=saved['nu']),
         step=saved['step'])
+    state = train.shard_state(state, mesh, device)
+    if abstract is not None:
+        for name, got, want in (
+                ('params', state.params, abstract.params),
+                ('mu', state.opt_state.mu, abstract.opt_state.mu),
+                ('nu', state.opt_state.nu, abstract.opt_state.nu)):
+            _match(got, want, name)
+    return state
 
 
-def restore_latest(root: str, device=None) -> Optional[Tuple[Any, int]]:
-    """(state, step) from the newest complete checkpoint, or None."""
+def restore_latest(root: str, device=None, mesh=None,
+                   abstract: Any = None) -> Optional[Tuple[Any, int]]:
+    """(state, step) from the newest complete checkpoint, or None (see
+    :func:`restore`)."""
     steps = list_steps(root)
     if not steps:
         return None
-    return restore(root, steps[-1], device), steps[-1]
+    return restore(root, steps[-1], device, mesh, abstract), steps[-1]
+
+
+def abstract_train_state(model_cfg, train_cfg, mesh=None) -> Any:
+    """The ``train.TrainState`` that ``train.init_train_state`` makes,
+    as tensors on the meta device (shapes and dtypes only): this rank's
+    slices with a ``mesh``."""
+    from skypilot_tpu_torch.models import llama, train
+    specs = llama.param_partition_specs(model_cfg)
+    meta = torch.device('meta')
+    params = {}
+    for name, shape in llama.param_shapes(model_cfg).items():
+        params[name] = (
+            {n: torch.empty(sh, dtype=model_cfg.dtype, device=meta)
+             for n, sh in shape.items()} if isinstance(shape, dict) else
+            torch.empty(shape, dtype=model_cfg.dtype, device=meta))
+    if mesh is not None:
+        params = _meta_shards(params, specs, mesh)
+    opt = train.make_optimizer(train_cfg).init(params)
+    return train.TrainState(params=params, opt_state=opt, step=0)
+
+
+def _meta_shards(tree, specs, mesh):
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    if isinstance(tree, dict):
+        return {k: _meta_shards(tree[k], specs[k], mesh) for k in tree}
+    shape = [s.stop - s.start
+             for s in mesh_lib.spec_to_slices(tree.shape, specs, mesh)]
+    return torch.empty(shape, dtype=tree.dtype, device='meta')
 
 
 def _match(saved: Any, template: Any, path: str) -> None:

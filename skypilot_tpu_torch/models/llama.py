@@ -25,6 +25,17 @@ checkpointed sequence chunks), per-block rematerialisation through
 too, as in the reference. ``impl`` ('kernel' or 'plain')
 picks the flash kernels or their plain twins; None takes the kernels on
 CUDA tensors.
+
+On a training mesh (``parallel/mesh.Mesh``, the ``mesh=`` argument of
+:func:`forward_hidden` and :func:`loss_fn`) every rank holds its slices
+under :func:`param_partition_specs` and runs the same program on its
+rows of the batch: each block all-gathers its weights' fsdp slices
+inside the remat region (so the recompute gathers them again), attention
+runs on the rank's ``H/model`` query and ``Hkv/model`` KV heads, the
+row-parallel wo/w2 products are summed over 'model', the embedding
+lookup and the cross-entropy are vocab-parallel (a distributed
+logsumexp and gold logit, as the reference's compiled program does),
+and the loss is this rank's share of the global mean.
 """
 import dataclasses
 import functools
@@ -38,7 +49,7 @@ from torch.utils.checkpoint import create_selective_checkpoint_contexts
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.ops import quant
-from skypilot_tpu_torch.parallel import mesh
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -114,6 +125,30 @@ CONFIGS: Dict[str, LlamaConfig] = {
 # ------------------------------------------------------------------- init
 
 
+def param_partition_specs(cfg: LlamaConfig) -> Params:
+    """The training specs of the params (the reference's
+    ``param_partition_specs``): contraction and head dims over 'model',
+    the other dim over 'fsdp'; the layer-stacked tensors lead with None;
+    norms replicate."""
+    del cfg
+    fsdp, model = mesh_lib.FSDP_AXIS, mesh_lib.MODEL_AXIS
+    col = (None, fsdp, model)
+    row = (None, model, fsdp)
+    return {
+        'tok_embedding': (model, fsdp),
+        'layers': {
+            'attn_norm': (None, None),
+            'wq': col, 'wk': col, 'wv': col,
+            'wo': row,
+            'ffn_norm': (None, None),
+            'w1': col, 'w3': col,
+            'w2': row,
+        },
+        'out_norm': (None,),
+        'lm_head': (fsdp, model),
+    }
+
+
 def param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
     """The param tree's shapes (same structure as the params)."""
     hd = cfg.head_dim
@@ -137,23 +172,40 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device='cpu') -> Params:
+                device='cpu', mesh: Optional[mesh_lib.Mesh] = None
+                ) -> Params:
     """Random params: normal(0, 0.02) in the model dtype from
     ``generator`` (which must live on ``device``), norms set to ones.
-    Draws differ from the reference's ``jax.random`` stream; parity
-    tests bridge the reference's own params instead."""
+    Leaves are drawn in a fixed order, a layer-stacked one a layer at a
+    time; with a ``mesh`` only this rank's slice of each draw under
+    :func:`param_partition_specs` is kept. So one seed gives the same
+    params at any mesh, and no rank holds more than one layer of a
+    stacked leaf whole. Draws differ from the reference's ``jax.random``
+    stream; parity tests bridge the reference's own params instead."""
+    specs = param_partition_specs(cfg)
 
-    def init(name, shape):
+    def draw(name, shape, spec):
         if name.endswith('norm'):
-            return torch.ones(shape, dtype=cfg.dtype, device=device)
-        w = torch.empty(shape, dtype=torch.float32, device=device)
-        w.normal_(0.0, 0.02, generator=generator)
-        return w.to(cfg.dtype)
+            w = torch.ones(shape, dtype=cfg.dtype, device=device)
+        else:
+            w = torch.empty(shape, dtype=torch.float32, device=device)
+            w.normal_(0.0, 0.02, generator=generator)
+            w = w.to(cfg.dtype)
+        return w if mesh is None else mesh_lib.shard_tensor(w, spec, mesh)
+
+    def stacked(name, shape, spec):
+        out = None
+        for i in range(shape[0]):
+            w = draw(name, shape[1:], spec[1:])
+            if out is None:
+                out = w.new_empty((shape[0],) + tuple(w.shape))
+            out[i] = w
+        return out
 
     shapes = param_shapes(cfg)
-    params = {name: init(name, shape) for name, shape in shapes.items()
-              if name != 'layers'}
-    params['layers'] = {name: init(name, shape)
+    params = {name: draw(name, shape, specs[name])
+              for name, shape in shapes.items() if name != 'layers'}
+    params['layers'] = {name: stacked(name, shape, specs['layers'][name])
                         for name, shape in shapes['layers'].items()}
     return params
 
@@ -194,12 +246,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def qkv(cfg: LlamaConfig, x: torch.Tensor, layer: Params, cos: torch.Tensor,
-        sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                    torch.Tensor]:
+        sin: torch.Tensor, mesh: Optional[mesh_lib.Mesh] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Norm → Q/K/V projections → RoPE: [B,S,H,hd], [B,S,Hkv,hd] x2."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    h = rms_norm(x, layer['attn_norm'], cfg.norm_eps)
+    h = _model_in(rms_norm(x, layer['attn_norm'], cfg.norm_eps), mesh)
     q, k, v = quant_mms(h, layer['wq'], layer['wk'], layer['wv'])
     # The head counts come from the weights: a tensor-parallel rank's
     # wq/wk/wv hold its H/tp and Hkv/tp heads.
@@ -209,12 +261,44 @@ def qkv(cfg: LlamaConfig, x: torch.Tensor, layer: Params, cos: torch.Tensor,
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _model_in(h: torch.Tensor, mesh: Optional[mesh_lib.Mesh]
+              ) -> torch.Tensor:
+    """The input of column-parallel products on a mesh (its grad summed
+    over 'model'); unchanged without one."""
+    return h if mesh is None else mesh_lib.copy_to_model(h, mesh)
+
+
+def _model_out(y: torch.Tensor, mesh: Optional[mesh_lib.Mesh]
+               ) -> torch.Tensor:
+    """A row-parallel product summed over 'model' on a mesh."""
+    return y if mesh is None else mesh_lib.reduce_from_model(y, mesh)
+
+
+# The dim of each layer weight's per-layer slice that splits over fsdp.
+_FSDP_DIM = {name: spec.index(mesh_lib.FSDP_AXIS) - 1
+             for name, spec in param_partition_specs(None)['layers'].items()
+             if mesh_lib.FSDP_AXIS in spec}
+
+
+def _gathered(layer: Params, mesh: Optional[mesh_lib.Mesh],
+              names) -> Params:
+    """``layer`` with the weights ``names`` all-gathered over fsdp on a
+    mesh (called inside the remat region, so the recompute gathers
+    again); unchanged without one."""
+    if mesh is None:
+        return layer
+    out = dict(layer)
+    for n in names:
+        out[n] = mesh_lib.gather_shards(layer[n], mesh, _FSDP_DIM[n])
+    return out
+
+
 def quant_mm(x: torch.Tensor, w) -> torch.Tensor:
     """Matmul that dispatches on int8-quantized weights (the serving
     path, ``ops/quant.py``) and on tensor-parallel slices that carry a
     collective (``parallel/mesh.RowParallel``, ``VocabParallel``); a
     plain tensor is ``x @ w``. The reference's ``quant_mm``."""
-    if isinstance(w, (mesh.RowParallel, mesh.VocabParallel)):
+    if isinstance(w, (mesh_lib.RowParallel, mesh_lib.VocabParallel)):
         return w.matmul(x)
     if isinstance(w, quant.QuantizedTensor):
         return quant.int8_matmul(x, w)
@@ -244,57 +328,67 @@ def full_sequence_attention(cfg: LlamaConfig, q: torch.Tensor,
 
 def _attention_out(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
                    cos: torch.Tensor, sin: torch.Tensor,
-                   impl: Optional[str]) -> torch.Tensor:
+                   impl: Optional[str],
+                   mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
     """Norm → QKV → RoPE → causal attention: the attention output
     [B, S, H·hd] before ``wo`` (what the ``'attn'`` policy keeps)."""
-    return _attention(cfg, x, layer, cos, sin, impl)[0]
+    layer = _gathered(layer, mesh, ('wq', 'wk', 'wv'))
+    return _attention(cfg, x, layer, cos, sin, impl, mesh)[0]
 
 
 def _attention(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
-               cos: torch.Tensor, sin: torch.Tensor, impl: Optional[str]
+               cos: torch.Tensor, sin: torch.Tensor, impl: Optional[str],
+               mesh: Optional[mesh_lib.Mesh] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
-    q, k, v = qkv(cfg, x, layer, cos, sin)
+    q, k, v = qkv(cfg, x, layer, cos, sin, mesh)
     attn = full_sequence_attention(cfg, q, k, v, impl)
     return attn.reshape(b, s, -1), k, v
 
 
 def attn_sublayer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
                   cos: torch.Tensor, sin: torch.Tensor,
-                  impl: Optional[str] = None
+                  impl: Optional[str] = None,
+                  mesh: Optional[mesh_lib.Mesh] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Norm → QKV → RoPE → causal attention → residual. Returns
     (x, k, v) so prefill seeds the KV cache from the same code."""
-    attn, k, v = _attention(cfg, x, layer, cos, sin, impl)
-    return _attn_residual(cfg, x, attn, layer), k, v
+    attn, k, v = _attention(cfg, x, layer, cos, sin, impl, mesh)
+    return _attn_residual(cfg, x, attn, layer, mesh), k, v
 
 
 def _attn_residual(cfg: LlamaConfig, x: torch.Tensor, attn: torch.Tensor,
-                   layer: Params) -> torch.Tensor:
-    return x + quant_mm(attn, layer['wo']).to(cfg.dtype)
+                   layer: Params,
+                   mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
+    return x + _model_out(quant_mm(attn, layer['wo']), mesh).to(cfg.dtype)
 
 
-def ffn_sublayer(cfg: LlamaConfig, x: torch.Tensor,
-                 layer: Params) -> torch.Tensor:
+def ffn_sublayer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
+                 mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
     """Norm → SwiGLU (fp32) → residual."""
-    h = rms_norm(x, layer['ffn_norm'], cfg.norm_eps)
+    h = _model_in(rms_norm(x, layer['ffn_norm'], cfg.norm_eps), mesh)
     w1_out, w3_out = quant_mms(h, layer['w1'], layer['w3'])
     gate = torch.nn.functional.silu(w1_out.float())
     up = w3_out.float()
     down = quant_mm((gate * up).to(cfg.dtype), layer['w2'])
-    return x + down.to(cfg.dtype)
+    return x + _model_out(down, mesh).to(cfg.dtype)
 
 
 def _block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
            cos: torch.Tensor, sin: torch.Tensor,
-           impl: Optional[str]) -> torch.Tensor:
-    x, _, _ = attn_sublayer(cfg, x, layer, cos, sin, impl)
-    return ffn_sublayer(cfg, x, layer)
+           impl: Optional[str],
+           mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
+    layer = _gathered(layer, mesh, _FSDP_DIM)
+    x, _, _ = attn_sublayer(cfg, x, layer, cos, sin, impl, mesh)
+    return ffn_sublayer(cfg, x, layer, mesh)
 
 
 def _after_attention(cfg: LlamaConfig, x: torch.Tensor, attn: torch.Tensor,
-                     layer: Params) -> torch.Tensor:
-    return ffn_sublayer(cfg, _attn_residual(cfg, x, attn, layer), layer)
+                     layer: Params,
+                     mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
+    layer = _gathered(layer, mesh, ('wo', 'w1', 'w3', 'w2'))
+    return ffn_sublayer(cfg, _attn_residual(cfg, x, attn, layer, mesh),
+                        layer, mesh)
 
 
 REMAT_POLICIES = ('full', 'dots', 'ffn', 'ffn1', 'attn')
@@ -308,10 +402,19 @@ SAVED_GEMMS = {'dots': ('wq', 'wk', 'wv', 'wo', 'w1', 'w3'),
                'ffn1': ('w1',)}
 
 
-def _check_remat(cfg: LlamaConfig) -> None:
+def check_remat(cfg: LlamaConfig,
+                mesh: Optional[mesh_lib.Mesh] = None) -> None:
+    """Raise on a remat policy this port does not run (on ``mesh``)."""
     if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f'unknown remat_policy: {cfg.remat_policy!r} '
                          "(expected 'full', 'dots', 'ffn', 'ffn1' or 'attn')")
+    if (cfg.remat and cfg.remat_policy in SAVED_GEMMS and mesh is not None
+            and mesh.size(mesh_lib.FSDP_AXIS) > 1):
+        # The policy finds the GEMMs to keep by their weights' storage;
+        # a block's gathered weights are new tensors each pass.
+        raise NotImplementedError(
+            f'remat_policy {cfg.remat_policy!r} over an fsdp axis is not '
+            "ported to skypilot_tpu_torch yet ('full' and 'attn' are)")
 
 
 def _saved_gemms_context(weights):
@@ -333,7 +436,8 @@ def _saved_gemms_context(weights):
 
 def remat_block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
                 cos: torch.Tensor, sin: torch.Tensor,
-                impl: Optional[str] = None) -> torch.Tensor:
+                impl: Optional[str] = None,
+                mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
     """One decoder block under ``torch.utils.checkpoint`` with
     ``cfg.remat_policy``. Backward keeps exactly the reference's
     residuals: the block input, plus the GEMM outputs of
@@ -341,43 +445,63 @@ def remat_block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
     the attention output (the block split at it into two checkpointed
     segments). Everything else is recomputed, the flash forward under
     every policy, as the reference recomputes it (it never keeps the
-    LSE). The policies change memory and recompute, never values."""
+    LSE). The policies change memory and recompute, never values. On a
+    mesh each segment gathers its weights inside."""
     policy = cfg.remat_policy
     if policy == 'attn':
         attn = checkpoint(_attention_out, cfg, x, layer, cos, sin, impl,
-                          use_reentrant=False)
-        return checkpoint(_after_attention, cfg, x, attn, layer,
+                          mesh, use_reentrant=False)
+        return checkpoint(_after_attention, cfg, x, attn, layer, mesh,
                           use_reentrant=False)
     kwargs = {}
     if policy in SAVED_GEMMS:
         kwargs['context_fn'] = functools.partial(
             _saved_gemms_context, [layer[n] for n in SAVED_GEMMS[policy]])
-    return checkpoint(_block, cfg, x, layer, cos, sin, impl,
+    return checkpoint(_block, cfg, x, layer, cos, sin, impl, mesh,
                       use_reentrant=False, **kwargs)
+
+
+def _embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+           mesh: Optional[mesh_lib.Mesh]) -> torch.Tensor:
+    """The embedding lookup; on a mesh vocab-parallel: each rank looks up
+    the tokens of its vocab rows (of its fsdp-gathered slice), zeros the
+    rest, and the rows are summed over 'model'."""
+    if mesh is None:
+        return params['tok_embedding'][tokens.long()].to(cfg.dtype)
+    table = mesh_lib.gather_shards(params['tok_embedding'], mesh, 1)
+    rows = table.shape[0]
+    local = tokens.long() - mesh.coord(mesh_lib.MODEL_AXIS) * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+    return mesh_lib.reduce_from_model(x, mesh).to(cfg.dtype)
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                    positions: Optional[torch.Tensor] = None,
-                   impl: Optional[str] = None) -> torch.Tensor:
+                   impl: Optional[str] = None,
+                   mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
     """tokens [B, S] → final normed hidden states [B, S, dim].
 
     With ``cfg.remat`` and autograd on, each block runs under
     :func:`remat_block`. The stacked layer weights are unbound once, so
     their gradients come back as one stack instead of one full-size
-    tensor per layer."""
-    _check_remat(cfg)
+    tensor per layer. On a ``mesh``: this rank's slices and rows (see
+    the module's docstring)."""
+    check_remat(cfg, mesh)
+    if mesh is not None:
+        mesh_lib.check_training_mesh(mesh)
     s = tokens.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)
     cos, sin = _rope_freqs(cfg, positions)
-    x = params['tok_embedding'][tokens.long()].to(cfg.dtype)
+    x = _embed(params, tokens, cfg, mesh)
     names = sorted(params['layers'])
     per_layer = zip(*(params['layers'][n].unbind(0) for n in names))
     block = (remat_block if cfg.remat and torch.is_grad_enabled()
              else _block)
     for weights in per_layer:
-        x = block(cfg, x, dict(zip(names, weights)), cos, sin, impl)
+        x = block(cfg, x, dict(zip(names, weights)), cos, sin, impl, mesh)
     return rms_norm(x, params['out_norm'], cfg.norm_eps)
 
 
@@ -425,11 +549,80 @@ def chunked_cross_entropy(x: torch.Tensor, lm_head: torch.Tensor,
     return total / (b * s)
 
 
+class _VocabParallelXent(torch.autograd.Function):
+    """Summed cross-entropy of vocab-sharded fp32 logits [..., V/model]:
+    the logsumexp from the 'model' ranks' max and sum of exponentials,
+    the gold logit from the rank whose columns hold the target. Backward:
+    ``softmax - onehot`` on this rank's columns."""
+
+    @staticmethod
+    # pylint: disable-next=arguments-differ
+    def forward(ctx, logits, targets, start, mesh):
+        model = mesh_lib.MODEL_AXIS
+        top = mesh.all_reduce(logits.max(dim=-1).values, model, 'max')
+        sumexp = mesh.all_reduce(
+            torch.exp(logits - top[..., None]).sum(dim=-1), model)
+        lse = torch.log(sumexp) + top
+        local = targets.long() - start
+        inside = (local >= 0) & (local < logits.shape[-1])
+        local = local.clamp(0, logits.shape[-1] - 1)
+        gold = logits.gather(-1, local[..., None]).squeeze(-1) * inside
+        gold = mesh.all_reduce(gold, model)
+        ctx.save_for_backward(logits, lse, local, inside)
+        return (lse - gold).sum()
+
+    @staticmethod
+    # pylint: disable-next=arguments-differ
+    def backward(ctx, grad):
+        logits, lse, local, inside = ctx.saved_tensors
+        dlogits = torch.exp(logits - lse[..., None])
+        dlogits.scatter_add_(-1, local[..., None],
+                             -inside[..., None].to(dlogits.dtype))
+        return dlogits * grad, None, None, None
+
+
+def _chunk_xent_vocab_parallel(x: torch.Tensor, lm_head: torch.Tensor,
+                               targets: torch.Tensor, start: int,
+                               mesh: mesh_lib.Mesh) -> torch.Tensor:
+    return _VocabParallelXent.apply((x @ lm_head).float(), targets, start,
+                                    mesh)
+
+
+def _sharded_xent(x: torch.Tensor, lm_head: torch.Tensor,
+                  targets: torch.Tensor, cfg: LlamaConfig,
+                  mesh: mesh_lib.Mesh) -> torch.Tensor:
+    """This rank's share of the global mean CE: its rows' summed CE over
+    the global token count, in ``cfg.ce_chunks`` checkpointed sequence
+    chunks over the fsdp-gathered, vocab-sharded lm_head."""
+    b, s, _ = x.shape
+    if s % cfg.ce_chunks:
+        raise ValueError(f'seq_len {s} does not split into '
+                         f'{cfg.ce_chunks} cross-entropy chunks')
+    lm = mesh_lib.gather_shards(lm_head, mesh, 0)
+    start = mesh.coord(mesh_lib.MODEL_AXIS) * lm.shape[1]
+    x = mesh_lib.copy_to_model(x, mesh)
+    c = s // cfg.ce_chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.ce_chunks):
+        part = slice(i * c, (i + 1) * c)
+        args = (x[:, part], lm, targets[:, part], start, mesh)
+        total = total + (checkpoint(_chunk_xent_vocab_parallel, *args,
+                                    use_reentrant=False)
+                         if cfg.ce_chunks > 1 else
+                         _chunk_xent_vocab_parallel(*args))
+    return total / (b * s * mesh.size(mesh_lib.BATCH_AXES))
+
+
 def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: LlamaConfig, impl: Optional[str] = None) -> torch.Tensor:
+            cfg: LlamaConfig, impl: Optional[str] = None,
+            mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
     """Mean next-token cross-entropy (targets = tokens shifted by the
-    caller), a scalar fp32 tensor."""
-    x = forward_hidden(params, tokens, cfg, impl=impl)
+    caller), a scalar fp32 tensor. On a ``mesh``, ``tokens`` are this
+    rank's rows and the result its share of the global batch's mean
+    (the shares of the batch ranks sum to it)."""
+    x = forward_hidden(params, tokens, cfg, impl=impl, mesh=mesh)
+    if mesh is not None:
+        return _sharded_xent(x, params['lm_head'], targets, cfg, mesh)
     if cfg.ce_chunks > 1:
         return chunked_cross_entropy(x, params['lm_head'], targets,
                                      cfg.ce_chunks)

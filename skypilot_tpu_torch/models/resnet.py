@@ -1,6 +1,12 @@
 """ResNet in plain PyTorch: forward, loss, momentum-SGD train step, CLI.
 
-Counterpart of ``skypilot_tpu/models/resnet.py`` on one device. The
+Counterpart of ``skypilot_tpu/models/resnet.py``, on one device or data
+parallel over the ranks of a ``'data'`` mesh axis (``parallel/mesh.py``;
+one process a rank): the global batch splits over 'data', every rank
+runs the step on its rows, batch norm takes its statistics over the
+global batch (sync BN: the sums all-reduced, as GSPMD makes the
+reference's mean over axes (0, 1, 2) a global one), the grads are summed
+over the ranks in fp32 and momentum SGD runs on every rank. The
 param tree is the reference's (``stem``, ``stem_scale``/``stem_shift``,
 ``stages`` as a list of lists of block dicts, ``head``) with the
 convolution weights in torch's OIHW order instead of the reference's
@@ -28,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -185,12 +193,22 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
 
 
 def _norm_act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-              relu: bool = True) -> torch.Tensor:
+              relu: bool = True, mesh: Optional[mesh_lib.Mesh] = None
+              ) -> torch.Tensor:
     """Training-mode batch norm without running stats: fp32 statistics
-    over (N, H, W), the population variance (``jnp.var``)."""
+    over (N, H, W), the population variance (``jnp.var``); on a ``mesh``
+    over the global batch, each two-pass sum summed over 'data'."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3), keepdim=True)
-    var = x32.var(dim=(0, 2, 3), correction=0, keepdim=True)
+    if mesh is None:
+        mean = x32.mean(dim=(0, 2, 3), keepdim=True)
+        var = x32.var(dim=(0, 2, 3), correction=0, keepdim=True)
+    else:
+        axis = mesh_lib.DATA_AXIS
+        n = x32.numel() // x32.shape[1] * mesh.size(axis)
+        mean = mesh_lib.sum_over(x32.sum(dim=(0, 2, 3), keepdim=True),
+                                 mesh, axis) / n
+        var = mesh_lib.sum_over((x32 - mean).square().sum(
+            dim=(0, 2, 3), keepdim=True), mesh, axis) / n
     y = ((x32 - mean) * torch.rsqrt(var + 1e-5) * scale[:, None, None] +
          shift[:, None, None])
     if relu:
@@ -199,47 +217,55 @@ def _norm_act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 
 def _block_forward(cfg: ResNetConfig, x: torch.Tensor, blk: Params,
-                   stride: int) -> torch.Tensor:
+                   stride: int,
+                   mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
     identity = x
     if cfg.bottleneck:
-        y = _norm_act(_conv(x, blk['conv1']), blk['scale1'], blk['shift1'])
+        y = _norm_act(_conv(x, blk['conv1']), blk['scale1'], blk['shift1'],
+                      mesh=mesh)
         y = _norm_act(_conv(y, blk['conv2'], stride), blk['scale2'],
-                      blk['shift2'])
+                      blk['shift2'], mesh=mesh)
         y = _norm_act(_conv(y, blk['conv3']), blk['scale3'], blk['shift3'],
-                      relu=False)
+                      relu=False, mesh=mesh)
     else:
         y = _norm_act(_conv(x, blk['conv1'], stride), blk['scale1'],
-                      blk['shift1'])
+                      blk['shift1'], mesh=mesh)
         y = _norm_act(_conv(y, blk['conv2']), blk['scale2'], blk['shift2'],
-                      relu=False)
+                      relu=False, mesh=mesh)
     if 'proj' in blk:
         identity = _conv(x, blk['proj'], stride)
     return torch.relu((y + identity).float()).to(x.dtype)
 
 
-def forward(params: Params, images: torch.Tensor,
-            cfg: ResNetConfig) -> torch.Tensor:
-    """images [N, H, W, 3] → logits [N, num_classes] fp32."""
+def forward(params: Params, images: torch.Tensor, cfg: ResNetConfig,
+            mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
+    """images [N, H, W, 3] → logits [N, num_classes] fp32 (on a ``mesh``,
+    this rank's rows, normalised over the global batch)."""
     # NHWC → an NCHW view whose memory is channels-last.
     x = images.to(cfg.dtype).permute(0, 3, 1, 2)
     x = _norm_act(_conv(x, params['stem'], stride=2), params['stem_scale'],
-                  params['stem_shift'])
+                  params['stem_shift'], mesh=mesh)
     x = F.max_pool2d(_pad_same(x, 3, 2, value=float('-inf')), 3, 2)
     for stage, stage_params in enumerate(params['stages']):
         for b, blk in enumerate(stage_params):
             stride = 2 if (b == 0 and stage > 0) else 1
-            x = _block_forward(cfg, x, blk, stride)
+            x = _block_forward(cfg, x, blk, stride, mesh)
     x = x.float().mean(dim=(2, 3))
     return x @ params['head'].float()
 
 
 def loss_fn(params: Params, images: torch.Tensor, labels: torch.Tensor,
-            cfg: ResNetConfig) -> torch.Tensor:
-    """Mean softmax cross-entropy, a scalar fp32 tensor."""
-    logits = forward(params, images, cfg)
+            cfg: ResNetConfig,
+            mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
+    """Mean softmax cross-entropy, a scalar fp32 tensor; on a ``mesh``
+    this rank's share of the global batch's mean."""
+    logits = forward(params, images, cfg, mesh)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[:, None])[:, 0]
-    return (logz - gold).mean()
+    if mesh is None:
+        return (logz - gold).mean()
+    return (logz - gold).sum() / (len(labels) *
+                                  mesh.size(mesh_lib.DATA_AXIS))
 
 
 def zeros_momentum(params: Params):
@@ -248,24 +274,44 @@ def zeros_momentum(params: Params):
                     params)
 
 
-def make_train_step(cfg: ResNetConfig, lr: float = 0.1):
+def data_mesh(ranks=None) -> Optional[mesh_lib.Mesh]:
+    """The data-parallel mesh over ``ranks`` (default every rank of the
+    process group; None on a rank outside it): the reference's
+    ``Mesh(devices, ('data',))``."""
+    return mesh_lib.make_mesh(mesh_lib.MeshConfig(data=-1, fsdp=1), ranks)
+
+
+def make_train_step(cfg: ResNetConfig, lr: float = 0.1,
+                    mesh: Optional[mesh_lib.Mesh] = None):
     """Returns ``(params, momentum, images, labels) → (params, momentum,
     loss)``: momentum 0.9 SGD with fp32 momentum, params updated in fp32
-    then cast back, both in place (the reference donates them)."""
+    then cast back, both in place (the reference donates them). With a
+    ``mesh`` (a 'data' axis), ``images``/``labels`` are the global batch,
+    split over 'data'; the loss is the global mean."""
+    if mesh is not None and mesh.size(mesh_lib.DATA_AXIS) != mesh.num_ranks:
+        raise ValueError(f'the ResNet trainer splits the batch over '
+                         f"'data' only, got {mesh}")
 
     def step(params, momentum, images, labels):
         leaves = tree_leaves(params)
         device = leaves[0].device
         images = torch.as_tensor(images, device=device)
         labels = torch.as_tensor(labels, device=device)
+        if mesh is not None:
+            rows = mesh.batch_rows(images.shape[0])
+            images, labels = images[rows], labels[rows]
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss = loss_fn(params, images, labels, cfg)
+            loss = loss_fn(params, images, labels, cfg, mesh)
             grads = torch.autograd.grad(loss, leaves)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
+        if mesh is not None:
+            axis = mesh_lib.DATA_AXIS
+            grads = [mesh.all_reduce(g, axis) for g in grads]
+            loss = mesh.all_reduce(loss.detach(), axis)
         with torch.no_grad():
             for p, m, g in zip(leaves, tree_leaves(momentum), grads):
                 m.copy_(0.9 * m + g.float())
@@ -276,8 +322,12 @@ def make_train_step(cfg: ResNetConfig, lr: float = 0.1):
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    """Throughput bench CLI (examples/sec), one device:
-    ``python -m skypilot_tpu_torch.models.resnet``."""
+    """Throughput bench CLI (examples/sec):
+    ``python -m skypilot_tpu_torch.models.resnet``. ``--distributed``
+    forms the gang's process group (``parallel/distributed.join_gang``:
+    every process of the gang runs this entry point as one rank);
+    ``--data-parallel`` splits the batch over every rank. The JSON
+    line, printed by rank 0, counts the ranks as ``n_devices``."""
     parser = argparse.ArgumentParser(
         description='skypilot_tpu_torch ResNet train-step throughput')
     parser.add_argument('--model', default='resnet101',
@@ -286,24 +336,25 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument('--image-size', type=int, default=224)
     parser.add_argument('--steps', type=int, default=20)
     parser.add_argument('--data-parallel', action='store_true',
-                        help='not ported: one device only')
+                        help='shard the batch over every rank')
     parser.add_argument('--distributed', action='store_true',
-                        help='not ported: one device only')
+                        help='one rank of the gang (its env triple)')
     parser.add_argument('--device', default=None,
                         help='torch device (default: cuda; a machine '
                         'without a card needs --device cpu)')
     args = parser.parse_args(argv)
-    for flag in ('data_parallel', 'distributed'):
-        if getattr(args, flag):
-            parser.error(f'--{flag.replace("_", "-")}: multi-device '
-                         'training is not ported to skypilot_tpu_torch yet')
     device = resolve_device(args.device)
+    if args.distributed:
+        device = distributed.join_gang(device)
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
+    mesh = data_mesh() if args.data_parallel and world > 1 else None
     cfg = CONFIGS[args.model]
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = init_params(cfg, gen, device)
     momentum = zeros_momentum(params)
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, mesh=mesh)
     gen.manual_seed(1)
     images = torch.randn((args.batch_size, args.image_size,
                           args.image_size, 3), generator=gen,
@@ -318,12 +369,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         params, momentum, loss = step(params, momentum, images, labels)
     final = float(loss)
     dt = time.perf_counter() - t0
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    if mesh is not None and mesh.rank:
+        return
     print(json.dumps({
         'metric': 'resnet_train_examples_per_sec',
         'model': args.model,
         'value': round(args.steps * args.batch_size / dt, 1),
         'unit': 'examples/s',
-        'n_devices': 1,
+        'n_devices': world,
         'loss': round(final, 4),
     }), flush=True)
 

@@ -1,8 +1,17 @@
-"""Training on one device: optimizer, train step, MFU accounting, loop.
+"""Training: optimizer, train step, MFU accounting, loop, CLI.
 
-Counterpart of ``skypilot_tpu/models/train.py`` for a single device (the
-mesh, multislice and multi-process paths are not ported, and the CLI
-refuses them). The optimizer is written as plain functions on tensors
+Counterpart of ``skypilot_tpu/models/train.py``, on one device or on a
+training mesh (``parallel/mesh.py``): one process a rank, every rank
+running the same train step on its own slices and rows (SPMD, as a JAX
+gang runs it). On a mesh the params and Adam moments are sliced by
+``llama.param_partition_specs``, every rank builds the same global
+``(seed, step)`` batch and keeps its rows (``Mesh.batch_rows``; the
+'model' ranks of one batch slice keep the same rows), the loss is the
+mean over the global batch, each grad is summed over the ranks that
+share its slice (``mesh.gather_shards``' backward for the sharded
+params; the batch ranks for the replicated norms), the global-norm clip
+counts every leaf once, and the AdamW update runs elementwise on each
+rank's slices. The optimizer is written as plain functions on tensors
 that reproduce optax's arithmetic step for step, for
 ``chain(clip_by_global_norm(grad_clip), adamw(schedule))``:
 
@@ -35,6 +44,8 @@ from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import checkpoint as ckpt_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import runtime_metrics
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = llama.Params
 
@@ -110,22 +121,36 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1) - np.float32(decay)**np.float32(count))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh: Optional[mesh_lib.Mesh] = None,
+                specs=None) -> torch.Tensor:
     """optax ``global_norm``: sqrt of the summed squares of every leaf, in
-    the leaves' dtype (each leaf's sum taken in fp32)."""
+    the leaves' dtype (each leaf's sum taken in fp32). On a ``mesh`` the
+    leaves are this rank's slices under ``specs``: a sharded leaf's sum
+    of squares is summed over the param axes in fp32 (one all-reduce for
+    all of them), a replicated leaf counts once."""
     leaves = tree_leaves(tree)
     dtype = leaves[0].dtype
-    total = sum(torch.sum(x.float() * x.float()).to(dtype) for x in leaves)
-    return torch.sqrt(total)
+    sums = [torch.sum(x.float() * x.float()) for x in leaves]
+    if mesh is not None:
+        sharded = [any(a is not None for a in spec)
+                   for spec in tree_leaves(specs)]
+        idx = [i for i, s in enumerate(sharded) if s]
+        if idx:
+            reduced = mesh.all_reduce(torch.stack([sums[i] for i in idx]),
+                                      mesh_lib.PARAM_AXES)
+            for j, i in enumerate(idx):
+                sums[i] = reduced[j]
+    return torch.sqrt(sum(x.to(dtype) for x in sums))
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """``init(params) → AdamState``; ``update(grads, state, params) →
-    pre-clip grad norm`` applies one step to params and moments in
-    place."""
+    """``init(params) → AdamState``; ``update(grads, state, params,
+    grad_norm=None) → pre-clip grad norm`` applies one step to params
+    and moments in place (``grad_norm``: the grads' global norm when the
+    caller has it, as a mesh step does)."""
     init: Callable[[Params], AdamState]
-    update: Callable[[Params, AdamState, Params], torch.Tensor]
+    update: Callable[..., torch.Tensor]
 
 
 def make_optimizer(cfg: TrainConfig) -> Optimizer:
@@ -154,9 +179,9 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
         return mu_hat / (torch.sqrt(nu_hat + 0.0) + eps)
 
     @torch.no_grad()
-    def update(grads: Params, state: AdamState,
-               params: Params) -> torch.Tensor:
-        norm = global_norm(grads)
+    def update(grads: Params, state: AdamState, params: Params,
+               grad_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        norm = global_norm(grads) if grad_norm is None else grad_norm
         clip = not bool(norm < cfg.grad_clip)
         count = state.count + 1
         lr = -learning_rate(cfg, state.count)
@@ -175,43 +200,135 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
     return Optimizer(init=init, update=update)
 
 
+def _check_mesh(model_cfg: llama.LlamaConfig,
+                mesh: Optional[mesh_lib.Mesh]) -> None:
+    if mesh is None:
+        return
+    mesh_lib.check_training_mesh(mesh)
+    llama.check_remat(model_cfg, mesh)
+    tp = mesh.size(mesh_lib.MODEL_AXIS)
+    if model_cfg.n_kv_heads % tp:
+        raise ValueError(f'{model_cfg.n_kv_heads} KV heads do not split '
+                         f'over a model axis of {tp}')
+
+
 def init_train_state(model_cfg: llama.LlamaConfig, train_cfg: TrainConfig,
-                     device=None) -> TrainState:
+                     device=None,
+                     mesh: Optional[mesh_lib.Mesh] = None) -> TrainState:
     """Random params (seed 0, as the reference's PRNGKey(0); the draws
     differ from ``jax.random``'s) and zero Adam state on ``device``
-    (default CUDA; without a card only ``device='cpu'`` runs)."""
+    (default CUDA; without a card only ``device='cpu'`` runs). With a
+    ``mesh``, this rank's slices of the same params, drawn leaf by leaf
+    (no rank holds the whole tree); the moments mirror the slices and
+    the count replicates."""
     device = resolve_device(device)
+    _check_mesh(model_cfg, mesh)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    params = llama.init_params(model_cfg, gen, device)
+    params = llama.init_params(model_cfg, gen, device, mesh=mesh)
     return TrainState(params=params,
                       opt_state=make_optimizer(train_cfg).init(params),
                       step=0)
 
 
-def make_train_step(model_cfg: llama.LlamaConfig, train_cfg: TrainConfig):
+def shard_state(state: TrainState, mesh: Optional[mesh_lib.Mesh],
+                device=None) -> TrainState:
+    """This rank's slices of a whole ``state`` (params and moments under
+    ``llama.param_partition_specs``; all of it without a ``mesh``), as
+    new tensors on ``device`` (default the state's)."""
+    specs = llama.param_partition_specs(None)
+
+    def shard(tree):
+        if mesh is None:
+            return tree_map(lambda t: t.to(device or t.device, copy=True),
+                            tree)
+        return mesh_lib.shard_params(tree, mesh, specs, device)
+
+    opt = state.opt_state
+    return TrainState(params=shard(state.params),
+                      opt_state=AdamState(count=opt.count, mu=shard(opt.mu),
+                                          nu=shard(opt.nu)),
+                      step=state.step)
+
+
+def gather_tree(tree, mesh: mesh_lib.Mesh, specs=None):
+    """The whole tensors of a sharded params-shaped tree on rank 0's
+    host (None leaves elsewhere; every rank calls it). A layer-stacked
+    leaf is gathered a layer at a time, each layer copied to the host
+    before the next, so no card holds more than one layer of it whole."""
+    specs = specs or llama.param_partition_specs(None)
+    if isinstance(tree, dict):
+        return {k: gather_tree(tree[k], mesh, specs[k]) for k in tree}
+    if len(specs) == 1 or specs[0] is not None:
+        whole = mesh.gather_to_root(tree, specs)
+        return None if whole is None else whole.cpu()
+    out = None
+    for i, layer in enumerate(tree.unbind(0)):
+        whole = mesh.gather_to_root(layer, specs[1:])
+        if whole is None:
+            continue
+        if out is None:
+            out = whole.new_empty((len(tree),) + tuple(whole.shape),
+                                  device='cpu')
+        out[i] = whole
+        del whole
+    return out
+
+
+def value_and_grad(params: Params, tokens: torch.Tensor,
+                   targets: torch.Tensor, model_cfg: llama.LlamaConfig,
+                   mesh: Optional[mesh_lib.Mesh] = None
+                   ) -> Tuple[torch.Tensor, Params]:
+    """(mean loss, grads) of ``llama.loss_fn``. On a ``mesh``:
+    ``tokens``/``targets`` are this rank's rows, the loss is the global
+    batch's mean, and each grad is the whole batch's grad of this rank's
+    slice."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = llama.loss_fn(params, tokens, targets, model_cfg, mesh=mesh)
+        flat = list(torch.autograd.grad(loss, leaves))
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    loss = loss.detach()
+    if mesh is not None:
+        # The sharded leaves' grads were summed in their gathers'
+        # backward; the replicated ones sum over the batch ranks here.
+        specs = tree_leaves(llama.param_partition_specs(model_cfg))
+        flat = [g if any(a is not None for a in spec) else
+                mesh.all_reduce(g, mesh_lib.BATCH_AXES)
+                for g, spec in zip(flat, specs)]
+        loss = mesh.all_reduce(loss, mesh_lib.BATCH_AXES)
+    return loss, _unflatten(params, flat)
+
+
+def make_train_step(model_cfg: llama.LlamaConfig, train_cfg: TrainConfig,
+                    mesh: Optional[mesh_lib.Mesh] = None):
     """Returns ``(state, tokens, targets) → (state, metrics)`` with
-    metrics ``loss`` and ``grad_norm`` (0-dim tensors)."""
+    metrics ``loss`` and ``grad_norm`` (0-dim tensors). With a ``mesh``,
+    ``state`` holds this rank's slices and ``tokens``/``targets`` are
+    the global batch, split over ``batch_spec``."""
     opt = make_optimizer(train_cfg)
+    _check_mesh(model_cfg, mesh)
+    specs = llama.param_partition_specs(model_cfg)
 
     def step_fn(state: TrainState, tokens, targets
                 ) -> Tuple[TrainState, Dict[str, Any]]:
-        leaves = tree_leaves(state.params)
-        device = leaves[0].device
+        device = tree_leaves(state.params)[0].device
         tokens = torch.as_tensor(tokens, device=device)
         targets = torch.as_tensor(targets, device=device)
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            loss = llama.loss_fn(state.params, tokens, targets, model_cfg)
-            flat = torch.autograd.grad(loss, leaves)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-        grads = _unflatten(state.params, list(flat))
-        grad_norm = opt.update(grads, state.opt_state, state.params)
+        if mesh is not None:
+            rows = mesh.batch_rows(tokens.shape[0])
+            tokens, targets = tokens[rows], targets[rows]
+        loss, grads = value_and_grad(state.params, tokens, targets,
+                                     model_cfg, mesh)
+        norm = (None if mesh is None else
+                global_norm(grads, mesh, specs))
+        grad_norm = opt.update(grads, state.opt_state, state.params, norm)
         state.step += 1
-        return state, {'loss': loss.detach(), 'grad_norm': grad_norm}
+        return state, {'loss': loss, 'grad_norm': grad_norm}
 
     return step_fn
 
@@ -246,6 +363,7 @@ def train_loop(model_cfg: llama.LlamaConfig,
                num_steps: int,
                batch_size: int,
                seq_len: int,
+               mesh: Optional[mesh_lib.Mesh] = None,
                checkpoint_dir: Optional[str] = None,
                save_every: int = 100,
                keep: int = 3,
@@ -263,21 +381,36 @@ def train_loop(model_cfg: llama.LlamaConfig,
     Batches are a pure function of ``(data_seed, step)``, so a resumed
     run sees the stream it would have seen unpreempted. Each step is
     published through ``observability/runtime_metrics.TrainTelemetry``
-    (step seconds, tokens/s, MFU, steps), ``SKYTPU_PROFILE_DIR`` arms a
-    ``StepProfiler`` capture, and ``on_step(step, metrics)`` is called
-    after every step."""
+    (step seconds, tokens/s and MFU of the global batch, steps),
+    ``SKYTPU_PROFILE_DIR`` arms a ``StepProfiler`` capture, and
+    ``on_step(step, metrics)`` is called after every step.
+
+    With a ``mesh`` every rank runs the loop on its slices (a checkpoint
+    of any mesh resumes on any other); rank 0 alone prints the
+    ``[train]`` lines and writes the checkpoints."""
     dev = resolve_device(device)
+    _check_mesh(model_cfg, mesh)
+    if mesh is not None:
+        mesh.batch_rows(batch_size)  # a batch that does not split raises
+    lead = mesh is None or mesh.rank == 0
+
+    def log(msg):
+        if lead:
+            print(f'[train] {msg}', flush=True)
+
     start_step = 0
     state = None
     if checkpoint_dir:
-        restored = ckpt_lib.restore_latest(checkpoint_dir, device=dev)
+        restored = ckpt_lib.restore_latest(
+            checkpoint_dir, device=dev, mesh=mesh,
+            abstract=ckpt_lib.abstract_train_state(model_cfg, train_cfg,
+                                                   mesh))
         if restored is not None:
             state, start_step = restored
-            print(f'[train] resumed from step {start_step} '
-                  f'({checkpoint_dir})', flush=True)
+            log(f'resumed from step {start_step} ({checkpoint_dir})')
     if state is None:
-        state = init_train_state(model_cfg, train_cfg, dev)
-    step_fn = make_train_step(model_cfg, train_cfg)
+        state = init_train_state(model_cfg, train_cfg, dev, mesh)
+    step_fn = make_train_step(model_cfg, train_cfg, mesh)
     # No explicit step_start(): the first record_step silently arms the
     # timer, so the first step (kernel builds, allocator warm-up) never
     # enters the step-time histogram.
@@ -300,23 +433,36 @@ def train_loop(model_cfg: llama.LlamaConfig,
         if sleep_per_step:
             time.sleep(sleep_per_step)
         if log_every and (step + 1) % log_every == 0:
-            print(f'[train] step {step + 1}/{num_steps} '
-                  f'loss={float(metrics["loss"]):.4f}', flush=True)
+            log(f'step {step + 1}/{num_steps} '
+                f'loss={float(metrics["loss"]):.4f}')
         if checkpoint_dir and (step + 1) % save_every == 0:
-            ckpt_lib.save(checkpoint_dir, state, step + 1, keep=keep)
-            print(f'[train] checkpoint @ step {step + 1}', flush=True)
+            ckpt_lib.save(checkpoint_dir, state, step + 1, keep=keep,
+                          mesh=mesh)
+            log(f'checkpoint @ step {step + 1}')
     profiler.stop()
     if (checkpoint_dir and num_steps > start_step and
             num_steps % save_every != 0):  # loop already saved otherwise
-        ckpt_lib.save(checkpoint_dir, state, num_steps, keep=keep)
-        print(f'[train] final checkpoint @ step {num_steps}', flush=True)
+        ckpt_lib.save(checkpoint_dir, state, num_steps, keep=keep,
+                      mesh=mesh)
+        log(f'final checkpoint @ step {num_steps}')
     return state
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    """CLI for recipes: ``python -m skypilot_tpu_torch.models.train``."""
+    """CLI for recipes: ``python -m skypilot_tpu_torch.models.train``.
+
+    Under a gang (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` > 1,
+    ``JAX_PROCESS_ID``; ``parallel/distributed.py``) every process runs
+    this entry point as one rank, on ``cuda:(rank % cards)`` over NCCL
+    (gloo with ``--device cpu``), and the ranks form the mesh:
+    ``--num-slices`` > 1 (default ``MEGASCALE_NUM_SLICES``) a multislice
+    mesh, else fsdp over every rank; one process trains alone. Every
+    process must be given the same settings; a gang that disagrees, or
+    whose size does not fit the mesh or the batch, fails on every
+    process before the first step. Rank 0 alone prints the ``[train]``
+    lines and writes the checkpoints."""
     parser = argparse.ArgumentParser(
-        description='skypilot_tpu_torch train loop (one device)')
+        description='skypilot_tpu_torch train loop')
     parser.add_argument('--model', default='debug',
                         choices=sorted(llama.CONFIGS))
     parser.add_argument('--steps', type=int, default=20)
@@ -336,13 +482,17 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help='torch device (default: cuda; a machine '
                         'without a card needs --device cpu)')
     args = parser.parse_args(argv)
+    device = distributed.join_gang(resolve_device(args.device))
+    distributed.check_agree({k: v for k, v in vars(args).items()
+                             if k != 'device'})
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
     if args.num_slices > 1:
-        parser.error(f'--num-slices {args.num_slices}: multislice training '
-                     'is not ported to skypilot_tpu_torch yet')
-    if int(os.environ.get('JAX_NUM_PROCESSES', '1')) > 1:
-        parser.error('JAX_NUM_PROCESSES > 1: multi-process training is not '
-                     'ported to skypilot_tpu_torch yet')
-    device = resolve_device(args.device)
+        mesh = mesh_lib.make_multislice_mesh(args.num_slices)
+    elif world > 1:
+        mesh = mesh_lib.make_mesh()  # fsdp over every rank by default
+    else:
+        mesh = None
     cfg = llama.CONFIGS[args.model]
     dataset = None
     if args.data:
@@ -353,13 +503,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                 f'Dataset vocab {dataset.vocab_size} exceeds model '
                 f'vocab {cfg.vocab_size}.')
     state = train_loop(cfg, TrainConfig(warmup_steps=5), args.steps,
-                       args.batch_size, args.seq_len,
+                       args.batch_size, args.seq_len, mesh=mesh,
                        checkpoint_dir=args.checkpoint_dir,
                        save_every=args.save_every,
                        log_every=args.log_every,
                        sleep_per_step=args.sleep_per_step,
                        dataset=dataset, device=device)
-    print(f'[train] done at step {state.step}', flush=True)
+    if mesh is None or mesh.rank == 0:
+        print(f'[train] done at step {state.step}', flush=True)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == '__main__':

@@ -48,7 +48,6 @@ import datetime
 import gc
 import logging
 import os
-import socket
 import subprocess
 import sys
 import threading
@@ -67,8 +66,6 @@ _REDUCE_OPS = {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX}
 # A worker waits this long for its next message (an idle replica is not
 # a dead one); rank 0's waits are bounded by the group's timeout.
 _WORKER_WAIT = datetime.timedelta(days=3650)
-_PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
 
 
 class TPWorkerDied(RuntimeError):
@@ -254,12 +251,6 @@ class TPGroup:
             dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
 def _join(rank: int, devices, backend: str, init_method: str,
           ctrl_timeout: datetime.timedelta) -> Any:
     """Form the data group (the default process group) and the control
@@ -288,10 +279,10 @@ def local_group(tp: int, devices: Optional[Sequence] = None,
     if dist.is_initialized():
         raise RuntimeError('this process already has a process group: '
                            'close the open TP group first')
-    init_method = f'tcp://127.0.0.1:{_free_port()}'
+    init_method = f'tcp://127.0.0.1:{distributed.free_port()}'
     env = dict(os.environ)
     env['PYTHONPATH'] = os.pathsep.join(
-        p for p in (_PACKAGE_ROOT, env.get('PYTHONPATH')) if p)
+        p for p in (distributed.PACKAGE_ROOT, env.get('PYTHONPATH')) if p)
     cmd = [sys.executable, '-m', 'skypilot_tpu_torch.parallel.tp',
            '--size', str(tp), '--init-method', init_method,
            '--backend', backend,

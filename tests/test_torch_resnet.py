@@ -118,6 +118,59 @@ def test_two_sgd_steps_match_reference(bottleneck, size):
             _close(_hwio(got), ref, F32_GRAD_TOL)
 
 
+def _data_parallel_steps(cases):
+    """Rank function: two SGD steps of each case over a 'data' mesh of
+    every rank, from the reference's params (numpy); rank 0's losses,
+    params and momentum."""
+    out = []
+    for bottleneck, images, labels, tree in cases:
+        tcfg = dataclasses.replace(tresnet.CONFIGS['debug'],
+                                   bottleneck=bottleneck,
+                                   dtype=torch.float32)
+        params = convert.resnet_params_from_numpy(tree, tcfg)
+        momentum = tresnet.zeros_momentum(params)
+        step = tresnet.make_train_step(tcfg, mesh=tresnet.data_mesh())
+        losses = []
+        for _ in range(2):
+            params, momentum, loss = step(params, momentum, images, labels)
+            losses.append(loss.item())
+        out.append((losses, [p.clone() for p in
+                             tresnet.tree_leaves(params)],
+                    [m.clone() for m in tresnet.tree_leaves(momentum)]))
+    return out
+
+
+def test_data_parallel_sync_bn_matches_reference():
+    """``make_train_step(mesh=)`` over two gloo CPU ranks against the
+    reference's ``make_train_step(mesh=Mesh(devices[:2], ('data',)))``:
+    each rank normalises its 2 rows with the global batch's statistics
+    (sync BN), so the losses, params and momentum after two steps
+    follow the reference's rules above."""
+    from jax.sharding import Mesh  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu_torch.parallel import distributed  # pylint: disable=import-outside-toplevel
+    cases, want = [], []
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ('data',))
+    for bottleneck, size in CASES:
+        jcfg, _, jparams, images, labels = _setup(bottleneck, size)
+        cases.append((bottleneck, images, labels,
+                      jax.tree.map(np.asarray, jparams)))
+        jstep = jresnet.make_train_step(jcfg, mesh=mesh)
+        jmom = jresnet.zeros_momentum(jparams)
+        losses = []
+        for _ in range(2):
+            jparams, jmom, jloss = jstep(jparams, jmom, jnp.asarray(images),
+                                         jnp.asarray(labels))
+            losses.append(float(jloss))
+        want.append((losses, jparams, jmom))
+    got = distributed.local_ranks(2, _data_parallel_steps, (cases,),
+                                  platform='cpu')
+    for (losses, params, mom), (jlosses, jparams, jmom) in zip(got, want):
+        np.testing.assert_allclose(losses, jlosses, rtol=F32_TOL)
+        for tree, ref_tree in ((params, jparams), (mom, jmom)):
+            for leaf, ref in zip(tree, jax.tree.leaves(ref_tree)):
+                _close(_hwio(leaf), ref, F32_GRAD_TOL)
+
+
 def test_bf16_params_update_in_fp32_and_cast_back():
     cfg = tresnet.CONFIGS['debug']
     params = tresnet.init_params(cfg, torch.Generator().manual_seed(0))
@@ -178,9 +231,29 @@ def test_cli_on_the_cpu_and_refusals():
     assert line['model'] == 'debug' and line['unit'] == 'examples/s'
     assert line['value'] > 0 and np.isfinite(line['loss'])
     assert line['n_devices'] == 1
-    for flag in ('--data-parallel', '--distributed'):
-        with pytest.raises(SystemExit):
-            tresnet.main(['--device', 'cpu', flag])
+    # --distributed --data-parallel: a two-process gang (the gang's env
+    # triple) splits the batch; rank 0 alone prints, n_devices 2.
+    from skypilot_tpu_torch.parallel import distributed  # pylint: disable=import-outside-toplevel
+    gang = dict(env, OMP_NUM_THREADS='1', JAX_NUM_PROCESSES='2',
+                JAX_COORDINATOR_ADDRESS=f'127.0.0.1:{distributed.free_port()}')
+    gang.pop('SKYTPU_DISABLE_JAX_DISTRIBUTED', None)
+    procs = [subprocess.Popen(
+        cmd + ['--device', 'cpu', '--distributed', '--data-parallel'],
+        cwd=REPO_ROOT, env=dict(gang, JAX_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    dp = json.loads(outs[0][0].strip().splitlines()[-1])
+    assert dp['n_devices'] == 2 and np.isfinite(dp['loss'])
+    assert not outs[1][0].strip()
     if torch.cuda.is_available():
         return
     out = subprocess.run(cmd, cwd=REPO_ROOT, env=env, capture_output=True,

@@ -301,14 +301,53 @@ def test_flash_prefill_matches_reference():
                                    atol=F32_TOL, rtol=F32_TOL)
 
 
-def test_unported_remat_policies_and_multislice_are_refused(monkeypatch):
-    # Every remat policy is ported (tests/test_torch_remat.py); what the
-    # trainer CLI still refuses is multislice and multi-process training.
-    with pytest.raises(SystemExit):
-        ttrain.main(['--device', 'cpu', '--num-slices', '2'])
-    monkeypatch.setenv('JAX_NUM_PROCESSES', '2')
-    with pytest.raises(SystemExit):
-        ttrain.main(['--device', 'cpu'])
+def _cli_gang(n, extra):
+    """``n`` processes of the trainer's CLI as a gang (the gang's env
+    triple), one thread each; returns their (code, stdout, stderr)."""
+    from skypilot_tpu_torch.parallel import distributed  # pylint: disable=import-outside-toplevel
+    port = distributed.free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('PYTHONPATH', 'MEGASCALE_NUM_SLICES',
+                        'SKYTPU_DISABLE_JAX_DISTRIBUTED')}
+    env.update(OMP_NUM_THREADS='1', JAX_NUM_PROCESSES=str(n),
+               JAX_COORDINATOR_ADDRESS=f'127.0.0.1:{port}')
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.models.train',
+           '--model', 'debug', '--device', 'cpu', '--steps', '2',
+           '--log-every', '1', '--seq-len', '32', '--batch-size', '4'] + extra
+    procs = [subprocess.Popen(cmd, cwd=REPO_ROOT, env=dict(
+        env, JAX_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+
+
+def test_unported_remat_policies_and_multislice_are_refused():
+    """Every remat policy is ported (tests/test_torch_remat.py), and the
+    trainer CLI now refuses neither multi-process nor multislice
+    training: a two-process gang (fsdp over both) and a four-process
+    gang with ``--num-slices 2`` (dcn 2, fsdp 2) each train the global
+    batch, rank 0 alone printing, with the losses of one process."""
+    want = {}
+    ttrain.train_loop(tllama.CONFIGS['debug'],
+                      ttrain.TrainConfig(warmup_steps=5), 2, 4, 32,
+                      log_every=0, device='cpu',
+                      on_step=lambda i, m: want.__setitem__(
+                          i, f'{float(m["loss"]):.4f}'))
+    for n, extra in ((2, []), (4, ['--num-slices', '2'])):
+        results = _cli_gang(n, extra)
+        for code, out, err in results:
+            assert code == 0, err[-3000:]
+        lead = results[0][1]
+        for i in (1, 2):
+            assert f'[train] step {i}/2 loss={want[i]}' in lead, lead
+        assert '[train] done at step 2' in lead
+        assert all('[train]' not in out for _, out, _ in results[1:])
 
 
 def test_cli_trains_on_the_cpu_only_when_asked(tmp_path):
