@@ -373,6 +373,38 @@ port's package is not beside it. Phases (any failure exits non-zero):
    bf16, batch 128, learning rate) data parallel over two of (b)'s four
    ranks (a mesh over ranks 0-1; sync BN), 2 steps, against a one-rank
    control on the same batch: losses within ``RESNET_DP_TOL``.
+20. Mixture of experts, GPipe and ring attention, run after phase 19.
+   The flash launch counts are reset before (a)'s one-rank steps and
+   read after the ranks' run, before the kernel-against-plain checks.
+   (a) mixtral-8x7b at its full width cut to 2 layers (bf16, flash,
+   remat, batch 2 x 2048): on the seed-0 params the kernel path's loss,
+   with the plain pass's top-k choices fed back in, against the plain
+   path's, and the kernel step's step-1 loss against the kernel path's,
+   each within ``MOE_PLAIN_LOSS_TOL`` (phase 8's bf16 bound; the tokens
+   whose experts differ when each routes on its own printed), 2 Adam
+   steps with the flash kernels launched 2L, L, L a step; then over an
+   (expert 2) mesh of two ranks sharing the card over gloo (4 experts a
+   rank), the same 2 steps within ``SHARD_TOL['bf16']`` of the one-rank
+   losses and grad norms, and once with the expert sum left out, which
+   must break that bound; fp32 at 1 layer, logits and aux of the kernel
+   path against the plain path within 2e-5. (b) GPipe: bench-1b at full
+   width and depth, 4 microbatches of 1 x 2048, over (stage 2) and
+   (stage 4) on the card, 2 steps, losses and grad norms within
+   ``SHARD_TOL['bf16']`` of a one-rank ``make_train_step`` on the same
+   batch, fp32 at 4 layers over (stage 2) within 2e-5; every stage
+   launches the flash forward 2·(L/S)·M times a step and dq, dk/dv
+   (L/S)·M times (bubble ticks are skipped, not run on zeros). (c) Ring
+   attention at llama3-8b's widths (H 32, Hkv 8, D 128), B 1, S 8192,
+   over a seq axis of 4 ranks: output and dq/dk/dv against the plain
+   twin on the whole sequence, fp32 under ``twin_error``'s bound; bf16
+   the ring and the flash kernel on the same inputs under twin_error's
+   rule with the per-element atols of ``RING_ATOL`` (dq's first
+   ``RING_LEAD_ROWS`` query rows apart: the reference's algorithm keeps
+   P's rounding in rows whose dq nearly cancels), and the ring against
+   the kernel within twice the twin's norm bound. Kernels 4-6 against
+   their twins at (a)'s attention shape ``MOE_FLASH_CASE`` (a GQA group
+   of 4) under twin_error's bounds. Each case's seconds and
+   per-rank peak memory are printed with the card's line.
 
 Every replica journals into a temporary directory of the run, not into
 ``~/.skytpu``. Before phase 13 the whole run took 273.7 s on an H100
@@ -4281,6 +4313,13 @@ def row_scale(want):
             1e-2 * want.square().mean().sqrt())
 
 
+def atol_need(got, want, rtol):
+    """Per element, the least atol (in units of its row scale) that it
+    needs at ``rtol`` under twin_error's bf16 rule."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() - rtol * want.abs()) / row_scale(want)
+
+
 def twin_error(got, want, dtype_name):
     """(None or why it fails, a report line) for a kernel's output
     against its plain twin under FLASH_FP32_REL_TOL / FLASH_BF16_TOL."""
@@ -4296,10 +4335,7 @@ def twin_error(got, want, dtype_name):
                     f'{FLASH_FP32_REL_TOL} x max|twin|)')
     tol = FLASH_BF16_TOL
     fro = (diff.norm() / want.norm()).item()
-    # The least atol, in units of the element's row scale, that every
-    # element needs.
-    atol = ((diff - tol['rtol'] * want.abs()) /
-            row_scale(want)).max().item()
+    atol = atol_need(got, want, tol['rtol']).max().item()
     msg = (f'max_abs_err={max_err:.3e} max|twin|={scale:.3f}; per element '
            f'needs atol {atol:.3e} x row scale at rtol {tol["rtol"]:.4g} '
            f'(tol {tol["atol"]}); ||d||/||twin|| {fro:.3e} (tol '
@@ -5006,17 +5042,18 @@ RESNET_DP_RANKS, RESNET_DP_STEPS = 2, 2
 RESNET_DP_TOL = 5e-3
 
 
-def shard_kernel_check(torch, fa):
-    """(a) Kernels 4-6 against their twins at a rank's shard shape,
-    bf16 and fp32, under twin_error's bounds. Returns the worst max abs
-    error of each kernel by dtype."""
-    b, s, h, hkv, d, causal = SHARD_FLASH_CASE
+def kernel_twin_check(torch, fa, case, phase, seed):
+    """Kernels 4-6 against their twins at ``case`` (B, S, H, Hkv, D,
+    causal), bf16 and fp32, under twin_error's bounds; any failure fails
+    ``phase``. Returns the worst max abs error of each kernel by
+    dtype."""
+    b, s, h, hkv, d, causal = case
     dev = torch.device('cuda')
     worst = {}
     for dtype_name, dtype in (('bf16', torch.bfloat16),
                               ('fp32', torch.float32)):
         gen = torch.Generator(device=dev)
-        gen.manual_seed(19)
+        gen.manual_seed(seed)
         q, k, v, g = (torch.randn(shape, generator=gen,
                                   device=dev).to(dtype)
                       for shape in ((b, s, h, d), (b, s, hkv, d),
@@ -5028,17 +5065,17 @@ def shard_kernel_check(torch, fa):
         p_out, p_lse = fa.flash_forward_plain(q, k, v, causal)
         grads = fa.flash_backward_plain(q, k, v, out, lse, g, causal)
         if not (lse - p_lse).abs().max().item() <= 1e-4:
-            fail(f'phase 19 flash forward {dtype_name}: LSE differs')
+            fail(f'{phase} flash forward {dtype_name}: LSE differs')
         for name, got, want in (
                 ('flash_forward_kernel', out, p_out),
                 ('flash_bwd_dq_kernel', dq, grads[0]),
                 ('flash_bwd_dkv_kernel dk', dk, grads[1]),
                 ('flash_bwd_dkv_kernel dv', dv, grads[2])):
             err, msg = twin_error(got, want, dtype_name)
-            print(f'[phase 19] {name} at the shard shape '
-                  f'{SHARD_FLASH_CASE} {dtype_name}: {msg}', flush=True)
+            print(f'[{phase}] {name} at {case} {dtype_name}: {msg}',
+                  flush=True)
             if err is not None:
-                fail(f'phase 19 {name} {dtype_name}: {err}')
+                fail(f'{phase} {name} at {case} {dtype_name}: {err}')
             key = f'{name.split()[0]} {dtype_name}'
             worst[key] = max(worst.get(key, 0.0),
                              (got.float() - want.float()).abs().max().item())
@@ -5317,7 +5354,8 @@ def shard_phase(torch, llama, train, fa, card):
     launch counts are reset (they are read by the caller)."""
     from skypilot_tpu_torch.parallel import distributed
     t_start = time.perf_counter()
-    kernels = shard_kernel_check(torch, fa) if DEVICE == 'cuda' else {}
+    kernels = (kernel_twin_check(torch, fa, SHARD_FLASH_CASE, 'phase 19', 19)
+               if DEVICE == 'cuda' else {})
     controls = {'bf16': shard_control(torch, llama, train, 'bf16', None),
                 'fp32': shard_control(torch, llama, train, 'fp32',
                                       SHARD_FP32_LAYERS)}
@@ -5387,6 +5425,578 @@ def shard_phase(torch, llama, train, fa, card):
           f'resnet control {time.perf_counter() - t_resume:.1f}s',
           flush=True)
     report.update(kernels=kernels, step1=step1, resume=resume_rel)
+    return counts, report
+
+
+# -------------------------------------------------------------- phase 20
+
+# (a) mixtral-8x7b at its full width (dim 4096, 32 heads, 8 KV heads,
+# ffn 14336, 8 experts, top-2, vocab 128256), cut to 2 of its 32 layers:
+# its 46.7B params are 93 GB in bf16, past one 80 GB card; at 2 layers
+# 3.95B (about 32 GB with grads and bf16 moments). bf16, flash, remat.
+MOE_MODEL, MOE_LAYERS = 'mixtral-8x7b', 2
+MOE_B, MOE_S, MOE_STEPS = 2, 2048, 2
+MOE_FP32_LAYERS = 1
+MOE_TRAIN = dict(learning_rate=3e-4, warmup_steps=1)
+# The kernel path's loss against impl='plain''s, relative, at phase 8's
+# bf16 bound. Routing is discrete: left to route on its own, the kernel
+# path sends some tokens to other experts than the plain path does (the
+# attention's bf16 differences; each moved token's FFN output changes
+# whole: 26 and 67 of 4,096 tokens, loss rel 1.800e-4 on an H100, 700
+# W). So the kernel path is held to the plain one with the plain pass's
+# top-k choices fed back in (its own gates), and the kernel step's
+# step-1 loss to the kernel path's own no-grad loss.
+MOE_PLAIN_LOSS_TOL = TRAIN_E2E_TOL['bf16']['loss']
+# Kernels 4-6 against their twins at the attention shape of (a):
+# (B, S, H, Hkv, D, causal), a GQA group of 4.
+MOE_FLASH_CASE = (MOE_B, MOE_S, 32, 8, 128, True)
+# Two ranks sharing the card over gloo, each holding 4 of the 8 experts.
+MOE_MESH, MOE_RANKS = dict(fsdp=1, expert=2), 2
+# (b) GPipe: bench-1b at full width and depth (TRAIN_MODEL as phase 19
+# trains it), 4 microbatches of 1 x 2048, over (stage 2) and (stage 4)
+# on the card; fp32 at 4 layers over (stage 2).
+PP_STAGES = (2, 4)
+PP_MICRO, PP_STEPS, PP_FP32_LAYERS = 4, 2, 4
+# (c) Ring attention at llama3-8b's attention widths, (B, S, H, Hkv, D),
+# over a 'seq' axis of 4 ranks.
+RING_CASE = (1, 8192, 32, 8, 128)
+RING_RANKS = 4
+# The bf16 ring and the flash kernel against the plain twin at
+# RING_CASE: twin_error's rule (rtol one ulp, norm 5e-3), each output
+# with its own per-element atol, dq's first RING_LEAD_ROWS query rows
+# apart from the rest. The ring (the reference's algorithm) rounds P to
+# bf16 a block at a time against a running max and its backward takes
+# the cast as identity, so in the first rows, whose exact dq nearly
+# cancels, the rounding stays: the reference's own bf16 ring needs
+# 0.3037 x the row scale at dq's row 1 on the CPU test's shape, as the
+# port's does. Readings on an H100 (700 W), by output: the ring's out
+# 8.9e-3, dq 0.611 at row 1 and 3.624e-2 past row 16 (rising with the
+# row, 2.0e-2 in rows 16-32), dk 5.29e-2, dv 1.64e-2; the kernel's dq
+# 4.585e-2 at row 1 and 1.01e-2 past row 16, the rest <= 1.17e-2.
+# FLASH_BF16_TOL's 2e-2 where a reading is inside it, else about twice
+# the reading (PERF.md section 6, PR 19).
+RING_LEAD_ROWS = 16
+RING_ATOL = {'ring': {'out': 2e-2, 'dq': 0.075, 'dq lead': 1.25, 'dk': 0.1,
+                      'dv': 2e-2},
+             'kernel': {'out': 2e-2, 'dq': 2e-2, 'dq lead': 0.1,
+                        'dk': 2e-2, 'dv': 2e-2}}
+# The ranks of (a)-(c) in one launch, and the settings they read (a
+# rehearsal on the CPU changes them in its own process only).
+PHASE20_RANKS = 4
+PHASE20_SETTINGS = ('DEVICE', 'MOE_MODEL', 'MOE_LAYERS', 'MOE_B', 'MOE_S',
+                    'MOE_STEPS', 'MOE_TRAIN', 'MOE_MESH', 'MOE_RANKS',
+                    'PP_STAGES', 'PP_MICRO', 'PP_STEPS', 'PP_FP32_LAYERS',
+                    'RING_CASE', 'RING_RANKS', 'TRAIN_MODEL', 'TRAIN_S',
+                    'SHARD_TRAIN')
+
+
+def moe_config(moe, dtype_name, layers):
+    """mixtral-8x7b at ``layers`` layers, flash and remat, in
+    ``dtype_name``."""
+    import dataclasses
+    import torch
+    return dataclasses.replace(
+        moe.CONFIGS[MOE_MODEL], n_layers=layers, flash_attention=True,
+        remat=True, dtype=torch.bfloat16 if dtype_name == 'bf16'
+        else torch.float32)
+
+
+def timed_steps(torch, fa, dev, state, step, batches):
+    """``step`` over ``batches`` from ``state``: each step's loss, grad
+    norm, seconds and flash launches, and the peak memory since the
+    caller reset it."""
+    out = dict(losses=[], norms=[], secs=[], launches=[])
+    for tokens, targets in batches:
+        before = [fn.launches for fn in fa.KERNELS]
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens, targets)
+        out['losses'].append(float(metrics['loss']))
+        out['norms'].append(float(metrics['grad_norm']))
+        _sync(torch, dev)
+        out['secs'].append(time.perf_counter() - t0)
+        out['launches'].append([fn.launches - n
+                                for fn, n in zip(fa.KERNELS, before)])
+    out['peak_bytes'] = (torch.cuda.max_memory_allocated()
+                         if dev.type == 'cuda' else float('nan'))
+    return out
+
+
+def moe_batches(train, cfg, steps):
+    return [train.synthetic_batch(cfg.vocab_size, MOE_B, MOE_S, 0, i)
+            for i in range(steps)]
+
+
+def pp_batches(train, cfg):
+    return [train.synthetic_batch(cfg.vocab_size, PP_MICRO, TRAIN_S, 0, i)
+            for i in range(PP_STEPS)]
+
+
+def ring_inputs(torch, dtype, dev):
+    """q, k, v and the output's cotangent g at RING_CASE, from seed 20."""
+    b, s, h, hkv, d = RING_CASE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
+                          (b, s, h, d))]
+
+
+def phase20_ranks(settings):
+    """Rank function of phase 20, run by every rank of one
+    ``local_ranks`` with the caller's ``settings``: (a) the MoE trainer
+    on an (expert 2) mesh over ranks 0-1 (then once more with the expert
+    sum left out), (b) the GPipe steps over (stage 2) on ranks 0-1 and
+    (stage 4) on all, (c) ring attention over a (seq 4) mesh, forward
+    and backward. Returns rank 0's readings with every rank's launches,
+    seconds and peak memory."""
+    globals().update(settings)
+    import torch
+    from skypilot_tpu_torch.models import llama, moe, train
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import pipeline, ring
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    mine = {}
+
+    def reset_peak():
+        if dev.type == 'cuda':
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    # (a) MoE over 'expert'.
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**MOE_MESH),
+                              ranks=range(MOE_RANKS))
+    tc = train.TrainConfig(**MOE_TRAIN)
+    cfg = moe_config(moe, 'bf16', MOE_LAYERS)
+    expert_sum = moe._expert_sum  # pylint: disable=protected-access
+    for label, summed, steps in (('moe', True, MOE_STEPS),
+                                 ('moe no expert sum', False, 1)):
+        if mesh is None:
+            continue
+        if not summed:
+            moe._expert_sum = lambda out, mesh: out  # pylint: disable=protected-access
+        try:
+            reset_peak()
+            t0 = time.perf_counter()
+            state = train.init_train_state(cfg, tc, dev, mesh)
+            _sync(torch, dev)
+            init_s = time.perf_counter() - t0
+            mine[label] = timed_steps(
+                torch, fa, dev, state, train.make_train_step(cfg, tc, mesh),
+                moe_batches(train, cfg, steps))
+            mine[label]['init_s'] = init_s
+            mine[label]['local_we1'] = list(state.params['layers']['we1']
+                                            .shape)
+            del state
+        finally:
+            moe._expert_sum = expert_sum  # pylint: disable=protected-access
+    # (b) GPipe.
+    tc = train.TrainConfig(**SHARD_TRAIN)
+    for stages, dtype_name, layers in ((PP_STAGES[0], 'bf16', None),
+                                       (PP_STAGES[0], 'fp32',
+                                        PP_FP32_LAYERS),
+                                       (PP_STAGES[1], 'bf16', None)):
+        label = f'gpipe stage {stages} {dtype_name}'
+        cfg = shard_config(llama, TRAIN_MODEL, dtype_name, layers)
+        mesh = pipeline.make_pp_mesh(stages, 1, ranks=range(stages))
+        if mesh is None:
+            continue
+        reset_peak()
+        state = pipeline.init_pp_train_state(cfg, tc, mesh, dev)
+        mine[label] = timed_steps(
+            torch, fa, dev, state,
+            pipeline.make_pp_train_step(cfg, tc, mesh, PP_MICRO),
+            pp_batches(train, cfg))
+        mine[label]['layers'] = int(state.params['layers']['wq'].shape[0])
+        del state
+    # (c) Ring attention over 'seq'.
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(fsdp=1, seq=RING_RANKS))
+    rank0 = {}
+    for dtype_name, dtype in (('bf16', torch.bfloat16),
+                              ('fp32', torch.float32)):
+        reset_peak()
+        q, k, v, g = ring_inputs(torch, dtype, dev)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = ring.ring_attention(q, k, v, mesh)
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        _sync(torch, dev)
+        mine[f'ring {dtype_name}'] = dict(
+            secs=[time.perf_counter() - t0],
+            peak_bytes=(torch.cuda.max_memory_allocated()
+                        if dev.type == 'cuda' else float('nan')))
+        if mesh.rank == 0:
+            rank0[dtype_name] = [out.detach()] + list(grads)
+        del q, k, v, g, out, grads
+    ranks = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(ranks, mine)
+    return dict(ranks=ranks, ring=rank0)
+
+
+def pp_control(torch, llama, train, fa, dtype_name, layers):
+    """(b)'s one-rank control: the unsharded ``make_train_step`` from the
+    same seed-0 params on the same global batches."""
+    dev = torch.device(DEVICE)
+    cfg = shard_config(llama, TRAIN_MODEL, dtype_name, layers)
+    tc = train.TrainConfig(**SHARD_TRAIN)
+    run = timed_steps(torch, fa, dev, train.init_train_state(cfg, tc, dev),
+                      train.make_train_step(cfg, tc), pp_batches(train, cfg))
+    empty_cache(torch)
+    return run
+
+
+def moe_control(torch, moe, train, fa, card):
+    """(a) on one rank: on the seed-0 params (no grad) the plain-attention
+    loss, the kernel loss, and the kernel loss with the plain pass's
+    top-k choices fed back in, with the routing flips between the two
+    free passes; then the flash launch counts reset and MOE_STEPS kernel
+    steps with their launches checked. Returns the steps' readings."""
+    dev = torch.device(DEVICE)
+    cfg = moe_config(moe, 'bf16', MOE_LAYERS)
+    tc = train.TrainConfig(**MOE_TRAIN)
+    empty_cache(torch)
+    if dev.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train.init_train_state(cfg, tc, dev)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in train.tree_leaves(state.params))
+    tokens, targets = (torch.from_numpy(a).to(dev)
+                       for a in moe_batches(train, cfg, 1)[0])
+    # Each layer's top-k choices, in top-k order, under each pass.
+    choices = {'plain': [], 'kernel': [], 'routed as plain': []}
+    assign, topk = moe._assign, torch.topk  # pylint: disable=protected-access
+
+    def recorded(impl):
+        def wrapped(probs, c):
+            choices[impl].append(topk(probs, c.top_k).indices)
+            return assign(probs, c)
+        return wrapped
+
+    def routed_as_plain(probs, c):
+        idx = choices['plain'][len(choices['routed as plain'])]
+        choices['routed as plain'].append(idx)
+        # The plain pass's experts, in its order, at this pass's gates.
+        torch.topk = lambda p, k, dim=-1: (p.gather(-1, idx), idx)
+        try:
+            return assign(probs, c)
+        finally:
+            torch.topk = topk
+
+    losses = {}
+    for label, impl, wrapper in (
+            ('plain', 'plain', recorded('plain')),
+            ('kernel', 'kernel', recorded('kernel')),
+            ('routed as plain', 'kernel', routed_as_plain)):
+        moe._assign = wrapper  # pylint: disable=protected-access
+        try:
+            with torch.no_grad():
+                losses[label] = float(moe.loss_fn(state.params, tokens,
+                                                  targets, cfg, impl=impl))
+        finally:
+            moe._assign = assign  # pylint: disable=protected-access
+    flips = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+             for a, b in zip(choices['plain'], choices['kernel'])]
+    del tokens, targets, choices
+    fa.reset_launch_counts()  # the main path's launches from here
+    run = timed_steps(torch, fa, dev, state,
+                      train.make_train_step(cfg, tc),
+                      moe_batches(train, cfg, MOE_STEPS))
+    del state
+    empty_cache(torch)
+    expect = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+    rel = rel_diff(losses['routed as plain'], losses['plain'])
+    free_rel = rel_diff(losses['kernel'], losses['plain'])
+    step_rel = rel_diff(run['losses'][0], losses['kernel'])
+    print(f'[phase 20] (a) {MOE_MODEL} at {MOE_LAYERS} layers '
+          f'({n_params / 1e9:.2f}B params, bf16, flash, remat, batch '
+          f'{MOE_B} x {MOE_S}) on one rank: init {init_s:.1f}s; losses '
+          f'{run["losses"]}, grad norms {run["norms"]}, step seconds '
+          f'{[round(s, 3) for s in run["secs"]]}, launches a step '
+          f'{run["launches"]} (expected {expect}: forward and recompute '
+          f'2L, dq and dk/dv L), peak {run["peak_bytes"] / 2**30:.2f} GiB; '
+          f'no-grad losses {losses}: kernel routed as plain against plain '
+          f'rel {rel:.3e}, the kernel step\'s step-1 loss against the '
+          f'no-grad kernel loss rel {step_rel:.3e} (tol '
+          f'{MOE_PLAIN_LOSS_TOL} each); kernel routed on its own against '
+          f'plain rel {free_rel:.3e} (no bound), tokens whose experts '
+          f'differ between those two, by layer: {flips} of '
+          f'{MOE_B * MOE_S}; on {card}', flush=True)
+    if any(g != expect for g in run['launches']):
+        fail(f'phase 20 (a): flash launches {run["launches"]}, expected '
+             f'{expect} a step')
+    if not all(math.isfinite(x) for x in run['losses'] + run['norms']):
+        fail(f'phase 20 (a): non-finite readings {run}')
+    if not (rel <= MOE_PLAIN_LOSS_TOL and step_rel <= MOE_PLAIN_LOSS_TOL):
+        fail(f'phase 20 (a): no-grad losses {losses}, the kernel step\'s '
+             f'{run["losses"][0]}')
+    return run
+
+
+def moe_fp32_check(torch, moe, card):
+    """(a) fp32 at MOE_FP32_LAYERS layers: logits and aux of the kernel
+    path against the plain path, relative to the largest |logit|."""
+    dev = torch.device(DEVICE)
+    cfg = moe_config(moe, 'fp32', MOE_FP32_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = moe.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_B, MOE_S),
+                           generator=gen, device=dev)
+    with torch.no_grad():
+        got, got_aux = moe.forward(params, tokens, cfg, impl='kernel')
+        want, want_aux = moe.forward(params, tokens, cfg, impl='plain')
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+    del params, got, want
+    empty_cache(torch)
+    aux_rel = rel_diff(float(got_aux), float(want_aux))
+    print(f'[phase 20] (a) fp32 at {MOE_FP32_LAYERS} layer(s): max |dlogit| '
+          f'/ max |logit| kernel against plain {rel:.3e}, aux rel '
+          f'{aux_rel:.3e} (tol {FLASH_FP32_REL_TOL}); on {card}', flush=True)
+    if not (rel <= FLASH_FP32_REL_TOL and aux_rel <= FLASH_FP32_REL_TOL):
+        fail(f'phase 20 (a) fp32: logits rel {rel}, aux rel {aux_rel}')
+    return rel
+
+
+def report_ranks(label, ranks, expect=None):
+    """Print each rank's launches a step, step seconds and peak memory
+    for ``label``; fail unless each rank that ran it launched the flash
+    kernels ``expect`` a step."""
+    for r, mine in enumerate(ranks):
+        run = mine.get(label)
+        if run is None:
+            continue
+        print(f'[phase 20] {label} rank {r}: launches a step '
+              f'{run.get("launches")}, seconds '
+              f'{[round(s, 3) for s in run["secs"]]}, peak '
+              f'{run["peak_bytes"] / 2**30:.2f} GiB (max_memory_allocated)',
+              flush=True)
+        if expect is not None and any(g != expect for g in run['launches']):
+            fail(f'phase 20 {label} rank {r}: flash launches '
+                 f'{run["launches"]}, expected {expect} a step')
+
+
+def check_against(label, run, control, tol, steps, card):
+    """Losses and grad norms of ``run`` against ``control`` over
+    ``steps`` steps under ``tol``; returns the worst relative readings."""
+    loss = max(rel_diff(a, b) for a, b in zip(run['losses'][:steps],
+                                              control['losses']))
+    norm = max(rel_diff(a, b) for a, b in zip(run['norms'][:steps],
+                                              control['norms']))
+    print(f'[phase 20] {label}: losses {run["losses"]} against the '
+          f'one-rank control\'s {control["losses"][:steps]} (worst rel '
+          f'{loss:.3e}, tol {tol["loss"]}); grad norms {run["norms"]} '
+          f'against {control["norms"][:steps]} (worst rel {norm:.3e}, tol '
+          f'{tol["grad_norm"]}); on {card}', flush=True)
+    return dict(loss=loss, grad_norm=norm)
+
+
+def within(worst, tol):
+    return all(worst[k] <= tol[k] for k in worst)
+
+
+def plain_by_kv_head(torch, fa, q, k, v, g):
+    """The plain twin's output and dq/dk/dv at RING_CASE, a KV head (and
+    its query group) at a time, so no [S, S] score tensor holds every
+    head at once."""
+    hkv = k.shape[2]
+    group = q.shape[2] // hkv
+    want = [torch.empty_like(t) for t in (q, q, k, v)]
+    for j in range(hkv):
+        heads = slice(j * group, (j + 1) * group)
+        sub = (q[:, :, heads], k[:, :, j:j + 1], v[:, :, j:j + 1])
+        out, lse = fa.flash_forward_plain(*sub, True)
+        dq, dk, dv = fa.flash_backward_plain(*sub, out, lse, g[:, :, heads],
+                                             True)
+        want[0][:, :, heads] = out
+        want[1][:, :, heads] = dq
+        want[2][:, :, j:j + 1] = dk
+        want[3][:, :, j:j + 1] = dv
+    return want
+
+
+def worst_position(need):
+    """(b, s, h) of the element of ``need`` [B, S, H, D] that needs the
+    largest atol."""
+    flat = int(need.reshape(-1).argmax())
+    b, s, h, d = need.shape
+    return (flat // (s * h * d), flat // (h * d) % s, flat // d % h)
+
+
+def ring_bf16_check(what, got, twin, atol):
+    """One bf16 output of (c) (the ring's or the kernel's) against the
+    plain twin: per element under ``atol[what]`` (dq's first
+    RING_LEAD_ROWS rows under ``atol['dq lead']``), in norm under
+    FLASH_BF16_TOL's. Returns (failures, a report line with the needs by
+    sequence-row band and the worst element's position)."""
+    need = atol_need(got, twin, FLASH_BF16_TOL['rtol'])
+    by_row = need.amax(dim=(0, 2, 3))
+    lead, rest = (by_row[:RING_LEAD_ROWS].max().item(),
+                  by_row[RING_LEAD_ROWS:].max().item())
+    bounds = ((atol['dq lead'], atol['dq']) if what == 'dq'
+              else (atol[what], atol[what]))
+    fro = ((got.float() - twin.float()).norm() / twin.float().norm()).item()
+    edges = [0] + [2**i for i in range(int(math.log2(by_row.numel())) + 1)]
+    bands = {f'{a}-{b}': round(by_row[a:b].max().item(), 4)
+             for a, b in zip(edges, edges[1:])}
+    failures = []
+    if not (lead <= bounds[0] and rest <= bounds[1]):
+        failures.append(f'{what}: rows < {RING_LEAD_ROWS} need {lead:.3e} '
+                        f'(tol {bounds[0]}), the rest {rest:.3e} (tol '
+                        f'{bounds[1]})')
+    if not fro <= FLASH_BF16_TOL['fro']:
+        failures.append(f'{what}: ||d||/||twin|| {fro}')
+    return failures, (
+        f'per element needs atol {lead:.3e} x row scale in sequence rows < '
+        f'{RING_LEAD_ROWS} (tol {bounds[0]}), {rest:.3e} in the rest (tol '
+        f'{bounds[1]}); ||d||/||twin|| {fro:.3e} (tol '
+        f'{FLASH_BF16_TOL["fro"]}); worst element at (b, s, h) '
+        f'{worst_position(need)}; needs by sequence-row band {bands}')
+
+
+def ring_check(torch, fa, got, card):
+    """(c) The ring's global output and dq/dk/dv against the plain twin
+    on the whole sequence (computed a KV head at a time; fp32 arithmetic
+    on the same inputs): fp32 under ``twin_error``'s bound, as phase 6
+    holds the flash kernel; bf16 under ``RING_ATOL['ring']``, the flash
+    kernel on the same inputs under ``RING_ATOL['kernel']``, and the ring
+    against the kernel in relative norm within twice the twin bound (each
+    of the two within it of the twin). Prints every reading before
+    failing."""
+    dev = torch.device(DEVICE)
+    b, s, h, hkv, d = RING_CASE
+    worst, failures = {}, []
+    for dtype_name, dtype in (('bf16', torch.bfloat16),
+                              ('fp32', torch.float32)):
+        q, k, v, g = ring_inputs(torch, dtype, dev)
+        twin = plain_by_kv_head(torch, fa, q, k, v, g)
+        kernel = None
+        if dtype_name == 'bf16':
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+            out = fa.flash_attention(q, k, v, True, 'kernel')
+            kernel = [out.detach()] + list(torch.autograd.grad(
+                out, (q, k, v), g))
+            del out
+        for i, what in enumerate(('out', 'dq', 'dk', 'dv')):
+            x = got[dtype_name][i]
+            if x.shape != twin[i].shape or x.dtype != dtype or (
+                    not torch.isfinite(x).all()):
+                failures.append(f'ring {dtype_name} {what}: bad output')
+                continue
+            if kernel is None:
+                err, msg = twin_error(x, twin[i], dtype_name)
+                failures += [f'ring {dtype_name} {what}: {err}'] if err else []
+                print(f'[phase 20] (c) ring {dtype_name} {what} against the '
+                      f'plain twin: {msg}', flush=True)
+            else:
+                for who, y in (('ring', x), ('kernel', kernel[i])):
+                    bad, msg = ring_bf16_check(what, y, twin[i],
+                                               RING_ATOL[who])
+                    failures += [f'{who} bf16 {m}' for m in bad]
+                    print(f'[phase 20] (c) {who} bf16 {what} against the '
+                          f'plain twin: {msg}', flush=True)
+                fro = ((x.float() - kernel[i].float()).norm() /
+                       kernel[i].float().norm()).item()
+                print(f'[phase 20] (c) ring bf16 {what} against the kernel: '
+                      f'||d||/||kernel|| {fro:.3e} (tol '
+                      f'{2 * FLASH_BF16_TOL["fro"]})', flush=True)
+                if not fro <= 2 * FLASH_BF16_TOL['fro']:
+                    failures.append(f'ring bf16 {what} against the kernel: '
+                                    f'{fro}')
+            worst[f'{dtype_name} {what}'] = (x.float() - twin[i].float()
+                                             ).abs().max().item()
+        del q, k, v, g, twin, kernel
+        empty_cache(torch)
+    print(f'[phase 20] (c) ring attention B {b}, S {s}, H {h}, Hkv {hkv}, '
+          f'D {d} over a seq axis of {RING_RANKS}: max abs errors against '
+          f'the twin {worst}; on {card}', flush=True)
+    if failures:
+        fail(f'phase 20 (c): {failures}')
+    return worst
+
+
+def moe_pp_ring_phase(torch, llama, train, fa, card):
+    """Phase 20: MoE, GPipe and ring attention. The one-rank controls run
+    first; the flash launch counts are reset before (a)'s one-rank steps
+    (``moe_control``) and read after the ranks' run, before the
+    kernel-against-plain checks. Returns (counts, report)."""
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.parallel import distributed
+    t_start = time.perf_counter()
+    pp_controls = {'bf16': pp_control(torch, llama, train, fa, 'bf16',
+                                      None),
+                   'fp32': pp_control(torch, llama, train, fa, 'fp32',
+                                      PP_FP32_LAYERS)}
+    t_controls = time.perf_counter()
+    moe_run = moe_control(torch, moe, train, fa, card)
+    t_moe = time.perf_counter()
+    settings = {name: globals()[name] for name in PHASE20_SETTINGS}
+    ranked = distributed.local_ranks(PHASE20_RANKS, phase20_ranks,
+                                     (settings,),
+                                     **rank_devices(PHASE20_RANKS))
+    counts = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    t_ranks = time.perf_counter()
+    ranks = ranked['ranks']
+    report = {}
+    # (a) on two ranks against the one-rank control.
+    cfg = moe_config(moe, 'bf16', MOE_LAYERS)
+    report_ranks('moe', ranks, [2 * cfg.n_layers, cfg.n_layers,
+                                cfg.n_layers])
+    report_ranks('moe no expert sum', ranks)
+    tol = SHARD_TOL['bf16']
+    sound = check_against(f'(a) {MOE_MODEL} over (expert {MOE_RANKS})',
+                          ranks[0]['moe'], moe_run, tol, MOE_STEPS, card)
+    broken = check_against('(a) the same with the expert sum left out '
+                           '(step 1)', ranks[0]['moe no expert sum'],
+                           moe_run, tol, 1, card)
+    experts = [r['moe']['local_we1'][1] for r in ranks[:MOE_RANKS]]
+    print(f'[phase 20] (a) experts a rank {experts}', flush=True)
+    if not within(sound, tol):
+        fail(f'phase 20 (a): the expert mesh against one rank: {sound}')
+    if within(broken, tol):
+        fail(f'phase 20 (a): the expert sum left out still passes the '
+             f'bounds ({broken}): they cannot tell it')
+    if experts != [cfg.n_experts // MOE_RANKS] * MOE_RANKS:
+        fail(f'phase 20 (a): experts a rank {experts}')
+    report['moe'] = dict(sound=sound, no_expert_sum=broken,
+                         losses=moe_run['losses'])
+    # (b) GPipe against the one-rank controls.
+    for stages, dtype_name, layers in ((PP_STAGES[0], 'bf16', None),
+                                       (PP_STAGES[0], 'fp32',
+                                        PP_FP32_LAYERS),
+                                       (PP_STAGES[1], 'bf16', None)):
+        label = f'gpipe stage {stages} {dtype_name}'
+        n_layers = layers or llama.CONFIGS[TRAIN_MODEL].n_layers
+        per = n_layers // stages * PP_MICRO
+        # Bubbles skipped: each stage runs its L/S layers on each of the
+        # M microbatches once forward, once in the recompute.
+        report_ranks(label, ranks, [2 * per, per, per])
+        if any(r[label]['layers'] != n_layers // stages
+               for r in ranks[:stages]):
+            fail(f'phase 20 {label}: a stage holds the wrong layers')
+        worst = check_against(f'(b) {label}', ranks[0][label],
+                              pp_controls[dtype_name],
+                              SHARD_TOL[dtype_name], PP_STEPS, card)
+        if not within(worst, SHARD_TOL[dtype_name]):
+            fail(f'phase 20 (b) {label}: {worst}')
+        report[label] = worst
+    # (c) ring.
+    for dtype_name in ('bf16', 'fp32'):
+        report_ranks(f'ring {dtype_name}', ranks)
+    report['ring'] = ring_check(torch, fa, ranked['ring'], card)
+    del ranked
+    empty_cache(torch)
+    if DEVICE == 'cuda':
+        report['moe kernels'] = kernel_twin_check(torch, fa, MOE_FLASH_CASE,
+                                                  'phase 20', 20)
+    report['moe fp32'] = moe_fp32_check(torch, moe, card)
+    print(f'[time] phase 20: controls {t_controls - t_start:.1f}s, (a) one '
+          f'rank {t_moe - t_controls:.1f}s, four ranks {t_ranks - t_moe:.1f}'
+          f's, checks {time.perf_counter() - t_ranks:.1f}s', flush=True)
     return counts, report
 
 
@@ -5564,6 +6174,14 @@ def main() -> int:
         fail(f'a flash kernel was not launched in phase 19: '
              f'{phase19_counts}')
     phase_done('phase 19')
+    phase20_counts, phase20 = moe_pp_ring_phase(torch, llama, train, fa,
+                                                card)
+    print(f'[phase 20] launches in rank 0\'s process {phase20_counts}; '
+          f'{phase20}', flush=True)
+    if not all(phase20_counts.values()):
+        fail(f'a flash kernel was not launched in phase 20: '
+             f'{phase20_counts}')
+    phase_done('phase 20')
 
     kernels = []
     for kname, row in rows.items():
@@ -5624,7 +6242,8 @@ def main() -> int:
             'bound_by': main['bound_by'],
             'library_ms': main['library_ms'], 'fp32': row['fp32'],
             'phase14_launches': phase14_counts[kname],
-            'phase19_launches': phase19_counts[kname]})
+            'phase19_launches': phase19_counts[kname],
+            'phase20_launches': phase20_counts[kname]})
     print(f'[done] {time.perf_counter() - t_start:.1f}s total; train '
           f'{train_stats}; trainers {trainers}', flush=True)
     print(json.dumps({'kernels': kernels}))

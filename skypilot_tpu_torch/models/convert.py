@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.models import resnet
 from skypilot_tpu_torch.ops import quant
 
@@ -44,7 +45,9 @@ def _is_quantized(node) -> bool:
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: llama.LlamaConfig,
                       device='cpu') -> llama.Params:
-    """Nested dict of numpy arrays → the port's params on ``device``.
+    """Nested dict of numpy arrays → the port's params on ``device``
+    (a llama tree, or the MoE tree of ``models/moe.py`` for a
+    ``moe.MoeConfig``).
 
     Every leaf must have the shape the config implies (a quantized
     ``[L, in, out]`` weight: values of that shape, scales ``[L, 1,
@@ -75,7 +78,9 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: llama.LlamaConfig,
                 values=quant.k_major(values, values.ndim - 2), scale=scale)
         return leaf(node, shape, path)
 
-    return convert(tree, llama.param_shapes(cfg), '')
+    shapes = (moe.param_shapes(cfg) if isinstance(cfg, moe.MoeConfig)
+              else llama.param_shapes(cfg))
+    return convert(tree, shapes, '')
 
 
 def train_state_from_numpy(params: Mapping[str, Any], adam_state: Any,

@@ -72,6 +72,10 @@ class LlamaConfig:
     # input; 'dots' also the wq/wk/wv/wo/w1/w3 outputs; 'ffn' the w1 and
     # w3 outputs; 'ffn1' the w1 output; 'attn' the attention output.
     remat_policy: str = 'full'
+    # Ring attention over the 'seq' axis of a caller's sequence-sharded
+    # context (parallel/ring.py). The trainer has none, so a loss or a
+    # train loop with it set raises, as the reference's does.
+    ring_attention: bool = False
     # Causal attention through the flash kernels (training and prefill).
     flash_attention: bool = False
     # Cross-entropy in this many checkpointed sequence chunks, so the
@@ -172,37 +176,52 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device='cpu', mesh: Optional[mesh_lib.Mesh] = None
-                ) -> Params:
+                device='cpu', mesh: Optional[mesh_lib.Mesh] = None,
+                specs: Optional[Params] = None) -> Params:
     """Random params: normal(0, 0.02) in the model dtype from
     ``generator`` (which must live on ``device``), norms set to ones.
     Leaves are drawn in a fixed order, a layer-stacked one a layer at a
     time; with a ``mesh`` only this rank's slice of each draw under
-    :func:`param_partition_specs` is kept. So one seed gives the same
-    params at any mesh, and no rank holds more than one layer of a
-    stacked leaf whole. Draws differ from the reference's ``jax.random``
-    stream; parity tests bridge the reference's own params instead."""
-    specs = param_partition_specs(cfg)
+    ``specs`` (default :func:`param_partition_specs`) is kept, a layer
+    stack split on its layer dim keeping its layers. So one seed gives
+    the same params at any mesh, and no rank holds more than one layer
+    of a stacked leaf whole. Draws differ from the reference's
+    ``jax.random`` stream; parity tests bridge the reference's own
+    params instead."""
+    return init_tree(param_shapes(cfg), specs or param_partition_specs(cfg),
+                     lambda name: cfg.dtype, generator, device, mesh)
 
+
+def init_tree(shapes: Params, specs: Params, dtype_of, generator,
+              device, mesh: Optional[mesh_lib.Mesh]) -> Params:
+    """:func:`init_params` over any tree of ``shapes`` (non-layer leaves
+    first, then ``layers``, each in the tree's order), leaf ``name`` in
+    ``dtype_of(name)``."""
     def draw(name, shape, spec):
+        dtype = dtype_of(name)
         if name.endswith('norm'):
-            w = torch.ones(shape, dtype=cfg.dtype, device=device)
+            w = torch.ones(shape, dtype=dtype, device=device)
         else:
             w = torch.empty(shape, dtype=torch.float32, device=device)
             w.normal_(0.0, 0.02, generator=generator)
-            w = w.to(cfg.dtype)
+            w = w.to(dtype)
         return w if mesh is None else mesh_lib.shard_tensor(w, spec, mesh)
 
     def stacked(name, shape, spec):
+        keep = range(shape[0])
+        if mesh is not None:
+            keep = range(shape[0])[mesh_lib.spec_to_slices(
+                shape[:1], spec[:1], mesh)[0]]
         out = None
         for i in range(shape[0]):
             w = draw(name, shape[1:], spec[1:])
+            if i not in keep:
+                continue
             if out is None:
-                out = w.new_empty((shape[0],) + tuple(w.shape))
-            out[i] = w
+                out = w.new_empty((len(keep),) + tuple(w.shape))
+            out[i - keep.start] = w
         return out
 
-    shapes = param_shapes(cfg)
     params = {name: draw(name, shape, specs[name])
               for name, shape in shapes.items() if name != 'layers'}
     params['layers'] = {name: stacked(name, shape, specs['layers'][name])
@@ -316,11 +335,19 @@ def quant_mms(x: torch.Tensor, *ws) -> list:
 
 def full_sequence_attention(cfg: LlamaConfig, q: torch.Tensor,
                             k: torch.Tensor, v: torch.Tensor,
-                            impl: Optional[str] = None) -> torch.Tensor:
+                            impl: Optional[str] = None,
+                            seq_axis_sharded: bool = False,
+                            mesh: Optional[mesh_lib.Mesh] = None
+                            ) -> torch.Tensor:
     """The config-selected causal attention for full (non-cached)
-    sequences: flash kernels (or their twins, see ``impl``) when
-    ``cfg.flash_attention``, else the grouped einsum. One place for the
-    train and prefill paths."""
+    sequences: ring attention over ``mesh``'s 'seq' axis when the
+    sequence is sharded over it (q/k/v this rank's shards), else flash
+    kernels (or their twins, see ``impl``) when ``cfg.flash_attention``,
+    else the grouped einsum. One place for the train, prefill and MoE
+    paths."""
+    if seq_axis_sharded:
+        return attention_ops.ring_attention(q, k, v, mesh,
+                                            mesh_lib.SEQ_AXIS)
     if cfg.flash_attention:
         return flash_ops.flash_attention(q, k, v, True, impl)
     return attention_ops.gqa_attention(q, k, v, causal=True)
@@ -476,6 +503,17 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     return mesh_lib.reduce_from_model(x, mesh).to(cfg.dtype)
 
 
+def check_no_ring(cfg: LlamaConfig) -> None:
+    """Raise on ``cfg.ring_attention``: the whole-sequence paths give
+    ring attention no sequence-sharded context (the reference's raise
+    ``NameError: unbound axis name: seq`` there)."""
+    if cfg.ring_attention:
+        raise ValueError(
+            "ring_attention needs a 'seq'-sharded context (unbound axis "
+            "name: seq): call parallel/ring.ring_attention on the "
+            "sequence shards; the trainer has none, as in the reference")
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                    positions: Optional[torch.Tensor] = None,
                    impl: Optional[str] = None,
@@ -488,8 +526,7 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     tensor per layer. On a ``mesh``: this rank's slices and rows (see
     the module's docstring)."""
     check_remat(cfg, mesh)
-    if mesh is not None:
-        mesh_lib.check_training_mesh(mesh)
+    check_no_ring(cfg)
     s = tokens.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
@@ -530,12 +567,14 @@ def _chunk_xent(x: torch.Tensor, lm_head: torch.Tensor,
 
 
 def chunked_cross_entropy(x: torch.Tensor, lm_head: torch.Tensor,
-                          targets: torch.Tensor,
-                          num_chunks: int) -> torch.Tensor:
+                          targets: torch.Tensor, num_chunks: int,
+                          count: Optional[int] = None) -> torch.Tensor:
     """Mean CE over [B, S] without ever holding [B, S, vocab]: each
     sequence chunk's lm_head product and softmax run under
     ``checkpoint``, so backward recomputes the chunk's logits. Chunk
-    sums add up in order, in fp32, as the reference's scan does."""
+    sums add up in order, in fp32, as the reference's scan does. The sum
+    is divided by ``count`` (default B·S: a share of a larger batch's
+    mean otherwise)."""
     b, s, _ = x.shape
     if s % num_chunks:
         raise ValueError(f'seq_len {s} does not split into {num_chunks} '
@@ -546,7 +585,7 @@ def chunked_cross_entropy(x: torch.Tensor, lm_head: torch.Tensor,
         part = slice(i * c, (i + 1) * c)
         total = total + checkpoint(_chunk_xent, x[:, part], lm_head,
                                    targets[:, part], use_reentrant=False)
-    return total / (b * s)
+    return total / (count or b * s)
 
 
 class _VocabParallelXent(torch.autograd.Function):

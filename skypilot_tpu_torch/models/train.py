@@ -6,12 +6,16 @@ running the same train step on its own slices and rows (SPMD, as a JAX
 gang runs it). On a mesh the params and Adam moments are sliced by
 ``llama.param_partition_specs``, every rank builds the same global
 ``(seed, step)`` batch and keeps its rows (``Mesh.batch_rows``; the
-'model' ranks of one batch slice keep the same rows), the loss is the
-mean over the global batch, each grad is summed over the ranks that
-share its slice (``mesh.gather_shards``' backward for the sharded
-params; the batch ranks for the replicated norms), the global-norm clip
-counts every leaf once, and the AdamW update runs elementwise on each
-rank's slices. The optimizer is written as plain functions on tensors
+'model', 'seq' and 'expert' ranks of one batch slice keep the same
+rows: the reference's batch spec leaves 'seq' and 'expert' out and no
+llama param names them, so they are replicated compute, never summed
+over), the loss is the mean over the global batch, each grad is summed
+over the ranks that share its slice (``mesh.gather_shards``' backward
+for the sharded params; the batch ranks for the replicated norms), the
+global-norm clip counts every leaf once, and the AdamW update runs
+elementwise on each rank's slices. A ``moe.MoeConfig`` trains the
+mixture of experts of ``models/moe.py`` the same way, its experts split
+over 'expert'. The optimizer is written as plain functions on tensors
 that reproduce optax's arithmetic step for step, for
 ``chain(clip_by_global_norm(grad_clip), adamw(schedule))``:
 
@@ -43,6 +47,7 @@ import torch
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import checkpoint as ckpt_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.observability import runtime_metrics
 from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
@@ -126,18 +131,23 @@ def global_norm(tree, mesh: Optional[mesh_lib.Mesh] = None,
     """optax ``global_norm``: sqrt of the summed squares of every leaf, in
     the leaves' dtype (each leaf's sum taken in fp32). On a ``mesh`` the
     leaves are this rank's slices under ``specs``: a sharded leaf's sum
-    of squares is summed over the param axes in fp32 (one all-reduce for
-    all of them), a replicated leaf counts once."""
+    of squares is summed in fp32 over the axes its spec names (one
+    all-reduce for the leaves that name the same axes), a replicated
+    leaf counts once."""
     leaves = tree_leaves(tree)
     dtype = leaves[0].dtype
     sums = [torch.sum(x.float() * x.float()) for x in leaves]
     if mesh is not None:
-        sharded = [any(a is not None for a in spec)
-                   for spec in tree_leaves(specs)]
-        idx = [i for i, s in enumerate(sharded) if s]
-        if idx:
+        by_axes: Dict[frozenset, List[int]] = {}
+        for i, spec in enumerate(tree_leaves(specs)):
+            axes = frozenset(a for entry in spec if entry is not None
+                             for a in ((entry,) if isinstance(entry, str)
+                                       else entry))
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
             reduced = mesh.all_reduce(torch.stack([sums[i] for i in idx]),
-                                      mesh_lib.PARAM_AXES)
+                                      tuple(sorted(axes)))
             for j, i in enumerate(idx):
                 sums[i] = reduced[j]
     return torch.sqrt(sum(x.to(dtype) for x in sums))
@@ -200,11 +210,20 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
     return Optimizer(init=init, update=update)
 
 
+def model_of(model_cfg: llama.LlamaConfig):
+    """The model module a config trains: ``models/moe.py`` for a
+    ``moe.MoeConfig``, else ``models/llama.py``."""
+    return moe if isinstance(model_cfg, moe.MoeConfig) else llama
+
+
 def _check_mesh(model_cfg: llama.LlamaConfig,
                 mesh: Optional[mesh_lib.Mesh]) -> None:
+    if model_of(model_cfg) is moe:
+        moe.check_mesh(model_cfg, mesh)
+        return
+    llama.check_no_ring(model_cfg)
     if mesh is None:
         return
-    mesh_lib.check_training_mesh(mesh)
     llama.check_remat(model_cfg, mesh)
     tp = mesh.size(mesh_lib.MODEL_AXIS)
     if model_cfg.n_kv_heads % tp:
@@ -225,7 +244,8 @@ def init_train_state(model_cfg: llama.LlamaConfig, train_cfg: TrainConfig,
     _check_mesh(model_cfg, mesh)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    params = llama.init_params(model_cfg, gen, device, mesh=mesh)
+    params = model_of(model_cfg).init_params(model_cfg, gen, device,
+                                             mesh=mesh)
     return TrainState(params=params,
                       opt_state=make_optimizer(train_cfg).init(params),
                       step=0)
@@ -279,15 +299,17 @@ def value_and_grad(params: Params, tokens: torch.Tensor,
                    targets: torch.Tensor, model_cfg: llama.LlamaConfig,
                    mesh: Optional[mesh_lib.Mesh] = None
                    ) -> Tuple[torch.Tensor, Params]:
-    """(mean loss, grads) of ``llama.loss_fn``. On a ``mesh``:
+    """(mean loss, grads) of the model's ``loss_fn`` (llama's, or the
+    MoE's for a ``moe.MoeConfig``). On a ``mesh``:
     ``tokens``/``targets`` are this rank's rows, the loss is the global
     batch's mean, and each grad is the whole batch's grad of this rank's
     slice."""
+    model = model_of(model_cfg)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss = llama.loss_fn(params, tokens, targets, model_cfg, mesh=mesh)
+        loss = model.loss_fn(params, tokens, targets, model_cfg, mesh=mesh)
         flat = list(torch.autograd.grad(loss, leaves))
     finally:
         for p in leaves:
@@ -296,7 +318,7 @@ def value_and_grad(params: Params, tokens: torch.Tensor,
     if mesh is not None:
         # The sharded leaves' grads were summed in their gathers'
         # backward; the replicated ones sum over the batch ranks here.
-        specs = tree_leaves(llama.param_partition_specs(model_cfg))
+        specs = tree_leaves(model.param_partition_specs(model_cfg))
         flat = [g if any(a is not None for a in spec) else
                 mesh.all_reduce(g, mesh_lib.BATCH_AXES)
                 for g, spec in zip(flat, specs)]
@@ -312,7 +334,7 @@ def make_train_step(model_cfg: llama.LlamaConfig, train_cfg: TrainConfig,
     the global batch, split over ``batch_spec``."""
     opt = make_optimizer(train_cfg)
     _check_mesh(model_cfg, mesh)
-    specs = llama.param_partition_specs(model_cfg)
+    specs = model_of(model_cfg).param_partition_specs(model_cfg)
 
     def step_fn(state: TrainState, tokens, targets
                 ) -> Tuple[TrainState, Dict[str, Any]]:

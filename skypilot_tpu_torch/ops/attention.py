@@ -1,7 +1,8 @@
 """GQA causal attention in plain PyTorch: the prefill attention.
 
 Counterpart of ``skypilot_tpu/ops/attention.py`` (``repeat_kv``,
-``gqa_attention``). Serving configs leave ``flash_attention`` off, so the
+``gqa_attention``, and ``ring_attention``, the hook into
+``parallel/ring.py``). Serving configs leave ``flash_attention`` off, so the
 reference's prefill runs this grouped einsum too; numerics follow it:
 fp32 logits and softmax, probabilities cast to the query dtype before
 the PV product, fp32 accumulation, output in the query dtype.
@@ -45,3 +46,17 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum('bkgst,btkd->bskgd', probs.float(), v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mesh, axis_name: str) -> torch.Tensor:
+    """Dispatch to the sequence-parallel ring over ``mesh``'s
+    ``axis_name``: q/k/v are this rank's sequence shards (see
+    ``parallel/ring.ring_attention_inner``). Without a mesh there is no
+    ring to run on, as an unbound axis name in the reference."""
+    if mesh is None:
+        raise ValueError(f'ring attention needs a mesh with a '
+                         f'{axis_name!r} axis (unbound axis name: '
+                         f'{axis_name})')
+    from skypilot_tpu_torch.parallel import ring
+    return ring.ring_attention_inner(q, k, v, mesh, axis_name)

@@ -18,8 +18,18 @@ autograd functions at the end of this module: :func:`gather_shards`
 (FSDP: an all-gather of a param's fsdp slices before use, a
 reduce-scatter of its grad, then the sum over the replica axes),
 :func:`copy_to_model` and :func:`reduce_from_model` (Megatron's column-
-and row-parallel pair) and :func:`sum_over` (a sum whose every rank's
-use is its own, as sync batch norm's statistics). Every sum runs in
+and row-parallel pair; :func:`copy_to` and :func:`reduce_from` over any
+axes, as the MoE's 'expert' region and GPipe's 'stage' output) and
+:func:`sum_over` (a sum whose every rank's use is its own, as sync batch
+norm's statistics). Beside them: :func:`gather_rows` (every batch
+rank's rows, the grad reduce-scattered back), :func:`ppermute` (a ring
+shift by point-to-point sends, the backward shifting the other way:
+ring attention's K/V, GPipe's activations through
+:meth:`Mesh.ppermute`) and :func:`shard`/:func:`unshard` (a whole
+tensor every rank holds to this rank's shard under a spec, and back).
+The 'seq' and 'expert' axes are replicated compute for a llama model:
+the batch splits over (dcn, data, fsdp) only and no llama param names
+them, so no sum runs over either. Every sum runs in
 fp32 and rounds back to the tensor's dtype, as in the
 reference's compiled program on the 8-device CPU mesh, whose
 all-reduces and reduce-scatters are all fp32.
@@ -64,9 +74,15 @@ AXIS_ORDER = (DATA_AXIS, FSDP_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
 BATCH_AXES = (DCN_AXIS, DATA_AXIS, FSDP_AXIS)
 REPLICA_AXES = (DCN_AXIS, DATA_AXIS)
 PARAM_AXES = (FSDP_AXIS, MODEL_AXIS)
-# The sets of axes a train step reduces over: a process group each.
-GROUP_AXES = tuple((a,) for a in (DCN_AXIS,) + AXIS_ORDER) + (
-    BATCH_AXES, REPLICA_AXES, PARAM_AXES)
+# A pipeline mesh's layer axis (``parallel/pipeline.make_pp_mesh``).
+STAGE_AXIS = 'stage'
+# The axes an expert weight splits over (``models/moe.py``).
+EXPERT_PARAM_AXES = (FSDP_AXIS, EXPERT_AXIS, MODEL_AXIS)
+# The sets of axes a train step reduces over: a process group each (over
+# the axes of more than one rank the mesh has).
+GROUP_AXES = tuple(
+    (a,) for a in (DCN_AXIS,) + AXIS_ORDER + (STAGE_AXIS,)) + (
+        BATCH_AXES, REPLICA_AXES, PARAM_AXES, EXPERT_PARAM_AXES)
 BACKENDS = ('nccl', 'gloo')
 Axes = Union[str, Tuple[str, ...]]
 
@@ -169,8 +185,8 @@ class Mesh:
     # ----------------------------------------------------- collectives
 
     def _group(self, axes: Axes):
-        key = frozenset(a for a in _axes(axes) if a in self.shape)
-        if self.size(tuple(key)) == 1:
+        key = frozenset(a for a in _axes(axes) if self.shape.get(a, 1) > 1)
+        if not key:
             return None
         if key not in self._groups:
             raise ValueError(f'{self} has no process group over {axes}')
@@ -262,14 +278,39 @@ class Mesh:
         return self._sum(parts, dtype or t.dtype).movedim(0, dim).to(
             t.device)
 
+    def ppermute(self, t: torch.Tensor, axis: str,
+                 shift: int = 1) -> torch.Tensor:
+        """The ring shift along ``axis``: ``t`` goes to the rank ``shift``
+        places on (cyclic), and the tensor of the rank ``shift`` places
+        back is returned (the reference's ``lax.ppermute`` with the
+        permutation ``i -> i + shift``), by one send and one receive."""
+        group = self._group(axis)
+        if group is None:
+            return t
+        n, i = self.size(axis), self.coord(axis)
+        buf = self._wire(t).contiguous()
+        out = torch.empty_like(buf)
+        ops = [dist.P2POp(dist.isend, buf,
+                          dist.get_global_rank(group, (i + shift) % n),
+                          group),
+               dist.P2POp(dist.irecv, out,
+                          dist.get_global_rank(group, (i - shift) % n),
+                          group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out.to(t.device)
+
     def gather_to_root(self, x: torch.Tensor,
                        spec: Tuple) -> Optional[torch.Tensor]:
         """The whole tensor from every rank's shard under ``spec``, on
         rank 0 alone (None elsewhere; every rank calls it): each sharded
         dim is gathered in turn to its axes' first rank, and the replicas
-        over ``REPLICA_AXES`` take no part."""
-        if self.coord(REPLICA_AXES):
-            return None
+        (the ranks off 0 on an axis the spec does not name) take no
+        part."""
+        named = [a for axes in spec if axes is not None
+                 for a in _axes(axes)]
+        if self.coord(tuple(a for a in self.shape if a not in named)):
+            return None  # a replica of a rank that takes part
         done: Tuple[str, ...] = ()
         for dim, axes in enumerate(spec):
             if axes is None:
@@ -300,12 +341,15 @@ def _form_groups(ids: np.ndarray, names: Sequence[str], rank: int
     (``dist.new_group`` is collective); returns the ones that hold
     ``rank``."""
     out = {}
+    done = set()
     for axes in GROUP_AXES:
-        axes = tuple(a for a in axes if a in names)
+        axes = tuple(a for a in axes
+                     if a in names and ids.shape[names.index(a)] > 1)
+        if not axes or frozenset(axes) in done:
+            continue
+        done.add(frozenset(axes))
         inner = [names.index(a) for a in axes]
         size = math.prod(ids.shape[i] for i in inner)
-        if size == 1:
-            continue
         outer = [i for i in range(len(names)) if i not in inner]
         for ranks in ids.transpose(outer + inner).reshape(-1, size).tolist():
             group = dist.new_group(ranks)
@@ -338,6 +382,17 @@ def _build(shape: Dict[str, int], ranks: List[int],
     ids = np.asarray(ranks).reshape(tuple(shape.values()))
     groups = _form_groups(ids, tuple(shape), me)
     return Mesh(shape, ranks.index(me), groups) if me in ranks else None
+
+
+def build_mesh(shape: Dict[str, int],
+               ranks: Optional[Sequence[int]] = None,
+               rank: Optional[int] = None) -> Optional[Mesh]:
+    """A mesh of the named axes ``shape`` (in order, the last innermost)
+    over ``ranks``; ``ranks`` and ``rank`` as :func:`make_mesh`'s."""
+    ranks = _span(ranks)
+    if math.prod(shape.values()) != len(ranks):
+        raise ValueError(f'{len(ranks)} devices != {shape}')
+    return _build(dict(shape), ranks, rank)
 
 
 def make_mesh(config: Optional[MeshConfig] = None,
@@ -383,18 +438,6 @@ def batch_spec(multislice: bool = False) -> Tuple:
 def batch_seq_spec() -> Tuple:
     """The batch over data+fsdp, the sequence over the seq axis."""
     return ((DATA_AXIS, FSDP_AXIS), SEQ_AXIS)
-
-
-def check_training_mesh(mesh: Mesh) -> None:
-    """The training axes the port runs: a 'seq' axis (ring attention)
-    or an 'expert' axis (MoE) of more than one rank raises."""
-    for axis, what in ((SEQ_AXIS, 'ring attention'),
-                       (EXPERT_AXIS, 'mixture of experts')):
-        if mesh.size(axis) > 1:
-            raise NotImplementedError(
-                f'a {axis!r} axis of {mesh.size(axis)} ranks ({what}) is '
-                'not ported to skypilot_tpu_torch yet (ROADMAP.md, slice '
-                '17)')
 
 
 def spec_to_slices(shape: Sequence[int], spec: Tuple,
@@ -458,37 +501,38 @@ class _GatherShards(torch.autograd.Function):
         return g.to(grad.dtype), None, None
 
 
-class _CopyToModel(torch.autograd.Function):
-    """Megatron's f: the input of a column-parallel product. Forward:
-    identity; backward: the grad summed over 'model'."""
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f over ``axes``: the input of a region each rank of
+    the axes computes a part of. Forward: identity; backward: the grad
+    summed over ``axes``."""
 
     @staticmethod
     # pylint: disable-next=arguments-differ
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
         return x.view_as(x)
 
     @staticmethod
     # pylint: disable-next=arguments-differ
     def backward(ctx, grad):
-        return ctx.mesh.all_reduce(grad, MODEL_AXIS), None
+        return ctx.mesh.all_reduce(grad, ctx.axes), None, None
 
 
-class _ReduceFromModel(torch.autograd.Function):
-    """Megatron's g: the output of a row-parallel product. Forward: the
-    partial products summed over 'model'; backward: identity (every
-    model rank runs the same downstream)."""
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g over ``axes``: the parts of such a region. Forward:
+    summed over ``axes``; backward: identity (every rank of the axes
+    runs the same downstream)."""
 
     @staticmethod
     # pylint: disable-next=arguments-differ
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, mesh, axes):
         del ctx
-        return mesh.all_reduce(x, MODEL_AXIS)
+        return mesh.all_reduce(x, axes)
 
     @staticmethod
     # pylint: disable-next=arguments-differ
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
 class _SumOver(torch.autograd.Function):
@@ -507,22 +551,135 @@ class _SumOver(torch.autograd.Function):
         return ctx.mesh.all_reduce(grad, ctx.axes), None, None
 
 
+class _GatherRows(torch.autograd.Function):
+    """The rows of every batch rank, in global order. Forward: the
+    all-gather of dim 0 over :data:`BATCH_AXES`; backward: the grad
+    summed over them and this rank's rows kept (every rank ran the same
+    program on all the rows)."""
+
+    @staticmethod
+    # pylint: disable-next=arguments-differ
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_gather(x, BATCH_AXES, 0)
+
+    @staticmethod
+    # pylint: disable-next=arguments-differ
+    def backward(ctx, grad):
+        return ctx.mesh.reduce_scatter(grad, BATCH_AXES, 0), None
+
+
+class _PPermute(torch.autograd.Function):
+    """:meth:`Mesh.ppermute` of several tensors in one message; the
+    backward runs the reverse ring."""
+
+    @staticmethod
+    # pylint: disable-next=arguments-differ
+    def forward(ctx, mesh, axis, shift, *xs):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return _shift_all(xs, mesh, axis, shift)
+
+    @staticmethod
+    # pylint: disable-next=arguments-differ
+    def backward(ctx, *grads):
+        return (None, None, None) + _shift_all(grads, ctx.mesh, ctx.axis,
+                                               -ctx.shift)
+
+
+def _shift_all(xs, mesh: Mesh, axis: str, shift: int) -> tuple:
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    got = mesh.ppermute(flat, axis, shift).split([x.numel() for x in xs])
+    return tuple(g.view(x.shape) for g, x in zip(got, xs))
+
+
+class _Shard(torch.autograd.Function):
+    """This rank's shard of a tensor every rank holds whole, under
+    ``spec``. Backward: the shards' grads gathered back to the whole
+    tensor on every rank."""
+
+    @staticmethod
+    # pylint: disable-next=arguments-differ
+    def forward(ctx, x, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        return shard_tensor(x, spec, mesh)
+
+    @staticmethod
+    # pylint: disable-next=arguments-differ
+    def backward(ctx, grad):
+        return _unshard(grad, ctx.mesh, ctx.spec), None, None
+
+
+class _Unshard(torch.autograd.Function):
+    """The whole tensor on every rank from the ranks' shards under
+    ``spec``. Backward: this rank's shard of the grad (every rank holds
+    the same grad of the whole)."""
+
+    @staticmethod
+    # pylint: disable-next=arguments-differ
+    def forward(ctx, x, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        return _unshard(x, mesh, spec)
+
+    @staticmethod
+    # pylint: disable-next=arguments-differ
+    def backward(ctx, grad):
+        return shard_tensor(grad, ctx.spec, ctx.mesh), None, None
+
+
+def _unshard(x: torch.Tensor, mesh: Mesh, spec: Tuple) -> torch.Tensor:
+    for dim, axes in enumerate(spec):
+        if axes is not None:
+            x = mesh.all_gather(x, axes, dim)
+    return x
+
+
 def gather_shards(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
     """A param's fsdp slices gathered on ``dim`` for use (see
     :class:`_GatherShards`)."""
     return _GatherShards.apply(x, mesh, dim)
 
 
+def copy_to(x: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
+    return _CopyTo.apply(x, mesh, axes)
+
+
+def reduce_from(x: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
+    return _ReduceFrom.apply(x, mesh, axes)
+
+
 def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    return _CopyToModel.apply(x, mesh)
+    return copy_to(x, mesh, MODEL_AXIS)
 
 
 def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    return _ReduceFromModel.apply(x, mesh)
+    return reduce_from(x, mesh, MODEL_AXIS)
 
 
 def sum_over(x: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
     return _SumOver.apply(x, mesh, axes)
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every batch rank's rows of ``x`` (dim 0), in global order (see
+    :class:`_GatherRows`)."""
+    return _GatherRows.apply(x, mesh)
+
+
+def ppermute(xs: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+             shift: int = 1) -> Tuple[torch.Tensor, ...]:
+    """:meth:`Mesh.ppermute` of each of ``xs`` (one message), with a
+    backward that sends the grads the other way round the ring."""
+    return _PPermute.apply(mesh, axis, shift, *xs)
+
+
+def shard(x: torch.Tensor, mesh: Mesh, spec: Tuple) -> torch.Tensor:
+    """This rank's shard of a whole tensor (see :class:`_Shard`)."""
+    return _Shard.apply(x, mesh, spec)
+
+
+def unshard(x: torch.Tensor, mesh: Mesh, spec: Tuple) -> torch.Tensor:
+    """The whole tensor from the shards (see :class:`_Unshard`)."""
+    return _Unshard.apply(x, mesh, spec)
 
 
 # ----------------------------------------------------------------- serving

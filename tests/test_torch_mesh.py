@@ -11,6 +11,8 @@ four gloo CPU ranks of one ``local_ranks`` call (this process and three
 fresh interpreters, one thread each), against numpy. This file imports
 JAX only inside the cases that run the reference, so the ranks do not.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -119,6 +121,16 @@ def test_slices_are_the_reference_shards(name, n, slices, kw):
     """Every param's slice and the batch rows of every rank equal the
     index the reference's NamedSharding gives its device."""
     del name
+    _check_slices(n, slices, kw)
+    x = torch.arange(8 * 32).reshape(8, 32)
+    mesh = _port(n, slices, kw, rank=n - 1)
+    spec = (None, tmesh.FSDP_AXIS)
+    shard = tmesh.shard_tensor(x, spec, mesh)
+    assert torch.equal(shard, x[tmesh.spec_to_slices(x.shape, spec, mesh)])
+    assert shard.is_contiguous()
+
+
+def _check_slices(n, slices, kw):
     from jax.sharding import NamedSharding  # pylint: disable=import-outside-toplevel
     from jax.sharding import PartitionSpec as P  # pylint: disable=import-outside-toplevel
     from skypilot_tpu.models import llama as jllama  # pylint: disable=import-outside-toplevel
@@ -143,20 +155,50 @@ def test_slices_are_the_reference_shards(name, n, slices, kw):
             if key == 'batch':
                 rows = mesh.batch_rows(8)
                 assert (rows.start, rows.stop) == got[0]
-    x = torch.arange(8 * 32).reshape(8, 32)
-    mesh = _port(n, slices, kw, rank=n - 1)
-    spec = (None, tmesh.FSDP_AXIS)
-    shard = tmesh.shard_tensor(x, spec, mesh)
-    assert torch.equal(shard, x[tmesh.spec_to_slices(x.shape, spec, mesh)])
-    assert shard.is_contiguous()
 
 
-def test_seq_and_expert_axes_raise():
-    tmesh.check_training_mesh(_port(4, None, dict(fsdp=2, model=2)))
-    for kw, axis in ((dict(fsdp=1, seq=2), 'seq'),
-                     (dict(fsdp=1, expert=2), 'expert')):
-        with pytest.raises(NotImplementedError, match=axis):
-            tmesh.check_training_mesh(_port(2, None, kw))
+@pytest.mark.parametrize('case', ['fsdp2-seq2', 'fsdp2-expert2',
+                                  'ring_attention'])
+def test_seq_and_expert_axes_raise(case):
+    """A seq or expert axis no longer raises: on (fsdp 2, seq 2) and
+    (fsdp 2, expert 2) every rank's coordinates, param slices and batch
+    rows are the reference's (the batch over fsdp only, the params
+    replicated along seq and expert), and a training init on such a
+    layout keeps those slices. What raises, in both packages, is the
+    loss with ring attention and no sequence-sharded context."""
+    from skypilot_tpu.models import llama as jllama  # pylint: disable=import-outside-toplevel
+    if case == 'ring_attention':
+        import jax  # pylint: disable=import-outside-toplevel
+        import jax.numpy as jnp  # pylint: disable=import-outside-toplevel
+        cfg = dataclasses.replace(tllama.CONFIGS['debug'],
+                                  ring_attention=True)
+        params = tllama.init_params(cfg, torch.Generator().manual_seed(0))
+        tokens = torch.zeros((2, 8), dtype=torch.int32)
+        with pytest.raises(ValueError, match='unbound axis name: seq'):
+            tllama.loss_fn(params, tokens, tokens, cfg)
+        jcfg = dataclasses.replace(jllama.CONFIGS['debug'],
+                                   ring_attention=True)
+        jparams = jllama.init_params(jax.random.PRNGKey(0), jcfg)
+        with pytest.raises(NameError, match='unbound axis name: seq'):
+            jllama.loss_fn(jparams, jnp.zeros((2, 8), jnp.int32),
+                           jnp.zeros((2, 8), jnp.int32), jcfg)
+        return
+    kw = dict(fsdp=2, seq=2) if case == 'fsdp2-seq2' else dict(fsdp=2,
+                                                               expert=2)
+    test_rank_coordinates_are_the_reference_device_order(case, 4, None, kw)
+    _check_slices(4, None, kw)
+    cfg = tllama.CONFIGS['debug']
+    gen = torch.Generator().manual_seed(0)
+    whole = tllama.init_params(cfg, gen)
+    specs = tllama.param_partition_specs(cfg)
+    for r in range(4):
+        mesh = _port(4, None, kw, rank=r)
+        gen.manual_seed(0)
+        mine = tllama.init_params(cfg, gen, mesh=mesh)
+        assert torch.equal(mine['layers']['wq'], tmesh.shard_tensor(
+            whole['layers']['wq'], specs['layers']['wq'], mesh))
+        # The replicas along seq or expert hold the same slice.
+        assert mine['layers']['wq'].shape == (2, 32, 64)
 
 
 def _collectives(x):

@@ -41,7 +41,8 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
     # The walk reaches every subpackage, parallel/ included.
     rel = {os.path.relpath(f, PORT_DIR) for f in files}
     assert {'parallel/distributed.py', 'parallel/mesh.py',
-            'parallel/tp.py'} <= rel, sorted(rel)
+            'parallel/tp.py', 'parallel/pipeline.py', 'parallel/ring.py',
+            'models/moe.py'} <= rel, sorted(rel)
     bad = [(os.path.relpath(path, REPO_ROOT), mod)
            for path in files for mod in _imported_modules(path)
            if mod.split('.')[0] in FORBIDDEN]
@@ -54,6 +55,8 @@ def test_importing_the_port_leaves_jax_out_of_the_process():
             'from skypilot_tpu_torch.serve import model_server\n'
             'from skypilot_tpu_torch.models import checkpoint, convert, data\n'
             'from skypilot_tpu_torch.models import decode, engine, train\n'
+            'from skypilot_tpu_torch.models import moe\n'
+            'from skypilot_tpu_torch.parallel import pipeline, ring\n'
             'from skypilot_tpu_torch.models import block_store\n'
             'from skypilot_tpu_torch.models import prefix_transfer\n'
             'from skypilot_tpu_torch.ops import cuda_build, flash_attention\n'

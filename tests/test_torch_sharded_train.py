@@ -25,8 +25,13 @@ same global batches:
   resumes on one rank and one saved on one rank resumes at (fsdp 2,
   model 2), each continuing with the losses of a run never stopped
   (fp32, rel 2e-5);
-* a seq or expert axis raises, and a gang of the CLI whose processes
-  disagree or do not fit the mesh fails on every process.
+* fp32 at (fsdp 2, seq 2) and (fsdp 2, expert 2), read as the reference
+  reads those axes (the batch split over fsdp only, params and moments
+  replicated along seq and expert, no sum over either), under the fp32
+  rules above; ``ring_attention=True`` raises in both packages (the
+  reference: ``NameError: unbound axis name: seq``);
+* a gang of the CLI whose processes disagree or do not fit the mesh
+  fails on every process.
 
 The card case (``cuda`` marker) runs on a machine with a card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_sharded_train.py``.
@@ -62,6 +67,9 @@ CASES = {
                      dict(remat=True, ce_chunks=2, flash_attention=True)),
     'dcn2-fsdp2': (2, dict(fsdp=2), 'fp32', dict()),
     'bf16-fsdp2-model2': (None, dict(fsdp=2, model=2), 'bf16', dict()),
+    # 'seq' and 'expert' are replicated compute for the llama trainer.
+    'fsdp2-seq2': (None, dict(fsdp=2, seq=2), 'fp32', dict()),
+    'fsdp2-expert2': (None, dict(fsdp=2, expert=2), 'fp32', dict()),
 }
 CKPT_CASE = 'fsdp2-model2'
 
@@ -264,10 +272,7 @@ def _leaves(tree):
     return [('', tree)]
 
 
-@pytest.mark.parametrize('name', ['fsdp2-model2', 'dcn2-fsdp2'])
-def test_fp32_steps_match_the_reference_sharded_step(runs, name):
-    port, reference = runs
-    got, want = port[name], reference[name]
+def _check_fp32_run(got, want):
     np.testing.assert_allclose(got['losses'], want['losses'], rtol=F32_TOL)
     np.testing.assert_allclose(got['norms'], want['norms'], rtol=F32_TOL)
     for (path, g), (_, w) in zip(_leaves(got['params']),
@@ -279,6 +284,12 @@ def test_fp32_steps_match_the_reference_sharded_step(runs, name):
         np.testing.assert_allclose(g, w, rtol=0,
                                    atol=F32_GRAD_TOL * np.abs(w).max(),
                                    err_msg=path)
+
+
+@pytest.mark.parametrize('name', ['fsdp2-model2', 'dcn2-fsdp2'])
+def test_fp32_steps_match_the_reference_sharded_step(runs, name):
+    port, reference = runs
+    _check_fp32_run(port[name], reference[name])
 
 
 def test_bf16_step_1_loss_matches_the_reference(runs):
@@ -351,15 +362,42 @@ def test_restore_slices_a_checkpoint_to_any_rank(tmp_path):
         tckpt.restore_latest(str(root), 'cpu', mesh, wrong)
 
 
-def test_seq_or_expert_axis_raises():
-    cfg = _port_cfg('fp32', {})
-    for kw, axis in ((dict(fsdp=2, seq=2), 'seq'),
-                     (dict(fsdp=2, expert=2), 'expert')):
-        mesh = tmesh.make_mesh(tmesh.MeshConfig(**kw), ranks=range(4))
-        with pytest.raises(NotImplementedError, match=axis):
-            ttrain.make_train_step(cfg, _train_cfg(), mesh)
-        with pytest.raises(NotImplementedError, match=axis):
-            ttrain.init_train_state(cfg, _train_cfg(), 'cpu', mesh)
+@pytest.mark.parametrize('case', ['fsdp2-seq2', 'fsdp2-expert2',
+                                  'ring_attention'])
+def test_seq_or_expert_axis_raises(runs, case):
+    """A seq or expert axis no longer raises: the fp32 steps on it match
+    the reference's sharded step on the same mesh. What raises, in both
+    packages, is ring attention in the trainer, which gives it no
+    sequence-sharded context."""
+    if case != 'ring_attention':
+        port, reference = runs
+        _check_fp32_run(port[case], reference[case])
+        assert port[case]['local_wq'] == (2, 32, 64)
+        return
+    import jax  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu.models import train as jtrain  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu.parallel import mesh as jmesh  # pylint: disable=import-outside-toplevel
+    tokens, targets = _batches()[0]
+    kw = dict(fsdp=2, seq=2)
+    cfg = _port_cfg('fp32', dict(ring_attention=True))
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(**kw), ranks=range(4))
+    with pytest.raises(ValueError, match='unbound axis name: seq'):
+        ttrain.make_train_step(cfg, _train_cfg(), mesh)
+    with pytest.raises(ValueError, match='unbound axis name: seq'):
+        ttrain.train_loop(cfg, _train_cfg(), 1, BATCH, SEQ, log_every=0,
+                          device='cpu')
+    params = ttrain.init_train_state(_port_cfg('fp32', {}), _train_cfg(),
+                                     'cpu').params
+    with pytest.raises(ValueError, match='unbound axis name: seq'):
+        tllama.loss_fn(params, torch.from_numpy(tokens),
+                       torch.from_numpy(targets), cfg)
+    jcfg = _reference_cfg('fp32', dict(ring_attention=True))
+    jm = jmesh.make_mesh(jmesh.MeshConfig(**kw), devices=jax.devices()[:4])
+    tc = jtrain.TrainConfig(learning_rate=1e-3, warmup_steps=1)
+    state = jtrain.init_train_state(jax.random.PRNGKey(0), jcfg, tc,
+                                    mesh=jm)
+    with pytest.raises(NameError, match='unbound axis name: seq'):
+        jtrain.make_train_step(jcfg, tc, mesh=jm)(state, tokens, targets)
 
 
 def test_selective_remat_over_fsdp_raises():
