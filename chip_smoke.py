@@ -68,9 +68,10 @@ port's package is not beside it. Phases (any failure exits non-zero):
    the forward kernel 2 x n_layers times and each backward kernel
    n_layers times; prints tokens/s, MFU against 989 TFLOP/s, peak
    memory and one step's device time by kernel (torch.profiler), with
-   the card's name and power limit. Then ``train.train_loop`` with a
-   checkpoint directory, cut after step 2 and resumed: the resumed
-   step-3 loss must equal the unbroken run's.
+   the card's name and power limit. Then ``train.train_loop`` at the
+   same width cut to ``RESUME_LAYERS`` (4) layers with a checkpoint
+   directory, cut after step 2 and resumed: the resumed step-3 loss
+   must equal the unbroken run's.
 8. Kernel path against plain path on the training loss: bench-1b at
    batch 2, one set of bf16 params (and the same upcast to fp32) and one
    batch through the flash kernels and their twins. fp32: loss, grad
@@ -174,15 +175,18 @@ port's package is not beside it. Phases (any failure exits non-zero):
    dense and paged: within INT8_E2E_REL_TOL on the first
    INT8_E2E_LAYERS layers (twin_error's statistics printed), where a
    planted kernel reading the wrong KV head must break the bound; the
-   full depth's reading printed. (d) The seed-0 bf16 params saved with
-   ``checkpoint.save_params`` (17 GB free needed under ``build/``); a
+   full depth's reading printed. (d) At full width cut to
+   ``RESTORE_LAYERS`` (4) layers: the seed-0 bf16 params saved with
+   ``checkpoint.save_params`` (5 GB free needed under ``build/``); a
    replica built the CLI's way (``checkpoint_dir``, ``int8=True``, no
-   params, seed 1) logs the restored step and gives (b)'s dense tokens,
+   params, seed 1) logs the restored step and gives the tokens of an
+   in-memory dense int8 replica of the same params on (b)'s prompts,
    the same build without ``checkpoint_dir`` gives others, and a
    trainer checkpoint raises ValueError.
 
 13. The cross-replica prefix fetch, run after phase 12 while the
-   llama3-8b weights are loaded; the launch counts are reset just
+   llama3-8b weights are loaded, at their full width cut to their first
+   ``PREFIX_LAYERS`` (4) layers; the launch counts are reset just
    before and read just after. For bf16 and then int8 K/V, paged
    replicas of the port's ModelServer on local ports (8 slots, max_len
    2048, block_k 128), built with ``prefix_peers``: an owner answers a
@@ -235,7 +239,8 @@ port's package is not beside it. Phases (any failure exits non-zero):
    tolerances.
 
 15. The disaggregated prefill/decode handoff, run after phase 13 while
-   the llama3-8b weights are loaded; the launch counts are reset just
+   the llama3-8b weights are loaded, cut to their first
+   ``HANDOFF_LAYERS`` (4) layers; the launch counts are reset just
    before and read just after. For bf16 and then int8 K/V, three paged
    replicas of the port's ModelServer on local ports (8 slots, max_len
    2048, block_k 128, prefill_chunk 256, one set of params): a prefill
@@ -266,7 +271,8 @@ port's package is not beside it. Phases (any failure exits non-zero):
    control's, cold and over its own cache.
 
 16. The durable block store, run after phase 15 while the llama3-8b
-   weights are loaded; the launch counts are reset just before and read
+   weights are loaded, cut to their first ``STORE_LAYERS`` (4) layers;
+   the launch counts are reset just before and read
    just after. For bf16 and then int8 K/V, phase 13's replicas and
    prompts (a 1,024-token prefix, tails of 16-40 tokens, 32 new tokens),
    built with ``store_url`` and the store's fetch and spill budgets at
@@ -302,7 +308,8 @@ port's package is not beside it. Phases (any failure exits non-zero):
    rounds, spec steps and paged prefills as CUDA-graph replays (the
    engine's default on the card); this phase holds them to the eager
    path (``rounds='eager'``). (a) Phase 3's requests through a graph
-   and an eager replica each of dense bf16, paged bf16, paged int8 K/V,
+   and an eager replica, at full width cut to ``GRAPH_SERVE_LAYERS`` (4)
+   layers, each of dense bf16, paged bf16, paged int8 K/V,
    paged int8 weights, spec (spec_k 4, drafter depth 1) and paged with
    prefill_chunk 256 (phase 10's mix): tokens identical request by
    request, each replica's launches exact as in phases 3, 9 and 12, the
@@ -321,9 +328,10 @@ port's package is not beside it. Phases (any failure exits non-zero):
    loaded; the launch counts are reset just before and read just after.
    (a) Kernels 2-3 against their twins at a rank's shard shape (H 16,
    Hkv 4, hd 128, block_k 128), bf16 and int8 K/V, verify at S 5. (b)
-   llama3-8b at full width and depth served at tp=2 with both ranks on
-   the one card (``parallel/tp.local_group`` over two ``cuda:0`` ranks,
-   gloo, whose collectives copy through host tensors, and eager rounds:
+   llama3-8b at full width cut to its first ``TP_LAYERS`` (4) layers
+   served at tp=2 with both ranks on the one card
+   (``parallel/tp.local_group`` over two ``cuda:0`` ranks, gloo, whose
+   collectives copy through host tensors, and eager rounds:
    the CLI's ``--tp`` takes a card a rank over NCCL, which one card
    cannot show), built through ``build_engine`` and the ModelServer,
    each case beside an eager tp=1 control on phase 3's paged requests cut
@@ -366,13 +374,23 @@ port's package is not beside it. Phases (any failure exits non-zero):
    ``SHARD_TOL``, the step-1 loss within the reference's rtol 5e-3, and
    every rank launching the flash forward exactly 2L times a step and
    dq, dk/dv L times; per-rank peak memory and step seconds printed.
-   (c) The same at 4 layers in fp32: losses and grad norms within 2e-5
-   of the control's. (d) (b)'s ranks save a checkpoint at step 2; a
-   one-rank ``train_loop`` resumes it, and its step 3 matches (b)'s
-   step 3 within (b)'s loss bound. (e) ResNet-50 (phase 14's 224 x 224,
-   bf16, batch 128, learning rate) data parallel over two of (b)'s four
-   ranks (a mesh over ranks 0-1; sync BN), 2 steps, against a one-rank
-   control on the same batch: losses within ``RESNET_DP_TOL``.
+   (b') The same under remat 'dots' for 2 steps: within ``SHARD_TOL``
+   of the control and bit-equal to (b)'s first 2 losses and grad norms;
+   on every rank the bytes one block's backward keeps (its inputs
+   through ``saved_tensors_hooks``, the kept GEMM outputs as the
+   storages its ops made that outlive it) within 5% of the arithmetic at
+   the rank's shard widths, no gathered weight kept.
+   (c) The same as (b) at 2 layers in fp32: losses and grad norms within
+   2e-5 of the control's; (c') 'ffn' and 'ffn1' there, 1 step,
+   bit-equal to (c). (d) (b)'s ranks save a checkpoint at step 2 in the
+   sharded format (each rank its own slices, a replicated one once):
+   each rank's bytes on disk, their sum against the state's bytes and
+   the save's seconds printed; a one-rank ``train_loop`` resumes it, and
+   its step 3 matches (b)'s step 3 within (b)'s loss bound. (e)
+   ResNet-50 (phase 14's 224 x 224, bf16, batch 128, learning rate)
+   data parallel over two of (b)'s four ranks (a mesh over ranks 0-1;
+   sync BN), 2 steps, against a one-rank control on the same batch:
+   losses within ``RESNET_DP_TOL``.
 20. Mixture of experts, GPipe and ring attention, run after phase 19.
    The flash launch counts are reset before (a)'s one-rank steps and
    read after the ranks' run, before the kernel-against-plain checks.
@@ -383,10 +401,12 @@ port's package is not beside it. Phases (any failure exits non-zero):
    each within ``MOE_PLAIN_LOSS_TOL`` (phase 8's bf16 bound; the tokens
    whose experts differ when each routes on its own printed), 2 Adam
    steps with the flash kernels launched 2L, L, L a step; then over an
-   (expert 2) mesh of two ranks sharing the card over gloo (4 experts a
-   rank), the same 2 steps within ``SHARD_TOL['bf16']`` of the one-rank
-   losses and grad norms, and once with the expert sum left out, which
-   must break that bound; fp32 at 1 layer, logits and aux of the kernel
+   (expert 2, model 2) mesh of four ranks sharing the card over gloo (4
+   experts a rank, each expert's ffn dim split in two), the same 2
+   steps within ``SHARD_TOL['bf16']`` of the one-rank losses and grad
+   norms, and step 1's loss and grad norm (no update) with the 'model'
+   part of the experts' sum left out, which must break that bound;
+   per-rank peak memory printed; fp32 at 1 layer, logits and aux of the kernel
    path against the plain path within 2e-5. (b) GPipe: bench-1b at full
    width and depth, 4 microbatches of 1 x 2048, over (stage 2) and
    (stage 4) on the card, 2 steps, losses and grad norms within
@@ -417,6 +437,7 @@ The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
 """
 import atexit
+import contextlib
 import gc
 import glob
 import json
@@ -459,6 +480,15 @@ SPEC_PARITY_BF16_ULPS = 8
 
 MODEL = 'llama3-8b'
 N_NEW = 32
+# Phases 13, 15, 16 and 18 serve MODEL at its full width cut in depth
+# (``served_depth``; each phase's constant names its cut): their checks
+# hold tokens, blocks and logits against controls at the same depth and
+# count the kernels' launches per layer, so they run whole at any depth,
+# and the JSON wire work and the TP replicas' host copies that dominate
+# them scale with the layers. Cut to keep the whole run under 900 s of
+# its 1,200 s time limit once phase 19's selective-remat runs and phase
+# 20's model axis were added (a host 1.4x slower on the host-bound phases
+# cut an earlier run at 1,260 s).
 # Phase 9: speculative decoding on the paged replica (kernel 3).
 SPEC_K = 4
 VERIFY_S = (1, SPEC_K + 1, 2 * SPEC_K + 1)
@@ -521,6 +551,11 @@ TRAIN_MODEL = 'bench-1b'
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 12, 2048, 8
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                         'chip_smoke_ckpt')
+# The checkpointed train_loop cut and resumed at bench-1b's width cut to
+# this depth: 16 (the model's) before phase 19's sharded runs were
+# added; cut to keep the run inside its time limit (phase 19 (d) saves
+# and resumes the whole bench-1b state).
+RESUME_LAYERS = 4
 # A resumed step against the unbroken run: same params, moments and
 # batch, so only run-to-run nondeterminism may differ.
 RESUME_REL_TOL = 1e-6
@@ -654,8 +689,11 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 # A spin of this many SM clock cycles (~25 ms at the H100's 1.98 GHz)
-# holds the stream while device_ms enqueues its calls.
+# holds the stream while device_ms enqueues its calls; a window the host
+# outran is measured again under a spin twice as long, up to
+# SPIN_ATTEMPTS times (a slow host once took 31 ms to enqueue).
 SPIN_CYCLES = 50_000_000
+SPIN_ATTEMPTS = 3
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -664,28 +702,51 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     back-to-back calls (``cuda_time_ms``) time the host. Here a spin
     kernel (``torch.cuda._sleep``) holds the stream while the host
     enqueues the ``iters`` calls, so the events around them see the
-    card run them back to back. Fails if the host was still enqueueing
-    when the spin ended."""
+    card run them back to back. A window in which the host was still
+    enqueueing when the spin ended is not a reading: it is taken again
+    under a longer spin, and fails after SPIN_ATTEMPTS."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    spin_start, start, end = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(3))
-    spin_start.record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    end.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    spin_ms = spin_start.elapsed_time(start)
-    if not enqueue_ms < spin_ms:
-        fail(f'device_ms: enqueueing took {enqueue_ms:.2f} ms, longer than '
-             f'the {spin_ms:.2f} ms spin that holds the stream')
-    return start.elapsed_time(end) / iters
+    for attempt in range(SPIN_ATTEMPTS):
+        spin_start, start, end = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(3))
+        spin_start.record()
+        torch.cuda._sleep(SPIN_CYCLES << attempt)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        spin_ms = spin_start.elapsed_time(start)
+        if enqueue_ms < spin_ms:
+            return start.elapsed_time(end) / iters
+    fail(f'device_ms: enqueueing took {enqueue_ms:.2f} ms, longer than '
+         f'the {spin_ms:.2f} ms spin that holds the stream')
+
+
+@contextlib.contextmanager
+def served_depth(ms_lib, params, layers):
+    """A serving phase at MODEL's full width cut to its first ``layers``
+    layers: the cut config registered in ``llama.CONFIGS`` under a name
+    of its own and MODEL pointed at it while the phase runs; yields the
+    params' first ``layers`` layers (views)."""
+    global MODEL  # pylint: disable=global-statement
+    import dataclasses
+    full = MODEL
+    name = f'{full}-{layers}l'
+    configs = ms_lib.llama.CONFIGS
+    configs[name] = dataclasses.replace(configs[full], n_layers=layers)
+    MODEL = name
+    try:
+        yield dict(params, layers={k: w[:layers]
+                                   for k, w in params['layers'].items()})
+    finally:
+        MODEL = full
+        del configs[name]
 
 
 # --------------------------------------------------------------- phase 2
@@ -2340,10 +2401,13 @@ INT8_WEIGHTS_PREDICTED = 9_086_705_664
 # the same run.
 INT8_E2E_LAYERS = 2
 INT8_E2E_REL_TOL = 0.1
-# (d) the params checkpoint: llama3-8b's bf16 params are 16.06 GB.
+# (d) the params checkpoint at llama3-8b's width cut to RESTORE_LAYERS
+# layers, 3.85 GB in bf16 (32, the model's depth and 16.06 GB, before
+# the cut named at MODEL).
 PARAMS_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                'build', 'chip_smoke_params')
-PARAMS_CKPT_FREE = 17 * 10**9
+RESTORE_LAYERS = 4
+PARAMS_CKPT_FREE = 5 * 10**9
 
 
 def int8_gemm_phase(torch, quant, card):
@@ -2546,12 +2610,13 @@ class _LogLines(logging.Handler):
 
 
 def restore_phase(torch, ms_lib, da, train, params, int8_dense, card):
-    """(d) llama3-8b's bf16 params (phase 3's, drawn from seed 0) saved as
-    a params checkpoint, then a replica built the CLI's way,
-    ``build_engine(checkpoint_dir=..., int8=True, seed=1)`` with no
-    params: it logs the restored step and its greedy tokens equal (b)'s
-    dense int8 replica's on the same prompts, while the same build
-    without ``checkpoint_dir`` (seed 1's own weights) gives other
+    """(d) MODEL's bf16 params (phase 3's, drawn from seed 0; the caller
+    cuts their depth: RESTORE_LAYERS) saved as a params checkpoint, then
+    a replica built the CLI's way, ``build_engine(checkpoint_dir=...,
+    int8=True, seed=1)`` with no params: it logs the restored step and
+    its greedy tokens equal an in-memory dense int8 replica's of the
+    same params on (b)'s prompts (``int8_dense``'s), while the same
+    build without ``checkpoint_dir`` (seed 1's own weights) gives other
     tokens. A trainer checkpoint handed to the same call raises
     ValueError. Fails when the disk has less than PARAMS_CKPT_FREE bytes
     free. Returns the seconds and bytes."""
@@ -2562,8 +2627,10 @@ def restore_phase(torch, ms_lib, da, train, params, int8_dense, card):
         fail(f'restore: {free / 1e9:.1f} GB free under {PARAMS_CKPT_DIR}, '
              f'the params checkpoint needs {PARAMS_CKPT_FREE / 1e9:.0f} GB')
     trainer_dir = os.path.join(PARAMS_CKPT_DIR, 'trainer')
-    want_stats, want = int8_dense
-    prompts = [[body for body, _ in want]]
+    prompts = [[body for body, _ in int8_dense[1]]]
+    want_stats, want = serve_phase(torch, ms_lib, params,
+                                   'in-memory int8-weights', {'int8': True},
+                                   prompts, da.decode_attention_kernel, card)
 
     def differing(got):
         return sum(a['tokens'] != b['tokens']
@@ -2573,7 +2640,10 @@ def restore_phase(torch, ms_lib, da, train, params, int8_dense, card):
     server_logger = logging.getLogger(ms_lib.__name__)
     try:
         t0 = time.perf_counter()
-        path = ckpt.save_params(PARAMS_CKPT_DIR, params, 1)
+        # Copies of the cut's views: torch.save writes a view's whole
+        # storage.
+        path = ckpt.save_params(PARAMS_CKPT_DIR, train.tree_map(
+            lambda t: t.clone(), params), 1)
         save_s = time.perf_counter() - t0
         nbytes = os.path.getsize(os.path.join(path, ckpt.STATE_FILE))
         print(f'[phase 12] restore: saved the {MODEL} params ({nbytes} '
@@ -2661,8 +2731,10 @@ def int8_phase(torch, ms_lib, quant, da, decode, llama, train, params,
     took('(c)')
     del qparams
     empty_cache(torch)
-    restored = restore_phase(torch, ms_lib, da, train, params,
-                             served['dense int8-weights'], card)
+    with served_depth(ms_lib, params, RESTORE_LAYERS) as cut:
+        restored = restore_phase(torch, ms_lib, da, train, cut,
+                                 served['dense int8-weights'], card)
+    del cut
     took('(d)')
     return {'gemm': gemm_rows, 'profile': prof, 'e2e': e2e,
             'restore': restored}
@@ -2681,6 +2753,8 @@ PREFIX_TAILS = (16, 24, 32, 40)
 # raw in bf16, ~179 MB of base64 JSON) completes; a second fetcher keeps
 # the default (0.5 s) and its outcome is printed.
 PREFIX_FETCH_BUDGET = 60.0
+# Phase 13's depth: 32 (the model's) before the cut named at MODEL.
+PREFIX_LAYERS = 4
 
 
 def free_port() -> int:
@@ -2942,6 +3016,8 @@ HANDOFF_TOKENS = (HANDOFF_PROMPT // 128) * 128
 # The explicit push budget of (a); (d) runs once at the default (2 s).
 HANDOFF_PUSH_BUDGET = 60.0
 PUSH_BUDGET_ENV = 'SKYTPU_HANDOFF_PUSH_BUDGET_SECONDS'
+# Phase 15's depth: 32 (the model's) before the cut named at MODEL.
+HANDOFF_LAYERS = 4
 
 
 def handoff_post(port: int, body: dict, target) -> tuple:
@@ -3191,6 +3267,8 @@ STORE_KNOBS = {'SKYTPU_STORE_FETCH_BUDGET_SECONDS': str(STORE_BUDGET),
                'SKYTPU_STORE_SPILL_BUDGET_SECONDS': str(STORE_BUDGET)}
 # The torn entry's prompt: 4 full blocks and a tail.
 TORN_LEN = 512
+# Phase 16's depth: 32 (the model's) before the cut named at MODEL.
+STORE_LAYERS = 4
 
 
 class StoreServer:
@@ -3573,6 +3651,9 @@ GRAPH_MAX_NEW = 240
 # (d) two long prompts arrive while 7 lanes decode, one after the other:
 # the first captures the chunk shapes, the second's chunks are timed.
 GRAPH_CHUNK_PROMPT = 1920
+# (a)'s depth: 32 (the model's) before the cut named at MODEL; (b)-(d),
+# the timed rounds, run at full depth.
+GRAPH_SERVE_LAYERS = 4
 
 
 def graph_serve_phase(torch, ms_lib, quant, da, decode, params,
@@ -3821,14 +3902,19 @@ def graph_timing_phase(torch, ms_lib, params, card):
 
 def graph_phase(torch, ms_lib, quant, da, decode, params, dense_results,
                 paged_batches, card):
-    """Phase 17: the compiled rounds, (a) graph_serve_phase, (b)-(d)
-    graph_timing_phase; prints the phase's own seconds."""
+    """Phase 17: the compiled rounds, (a) graph_serve_phase at MODEL's
+    width cut to GRAPH_SERVE_LAYERS layers, (b)-(d) graph_timing_phase
+    at its full depth; prints the phase's own seconds."""
     t0 = time.perf_counter()
-    serve = graph_serve_phase(torch, ms_lib, quant, da, decode, params,
-                              dense_results, paged_batches, card)
+    with served_depth(ms_lib, params, GRAPH_SERVE_LAYERS) as cut:
+        serve = graph_serve_phase(torch, ms_lib, quant, da, decode, cut,
+                                  dense_results, paged_batches, card)
+    del cut
+    t1 = time.perf_counter()
     timing = graph_timing_phase(torch, ms_lib, params, card)
     seconds = time.perf_counter() - t0
-    print(f'[phase 17] {seconds:.1f}s', flush=True)
+    print(f'[phase 17] {seconds:.1f}s: (a) {t1 - t0:.1f}s, (b)-(d) '
+          f'{seconds - (t1 - t0):.1f}s', flush=True)
     return {'serve': serve, 'timing': timing, 'seconds': seconds}
 
 
@@ -3861,6 +3947,9 @@ TP_STEP_PROMPT, TP_STEP_TIMED = 64, 8
 # Int8 weights sum exactly on every rank: their logits are bit-equal.
 TP_PROBE_LENS = (24, 300, 1100)
 TP_LOGITS_REL_TOL = {'bf16': 0.09, 'int8': 0.0}
+# Phase 18's depth: 32 (the model's) before the cut named at MODEL; the
+# fp32 cases stay at TP_FP32_LAYERS.
+TP_LAYERS = 4
 
 
 def tp_kernel_check(torch, da, quant):
@@ -4217,13 +4306,14 @@ def nccl_graph_check(torch, tp_lib, card):
 
 def tp_phase(torch, ms_lib, da, quant, decode, llama, params, paged_batches,
              card):
-    """Phase 18: the TP replica. llama3-8b at full width and depth served
-    tensor-parallel at tp=2 with both ranks on the one card (gloo, eager
-    rounds; the CLI's --tp takes a card a rank over NCCL, which one card
-    cannot show), each case against a tp=1 control: bf16 and int8 K/V,
-    spec_k SPEC_K at drafter depth 1, chunked prefill PREFILL_CHUNK and
-    int8 weights, TP_NEW tokens a request (the bf16 case also times an
-    eager decode round on both); the same in fp32 at TP_FP32_LAYERS
+    """Phase 18: the TP replica. llama3-8b at full width (the caller cuts
+    its depth: TP_LAYERS) served tensor-parallel at tp=2 with both ranks
+    on the one card (gloo, eager rounds; the CLI's --tp takes a card a
+    rank over NCCL, which one card cannot show), each case against a
+    tp=1 control: bf16 and int8 K/V, spec_k SPEC_K at drafter depth 1,
+    chunked prefill PREFILL_CHUNK and int8 weights, TP_NEW tokens a
+    request (the bf16 case also times an eager decode round on both);
+    the same in fp32 at TP_FP32_LAYERS
     layers, tokens exactly equal. Before them kernels 2-3 at the shard
     shape; after, a one-rank NCCL group's captured collectives. Returns
     the report."""
@@ -4490,8 +4580,9 @@ def train_phase(torch, llama, train, fa, card):
     """The port's trainer at bench-1b width and depth on one fixed batch:
     losses finite and falling, exact launch counts per step, tokens/s,
     MFU, peak memory and the step's device time by kernel; then a
-    checkpointed train_loop cut and resumed. Returns the launch counts of
-    the main-path steps."""
+    checkpointed train_loop cut and resumed (at RESUME_LAYERS layers).
+    Returns the launch counts of the main-path steps."""
+    import dataclasses
     import shutil
     from torch.profiler import ProfilerActivity, profile
     cfg = train_config(llama)
@@ -4579,7 +4670,9 @@ def train_phase(torch, llama, train, fa, card):
     del state, metrics
     empty_cache(torch)
 
-    # Cut and resume: the step after a restore equals the unbroken run's.
+    # Cut and resume: the step after a restore equals the unbroken run's
+    # (at RESUME_LAYERS layers).
+    cut_cfg = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
     ckpt_dir = CKPT_DIR
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     runs = {}
@@ -4588,7 +4681,7 @@ def train_phase(torch, llama, train, fa, card):
         seen = runs[label] = {}
         t0 = time.perf_counter()
         end = train.train_loop(
-            cfg, tc, n, TRAIN_B, TRAIN_S, checkpoint_dir=ckpt,
+            cut_cfg, tc, n, TRAIN_B, TRAIN_S, checkpoint_dir=ckpt,
             save_every=2, log_every=0, device=dev,
             on_step=lambda i, m, seen=seen: seen.__setitem__(
                 i, float(m['loss'])))
@@ -5005,7 +5098,9 @@ SHARD_RANKS = 4
 SHARD_B = 4
 SHARD_STEPS = 3
 SHARD_SAVE_AT = 2
-SHARD_FP32_LAYERS = 4
+# (c) and (c')'s depth in fp32: 4 before (c') was added; cut to keep the
+# run inside its time limit (the 2e-5 contract needs no more layers).
+SHARD_FP32_LAYERS = 2
 # Adam at a visible rate: step 1 runs at 0 (the warm-up's first count),
 # steps 2-3 at ~3e-4, so the params after 3 steps moved by a few bf16
 # ulps.
@@ -5030,6 +5125,23 @@ SHARD_TOL = {'bf16': dict(loss=1e-4, grad_norm=8e-3, params=0.5),
 SHARD_STEP1_RTOL = 5e-3
 SHARD_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               'build', 'chip_smoke_shard_ckpt')
+# (b') bench-1b under 'dots' (the fastest policy on one card) on (b)'s
+# mesh and batches for its first SHARD_DOTS_STEPS steps: against the
+# control within SHARD_TOL['bf16'] and against (b)'s 'full' bit for bit.
+# (c') SHARD_FP32_POLICIES at (c)'s depth in fp32, bit-equal to (c)'s
+# first SHARD_FP32_POLICY_STEPS steps (a step's loss and grad norm read
+# every grad; one step keeps the run inside its time limit).
+SHARD_DOTS_STEPS = 2
+SHARD_FP32_POLICIES = ('ffn', 'ffn1')
+SHARD_FP32_POLICY_STEPS = 1
+# (b') the bytes one block's backward keeps on a rank against the
+# arithmetic at the rank's shard widths (its rows of the batch; H/model,
+# Hkv/model and ffn/model columns; wo's partial product before the sum
+# over 'model'), relative.
+SHARD_KEPT_REL_TOL = 0.05
+# (d) the sharded save's files against the state's bytes: each slice
+# written once, so their sum is the state's plus each file's pickle.
+SHARD_SAVE_OVERHEAD = 0.01
 # (e) ResNet-50 data parallel over two ranks on the card (phase 14's
 # model, size, batch and learning rate) against a one-rank control on
 # the same batch: each step's loss, relative, at the reference's bf16
@@ -5084,13 +5196,14 @@ def kernel_twin_check(torch, fa, case, phase, seed):
     return worst
 
 
-def shard_config(llama, model, dtype_name, layers=None):
-    """``model`` as phase 7 trains it (flash, remat 'full', its own
-    ce_chunks), in ``dtype_name``, cut to ``layers`` when given."""
+def shard_config(llama, model, dtype_name, layers=None, policy='full'):
+    """``model`` as phase 7 trains it (flash, remat, its own ce_chunks)
+    under remat ``policy``, in ``dtype_name``, cut to ``layers`` when
+    given."""
     import dataclasses
     import torch
     cfg = dataclasses.replace(llama.CONFIGS[model], flash_attention=True,
-                              remat=True, remat_policy='full')
+                              remat=True, remat_policy=policy)
     if dtype_name == 'fp32':
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
     if layers:
@@ -5103,16 +5216,123 @@ def _sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
+def block_kept_bytes(torch, llama, cfg, state, mesh, rows, seq, dev):
+    """(b'), on every rank: what one ``remat_block`` of layer 0 keeps for
+    its backward on this rank, against the arithmetic at its shard
+    widths. The checkpoint's inputs come through
+    ``torch.autograd.graph.saved_tensors_hooks`` (which see nothing the
+    selective policy keeps: non-reentrant checkpointing packs the
+    region's tensors with hooks of its own), the kept GEMM outputs as
+    the storages the block's ops made that outlive it (a
+    ``TorchDispatchMode`` holding weak references), less its output.
+    Returns the bytes measured and computed, the kept tensors' shapes
+    (as their first op made them) and those of the block's gathered
+    weights still alive after it (none: the recompute gathers again)."""
+    from torch.multiprocessing.reductions import StorageWeakRef
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+
+    class Made(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.made = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.made.append((StorageWeakRef(t.untyped_storage()),
+                                      t.untyped_storage().nbytes(),
+                                      tuple(t.shape)))
+            return out
+
+    layer = {n: w[0] for n, w in state.params['layers'].items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19 + mesh.rank)
+    x = torch.randn((rows, seq, cfg.dim), generator=gen, device=dev
+                    ).to(cfg.dtype).requires_grad_()
+    cos, sin = llama._rope_freqs(  # pylint: disable=protected-access
+        cfg, torch.arange(seq, device=dev))
+    packed = {}
+
+    def pack(t):
+        packed[StorageWeakRef(t.untyped_storage()).cdata] = (
+            t.untyped_storage().nbytes())
+        return t
+
+    gathered = []
+    plain_gathered = llama._gathered  # pylint: disable=protected-access
+
+    def recorded(layer, mesh, names):
+        out = plain_gathered(layer, mesh, names)
+        gathered.extend((n, StorageWeakRef(out[n].untyped_storage()))
+                        for n in names)
+        return out
+
+    mode = Made()
+    llama._gathered = recorded  # pylint: disable=protected-access
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            with mode:
+                out = llama.remat_block(cfg, x, layer, cos, sin, mesh=mesh)
+    finally:
+        llama._gathered = plain_gathered  # pylint: disable=protected-access
+    gc.collect()
+    known = {StorageWeakRef(t.untyped_storage()).cdata
+             for t in [x, cos, sin, out, *layer.values()]}
+    kept = {}
+    for ref, nbytes, shape in mode.made:
+        if not ref.expired() and ref.cdata not in known:
+            kept.setdefault(ref.cdata, (nbytes, shape))
+    hits = sorted({n for n, ref in gathered
+                   if not ref.expired() and ref.cdata not in known})
+    del out
+    measured = sum(packed.values()) + sum(b for b, _ in kept.values())
+    # The arithmetic: the block input and cos/sin, and the outputs of the
+    # policy's GEMMs at this rank's widths (wo's before its 'model' sum).
+    tp = mesh.size(mesh_lib.MODEL_AXIS)
+    hd = cfg.head_dim
+    widths = {'wq': cfg.n_heads * hd // tp, 'wk': cfg.n_kv_heads * hd // tp,
+              'wv': cfg.n_kv_heads * hd // tp, 'wo': cfg.dim,
+              'w1': cfg.ffn_dim // tp, 'w3': cfg.ffn_dim // tp}
+    elem = torch.empty((), dtype=cfg.dtype).element_size()
+    computed = (rows * seq * elem * (cfg.dim + sum(
+        widths[n] for n in llama.SAVED_GEMMS[cfg.remat_policy])) +
+                2 * seq * (hd // 2) * 4)
+    return dict(measured=measured, computed=computed, hits=hits,
+                kept=sorted(shape for _, shape in kept.values()))
+
+
+def saved_files(checkpoint, ckpt_dir, step):
+    """(bytes on disk of each rank's file, the state's bytes from the
+    index) of a sharded step directory."""
+    import numpy as np
+    import torch
+    path = os.path.join(ckpt_dir, f'step_{step}')
+    with open(os.path.join(path, checkpoint.INDEX_FILE),
+              encoding='utf-8') as f:
+        index = json.load(f)
+    state = sum(int(np.prod(e['shape'])) *
+                torch.empty((), dtype=getattr(torch, e['dtype'])
+                            ).element_size()
+                for e in index['leaves'].values())
+    files = {name: os.path.getsize(os.path.join(path, name))
+             for name in sorted(os.listdir(path)) if name.startswith('rank_')}
+    return files, state
+
+
 def shard_rank_runs(spec):
     """Rank function of (b)-(d), run by every rank of the phase's
     ``local_ranks``. For each run of ``spec['runs']``: the port's
     sharded trainer from the seed-0 state (``init_train_state(mesh=)``,
-    each rank drawing leaf by leaf and keeping its slices), ``steps``
-    steps of the global (data seed 0, step) batches, a checkpoint at
-    ``save_at``; each step's loss, grad norm and seconds; the params
-    after the last step gathered leaf by leaf to rank 0's host; every
-    rank's flash launches a step, seconds and peak memory. Returns rank
-    0's readings."""
+    each rank drawing leaf by leaf and keeping its slices) under the
+    run's remat policy, ``steps`` steps of the global (data seed 0,
+    step) batches, a checkpoint at ``save_at`` (its files' bytes read by
+    rank 0); each step's loss, grad norm and seconds; with ``gather``
+    the params after the last step gathered leaf by leaf to rank 0's
+    host; with ``kept`` one block's kept bytes on every rank
+    (``block_kept_bytes``); every rank's flash launches a step, seconds
+    and peak memory. Returns rank 0's readings."""
     import torch
     from skypilot_tpu_torch.models import checkpoint, llama, train
     from skypilot_tpu_torch.ops import flash_attention as fa
@@ -5124,7 +5344,7 @@ def shard_rank_runs(spec):
     out = []
     for run in spec['runs']:
         cfg = shard_config(llama, spec['model'], run['dtype'],
-                           run['layers'])
+                           run['layers'], run['policy'])
         if dev.type == 'cuda':
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -5133,7 +5353,7 @@ def shard_rank_runs(spec):
         init_s = time.perf_counter() - t0
         step = train.make_train_step(cfg, tc, mesh)
         losses, norms, secs, grew = [], [], [], []
-        save_s = None
+        save_s, files = None, None
         for i in range(run['steps']):
             tokens, targets = train.synthetic_batch(
                 cfg.vocab_size, spec['batch'], spec['seq'], 0, i)
@@ -5152,15 +5372,24 @@ def shard_rank_runs(spec):
                 checkpoint.save(spec['ckpt_dir'], state, i + 1, keep=1,
                                 mesh=mesh)
                 save_s = time.perf_counter() - t0
+                if mesh.rank == 0:
+                    files = saved_files(checkpoint, spec['ckpt_dir'], i + 1)
         peak = (torch.cuda.max_memory_allocated() if dev.type == 'cuda'
                 else float('nan'))
-        params = train.tree_leaves(train.gather_tree(state.params, mesh))
+        kept = (block_kept_bytes(torch, llama, cfg, state, mesh,
+                                 spec['batch'] // mesh.size(
+                                     mesh_lib.BATCH_AXES),
+                                 spec['seq'], dev)
+                if run.get('kept') else None)
+        params = (train.tree_leaves(train.gather_tree(state.params, mesh))
+                  if run.get('gather') else None)
         ranks = [None] * mesh.num_ranks
         torch.distributed.all_gather_object(ranks, dict(
-            launches=grew, secs=secs, init_s=init_s, peak_bytes=peak))
+            launches=grew, secs=secs, init_s=init_s, peak_bytes=peak,
+            save_s=save_s, kept=kept))
         out.append(dict(label=run['label'], losses=losses, norms=norms,
                         params=params, ranks=ranks, save_s=save_s,
-                        layers=cfg.n_layers))
+                        files=files, layers=cfg.n_layers))
         del state, step, params
         if dev.type == 'cuda':
             torch.cuda.empty_cache()
@@ -5222,18 +5451,20 @@ def shard_compare(torch, run, control, dtype_name, card):
                                                control['losses'])]
     norm_rel = [rel_diff(a, b) for a, b in zip(run['norms'],
                                                control['norms'])]
-    params_rel, params_max = params_distance(torch, run['params'],
-                                             control['last'],
-                                             control['first'])
-    worst = dict(loss=max(loss_rel), grad_norm=max(norm_rel),
-                 params=params_rel)
+    worst = dict(loss=max(loss_rel), grad_norm=max(norm_rel))
+    params = '(params not gathered)'
+    if run['params'] is not None:
+        worst['params'], params_max = params_distance(
+            torch, run['params'], control['last'], control['first'])
+        params = (f'params after step {SHARD_STEPS}: ||p - p_control|| / '
+                  f'||p_control - p_0|| {worst["params"]:.4e} (tol '
+                  f'{tol["params"]}), max |p - p_control| '
+                  f'{params_max:.4e}')
     print(f'[phase 19] {run["label"]}: losses {run["losses"]} against the '
           f'one-rank control\'s {control["losses"]} (rel {loss_rel}, tol '
           f'{tol["loss"]}); grad norms {run["norms"]} against '
           f'{control["norms"]} (rel {norm_rel}, tol {tol["grad_norm"]}); '
-          f'params after step {SHARD_STEPS}: ||p - p_control|| / '
-          f'||p_control - p_0|| {params_rel:.4e} (tol {tol["params"]}), '
-          f'max |p - p_control| {params_max:.4e}; on {card}', flush=True)
+          f'{params}; on {card}', flush=True)
     for key, value in worst.items():
         if not value <= tol[key]:
             fail(f'phase 19 {run["label"]}: {key} {value} > {tol[key]}')
@@ -5253,7 +5484,8 @@ def shard_ranks_report(run, expect_per_step, control_secs):
         if any(g != expect_per_step for g in rank['launches']):
             fail(f'phase 19 {run["label"]} rank {r}: flash launches '
                  f'{rank["launches"]}, expected {expect_per_step} a step')
-    step_s = statistics.median(run['ranks'][0]['secs'][1:])
+    secs = run['ranks'][0]['secs']
+    step_s = statistics.median(secs[1:] or secs)
     print(f'[phase 19] {run["label"]}: a step {step_s:.3f}s on four ranks '
           f'(gloo through the host) against '
           f'{statistics.median(control_secs[1:]):.3f}s on one', flush=True)
@@ -5349,6 +5581,57 @@ def rank_devices(n):
     return dict(devices=['cuda:0'] * n, backend='gloo')
 
 
+def same_steps(run, full, card):
+    """A policy run's losses and grad norms against its 'full' run's
+    first steps, bit for bit (a policy changes what backward keeps,
+    never a value)."""
+    n = len(run['losses'])
+    same = (run['losses'] == full['losses'][:n] and
+            run['norms'] == full['norms'][:n])
+    print(f'[phase 19] {run["label"]} against {full["label"]}: losses '
+          f'{run["losses"]} / {full["losses"][:n]}, grad norms '
+          f'{run["norms"]} / {full["norms"][:n]}: '
+          f'{"bit-equal" if same else "DIFFERENT"}; on {card}', flush=True)
+    if not same:
+        fail(f'phase 19 {run["label"]}: not bit-equal to {full["label"]}')
+
+
+def kept_report(run, card):
+    """(b'): each rank's kept bytes of one block against the arithmetic
+    within SHARD_KEPT_REL_TOL, and no gathered weight kept. Returns the
+    worst relative difference."""
+    worst = 0.0
+    for r, rank in enumerate(run['ranks']):
+        kept = rank['kept']
+        rel = abs(kept['measured'] - kept['computed']) / kept['computed']
+        worst = max(worst, rel)
+        print(f'[phase 19] {run["label"]} rank {r}: one block keeps '
+              f'{kept["measured"]} bytes for its backward against '
+              f'{kept["computed"]} at the rank\'s shard widths (rel '
+              f'{rel:.3e}, tol {SHARD_KEPT_REL_TOL}); kept tensors '
+              f'{kept["kept"]}; gathered weights still alive '
+              f'{kept["hits"]}; on {card}', flush=True)
+        if not rel <= SHARD_KEPT_REL_TOL or kept['hits']:
+            fail(f'phase 19 {run["label"]} rank {r}: kept {kept}')
+    return worst
+
+
+def save_report(run, card):
+    """(d): each rank's bytes on disk and their sum against the state's
+    bytes (each slice written once), and the save's seconds."""
+    files, state = run['files']
+    total = sum(files.values())
+    secs = [rank['save_s'] for rank in run['ranks']]
+    print(f'[phase 19] (d) the step-{SHARD_SAVE_AT} sharded save: files '
+          f'{files} bytes, sum {total} against the state\'s {state} '
+          f'(params, mu, nu; ratio {total / state:.6f}, tol 1 + '
+          f'{SHARD_SAVE_OVERHEAD}); seconds by rank '
+          f'{[round(x, 2) for x in secs]}; on {card}', flush=True)
+    if not state <= total <= state * (1 + SHARD_SAVE_OVERHEAD):
+        fail(f'phase 19 (d): {total} bytes saved for a {state}-byte state')
+    return dict(files=files, state=state, seconds=max(secs))
+
+
 def shard_phase(torch, llama, train, fa, card):
     """Phase 19: the sharded trainer; (a) before, (b)-(e) after the
     launch counts are reset (they are read by the caller)."""
@@ -5361,14 +5644,22 @@ def shard_phase(torch, llama, train, fa, card):
                                       SHARD_FP32_LAYERS)}
     t_controls = time.perf_counter()
     shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+    fp32 = f'{SHARD_FP32_LAYERS} layers fp32'
+    runs = [dict(label="(b) bf16 'full'", dtype='bf16', layers=None,
+                 policy='full', steps=SHARD_STEPS, save_at=SHARD_SAVE_AT,
+                 gather=True),
+            dict(label="(b') bf16 'dots'", dtype='bf16', layers=None,
+                 policy='dots', steps=SHARD_DOTS_STEPS, kept=True),
+            dict(label=f"(c) {fp32} 'full'", dtype='fp32',
+                 layers=SHARD_FP32_LAYERS, policy='full', steps=SHARD_STEPS,
+                 gather=True)]
+    runs += [dict(label=f"(c') {fp32} {policy!r}", dtype='fp32',
+                  layers=SHARD_FP32_LAYERS, policy=policy,
+                  steps=SHARD_FP32_POLICY_STEPS)
+             for policy in SHARD_FP32_POLICIES]
     spec = dict(device=DEVICE, model=TRAIN_MODEL, mesh=SHARD_MESH,
                 train=SHARD_TRAIN, batch=SHARD_B, seq=TRAIN_S,
-                ckpt_dir=SHARD_CKPT_DIR, runs=[
-                    dict(label='(b) bf16', dtype='bf16', layers=None,
-                         steps=SHARD_STEPS, save_at=SHARD_SAVE_AT),
-                    dict(label=f'(c) fp32 {SHARD_FP32_LAYERS} layers',
-                         dtype='fp32', layers=SHARD_FP32_LAYERS,
-                         steps=SHARD_STEPS)],
+                ckpt_dir=SHARD_CKPT_DIR, runs=runs,
                 resnet=dict(device=DEVICE, ranks=RESNET_DP_RANKS,
                             model=RESNET_MODEL, batch=RESNET_B,
                             size=RESNET_SIZE, lr=RESNET_LR,
@@ -5377,23 +5668,29 @@ def shard_phase(torch, llama, train, fa, card):
     ranked = distributed.local_ranks(SHARD_RANKS, shard_rank_runs, (spec,),
                                      **rank_devices(SHARD_RANKS))
     counts = {fn.__name__: fn.launches for fn in fa.KERNELS}
-    runs = ranked['runs']
+    done = {run['label']: run for run in ranked['runs']}
     t_ranks = time.perf_counter()
     report = {}
-    for run, dtype_name in zip(runs, ('bf16', 'fp32')):
-        control = controls[dtype_name]
+    for run, want in zip(ranked['runs'], runs):
+        control = controls[want['dtype']]
         layers = run['layers']
         shard_ranks_report(run, [2 * layers, layers, layers],
                            control['secs'])
         report[run['label']] = shard_compare(torch, run, control,
-                                             dtype_name, card)
-    step1 = rel_diff(runs[0]['losses'][0], controls['bf16']['losses'][0])
+                                             want['dtype'], card)
+        if want['policy'] != 'full':
+            full = done[runs[0 if want['dtype'] == 'bf16' else 2]['label']]
+            same_steps(run, full, card)
+        if want.get('kept'):
+            report['kept'] = kept_report(run, card)
+    full_b = ranked['runs'][0]
+    step1 = rel_diff(full_b['losses'][0], controls['bf16']['losses'][0])
     print(f'[phase 19] (b) step-1 loss rel {step1:.3e} (the reference\'s '
-          f'rtol {SHARD_STEP1_RTOL}); the step-2 checkpoint written in '
-          f'{runs[0]["save_s"]:.1f}s', flush=True)
+          f'rtol {SHARD_STEP1_RTOL})', flush=True)
     if not step1 <= SHARD_STEP1_RTOL:
-        fail(f'phase 19 (b): step-1 loss {runs[0]["losses"][0]} against '
+        fail(f'phase 19 (b): step-1 loss {full_b["losses"][0]} against '
              f'{controls["bf16"]["losses"][0]}')
+    report['save'] = save_report(full_b, card)
     # (d) One rank resumes the four-rank checkpoint.
     resumed = {}
     t0 = time.perf_counter()
@@ -5406,7 +5703,7 @@ def shard_phase(torch, llama, train, fa, card):
     del end
     empty_cache(torch)
     shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
-    want = runs[0]['losses'][SHARD_STEPS - 1]
+    want = full_b['losses'][SHARD_STEPS - 1]
     got = resumed.get(SHARD_STEPS)
     resume_rel = rel_diff(got, want) if got is not None else float('inf')
     print(f'[phase 19] (d) one rank resumed the four-rank step-'
@@ -5450,8 +5747,11 @@ MOE_PLAIN_LOSS_TOL = TRAIN_E2E_TOL['bf16']['loss']
 # Kernels 4-6 against their twins at the attention shape of (a):
 # (B, S, H, Hkv, D, causal), a GQA group of 4.
 MOE_FLASH_CASE = (MOE_B, MOE_S, 32, 8, 128, True)
-# Two ranks sharing the card over gloo, each holding 4 of the 8 experts.
-MOE_MESH, MOE_RANKS = dict(fsdp=1, expert=2), 2
+# Four ranks sharing the card over gloo on (expert 2, model 2): each
+# holds 4 of the 8 experts, each expert's ffn dim split in two (and
+# attention's heads, the vocab); (expert 2) on two ranks before the
+# model axis inside the experts was ported.
+MOE_MESH, MOE_RANKS = dict(fsdp=1, expert=2, model=2), 4
 # (b) GPipe: bench-1b at full width and depth (TRAIN_MODEL as phase 19
 # trains it), 4 microbatches of 1 x 2048, over (stage 2) and (stage 4)
 # on the card; fp32 at 4 layers over (stage 2).
@@ -5545,10 +5845,11 @@ def ring_inputs(torch, dtype, dev):
 def phase20_ranks(settings):
     """Rank function of phase 20, run by every rank of one
     ``local_ranks`` with the caller's ``settings``: (a) the MoE trainer
-    on an (expert 2) mesh over ranks 0-1 (then once more with the expert
-    sum left out), (b) the GPipe steps over (stage 2) on ranks 0-1 and
-    (stage 4) on all, (c) ring attention over a (seq 4) mesh, forward
-    and backward. Returns rank 0's readings with every rank's launches,
+    on MOE_MESH over the first MOE_RANKS ranks (first step 1's loss and
+    grad norm with the 'model' part of the experts' sum left out), (b)
+    the GPipe steps over (stage 2) on ranks 0-1 and (stage 4) on all,
+    (c) ring attention over a (seq 4) mesh, forward and backward.
+    Returns rank 0's readings with every rank's launches,
     seconds and peak memory."""
     globals().update(settings)
     import torch
@@ -5565,33 +5866,46 @@ def phase20_ranks(settings):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
 
-    # (a) MoE over 'expert'.
+    # (a) MoE over ('expert', 'model'): first the step-1 loss and grad
+    # norm with the 'model' part of the experts' sum left out (no update,
+    # so the same state then trains), then the steps.
     mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**MOE_MESH),
                               ranks=range(MOE_RANKS))
     tc = train.TrainConfig(**MOE_TRAIN)
     cfg = moe_config(moe, 'bf16', MOE_LAYERS)
-    expert_sum = moe._expert_sum  # pylint: disable=protected-access
-    for label, summed, steps in (('moe', True, MOE_STEPS),
-                                 ('moe no expert sum', False, 1)):
-        if mesh is None:
-            continue
-        if not summed:
-            moe._expert_sum = lambda out, mesh: out  # pylint: disable=protected-access
+    if mesh is not None:
+        reset_peak()
+        t0 = time.perf_counter()
+        state = train.init_train_state(cfg, tc, dev, mesh)
+        _sync(torch, dev)
+        init_s = time.perf_counter() - t0
+        expert_sum = moe._expert_sum  # pylint: disable=protected-access
+        moe._expert_sum = lambda out, mesh: mesh_lib.reduce_from(  # pylint: disable=protected-access
+            out, mesh, mesh_lib.EXPERT_AXIS)
         try:
-            reset_peak()
-            t0 = time.perf_counter()
-            state = train.init_train_state(cfg, tc, dev, mesh)
+            tokens, targets = (torch.from_numpy(a[mesh.batch_rows(
+                len(a))]).to(dev) for a in moe_batches(train, cfg, 1)[0])
             _sync(torch, dev)
-            init_s = time.perf_counter() - t0
-            mine[label] = timed_steps(
-                torch, fa, dev, state, train.make_train_step(cfg, tc, mesh),
-                moe_batches(train, cfg, steps))
-            mine[label]['init_s'] = init_s
-            mine[label]['local_we1'] = list(state.params['layers']['we1']
-                                            .shape)
-            del state
+            t0 = time.perf_counter()
+            loss, grads = train.value_and_grad(state.params, tokens,
+                                               targets, cfg, mesh)
+            norm = train.global_norm(grads, mesh,
+                                     moe.param_partition_specs(cfg))
+            mine['moe no model sum'] = dict(
+                losses=[float(loss)], norms=[float(norm)],
+                secs=[time.perf_counter() - t0],
+                peak_bytes=(torch.cuda.max_memory_allocated()
+                            if dev.type == 'cuda' else float('nan')))
+            del loss, grads, norm, tokens, targets
         finally:
             moe._expert_sum = expert_sum  # pylint: disable=protected-access
+        reset_peak()
+        mine['moe'] = timed_steps(
+            torch, fa, dev, state, train.make_train_step(cfg, tc, mesh),
+            moe_batches(train, cfg, MOE_STEPS))
+        mine['moe']['init_s'] = init_s
+        mine['moe']['local_we1'] = list(state.params['layers']['we1'].shape)
+        del state
     # (b) GPipe.
     tc = train.TrainConfig(**SHARD_TRAIN)
     for stages, dtype_name, layers in ((PP_STAGES[0], 'bf16', None),
@@ -5946,23 +6260,28 @@ def moe_pp_ring_phase(torch, llama, train, fa, card):
     cfg = moe_config(moe, 'bf16', MOE_LAYERS)
     report_ranks('moe', ranks, [2 * cfg.n_layers, cfg.n_layers,
                                 cfg.n_layers])
-    report_ranks('moe no expert sum', ranks)
+    report_ranks('moe no model sum', ranks)
     tol = SHARD_TOL['bf16']
-    sound = check_against(f'(a) {MOE_MODEL} over (expert {MOE_RANKS})',
+    axes = ', '.join(f'{a} {n}' for a, n in MOE_MESH.items() if n > 1)
+    sound = check_against(f'(a) {MOE_MODEL} over ({axes})',
                           ranks[0]['moe'], moe_run, tol, MOE_STEPS, card)
-    broken = check_against('(a) the same with the expert sum left out '
-                           '(step 1)', ranks[0]['moe no expert sum'],
-                           moe_run, tol, 1, card)
-    experts = [r['moe']['local_we1'][1] for r in ranks[:MOE_RANKS]]
-    print(f'[phase 20] (a) experts a rank {experts}', flush=True)
+    broken = check_against("(a) the same with the 'model' part of the "
+                           "experts' sum left out (step 1, no update)",
+                           ranks[0]['moe no model sum'], moe_run, tol, 1,
+                           card)
+    local = [r['moe']['local_we1'][1:] for r in ranks[:MOE_RANKS]]
+    want = [[cfg.n_experts // MOE_MESH.get('expert', 1),
+             cfg.dim // MOE_MESH.get('fsdp', 1),
+             cfg.ffn_dim // MOE_MESH.get('model', 1)]] * MOE_RANKS
+    print(f'[phase 20] (a) we1 a rank (experts, d, f) {local}', flush=True)
     if not within(sound, tol):
-        fail(f'phase 20 (a): the expert mesh against one rank: {sound}')
+        fail(f'phase 20 (a): the ({axes}) mesh against one rank: {sound}')
     if within(broken, tol):
-        fail(f'phase 20 (a): the expert sum left out still passes the '
+        fail(f"phase 20 (a): the 'model' sum left out still passes the "
              f'bounds ({broken}): they cannot tell it')
-    if experts != [cfg.n_experts // MOE_RANKS] * MOE_RANKS:
-        fail(f'phase 20 (a): experts a rank {experts}')
-    report['moe'] = dict(sound=sound, no_expert_sum=broken,
+    if local != want:
+        fail(f'phase 20 (a): we1 a rank {local}, expected {want}')
+    report['moe'] = dict(sound=sound, no_model_sum=broken,
                          losses=moe_run['losses'])
     # (b) GPipe against the one-rank controls.
     for stages, dtype_name, layers in ((PP_STAGES[0], 'bf16', None),
@@ -6039,17 +6358,25 @@ def main() -> int:
     wgmma_sass_check(cuda_build)
     hmma_sass_check(cuda_build)
 
-    def phase_done(label):
-        print(f'[time] {label} done at {time.perf_counter() - t_start:.1f}s',
-              flush=True)
+    last = [t_start]
 
+    def phase_done(label):
+        now = time.perf_counter()
+        print(f'[time] {label}: {now - last[0]:.1f}s, done at '
+              f'{now - t_start:.1f}s', flush=True)
+        last[0] = now
+
+    phase_done('phase 1 (the build and SASS checks)')
     rows = kernel_phase(torch, da, quant)
+    phase_done('phase 2')
     params, counts, paged_batches, paged_results, dense_results = \
         main_path_phase(torch, ms_lib, da, card)
+    phase_done('phase 3')
     worst = e2e_phase(torch, decode, llama, params)
     print(f'[e2e] worst max|dlogit| / max|logit|: {worst}', flush=True)
+    phase_done('phase 4')
     phase5 = profile_phase(torch, decode, llama, params, card)
-    phase_done('serving phases 2-5')
+    phase_done('phase 5')
 
     # Phase 9 (speculative decoding) while the llama3-8b weights are up.
     verify_rows = verify_kernel_phase(torch, da, quant)
@@ -6102,7 +6429,8 @@ def main() -> int:
 
     # Phase 13 (the cross-replica prefix fetch) while the weights are up.
     da.reset_launch_counts()
-    prefix_report = prefix_fetch_phase(torch, ms_lib, da, params, card)
+    with served_depth(ms_lib, params, PREFIX_LAYERS) as cut:
+        prefix_report = prefix_fetch_phase(torch, ms_lib, da, cut, card)
     phase13_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
     print(f'[phase 13] launches {phase13_counts}; {prefix_report}',
           flush=True)
@@ -6110,7 +6438,8 @@ def main() -> int:
 
     # Phase 15 (the disaggregated handoff) while the weights are up.
     da.reset_launch_counts()
-    handoff_report = handoff_phase(torch, ms_lib, da, params, card)
+    with served_depth(ms_lib, params, HANDOFF_LAYERS) as cut:
+        handoff_report = handoff_phase(torch, ms_lib, da, cut, card)
     phase15_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
     print(f'[phase 15] launches {phase15_counts}; {handoff_report}',
           flush=True)
@@ -6118,7 +6447,8 @@ def main() -> int:
 
     # Phase 16 (the durable block store) while the weights are up.
     da.reset_launch_counts()
-    store_report = store_phase(torch, ms_lib, da, params, card)
+    with served_depth(ms_lib, params, STORE_LAYERS) as cut:
+        store_report = store_phase(torch, ms_lib, da, cut, card)
     phase16_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
     print(f'[phase 16] launches {phase16_counts}; {store_report}',
           flush=True)
@@ -6139,15 +6469,17 @@ def main() -> int:
 
     # Phase 18 (the TP replica) while the weights are up.
     da.reset_launch_counts()
-    tp_report = tp_phase(torch, ms_lib, da, quant, decode, llama, params,
-                         paged_batches, card)
+    with served_depth(ms_lib, params, TP_LAYERS) as cut:
+        tp_report = tp_phase(torch, ms_lib, da, quant, decode, llama, cut,
+                             paged_batches, card)
     phase18_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
     print(f'[phase 18] launches {phase18_counts}; {tp_report}', flush=True)
     for kname in ('paged_decode_attention_kernel',
                   'paged_verify_attention_kernel'):
         if not phase18_counts[kname]:
             fail(f'{kname} was not launched in phase 18: {phase18_counts}')
-    del params, spec_runs, paged_results, dense_results
+    # The last cut's views hold every layer's storage: let them go too.
+    del params, cut, spec_runs, paged_results, dense_results
     torch.cuda.empty_cache()
     phase_done('phase 18')
 

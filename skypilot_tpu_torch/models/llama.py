@@ -404,8 +404,11 @@ def ffn_sublayer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
 def _block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
            cos: torch.Tensor, sin: torch.Tensor,
            impl: Optional[str],
-           mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
+           mesh: Optional[mesh_lib.Mesh] = None,
+           saved: Optional['_SavedGemms'] = None) -> torch.Tensor:
     layer = _gathered(layer, mesh, _FSDP_DIM)
+    if saved is not None:
+        saved.mark(layer)
     x, _, _ = attn_sublayer(cfg, x, layer, cos, sin, impl, mesh)
     return ffn_sublayer(cfg, x, layer, mesh)
 
@@ -429,32 +432,41 @@ SAVED_GEMMS = {'dots': ('wq', 'wk', 'wv', 'wo', 'w1', 'w3'),
                'ffn1': ('w1',)}
 
 
-def check_remat(cfg: LlamaConfig,
-                mesh: Optional[mesh_lib.Mesh] = None) -> None:
-    """Raise on a remat policy this port does not run (on ``mesh``)."""
+def check_remat(cfg: LlamaConfig) -> None:
+    """Raise on a remat policy the reference does not have."""
     if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f'unknown remat_policy: {cfg.remat_policy!r} '
                          "(expected 'full', 'dots', 'ffn', 'ffn1' or 'attn')")
-    if (cfg.remat and cfg.remat_policy in SAVED_GEMMS and mesh is not None
-            and mesh.size(mesh_lib.FSDP_AXIS) > 1):
-        # The policy finds the GEMMs to keep by their weights' storage;
-        # a block's gathered weights are new tensors each pass.
-        raise NotImplementedError(
-            f'remat_policy {cfg.remat_policy!r} over an fsdp axis is not '
-            "ported to skypilot_tpu_torch yet ('full' and 'attn' are)")
 
 
-def _saved_gemms_context(weights):
+class _SavedGemms:
+    """The weights whose products a selective policy keeps, as one pass
+    of a checkpointed block holds them. The block marks them after its
+    fsdp gather (:func:`_block`), in the forward and again in the
+    recompute, so the policy finds the same GEMMs in both passes though
+    a gather makes new tensors each time; the gathered weights
+    themselves are never kept."""
+
+    def __init__(self, names):
+        self.names = tuple(names)
+        self.storages = frozenset()
+
+    def mark(self, layer: Params) -> None:
+        self.storages = frozenset(layer[n].untyped_storage().data_ptr()
+                                  for n in self.names)
+
+
+def _saved_gemms_context(saved: _SavedGemms):
     """Selective-checkpoint contexts that keep the output of every
-    ``aten.mm`` whose second operand lies in one of ``weights``'
-    storages (``x @ w`` on a [B, S, in] x reaches the dispatcher as an
-    ``mm`` of its [B·S, in] fold) and recompute everything else."""
-    storages = {w.untyped_storage().data_ptr() for w in weights}
-
+    ``aten.mm`` whose second operand lies in a storage ``saved`` marked
+    (``x @ w`` on a [B, S, in] x reaches the dispatcher as an ``mm`` of
+    its [B·S, in] fold; a row-parallel product's output is the rank's
+    part, before the sum over 'model') and recompute everything else,
+    the fsdp gathers and the 'model' sums included."""
     def policy(ctx, op, *args, **kwargs):
         del ctx, kwargs
         if (op is torch.ops.aten.mm.default and
-                args[1].untyped_storage().data_ptr() in storages):
+                args[1].untyped_storage().data_ptr() in saved.storages):
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -473,18 +485,21 @@ def remat_block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
     segments). Everything else is recomputed, the flash forward under
     every policy, as the reference recomputes it (it never keeps the
     LSE). The policies change memory and recompute, never values. On a
-    mesh each segment gathers its weights inside."""
+    mesh each segment gathers its weights inside, so the recompute
+    gathers them again and the kept GEMM outputs are the rank's shard
+    widths."""
     policy = cfg.remat_policy
     if policy == 'attn':
         attn = checkpoint(_attention_out, cfg, x, layer, cos, sin, impl,
                           mesh, use_reentrant=False)
         return checkpoint(_after_attention, cfg, x, attn, layer, mesh,
                           use_reentrant=False)
-    kwargs = {}
+    saved, kwargs = None, {}
     if policy in SAVED_GEMMS:
-        kwargs['context_fn'] = functools.partial(
-            _saved_gemms_context, [layer[n] for n in SAVED_GEMMS[policy]])
-    return checkpoint(_block, cfg, x, layer, cos, sin, impl, mesh,
+        saved = _SavedGemms(SAVED_GEMMS[policy])
+        kwargs['context_fn'] = functools.partial(_saved_gemms_context,
+                                                 saved)
+    return checkpoint(_block, cfg, x, layer, cos, sin, impl, mesh, saved,
                       use_reentrant=False, **kwargs)
 
 
@@ -525,7 +540,7 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     their gradients come back as one stack instead of one full-size
     tensor per layer. On a ``mesh``: this rank's slices and rows (see
     the module's docstring)."""
-    check_remat(cfg, mesh)
+    check_remat(cfg)
     check_no_ring(cfg)
     s = tokens.shape[1]
     if positions is None:

@@ -28,8 +28,17 @@ batch has them: each block gathers the normed rows of every batch rank
 row-major order, runs its experts on them, sums the experts' parts over
 'expert' (forward sum, backward identity) and keeps its own rows. The
 aux loss, a mean over the global batch, enters each batch rank's loss
-share divided by the batch ranks, so the shares sum to it once. A
-'model' axis inside the experts is not ported.
+share divided by the batch ranks, so the shares sum to it once.
+
+A 'model' axis splits each expert Megatron-style, as the reference's
+specs do: a rank holds ``[E/expert, d, f/model]`` of we1/we3 and
+``[E/expert, f/model, d]`` of we2 after its fsdp gather, its SwiGLU
+gives a partial output in fp32, and one sum over ('expert', 'model') of
+the combined ``[T, d]`` rows, in fp32 before the cast, makes the layer's
+output, as the reference's GSPMD program sums it; the grads of the
+region's inputs (the router's probabilities and the rows) are summed
+over both axes. Attention on the same mesh is llama's tensor-parallel
+sublayer.
 """
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
@@ -105,13 +114,9 @@ def init_params(cfg: MoeConfig, generator: torch.Generator, device='cpu',
 
 
 def check_mesh(cfg: MoeConfig, mesh: Optional[mesh_lib.Mesh]) -> None:
-    """Raise on a mesh this port does not run the model on."""
+    """Raise on a mesh whose 'expert' axis does not split the experts."""
     if mesh is None:
         return
-    if mesh.size(mesh_lib.MODEL_AXIS) > 1:
-        raise NotImplementedError(
-            "a 'model' axis inside the experts is not ported to "
-            'skypilot_tpu_torch yet (ROADMAP.md, queue 1)')
     if cfg.n_experts % mesh.size(mesh_lib.EXPERT_AXIS):
         raise ValueError(f'{cfg.n_experts} experts do not split over an '
                          f"'expert' axis of {mesh.size(mesh_lib.EXPERT_AXIS)}")
@@ -170,7 +175,9 @@ def _experts(xin: torch.Tensor, we1: torch.Tensor, we3: torch.Tensor,
     """xin [E, C, d] → [E, C, d] fp32: SwiGLU per expert, the products
     with fp32 accumulation (fp32 operands: a product of two model-dtype
     values is exact in fp32), the activation cast to the model dtype
-    before ``we2``."""
+    before ``we2``. On a 'model' rank the weights are its ``f/model``
+    columns of we1/we3 and rows of we2, and the result its part of the
+    sum over them."""
     gate = torch.nn.functional.silu(
         torch.einsum('ecd,edf->ecf', xin.float(), we1.float()))
     up = torch.einsum('ecd,edf->ecf', xin.float(), we3.float())
@@ -179,8 +186,10 @@ def _experts(xin: torch.Tensor, we1: torch.Tensor, we3: torch.Tensor,
 
 
 def _expert_sum(out: torch.Tensor, mesh: mesh_lib.Mesh) -> torch.Tensor:
-    """The experts' parts of the layer output summed over 'expert'."""
-    return mesh_lib.reduce_from(out, mesh, mesh_lib.EXPERT_AXIS)
+    """The ranks' parts of the layer output [T, d] summed over 'expert'
+    and 'model' in fp32 (one sum, on T rows where [E, C] would be ~2.5x
+    as many)."""
+    return mesh_lib.reduce_from(out, mesh, mesh_lib.EXPERT_REGION_AXES)
 
 
 def moe_ffn(h: torch.Tensor, layer: Params, cfg: MoeConfig,
@@ -194,10 +203,12 @@ def moe_ffn(h: torch.Tensor, layer: Params, cfg: MoeConfig,
     flat = rows.reshape(-1, d)
     probs = probs_x = torch.softmax(flat.float() @ layer['router'], dim=-1)
     if mesh is not None:
-        # The expert region: each rank runs its experts, and its part of
-        # the grads of the region's inputs is summed over 'expert'.
-        probs_x = mesh_lib.copy_to(probs, mesh, mesh_lib.EXPERT_AXIS)
-        flat = mesh_lib.copy_to(flat, mesh, mesh_lib.EXPERT_AXIS)
+        # The expert region: each rank runs its slice of its experts,
+        # and its part of the grads of the region's inputs is summed over
+        # 'expert' and 'model'.
+        probs_x = mesh_lib.copy_to(probs, mesh,
+                                   mesh_lib.EXPERT_REGION_AXES)
+        flat = mesh_lib.copy_to(flat, mesh, mesh_lib.EXPERT_REGION_AXES)
     combine, onehot = _assign(probs_x, cfg)
     aux = _aux(probs, onehot, cfg)
     if mesh is not None:

@@ -15,8 +15,9 @@ for the sharded params; the batch ranks for the replicated norms), the
 global-norm clip counts every leaf once, and the AdamW update runs
 elementwise on each rank's slices. A ``moe.MoeConfig`` trains the
 mixture of experts of ``models/moe.py`` the same way, its experts split
-over 'expert'. The optimizer is written as plain functions on tensors
-that reproduce optax's arithmetic step for step, for
+over 'expert' and each expert over 'model'. The optimizer is written as
+plain functions on tensors that reproduce optax's arithmetic step for
+step, for
 ``chain(clip_by_global_norm(grad_clip), adamw(schedule))``:
 
 * ``clip_by_global_norm``: rescale by ``max_norm / norm`` only when
@@ -222,9 +223,9 @@ def _check_mesh(model_cfg: llama.LlamaConfig,
         moe.check_mesh(model_cfg, mesh)
         return
     llama.check_no_ring(model_cfg)
+    llama.check_remat(model_cfg)
     if mesh is None:
         return
-    llama.check_remat(model_cfg, mesh)
     tp = mesh.size(mesh_lib.MODEL_AXIS)
     if model_cfg.n_kv_heads % tp:
         raise ValueError(f'{model_cfg.n_kv_heads} KV heads do not split '
@@ -251,12 +252,19 @@ def init_train_state(model_cfg: llama.LlamaConfig, train_cfg: TrainConfig,
                       step=0)
 
 
+def specs_of(params: Params) -> Params:
+    """The partition specs of a params-shaped tree: the MoE's when its
+    layers hold a router, else llama's."""
+    model = moe if 'router' in params.get('layers', {}) else llama
+    return model.param_partition_specs(None)
+
+
 def shard_state(state: TrainState, mesh: Optional[mesh_lib.Mesh],
                 device=None) -> TrainState:
     """This rank's slices of a whole ``state`` (params and moments under
-    ``llama.param_partition_specs``; all of it without a ``mesh``), as
-    new tensors on ``device`` (default the state's)."""
-    specs = llama.param_partition_specs(None)
+    :func:`specs_of`; all of it without a ``mesh``), as new tensors on
+    ``device`` (default the state's)."""
+    specs = specs_of(state.params)
 
     def shard(tree):
         if mesh is None:
@@ -272,11 +280,12 @@ def shard_state(state: TrainState, mesh: Optional[mesh_lib.Mesh],
 
 
 def gather_tree(tree, mesh: mesh_lib.Mesh, specs=None):
-    """The whole tensors of a sharded params-shaped tree on rank 0's
-    host (None leaves elsewhere; every rank calls it). A layer-stacked
-    leaf is gathered a layer at a time, each layer copied to the host
-    before the next, so no card holds more than one layer of it whole."""
-    specs = specs or llama.param_partition_specs(None)
+    """The whole tensors of a sharded params-shaped tree (its specs by
+    default :func:`specs_of`'s) on rank 0's host (None leaves elsewhere;
+    every rank calls it). A layer-stacked leaf is gathered a layer at a
+    time, each layer copied to the host before the next, so no card
+    holds more than one layer of it whole."""
+    specs = specs or specs_of(tree)
     if isinstance(tree, dict):
         return {k: gather_tree(tree[k], mesh, specs[k]) for k in tree}
     if len(specs) == 1 or specs[0] is not None:

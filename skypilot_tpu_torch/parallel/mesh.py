@@ -76,13 +76,16 @@ REPLICA_AXES = (DCN_AXIS, DATA_AXIS)
 PARAM_AXES = (FSDP_AXIS, MODEL_AXIS)
 # A pipeline mesh's layer axis (``parallel/pipeline.make_pp_mesh``).
 STAGE_AXIS = 'stage'
-# The axes an expert weight splits over (``models/moe.py``).
+# The axes an expert weight splits over (``models/moe.py``), and those
+# its experts' partial outputs are summed over.
 EXPERT_PARAM_AXES = (FSDP_AXIS, EXPERT_AXIS, MODEL_AXIS)
+EXPERT_REGION_AXES = (EXPERT_AXIS, MODEL_AXIS)
 # The sets of axes a train step reduces over: a process group each (over
 # the axes of more than one rank the mesh has).
 GROUP_AXES = tuple(
     (a,) for a in (DCN_AXIS,) + AXIS_ORDER + (STAGE_AXIS,)) + (
-        BATCH_AXES, REPLICA_AXES, PARAM_AXES, EXPERT_PARAM_AXES)
+        BATCH_AXES, REPLICA_AXES, PARAM_AXES, EXPERT_PARAM_AXES,
+        EXPERT_REGION_AXES)
 BACKENDS = ('nccl', 'gloo')
 Axes = Union[str, Tuple[str, ...]]
 
@@ -299,6 +302,16 @@ class Mesh:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return out.to(t.device)
+
+    def barrier(self) -> None:
+        """Return once every rank of the mesh has called it: a barrier
+        over each axis in turn (the last axis's returns only after every
+        rank on its line passed the earlier axes', which waited for
+        theirs, so every rank of the grid has arrived)."""
+        for axis in self.shape:
+            group = self._group(axis)
+            if group is not None:
+                dist.barrier(group=group)
 
     def gather_to_root(self, x: torch.Tensor,
                        spec: Tuple) -> Optional[torch.Tensor]:

@@ -14,8 +14,10 @@ against the reference's ``skypilot_tpu/models/moe.py`` on the
   four ranks), against the reference's ``value_and_grad(loss_fn)`` jitted
   over its (data 2, expert 2) mesh of 4 virtual devices as
   ``tests/unit_tests/test_moe.py`` runs it;
-* a 'model' axis is refused, and so is an expert count the 'expert'
-  axis does not split.
+* a 'model' axis inside the experts: loss and grads at (expert 2,
+  model 2) and (fsdp 2, model 2) against the reference's jitted step on
+  the same mesh of 4 virtual devices, fp32 within 2e-5;
+* an expert count the 'expert' axis does not split is refused.
 
 This file imports JAX only inside the fixtures and cases that run the
 reference, so the ranks do not.
@@ -40,6 +42,12 @@ MESHES = {
     'data2-expert2': (4, dict(data=2, fsdp=1, expert=2)),
     'fsdp2-expert2': (4, dict(fsdp=2, expert=2)),
     'expert2': (2, dict(fsdp=1, expert=2)),
+}
+# Meshes with a 'model' axis inside the experts, each against the
+# reference's step on the same mesh.
+MODEL_MESHES = {
+    'expert2-model2': (4, dict(fsdp=1, expert=2, model=2)),
+    'fsdp2-model2': (4, dict(fsdp=2, expert=1, model=2)),
 }
 VARIANTS = {'plain': dict(), 'remat-flash': dict(remat=True,
                                                  flash_attention=True)}
@@ -76,7 +84,7 @@ def _mesh_runs(tree):
     specs = tmoe.param_partition_specs(cfg)
     tokens, targets = (torch.from_numpy(a) for a in _batch())
     out = {}
-    for name, (n, kw) in MESHES.items():
+    for name, (n, kw) in {**MESHES, **MODEL_MESHES}.items():
         mesh = tmesh.make_mesh(tmesh.MeshConfig(**kw), ranks=range(n))
         if mesh is None:
             continue
@@ -113,17 +121,20 @@ def reference():
                          loss=float(loss), grads=jax.tree.map(np.asarray,
                                                               grads))
     cfg = _reference_cfg()
-    mesh = jmesh.make_mesh(jmesh.MeshConfig(data=2, fsdp=1, expert=2,
-                                            model=1),
-                           devices=jax.devices()[:4])
-    sharded = jmesh.shard_params(params, mesh,
-                                 jmoe.param_partition_specs(cfg))
-    with mesh:
-        loss, grads = jax.jit(jax.value_and_grad(
-            lambda p, t, g: jmoe.loss_fn(p, t, g, cfg)))(sharded, tokens,
-                                                        targets)
-    out['mesh'] = dict(loss=float(loss),
-                       grads=jax.tree.map(np.asarray, grads))
+    meshes = {'mesh': dict(data=2, fsdp=1, expert=2, model=1)}
+    meshes.update((name, dict(dict(data=1), **kw))
+                  for name, (_, kw) in MODEL_MESHES.items())
+    for name, kw in meshes.items():
+        mesh = jmesh.make_mesh(jmesh.MeshConfig(**kw),
+                               devices=jax.devices()[:4])
+        sharded = jmesh.shard_params(params, mesh,
+                                     jmoe.param_partition_specs(cfg))
+        with mesh:
+            loss, grads = jax.jit(jax.value_and_grad(
+                lambda p, t, g: jmoe.loss_fn(p, t, g, cfg)))(
+                    sharded, tokens, targets)
+        out[name] = dict(loss=float(loss),
+                         grads=jax.tree.map(np.asarray, grads))
     out['params'] = jax.tree.map(np.asarray, params)
     return out
 
@@ -203,12 +214,22 @@ def test_mesh_loss_and_grads_match_the_reference(reference, mesh_runs,
     assert got['local_we1'][1] == n_local
 
 
-def test_unported_meshes_are_refused():
+def test_unported_meshes_are_refused(reference, mesh_runs):
+    """A 'model' axis inside the experts is no longer refused: at
+    (expert 2, model 2) and (fsdp 2, model 2) the loss and grads match
+    the reference's jitted step on the same mesh, each rank holding its
+    f/model columns of we1. An expert count the 'expert' axis does not
+    split still raises."""
     cfg = _port_cfg()
-    mesh = tmesh.make_mesh(tmesh.MeshConfig(fsdp=1, expert=2, model=2),
-                           ranks=range(4))
-    with pytest.raises(NotImplementedError, match='model'):
-        ttrain.make_train_step(cfg, ttrain.TrainConfig(), mesh)
+    for name, (_, kw) in MODEL_MESHES.items():
+        got, want = mesh_runs[name], reference[name]
+        np.testing.assert_allclose(got['loss'], want['loss'], rtol=F32_TOL)
+        np.testing.assert_allclose(got['loss'], reference['plain']['loss'],
+                                   rtol=F32_TOL)
+        _check_grads(got['grads'], want['grads'])
+        assert got['local_we1'][1:] == (
+            cfg.n_experts // kw['expert'], cfg.dim // kw['fsdp'],
+            cfg.ffn_dim // kw['model']), name
     mesh = tmesh.make_mesh(tmesh.MeshConfig(fsdp=1, expert=8),
                            ranks=range(8))
     with pytest.raises(ValueError, match='experts'):

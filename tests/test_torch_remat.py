@@ -18,26 +18,29 @@ twins on the CPU) and without:
   fallback). The port's are the storages that one ``remat_block`` call
   creates and that are still alive when it returns (recorded by a
   ``TorchDispatchMode`` as ``StorageWeakRef``s), less its output, plus
-  its input, which checkpointing keeps.
+  its input, which checkpointing keeps. The same set is kept on an
+  (fsdp 2) mesh of two gloo CPU ranks (one ``local_ranks`` call), where
+  each block gathers its weights inside the checkpointed region, and no
+  kept tensor has a gathered weight's shape.
+
+This file imports JAX only inside the functions that run the reference,
+so the ranks do not.
 """
 import dataclasses
 import gc
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax._src.ad_checkpoint import saved_residuals
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from skypilot_tpu.models import llama as jllama
-from skypilot_tpu.ops import flash_attention as jflash
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import llama as tllama
 from skypilot_tpu_torch.models import train as ttrain
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(2)
 
@@ -58,14 +61,22 @@ REFERENCE_SAVED = {'full': [64],
                    'attn': [64, 64]}
 
 
+def _port_cfg(policy, flash, dtype_name='fp32'):
+    tcfg = dataclasses.replace(tllama.CONFIGS['debug'], remat=True,
+                               remat_policy=policy, flash_attention=flash)
+    if dtype_name == 'fp32':
+        tcfg = dataclasses.replace(tcfg, dtype=torch.float32)
+    return tcfg
+
+
 def _configs(policy, flash, dtype_name='fp32'):
-    kw = dict(remat=True, remat_policy=policy, flash_attention=flash)
-    jcfg = dataclasses.replace(jllama.CONFIGS['debug'], **kw)
-    tcfg = dataclasses.replace(tllama.CONFIGS['debug'], **kw)
+    import jax.numpy as jnp  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu.models import llama as jllama  # pylint: disable=import-outside-toplevel
+    jcfg = dataclasses.replace(jllama.CONFIGS['debug'], remat=True,
+                               remat_policy=policy, flash_attention=flash)
     if dtype_name == 'fp32':
         jcfg = dataclasses.replace(jcfg, dtype=jnp.float32)
-        tcfg = dataclasses.replace(tcfg, dtype=torch.float32)
-    return jcfg, tcfg
+    return jcfg, _port_cfg(policy, flash, dtype_name)
 
 
 def _batch():
@@ -96,6 +107,9 @@ def _f32(x):
 @pytest.mark.parametrize('dtype_name', ['fp32', 'bf16'])
 def test_loss_and_grads_match_reference_under_policy(dtype_name, policy,
                                                      flash):
+    import jax  # pylint: disable=import-outside-toplevel
+    import jax.numpy as jnp  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu.models import llama as jllama  # pylint: disable=import-outside-toplevel
     jcfg, tcfg = _configs(policy, flash, dtype_name)
     jparams = jllama.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
@@ -126,8 +140,8 @@ def test_loss_and_grads_match_reference_under_policy(dtype_name, policy,
 @pytest.mark.parametrize('policy', POLICIES[1:])
 def test_policy_is_bit_equal_to_full(policy, flash):
     """bf16, the trainer's dtype: loss and every grad bit for bit."""
-    _, full_cfg = _configs('full', flash, 'bf16')
-    _, tcfg = _configs(policy, flash, 'bf16')
+    full_cfg = _port_cfg('full', flash, 'bf16')
+    tcfg = _port_cfg(policy, flash, 'bf16')
     params = tllama.init_params(full_cfg, torch.Generator().manual_seed(0))
     want_loss, want = _port_value_and_grad(params, full_cfg)
     got_loss, got = _port_value_and_grad(params, tcfg)
@@ -138,6 +152,11 @@ def test_policy_is_bit_equal_to_full(policy, flash):
 
 def _reference_saved(policy, flash, monkeypatch):
     """Widths of the reference's per-layer residual stacks."""
+    import jax  # pylint: disable=import-outside-toplevel
+    import jax.numpy as jnp  # pylint: disable=import-outside-toplevel
+    from jax._src.ad_checkpoint import saved_residuals  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu.models import llama as jllama  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu.ops import flash_attention as jflash  # pylint: disable=import-outside-toplevel
     monkeypatch.setattr(jflash, '_resolve_interpret', lambda _: True)
     jcfg, _ = _configs(policy, flash, 'bf16')
     params = jllama.init_params(jax.random.PRNGKey(0), jcfg)
@@ -150,7 +169,8 @@ def _reference_saved(policy, flash, monkeypatch):
 
 
 class _Outputs(TorchDispatchMode):
-    """Every op's output storages, as weak references."""
+    """Every op's output storages, as weak references, with each
+    output's element count and shape."""
 
     def __init__(self):
         super().__init__()
@@ -161,41 +181,75 @@ class _Outputs(TorchDispatchMode):
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 self.storages.append((StorageWeakRef(t.untyped_storage()),
-                                      t.numel()))
+                                      t.numel(), tuple(t.shape)))
         return out
 
 
-def _port_saved(policy, flash):
-    """Widths of what one block's backward keeps: the storages its
-    forward made that outlive the call, less its output, plus its
-    input."""
-    _, tcfg = _configs(policy, flash, 'bf16')
-    params = tllama.init_params(tcfg, torch.Generator().manual_seed(0))
+def _port_saved(policy, flash, mesh=None):
+    """(widths, shapes) of what one block's backward keeps: the storages
+    its forward made that outlive the call, less its output, plus its
+    input. On a ``mesh`` the block takes this rank's slices of layer 0
+    and gathers them inside."""
+    tcfg = _port_cfg(policy, flash, 'bf16')
+    params = tllama.init_params(tcfg, torch.Generator().manual_seed(0),
+                                mesh=mesh)
     layer = {k: w.requires_grad_(True)
              for k, w in tllama.layer_params(params, 0).items()}
     cos, sin = tllama._rope_freqs(tcfg, torch.arange(S))
     x = torch.randn(B, S, tcfg.dim).to(tcfg.dtype).requires_grad_(True)
     mode = _Outputs()
     with mode:
-        out = tllama.remat_block(tcfg, x, layer, cos, sin)
+        out = tllama.remat_block(tcfg, x, layer, cos, sin, mesh=mesh)
     gc.collect()
     known = {StorageWeakRef(t.untyped_storage()).cdata
              for t in [x, cos, sin, out, *layer.values()]}
     alive = {}
-    for ref, numel in mode.storages:
+    for ref, numel, shape in mode.storages:
         if not ref.expired() and ref.cdata not in known:
-            alive[ref.cdata] = numel // (B * S)
+            alive[ref.cdata] = (numel // (B * S), shape)
     out.float().sum().backward()     # the graph still runs
     assert x.grad is not None and torch.isfinite(x.grad.float()).all()
-    return sorted(list(alive.values()) + [tcfg.dim])
+    return (sorted([w for w, _ in alive.values()] + [tcfg.dim]),
+            sorted(shape for _, shape in alive.values()))
+
+
+def _gathered_shapes():
+    """A layer's weights as a block gathers them over fsdp: their whole
+    per-layer shapes."""
+    shapes = tllama.param_shapes(tllama.CONFIGS['debug'])['layers']
+    return {tuple(shape[1:]) for shape in shapes.values()}
+
+
+def _mesh_saved_sets():
+    """Rank function: ``_port_saved`` of every policy, with and without
+    flash, on an (fsdp 2) mesh; every rank's readings."""
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(fsdp=2))
+    mine = {(policy, flash): _port_saved(policy, flash, mesh)
+            for policy in POLICIES for flash in (True, False)}
+    seen = [None] * mesh.num_ranks
+    torch.distributed.all_gather_object(seen, mine)
+    return seen
+
+
+@pytest.fixture(scope='module')
+def mesh_saved():
+    return distributed.local_ranks(2, _mesh_saved_sets, platform='cpu')
 
 
 @pytest.mark.parametrize('flash', [True, False])
 @pytest.mark.parametrize('policy', POLICIES)
-def test_saved_set_matches_reference(policy, flash, monkeypatch):
+def test_saved_set_matches_reference(policy, flash, monkeypatch,
+                                     mesh_saved):
+    """The one-device set equals the reference's; on an (fsdp 2) mesh
+    every rank keeps the same widths, none of them a gathered weight."""
     want = _reference_saved(policy, flash, monkeypatch)
     assert want == REFERENCE_SAVED[policy]
-    assert _port_saved(policy, flash) == want
+    assert _port_saved(policy, flash)[0] == want
+    gathered = _gathered_shapes()
+    for rank in mesh_saved:
+        widths, shapes = rank[(policy, flash)]
+        assert widths == want
+        assert not gathered & set(shapes), shapes
 
 
 def test_unknown_policy_raises():

@@ -19,12 +19,22 @@ same global batches:
 * bf16 at (fsdp 2, model 2): the step-1 loss within rtol 5e-3, the
   reference's own bound for its sharded step
   (tests/unit_tests/test_models.py::test_sharded_train_step_dp_fsdp_tp);
-* a rank's init and save make no tensor larger than one layer of a
-  stacked leaf, and the same seed draws the same params at any mesh;
-* checkpoints in the one-device format: one saved at (fsdp 2, model 2)
-  resumes on one rank and one saved on one rank resumes at (fsdp 2,
-  model 2), each continuing with the losses of a run never stopped
-  (fp32, rel 2e-5);
+* the selective remat policies 'dots', 'ffn' and 'ffn1' at (fsdp 2,
+  model 2), fp32, under the fp32 rules above against the reference's
+  sharded step under the same policy, and bit-equal to the port's own
+  'full' on the same mesh (losses, grad norms, grads and params);
+* a rank's init makes no tensor larger than one layer of a stacked
+  leaf, its save no tensor larger than its own slices and no gather,
+  and the same seed draws the same params at any mesh;
+* checkpoints: one saved at (fsdp 2, model 2) resumes on one rank and
+  one saved on one rank resumes at (fsdp 2, model 2), each continuing
+  with the losses of a run never stopped (fp32, rel 2e-5); states saved
+  at (fsdp 2, model 2), (fsdp 4) and (data 2, fsdp 2) restore bit-equal
+  on one device and as every rank's slices of each of those meshes;
+  each rank's file holds exactly the slices the index gives it, a
+  replicated slice written once; an MoE state saves and restores on an
+  (expert 2) mesh; a step directory in the earlier one-file format
+  still restores;
 * fp32 at (fsdp 2, seq 2) and (fsdp 2, expert 2), read as the reference
   reads those axes (the batch split over fsdp only, params and moments
   replicated along seq and expert, no sum over either), under the fp32
@@ -39,6 +49,7 @@ This file imports JAX only inside the fixtures and cases that run the
 reference, so the ranks do not.
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -71,7 +82,21 @@ CASES = {
     'fsdp2-seq2': (None, dict(fsdp=2, seq=2), 'fp32', dict()),
     'fsdp2-expert2': (None, dict(fsdp=2, expert=2), 'fp32', dict()),
 }
+# The selective policies over fsdp, each the 'fsdp2-model2' case but
+# for its policy.
+POLICIES = ('dots', 'ffn', 'ffn1')
+for _policy in POLICIES:
+    CASES[f'fsdp2-model2-{_policy}'] = (
+        None, dict(fsdp=2, model=2), 'fp32',
+        dict(CASES['fsdp2-model2'][3], remat_policy=_policy))
 CKPT_CASE = 'fsdp2-model2'
+# Sharded saves (name → MeshConfig kwargs and the ranks that hold the
+# mesh), each restored on one device and as every rank of SAVE_MESHES.
+SAVE_MESHES = {'fsdp2-model2': (dict(fsdp=2, model=2), 4),
+               'fsdp4': (dict(fsdp=4), 4),
+               'data2-fsdp2': (dict(data=2, fsdp=2), 4)}
+MOE_SAVE_MESH = (dict(fsdp=1, expert=2), 2)
+SAVE_STEP, SAVE_COUNT = 5, 3
 
 
 def _train_cfg():
@@ -146,7 +171,35 @@ def _rank_runs(trees, ckpt_dirs):
                           i, float(m['loss'])))
     out['resumed_on_mesh'] = resumed
     out['one_layer'] = _one_layer_whole(mesh, ckpt_dirs['layers'])
+    for name, (kw, n) in SAVE_MESHES.items():
+        mesh = tmesh.make_mesh(tmesh.MeshConfig(**kw), ranks=range(n))
+        tckpt.save(os.path.join(ckpt_dirs['saves'], name),
+                   _save_state(_port_cfg('fp32', {}), mesh), SAVE_STEP,
+                   mesh=mesh)
+    kw, n = MOE_SAVE_MESH
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(**kw), ranks=range(n))
+    if mesh is not None:
+        tckpt.save(os.path.join(ckpt_dirs['saves'], 'moe'),
+                   _save_state(_moe_cfg(), mesh), SAVE_STEP, mesh=mesh)
     return out
+
+
+def _moe_cfg():
+    from skypilot_tpu_torch.models import moe as tmoe  # pylint: disable=import-outside-toplevel
+    return dataclasses.replace(tmoe.CONFIGS['moe-debug'],
+                               dtype=torch.float32)
+
+
+def _save_state(cfg, mesh=None):
+    """The seed-0 state (on ``mesh``, this rank's slices) with moments
+    made from the params elementwise (so a rank's slices of them are
+    the whole moments' slices) and a count and step of its own."""
+    state = ttrain.init_train_state(cfg, _train_cfg(), 'cpu', mesh)
+    opt = state.opt_state
+    opt.mu = ttrain.tree_map(lambda p: p * 0.5 - 1, state.params)
+    opt.nu = ttrain.tree_map(lambda p: p * p + 2, state.params)
+    opt.count, state.step = SAVE_COUNT, SAVE_STEP
+    return state
 
 
 # Four layers and a small vocab, so a stacked leaf (w1: 4 x 8192) is
@@ -156,8 +209,9 @@ LAYERS_OVERRIDES = dict(n_layers=4, vocab_size=64)
 
 def _one_layer_whole(mesh, ckpt_dir):
     """Rank function part: a sharded init and save of a LAYERS_OVERRIDES
-    state, with the largest tensor any op of the init made and the
-    largest tensor the save's gathers returned."""
+    state, with the largest tensor any op of the init made, the largest
+    any op of the save made, the rank's largest slice, and the gathers
+    the save made."""
     from torch.utils import _python_dispatch  # pylint: disable=import-outside-toplevel
 
     class Largest(_python_dispatch.TorchDispatchMode):
@@ -178,16 +232,22 @@ def _one_layer_whole(mesh, ckpt_dir):
     plain = mesh.gather_to_root
 
     def gather_to_root(x, spec):
-        whole = plain(x, spec)
-        gathered.append(0 if whole is None else whole.numel())
-        return whole
+        gathered.append(x.numel())
+        return plain(x, spec)
 
     mesh.gather_to_root = gather_to_root
     try:
-        tckpt.save(ckpt_dir, state, 1, mesh=mesh)
+        with Largest() as save:
+            tckpt.save(ckpt_dir, state, 1, mesh=mesh)
     finally:
         mesh.gather_to_root = plain
-    return dict(init_numel=init.numel, save_numel=max(gathered))
+    own = max(t.numel() for tree in (state.params, state.opt_state.mu,
+                                     state.opt_state.nu)
+              for t in ttrain.tree_leaves(tree))
+    seen = [None] * mesh.num_ranks
+    torch.distributed.all_gather_object(
+        seen, dict(save_numel=save.numel, own_numel=own, gathers=gathered))
+    return dict(init_numel=init.numel, save=seen)
 
 
 def _one_rank_losses(ckpt_dir, steps):
@@ -207,7 +267,7 @@ def runs(tmp_path_factory):
     import jax  # pylint: disable=import-outside-toplevel
     tmp = tmp_path_factory.mktemp('sharded_ckpt')
     dirs = {'mesh': str(tmp / 'mesh'), 'one': str(tmp / 'one'),
-            'layers': str(tmp / 'layers')}
+            'layers': str(tmp / 'layers'), 'saves': str(tmp / 'saves')}
     unbroken = _one_rank_losses(None, 4)
     _one_rank_losses(dirs['one'], 2)
     from skypilot_tpu.models import llama as jllama  # pylint: disable=import-outside-toplevel
@@ -222,6 +282,7 @@ def runs(tmp_path_factory):
     port['unbroken'] = unbroken
     port['resumed_on_one'] = _one_rank_losses(dirs['mesh'], 4)
     port['one_layer']['restored'] = tckpt.restore(dirs['layers'], 1, 'cpu')
+    port['saves'] = dirs['saves']
     reference = {name: _reference_run(*case)
                  for name, case in CASES.items()}
     return port, reference
@@ -320,9 +381,10 @@ def test_checkpoints_resume_across_meshes(runs):
 
 def test_init_and_save_hold_one_layer_of_a_stacked_leaf(runs):
     """At (fsdp 2, model 2) no op of a rank's init makes a tensor larger
-    than one layer of a stacked leaf or one leaf that is not stacked,
-    nor does any gather of the save return one; the params are those
-    one rank draws from the same seed."""
+    than one layer of a stacked leaf or one leaf that is not stacked;
+    during the save no rank makes a tensor larger than its own largest
+    slice, and no rank gathers; the params are those one rank draws from
+    the same seed."""
     port, _ = runs
     cfg = _port_cfg('fp32', LAYERS_OVERRIDES)
     shapes = tllama.param_shapes(cfg)
@@ -331,7 +393,10 @@ def test_init_and_save_hold_one_layer_of_a_stacked_leaf(runs):
                  if n != 'layers'])
     assert bound < max(int(np.prod(s)) for s in shapes['layers'].values())
     assert 0 < port['one_layer']['init_numel'] <= bound
-    assert 0 < port['one_layer']['save_numel'] <= bound
+    assert len(port['one_layer']['save']) == 4
+    for rank in port['one_layer']['save']:
+        assert 0 < rank['save_numel'] <= rank['own_numel'] <= bound
+        assert rank['gathers'] == []
     want = ttrain.init_train_state(cfg, _train_cfg(), 'cpu')
     for got, whole in zip(
             ttrain.tree_leaves(port['one_layer']['restored'].params),
@@ -400,11 +465,138 @@ def test_seq_or_expert_axis_raises(runs, case):
         jtrain.make_train_step(jcfg, tc, mesh=jm)(state, tokens, targets)
 
 
-def test_selective_remat_over_fsdp_raises():
-    cfg = _port_cfg('fp32', dict(remat=True, remat_policy='dots'))
-    mesh = tmesh.make_mesh(tmesh.MeshConfig(fsdp=2), ranks=range(2))
-    with pytest.raises(NotImplementedError, match='dots'):
-        ttrain.make_train_step(cfg, _train_cfg(), mesh)
+def test_selective_remat_over_fsdp_raises(runs):
+    """'dots', 'ffn' and 'ffn1' no longer raise over fsdp: at (fsdp 2,
+    model 2) each policy's fp32 steps match the reference's sharded step
+    under the same policy, and equal the port's 'full' on the same mesh
+    bit for bit."""
+    port, reference = runs
+    full = port['fsdp2-model2']
+    for policy in POLICIES:
+        name = f'fsdp2-model2-{policy}'
+        got = port[name]
+        _check_fp32_run(got, reference[name])
+        assert got['losses'] == full['losses'], policy
+        assert got['norms'] == full['norms'], policy
+        for key in ('grads', 'params'):
+            for (path, g), (_, w) in zip(_leaves(got[key]),
+                                         _leaves(full[key])):
+                np.testing.assert_array_equal(g, w,
+                                              err_msg=f'{policy} {path}')
+
+
+def _state_leaves(state):
+    return [(name, path, leaf)
+            for name, tree in (('params', state.params),
+                               ('mu', state.opt_state.mu),
+                               ('nu', state.opt_state.nu))
+            for path, leaf in _leaves(tree)]
+
+
+def _check_restores(root, cfg, specs, meshes):
+    """The checkpoint at ``root`` restored on one device equals the
+    whole state, and as every rank of each mesh of ``meshes`` (name →
+    (MeshConfig kwargs, ranks)) that rank's slices of it, checked
+    against its abstract state."""
+    whole = _save_state(cfg)
+    one, step = tckpt.restore_latest(root, 'cpu')
+    assert step == SAVE_STEP and one.step == SAVE_STEP
+    assert one.opt_state.count == SAVE_COUNT
+    for (_, path, got), (_, _, want) in zip(_state_leaves(one),
+                                            _state_leaves(whole)):
+        assert got.dtype == want.dtype and torch.equal(got, want), path
+    spec_of = dict(_leaves(specs))
+    for kw, n in meshes.values():
+        for rank in range(n):
+            mesh = tmesh.make_mesh(tmesh.MeshConfig(**kw), ranks=range(n),
+                                   rank=rank)
+            restored = tckpt.restore(
+                root, SAVE_STEP, 'cpu', mesh,
+                tckpt.abstract_train_state(cfg, _train_cfg(), mesh))
+            for (_, path, got), (_, _, want) in zip(
+                    _state_leaves(restored), _state_leaves(whole)):
+                assert torch.equal(got, tmesh.shard_tensor(
+                    want, spec_of[path], mesh)), (kw, rank, path)
+
+
+@pytest.mark.parametrize('saved_on', sorted(SAVE_MESHES))
+def test_sharded_save_restores_on_any_mesh(runs, saved_on):
+    """A state saved on each mesh restores bit-equal on one device and
+    as every rank's slices of every mesh of SAVE_MESHES."""
+    port, _ = runs
+    cfg = _port_cfg('fp32', {})
+    _check_restores(os.path.join(port['saves'], saved_on), cfg,
+                    tllama.param_partition_specs(cfg), SAVE_MESHES)
+
+
+@pytest.mark.parametrize('saved_on', sorted(SAVE_MESHES))
+def test_sharded_save_writes_each_slice_once(runs, saved_on):
+    """Each rank's file holds exactly the slices the index lists under
+    it, at the rank's own offsets and shapes on that mesh; every leaf's
+    pieces tile it once (a replicated slice is written by one rank), and
+    rank 0 wrote no other rank's slice."""
+    port, _ = runs
+    kw, n = SAVE_MESHES[saved_on]
+    cfg = _port_cfg('fp32', {})
+    spec_of = dict(_leaves(tllama.param_partition_specs(cfg)))
+    step_dir = os.path.join(port['saves'], saved_on, f'step_{SAVE_STEP}')
+    with open(os.path.join(step_dir, tckpt.INDEX_FILE),
+              encoding='utf-8') as f:
+        index = json.load(f)
+    files = {}
+    for key, entry in index['leaves'].items():
+        covered = torch.zeros(entry['shape'], dtype=torch.int32)
+        for piece in entry['pieces']:
+            rank = int(piece['file'][len('rank_'):-len('.pt')])
+            mesh = tmesh.make_mesh(tmesh.MeshConfig(**kw), ranks=range(n),
+                                   rank=rank)
+            mine = tmesh.spec_to_slices(entry['shape'],
+                                        spec_of[key.split('/', 1)[1] + '/'],
+                                        mesh)
+            assert piece['start'] == [s.start for s in mine], key
+            assert piece['shape'] == [s.stop - s.start for s in mine], key
+            covered[mine] += 1
+            files.setdefault(piece['file'], set()).add(key)
+        assert bool((covered == 1).all()), key
+    for name, keys in files.items():
+        held = torch.load(os.path.join(step_dir, name), map_location='cpu',
+                          weights_only=True)
+        assert set(held) == keys, name
+    written = sorted(f for f in os.listdir(step_dir) if f.startswith('rank_'))
+    assert written == sorted(files)
+    # A norm replicates everywhere: rank 0 alone writes it.
+    norm = index['leaves']['params/layers/attn_norm']['pieces']
+    assert [p['file'] for p in norm] == ['rank_00000.pt']
+
+
+def test_moe_state_saves_and_restores_on_an_expert_mesh(runs):
+    """An MoE TrainState (router, experts) saves on an (expert 2) mesh
+    of two ranks and restores on one device and as each rank's slices;
+    the one-file format's save gathered llama's tree and failed on it."""
+    from skypilot_tpu_torch.models import moe as tmoe  # pylint: disable=import-outside-toplevel
+    port, _ = runs
+    cfg = _moe_cfg()
+    _check_restores(os.path.join(port['saves'], 'moe'), cfg,
+                    tmoe.param_partition_specs(cfg),
+                    {'expert2': MOE_SAVE_MESH,
+                     'fsdp2-expert2': (dict(fsdp=2, expert=2), 4)})
+
+
+def test_one_file_format_still_restores(tmp_path):
+    """A step directory in the earlier one-file format (``state.pt``
+    with the whole state) restores on one device and as any rank's
+    slices, and lists as complete."""
+    cfg = _port_cfg('fp32', {})
+    whole = _save_state(cfg)
+    opt = whole.opt_state
+    tckpt._write(str(tmp_path), dict(  # pylint: disable=protected-access
+        params=whole.params, mu=opt.mu, nu=opt.nu, count=opt.count,
+        step=whole.step), SAVE_STEP, 3)
+    assert sorted(os.listdir(tmp_path / f'step_{SAVE_STEP}')) == sorted(
+        [tckpt.COMMIT_FILE, tckpt.STATE_FILE])
+    assert tckpt.list_steps(str(tmp_path)) == [SAVE_STEP]
+    _check_restores(str(tmp_path), cfg, tllama.param_partition_specs(cfg),
+                    SAVE_MESHES)
 
 
 def _gang(n, args_of, timeout=120):
