@@ -425,6 +425,24 @@ port's package is not beside it. Phases (any failure exits non-zero):
    their twins at (a)'s attention shape ``MOE_FLASH_CASE`` (a GQA group
    of 4) under twin_error's bounds. Each case's seconds and
    per-rank peak memory are printed with the card's line.
+21. The compiled static generate and dense insert, run after phase 18
+   while the llama3-8b weights are loaded; the launch counts are reset
+   just before and read just after. (a) ``decode.generate`` as the
+   reference's decode bench runs it (bench.py's decode payloads): batch
+   32, a 128-token prompt, 128 new tokens, max_len 256, greedy, at full
+   width and depth, under bf16, int8 weights and int8 K/V: one eager
+   call (``rounds='eager'``), the call that captures the
+   ``decode.GenerateProgram``'s graphs and two replayed calls, tokens
+   identical, the dense decode kernel launched n_layers x 127 times by
+   every call, 9 graph launches a replayed call; printed: seconds a
+   call both ways, the capture's, the prefill alone and decode tokens/s
+   as decode_bench computes them (completed tokens / (generate -
+   prefill)). (b) The dense replica's insert (``('prefill', bucket)``,
+   the reference's ``_prefill_greedy_impl``) at full depth, a graph and
+   an eager engine given the same requests in turns, three prompt
+   lengths at each of buckets 128, 512 and 2048 in two lanes: first
+   tokens and the lane's K/V bit-equal, one capture a bucket, TTFT on
+   the host clock. The phase's seconds printed.
 
 Every replica journals into a temporary directory of the run, not into
 ``~/.skytpu``. Before phase 13 the whole run took 273.7 s on an H100
@@ -3918,6 +3936,210 @@ def graph_phase(torch, ms_lib, quant, da, decode, params, dense_results,
     return {'serve': serve, 'timing': timing, 'seconds': seconds}
 
 
+# -------------------------------------------------------------- phase 21
+
+
+# (a) The static generate as the reference's decode bench runs it
+# (skypilot_tpu/benchmark/decode_bench.py run_decode_bench, bench.py's
+# decode payload): batch 32, a 128-token prompt, 128 new tokens, max_len
+# prompt + new, greedy, without EOS; one eager call and, after the call
+# that captures, STATIC_TIMED_CALLS replayed calls a config.
+STATIC_B, STATIC_PROMPT, STATIC_NEW = 32, 128, 128
+STATIC_TIMED_CALLS = 2
+# (label, int8 weights, K/V dtype): bench.py's three decode payloads.
+STATIC_CONFIGS = (('bf16', False, 'bf16'), ('int8 weights', True, 'bf16'),
+                  ('int8 K/V', False, 'int8'))
+# (b) The dense replica's insert at these prefill buckets, three prompt
+# lengths each (the first captures on the graph path, the rest replay).
+INSERT_LENS = {128: (100, 120, 128), 512: (300, 450, 512),
+               2048: (1100, 1600, 2047)}
+INSERT_MAX_LEN = 2048
+
+
+def timed_call(torch, fn):
+    """(seconds on the host clock, result) of one synchronised call."""
+    sync(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch)
+    return time.perf_counter() - t0, out
+
+
+def static_generate_phase(torch, decode, llama, da, params, card):
+    """(a) ``decode.generate`` at MODEL's full width and depth,
+    STATIC_B x (STATIC_PROMPT + STATIC_NEW), under each of
+    STATIC_CONFIGS: the eager loop (``rounds='eager'``) once, then the
+    compiled program (the call that captures, then STATIC_TIMED_CALLS
+    replayed calls): tokens identical, the dense decode kernel launched
+    n_layers x (N - 1) times by every call, a bounded number of graph
+    replays a call; seconds a call both ways, the prefill alone (a fresh
+    cache and ``decode.prefill``, as decode_bench's ``prefill_only``)
+    and decode tokens/s as decode_bench computes them: completed tokens
+    / (generate - prefill)."""
+    cfg = llama.CONFIGS[MODEL]
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (STATIC_B, STATIC_PROMPT),
+                           generator=gen, device=dev)
+    lens = torch.full((STATIC_B,), STATIC_PROMPT, dtype=torch.int64,
+                      device=dev)
+    per_call = cfg.n_layers * (STATIC_NEW - 1)
+    n_rounds = 1 + -(-(STATIC_NEW - 1) // decode.GENERATE_ROUND)
+    qparams = None
+    report = {}
+    for label, int8, kv in STATIC_CONFIGS:
+        if int8 and qparams is None:
+            qparams = decode.quantize_params(params)
+        p = qparams if int8 else params
+        dcfg = decode.DecodeConfig(max_len=STATIC_PROMPT + STATIC_NEW,
+                                   kv_cache_dtype=kv)
+
+        def call(rounds, p=p, dcfg=dcfg, label=label):
+            before = da.decode_attention_kernel.launches
+            secs, toks = timed_call(torch, lambda: decode.generate(
+                p, prompt, lens, cfg, dcfg, STATIC_NEW, rounds=rounds))
+            launched = da.decode_attention_kernel.launches - before
+            if launched != per_call:
+                fail(f'phase 21 (a) {label} {rounds}: the decode kernel '
+                     f'launched {launched} times in a call, expected '
+                     f'{per_call}')
+            return secs, toks.cpu()
+
+        eager_s, want = call('eager')
+        capture_s, got = call('graph')
+        (program,) = decode.generate_programs()
+        replays0 = program.graphs.replays
+        graph_s = []
+        for _ in range(STATIC_TIMED_CALLS):
+            secs, again = call('graph')
+            graph_s.append(secs)
+            if not torch.equal(again, want):
+                fail(f'phase 21 (a) {label}: replayed tokens differ from '
+                     f'the eager loop\'s')
+        if not torch.equal(got, want):
+            fail(f'phase 21 (a) {label}: the capturing call\'s tokens '
+                 'differ from the eager loop\'s')
+        launches = (program.graphs.replays - replays0) / STATIC_TIMED_CALLS
+        if launches != n_rounds or sum(program.graphs.captures.values()) \
+                != 3:
+            fail(f'phase 21 (a) {label}: {launches} graph launches a '
+                 f'call (expected {n_rounds}), captures '
+                 f'{dict(program.graphs.captures)}')
+
+        def prefill_only(p=p, dcfg=dcfg):
+            cache = decode.init_kv_cache(cfg, STATIC_B, dcfg.max_len,
+                                         dcfg.kv_cache_dtype, dev)
+            return decode.prefill(p, prompt, cfg, cache, lens)
+
+        prefill_s = min(timed_call(torch, prefill_only)[0]
+                        for _ in range(2))
+        completed = int(decode.completed_token_counts(want.numpy(),
+                                                      None).sum())
+        graph_med = statistics.median(graph_s)
+        row = {'eager_s': eager_s, 'capture_call_s': capture_s,
+               'graph_s': graph_s, 'prefill_s': prefill_s,
+               'graph_launches_per_call': launches,
+               'decode_launches_per_call': per_call,
+               'capture_seconds': program.graphs.capture_seconds,
+               'tokens_per_s_graph': completed / (graph_med - prefill_s),
+               'tokens_per_s_eager': completed / (eager_s - prefill_s)}
+        print(f'[phase 21] (a) {MODEL} {label}, {STATIC_B} x '
+              f'({STATIC_PROMPT} + {STATIC_NEW}): a call {graph_med:.4f} s '
+              f'replayed ({", ".join(f"{t:.4f}" for t in graph_s)}), '
+              f'{eager_s:.4f} s eager, {capture_s:.4f} s the capturing '
+              f'call ({program.graphs.capture_seconds:.3f} s of captures); '
+              f'{launches:.0f} graph launches a call; prefill alone '
+              f'{prefill_s:.4f} s; decode {row["tokens_per_s_graph"]:.1f} '
+              f'tokens/s replayed, {row["tokens_per_s_eager"]:.1f} eager '
+              f'({completed} tokens); decode kernel {per_call} launches a '
+              f'call = {cfg.n_layers} x {STATIC_NEW - 1}; tokens identical;'
+              f' on {card}', flush=True)
+        report[label] = row
+        decode.clear_generate_programs()
+        empty_cache(torch)
+    del qparams
+    empty_cache(torch)
+    return report
+
+
+def dense_insert_phase(torch, ms_lib, params, card):
+    """(b) The dense replica's insert at MODEL's full depth, a graph and
+    an eager engine (2 lanes, max_len INSERT_MAX_LEN) given the same
+    requests in turns, three lengths at each of INSERT_LENS' buckets; the
+    first request holds lane 0 (2 new tokens), the rest are one-token
+    requests into lane 1. Each insert's first token and its lane's K/V
+    [L, :bucket] bit-equal on both engines; the graph engine captures
+    once a bucket; TTFT on the host clock (the insert call, which reads
+    the first token back) for each insert, the capturing ones apart."""
+    import random
+    rng = random.Random(21)
+    cfg = ms_lib.llama.CONFIGS[MODEL]
+    Request = ms_lib.engine_lib.Request
+    engines = {rounds: ms_lib.build_engine(
+        MODEL, 2, INSERT_MAX_LEN, device=DEVICE, params=params,
+        rounds=rounds) for rounds in ('graph', 'eager')}
+    ttft = {'graph': {}, 'eager': {}}
+    first_request = True
+    for bucket, lengths in INSERT_LENS.items():
+        for i, n in enumerate(lengths):
+            prompt = rand_prompt(rng, cfg.vocab_size, n)
+            new = 2 if first_request else 1
+            first_request = False
+            got = {}
+            for rounds, eng in engines.items():
+                req = Request(prompt, new)
+                secs, slot = timed_call(torch, lambda e=eng, r=req:
+                                        e.insert(r))
+                got[rounds] = (req.tokens[0], slot)
+                key = 'capture' if rounds == 'graph' and i == 0 else bucket
+                ttft[rounds].setdefault(key, []).append(secs)
+            if got['graph'] != got['eager']:
+                fail(f'phase 21 (b) bucket {bucket}, length {n}: first '
+                     f'token and lane {got}')
+            slot = got['graph'][1]
+            for name, t in engines['graph']._cache.items():  # pylint: disable=protected-access
+                want = engines['eager']._cache[name]  # pylint: disable=protected-access
+                if not torch.equal(t[:, slot, :bucket],
+                                   want[:, slot, :bucket]):
+                    fail(f'phase 21 (b) bucket {bucket}, length {n}: lane '
+                         f'{slot} {name} differs between graph and eager')
+    stats = engines['graph'].graph_stats()
+    if stats['captures'] != {'prefill': len(INSERT_LENS)}:
+        fail(f'phase 21 (b): captures {stats["captures"]}, expected one '
+             f'a bucket')
+    if engines['eager'].graph_stats() != {'rounds': 'eager'}:
+        fail(f'phase 21 (b): the eager engine {engines["eager"].graph_stats()}')
+    for bucket in INSERT_LENS:
+        g, e = ttft['graph'][bucket], ttft['eager'][bucket]
+        print(f'[phase 21] (b) {MODEL} dense insert, bucket {bucket}: TTFT '
+              f'{statistics.median(g) * 1e3:.3f} ms replayed '
+              f'({", ".join(f"{t * 1e3:.3f}" for t in g)}), '
+              f'{statistics.median(e) * 1e3:.3f} ms eager '
+              f'({", ".join(f"{t * 1e3:.3f}" for t in e)}); first tokens '
+              f'and lane K/V bit-equal; on {card}', flush=True)
+    print(f'[phase 21] (b) capturing inserts '
+          f'{", ".join(f"{t * 1e3:.1f}" for t in ttft["graph"]["capture"])}'
+          f' ms; captures {stats["captures"]} in '
+          f'{stats["capture_seconds"]:.3f} s; graph pool '
+          f'{stats["pool_bytes"]} bytes', flush=True)
+    return {'ttft_graph': ttft['graph'], 'ttft_eager': ttft['eager'],
+            'captures': stats['captures']}
+
+
+def compiled_dispatch_phase(torch, ms_lib, decode, llama, da, params,
+                            card):
+    """Phase 21: (a) the static generate and (b) the dense insert, graph
+    against eager; prints the phase's own seconds."""
+    t0 = time.perf_counter()
+    static = static_generate_phase(torch, decode, llama, da, params, card)
+    t1 = time.perf_counter()
+    insert = dense_insert_phase(torch, ms_lib, params, card)
+    seconds = time.perf_counter() - t0
+    print(f'[phase 21] {seconds:.1f}s: (a) {t1 - t0:.1f}s, (b) '
+          f'{seconds - (t1 - t0):.1f}s', flush=True)
+    return {'static': static, 'insert': insert, 'seconds': seconds}
+
+
 # --------------------------------------------------------------- phase 6
 
 
@@ -6478,10 +6700,23 @@ def main() -> int:
                   'paged_verify_attention_kernel'):
         if not phase18_counts[kname]:
             fail(f'{kname} was not launched in phase 18: {phase18_counts}')
+    phase_done('phase 18')
+
+    # Phase 21 (the static generate and the dense insert, compiled
+    # against eager) while the weights are up.
+    da.reset_launch_counts()
+    compiled_report = compiled_dispatch_phase(torch, ms_lib, decode, llama,
+                                              da, params, card)
+    phase21_counts = {fn.__name__: fn.launches for fn in da.KERNELS}
+    print(f'[phase 21] launches {phase21_counts}; {compiled_report}',
+          flush=True)
+    if not phase21_counts['decode_attention_kernel']:
+        fail(f'decode_attention_kernel was not launched in phase 21: '
+             f'{phase21_counts}')
     # The last cut's views hold every layer's storage: let them go too.
     del params, cut, spec_runs, paged_results, dense_results
     torch.cuda.empty_cache()
-    phase_done('phase 18')
+    phase_done('phase 21')
 
     flash_rows = flash_kernel_phase(torch, fa)
     phase_done('phase 6')
@@ -6533,7 +6768,8 @@ def main() -> int:
             'phase15_launches': phase15_counts[kname],
             'phase16_launches': phase16_counts[kname],
             'phase17_launches': phase17_counts[kname],
-            'phase18_launches': phase18_counts[kname]})
+            'phase18_launches': phase18_counts[kname],
+            'phase21_launches': phase21_counts[kname]})
     kernels.append({
         'name': 'paged_verify_attention_kernel', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
@@ -6561,7 +6797,9 @@ def main() -> int:
         'phase17_launches':
             phase17_counts['paged_verify_attention_kernel'],
         'phase18_launches':
-            phase18_counts['paged_verify_attention_kernel']})
+            phase18_counts['paged_verify_attention_kernel'],
+        'phase21_launches':
+            phase21_counts['paged_verify_attention_kernel']})
     for kname, row in flash_rows.items():
         main = row['bf16']
         kernels.append({

@@ -13,7 +13,14 @@ interrupted save is never restored. The trainer saves its ``TrainState``
 (:func:`restore_latest_params`) that must match the saved tree's keys,
 shapes and dtypes, or ``ValueError``, as orbax raises in the reference.
 So a trainer checkpoint handed to a replica raises, in both packages.
-Reading the JAX package's orbax checkpoints is not ported.
+Reading the JAX package's orbax checkpoints is not ported, on purpose:
+a step there (orbax's ``StandardCheckpointer``) is an OCDBT key-value
+store (``manifest.ocdbt``, ``ocdbt.process_0/`` with its B-tree and
+data files, beside ``_METADATA``, ``_sharding`` and
+``_CHECKPOINT_METADATA``) holding each leaf as a zarr format 2 array
+(``<leaf>/.zarray`` and its chunks), every chunk zstd-compressed. Reading
+one needs tensorstore (or orbax) and a zstd decoder, which the card's
+host does not have.
 
 A ``TrainState`` saves in a sharded format, on one device or on a
 training mesh (``parallel/mesh.py``), as the reference's orbax save has

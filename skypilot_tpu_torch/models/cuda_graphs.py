@@ -10,8 +10,11 @@ module's counterpart, so the JAX package has no module like it. Here a
 dispatch of a new key runs eagerly for real (the warm-up), is captured
 into a CUDA graph right after, and every later dispatch of that key is
 one replay. :class:`~skypilot_tpu_torch.models.engine.DecodeEngine`
-keys its decode rounds, spec steps and paged prefills through one
-:class:`GraphCache`.
+keys its decode rounds, spec steps, paged prefills and dense inserts
+through one :class:`GraphCache`, and each
+:class:`~skypilot_tpu_torch.models.decode.GenerateProgram` (the static
+``decode.generate``, the reference's ``_generate_impl``) its prefill and
+decode-step rounds through one of its own.
 
 * **Fixed addresses.** A graph reads and writes the addresses it was
   captured with: the pool and the engine's static input buffers, which
@@ -44,6 +47,10 @@ import torch
 
 from skypilot_tpu_torch.ops import launch_counts
 
+# How compiled dispatches run on the card: one CUDA-graph replay per
+# dispatch ('graph'), or eagerly ('eager', for comparisons). The CPU
+# always runs them eagerly.
+ROUNDS = ('graph', 'eager')
 # Captures are rare (one per key) and touch process-wide CUDA state (the
 # caching allocator, the device synchronise that opens a capture, the
 # shared capture stream below), so the engines of one process warm up

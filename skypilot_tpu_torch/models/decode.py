@@ -21,7 +21,10 @@ Counterpart of ``skypilot_tpu/models/decode.py``, same semantics:
   take their lengths as 0-d tensors too, and nothing here reads a device
   value back to the host, so a captured call serves every length.
 * Greedy or temperature sampling; ``generate`` stops per sequence on EOS
-  through a done mask.
+  through a done mask. On the card ``generate`` runs as CUDA graphs of a
+  :class:`GenerateProgram` kept per key, the counterpart of the
+  reference's jitted ``_generate_impl`` (``rounds='eager'``: the same
+  steps one by one).
 * Int8 weights (:func:`quantize_params`): the seven per-layer GEMM
   weights become ``ops/quant.QuantizedTensor``s, which ``llama.quant_mm``
   routes to the int8 GEMM; every path below reaches them through
@@ -32,13 +35,17 @@ Counterpart of ``skypilot_tpu/models/decode.py``, same semantics:
   the drafts in one S-token step through the verify kernel
   (``ops/decode_attention.paged_verify_attention``).
 """
+import collections
 import dataclasses
+import functools
+import itertools
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import cuda_graphs, llama
 from skypilot_tpu_torch.observability import metrics
 from skypilot_tpu_torch.observability import runtime_metrics
 from skypilot_tpu_torch.ops import decode_attention as decode_attention_ops
@@ -145,21 +152,22 @@ def _layer_cache(cache: Cache, i: int) -> Cache:
     return {name: t[i] for name, t in cache.items()}
 
 
-def _write_kv(cache: Cache, idx, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Write K/V into ``cache[...]`` at ``idx`` in place (the reference
-    returns a donated copy), quantising on the way in when the cache is
-    int8 — the one copy of the write-side scheme, shared by prefill and
-    decode."""
+def _kv_planes(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
+    """K/V as the cache stores them, by plane name: quantised (values and
+    scales) when the cache is int8 — the one copy of the write-side
+    scheme, shared by prefill and decode."""
     if 'k_scale' in cache:
         kq, ks = quant.quantize_kv(k)
         vq, vs = quant.quantize_kv(v)
-        cache['k'][idx] = kq
-        cache['v'][idx] = vq
-        cache['k_scale'][idx] = ks
-        cache['v_scale'][idx] = vs
-    else:
-        cache['k'][idx] = k.to(cache['k'].dtype)
-        cache['v'][idx] = v.to(cache['v'].dtype)
+        return {'k': kq, 'v': vq, 'k_scale': ks, 'v_scale': vs}
+    return {'k': k.to(cache['k'].dtype), 'v': v.to(cache['v'].dtype)}
+
+
+def _write_kv(cache: Cache, idx, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write K/V into ``cache[...]`` at ``idx`` in place (the reference
+    returns a donated copy)."""
+    for name, value in _kv_planes(cache, k, v).items():
+        cache[name][idx] = value
 
 
 def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -260,18 +268,6 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: llama.LlamaConfig,
     return _logits(params, x[rows, prompt_lens.long() - 1])
 
 
-def prefill_into_slot(params: Params, tokens: torch.Tensor,
-                      prompt_len: int, slot: int, cfg: llama.LlamaConfig,
-                      cache: Cache) -> torch.Tensor:
-    """Prefill ONE request ([1, S_bucket] right-padded) into lane
-    ``slot`` of a multi-slot cache, positions [0, S_bucket); other lanes
-    are untouched. Returns the last prompt token's logits [vocab]."""
-    s = tokens.shape[1]
-    x, ks, vs = _prefill_forward(params, tokens, cfg)
-    _write_kv(cache, (slice(None), slot, slice(0, s)), ks[:, 0], vs[:, 0])
-    return _logits(params, x[0, prompt_len - 1])
-
-
 # ------------------------------------------------------------------ paged
 
 
@@ -292,8 +288,8 @@ def paged_decode_step(params: Params, token: torch.Tensor,
 
 
 def _length(n, device) -> torch.Tensor:
-    """A prefill length as a 0-d integer tensor on ``device``: the
-    engine passes its static buffers' (a captured prefill reads the
+    """A prefill length (or lane) as a 0-d integer tensor on ``device``:
+    the engine passes its static buffers' (a captured prefill reads the
     length from there), other callers may pass an int."""
     return torch.as_tensor(n, device=device)
 
@@ -302,6 +298,25 @@ def _row_at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """Row ``i`` (a 0-d tensor) of ``x`` [S, D]: a gather on the device,
     where ``x[i]`` would read ``i`` back to the host."""
     return x.index_select(0, i.reshape(1))[0]
+
+
+def prefill_into_slot(params: Params, tokens: torch.Tensor, prompt_len,
+                      slot, cfg: llama.LlamaConfig,
+                      cache: Cache) -> torch.Tensor:
+    """Prefill ONE request ([1, S_bucket] right-padded) into lane
+    ``slot`` of a multi-slot cache, positions [0, S_bucket); other lanes
+    are untouched. ``prompt_len`` and ``slot`` are ints or 0-d integer
+    tensors (the engine's static buffers): the lane write is an indexed
+    copy and the last row a gather, so nothing reads them back to the
+    host and one captured call serves every length and lane of its
+    bucket. Returns the last prompt token's logits [vocab]."""
+    s = tokens.shape[1]
+    device = tokens.device
+    lane = _length(slot, device).reshape(1).long()
+    x, ks, vs = _prefill_forward(params, tokens, cfg)
+    for name, value in _kv_planes(cache, ks[:, 0], vs[:, 0]).items():
+        cache[name].narrow(2, 0, s).index_copy_(1, lane, value[:, None])
+    return _logits(params, _row_at(x[0], _length(prompt_len, device) - 1))
 
 
 def paged_prefill(params: Params, tokens: torch.Tensor,
@@ -584,27 +599,48 @@ def export_pool_blocks(pool: Cache, block_idx: torch.Tensor) -> Cache:
 def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
            temperature: float) -> torch.Tensor:
     """[B, vocab] → [B] int64: argmax when greedy, else a draw from
-    softmax(logits / T) with ``generator``."""
+    softmax(logits / T) with ``generator``. The draw is
+    ``torch.multinomial(probs, 1)``'s own (argmax of the probabilities
+    over Exp(1) noise: the same bits and generator state), without its
+    argument checks, which read the device back to the host and so
+    cannot run inside a CUDA graph."""
     if temperature == 0.0:
         return logits.argmax(dim=-1)
     probs = torch.softmax(logits / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / noise).argmax(dim=-1)
+
+
+def _check_budget(s_prompt: int, max_new_tokens: int,
+                  dcfg: DecodeConfig) -> None:
+    if s_prompt + max_new_tokens > dcfg.max_len:
+        raise ValueError(
+            f'prompt ({s_prompt}) + max_new_tokens ({max_new_tokens}) '
+            f'exceeds max_len {dcfg.max_len}')
 
 
 def generate(params: Params, prompt: torch.Tensor,
              prompt_lens: torch.Tensor, cfg: llama.LlamaConfig,
              dcfg: DecodeConfig, max_new_tokens: int,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             rounds: str = 'graph') -> torch.Tensor:
     """prompt [B, S_prompt] right-padded → generated tokens [B,
-    max_new_tokens] (post-EOS positions hold eos_id)."""
+    max_new_tokens] (post-EOS positions hold eos_id). Counterpart of the
+    reference's ``generate``, whose ``_generate_impl`` is one jitted
+    program over a donated cache.
+
+    ``rounds`` (one of ``cuda_graphs.ROUNDS``): on a CUDA prompt,
+    ``'graph'`` replays the CUDA graphs of the key's
+    :class:`GenerateProgram` (kept across calls, see
+    :func:`_program_for`; a failed capture or replay raises), and
+    ``'eager'`` runs the steps one by one over a fresh cache. The CPU
+    always runs eagerly. Both give the same tokens."""
+    if rounds not in cuda_graphs.ROUNDS:
+        raise ValueError(f'rounds must be one of {cuda_graphs.ROUNDS}, '
+                         f'got {rounds!r}')
     b, s_prompt = prompt.shape
-    if s_prompt + max_new_tokens > dcfg.max_len:
-        raise ValueError(
-            f'prompt ({s_prompt}) + max_new_tokens ({max_new_tokens}) '
-            f'exceeds max_len {dcfg.max_len}')
+    _check_budget(s_prompt, max_new_tokens, dcfg)
     device = prompt.device
-    cache = init_kv_cache(cfg, b, dcfg.max_len, dcfg.kv_cache_dtype,
-                          device)
     # Host-side telemetry, as the reference's generate: KV-cache
     # capacity/occupancy and dtype gauges and a request counter. Latency
     # histograms belong to callers that own a sync boundary
@@ -614,23 +650,204 @@ def generate(params: Params, prompt: torch.Tensor,
                                     dcfg.kv_cache_dtype)
     metrics.counter('skytpu_decode_requests_total',
                     'Decode requests (batched generate calls).').inc()
+    if rounds == 'graph' and device.type == 'cuda':
+        with _PROGRAMS_LOCK:
+            program = _program_for(params, cfg, dcfg, b, s_prompt,
+                                   max_new_tokens, device, generator)
+            return program.run(prompt, prompt_lens)
+    cache = init_kv_cache(cfg, b, dcfg.max_len, dcfg.kv_cache_dtype,
+                          device)
     lens = prompt_lens.to(device).long()
+    token, done = _first_token(params, prompt, lens, cfg, dcfg, cache,
+                               generator)
+    toks, _, _, _ = _decode_steps(params, token, lens, done,
+                                  max_new_tokens - 1, cfg, dcfg, cache,
+                                  generator)
+    return torch.stack([token] + toks, dim=1)
+
+
+def _first_token(params: Params, prompt: torch.Tensor, lens: torch.Tensor,
+                 cfg: llama.LlamaConfig, dcfg: DecodeConfig, cache: Cache,
+                 generator: Optional[torch.Generator]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill and the first token's sample: (token [B], done [B])."""
     last = prefill(params, prompt, cfg, cache, lens)
     token = sample(last, generator, dcfg.temperature)
     eos = dcfg.eos_id
     done = (token == eos if eos is not None else
-            torch.zeros(b, dtype=torch.bool, device=device))
-    out = [token]
-    pos = lens
-    for _ in range(max_new_tokens - 1):
+            torch.zeros_like(token, dtype=torch.bool))
+    return token, done
+
+
+def _decode_steps(params: Params, token: torch.Tensor, pos: torch.Tensor,
+                  done: torch.Tensor, n: int, cfg: llama.LlamaConfig,
+                  dcfg: DecodeConfig, cache: Cache,
+                  generator: Optional[torch.Generator]):
+    """``n`` decode steps from (token, pos, done), each sampling, forcing
+    EOS on done rows and folding the new EOS into done: ([n tokens
+    [B]], token, pos, done) after the last."""
+    eos = dcfg.eos_id
+    toks = []
+    for _ in range(n):
         logits = decode_step(params, token, pos, cfg, dcfg, cache)
         nxt = sample(logits, generator, dcfg.temperature)
         if eos is not None:
             nxt = torch.where(done, eos, nxt)
             done = done | (nxt == eos)
         token, pos = nxt, pos + 1
-        out.append(nxt)
-    return torch.stack(out, dim=1)
+        toks.append(nxt)
+    return toks, token, pos, done
+
+
+# Decode steps one replayed graph of a compiled generate holds: a call of
+# N new tokens replays the prefill's graph once and the steps' graphs
+# ceil((N - 1) / GENERATE_ROUND) times (the last holds the remainder).
+GENERATE_ROUND = 16
+# Compiled generates kept (each holds its own cache and graphs); past
+# this the least recently used is dropped.
+GENERATE_PROGRAMS = 4
+
+
+class GenerateProgram:
+    """:func:`generate` compiled for one key: the counterpart of the
+    reference's ``_generate_impl`` traced for one set of static
+    arguments. It holds a dense cache [L, batch, max_len, ...] of its own,
+    reused by every call (the reference's donated cache), static input
+    buffers (the prompt, its lengths, and the carry between graphs:
+    token, position and done per row), and a
+    :class:`~skypilot_tpu_torch.models.cuda_graphs.GraphCache` of three
+    graphs at most: the prefill with the first token's sample, and the
+    decode steps (EOS forcing and the done fold inside) in rounds of
+    :data:`GENERATE_ROUND` and of the remainder. A call is thus a
+    bounded number of host launches whatever the layer count: per round
+    one replay and two copies (the round's tokens out, the carry back
+    in). Each call's prefill rewrites positions [0, S_prompt) of every
+    row and each step writes its position before attending up to it, so
+    no K/V of an earlier call is ever read. ``capturer`` is
+    :class:`~skypilot_tpu_torch.models.cuda_graphs.CudaCapturer` on the
+    card (with ``generator`` registered, so a sampled call draws fresh
+    noise at every replay); the CPU tests hand in a stand-in."""
+
+    def __init__(self, params: Params, cfg: llama.LlamaConfig,
+                 dcfg: DecodeConfig, batch: int, prompt_len: int,
+                 max_new_tokens: int, device, capturer,
+                 generator: Optional[torch.Generator] = None):
+        _check_budget(prompt_len, max_new_tokens, dcfg)
+        self.params, self.cfg, self.dcfg = params, cfg, dcfg
+        self.max_new_tokens = max_new_tokens
+        self._generator = generator
+        self.cache = init_kv_cache(cfg, batch, dcfg.max_len,
+                                   dcfg.kv_cache_dtype, device)
+        self._in = {
+            'prompt': torch.zeros((batch, prompt_len), dtype=torch.int64,
+                                  device=device),
+            'lens': torch.zeros((batch,), dtype=torch.int64, device=device),
+            'carry': torch.zeros((3, batch), dtype=torch.int64,
+                                 device=device)}
+        self.graphs = cuda_graphs.GraphCache(capturer)
+
+    def _prefill_body(self) -> torch.Tensor:
+        """Prefill and the first token's sample: the first carry."""
+        lens = self._in['lens']
+        token, done = _first_token(self.params, self._in['prompt'], lens,
+                                   self.cfg, self.dcfg, self.cache,
+                                   self._generator)
+        return torch.stack([token, lens, done.long()])
+
+    def _steps_body(self, n: int) -> torch.Tensor:
+        """``n`` decode steps from the carry: [n rows of tokens, then the
+        next carry], [n + 3, batch]."""
+        token, pos, done = self._in['carry']
+        toks, token, pos, done = _decode_steps(
+            self.params, token, pos, done.bool(), n, self.cfg, self.dcfg,
+            self.cache, self._generator)
+        return torch.cat([torch.stack(toks),
+                          torch.stack([token, pos, done.long()])])
+
+    def _replay(self, key: tuple, fn) -> torch.Tensor:
+        ptrs = tuple(t.data_ptr() for t in itertools.chain(
+            self.cache.values(), self._in.values()))
+        return self.graphs.run(key, fn, ptrs)
+
+    def run(self, prompt: torch.Tensor,
+            prompt_lens: torch.Tensor) -> torch.Tensor:
+        """One call: prompt [batch, prompt_len] right-padded → tokens
+        [batch, max_new_tokens]."""
+        n_new = self.max_new_tokens
+        self._in['prompt'].copy_(prompt)
+        self._in['lens'].copy_(prompt_lens)
+        carry = self._in['carry']
+        out = self._replay(('generate_prefill',), self._prefill_body)
+        carry.copy_(out)
+        tokens = torch.empty((carry.shape[1], n_new), dtype=torch.int64,
+                             device=carry.device)
+        tokens[:, 0] = out[0]
+        col = 1
+        while col < n_new:
+            n = min(GENERATE_ROUND, n_new - col)
+            out = self._replay(('generate_steps', n),
+                               functools.partial(self._steps_body, n))
+            tokens[:, col:col + n] = out[:n].T
+            carry.copy_(out[n:])
+            col += n
+        return tokens
+
+
+_PROGRAMS: 'collections.OrderedDict[tuple, GenerateProgram]' = \
+    collections.OrderedDict()
+# One compiled generate runs at a time: its buffers are shared by calls.
+_PROGRAMS_LOCK = threading.Lock()
+
+
+def _param_ptrs(tree) -> tuple:
+    """The addresses of every tensor of a params tree (int8 weights'
+    values and scales included), in a fixed order."""
+    if isinstance(tree, dict):
+        return tuple(p for k in sorted(tree) for p in _param_ptrs(tree[k]))
+    if isinstance(tree, quant.QuantizedTensor):
+        return (tree.values.data_ptr(), tree.scale.data_ptr())
+    return (tree.data_ptr(),)
+
+
+def _program_for(params: Params, cfg: llama.LlamaConfig,
+                 dcfg: DecodeConfig, batch: int, prompt_len: int,
+                 max_new_tokens: int, device,
+                 generator: Optional[torch.Generator]) -> GenerateProgram:
+    """The compiled generate of this key, made at its first call. The key
+    is what the reference's jit keys on: the shapes (batch, prompt
+    length, new tokens), both configs (the K/V dtype and the temperature
+    among them), the weights' kind (int8 or not) and the params'
+    storages; and, for a sampled call, the generator the graphs
+    registered. The program holds the params and the generator, so
+    neither their addresses nor its id can pass to other objects while
+    it is kept."""
+    int8 = isinstance(params['layers']['wq'], quant.QuantizedTensor)
+    key = (cfg, dcfg, batch, prompt_len, max_new_tokens, str(device), int8,
+           _param_ptrs(params),
+           id(generator) if dcfg.temperature != 0.0 else None)
+    program = _PROGRAMS.get(key)
+    if program is None:
+        if dcfg.temperature == 0.0:
+            generator = None
+        program = GenerateProgram(
+            params, cfg, dcfg, batch, prompt_len, max_new_tokens, device,
+            cuda_graphs.CudaCapturer(device, generator), generator)
+        _PROGRAMS[key] = program
+        while len(_PROGRAMS) > GENERATE_PROGRAMS:
+            _PROGRAMS.popitem(last=False)
+    _PROGRAMS.move_to_end(key)
+    return program
+
+
+def generate_programs() -> list:
+    """The compiled generates kept, least recently used first."""
+    return list(_PROGRAMS.values())
+
+
+def clear_generate_programs() -> None:
+    """Drop every compiled generate, with its cache and graphs."""
+    with _PROGRAMS_LOCK:
+        _PROGRAMS.clear()
 
 
 def completed_token_counts(tokens, eos_id: Optional[int]) -> np.ndarray:

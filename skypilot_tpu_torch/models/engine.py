@@ -54,8 +54,11 @@ fetch and write-behind spill, and tensor-parallel serving.
   or replay raises into the supervisor. ``rounds='eager'`` runs every
   dispatch eagerly on the card through the same code (tests and
   ``chip_smoke.py`` compare the two); on the CPU the rounds always run
-  eagerly. The dense ``prefill`` insert, the prefix inject/export and the
-  copy-on-write copy stay eager.
+  eagerly. The dense insert is one replay too (``('prefill', bucket)``:
+  prefill into the lane and, when greedy, the first token's argmax, the
+  reference's ``_prefill_greedy_impl``; a sampled insert samples the
+  replayed logits). The prefix inject/export and the copy-on-write copy
+  stay eager: each is one indexed copy a plane, in place.
 
 **Paged mode**: a host-side :class:`BlockAllocator` (refcounts,
 copy-on-write) and :class:`RadixPrefixCache` (radix tree over block-
@@ -171,10 +174,8 @@ PREFILL_CHUNK_ENV = 'SKYTPU_PREFILL_CHUNK'
 # point at it so frozen lanes write harmlessly, and bucket-padding
 # prefill writes spill into it. The allocator never hands it out.
 SCRATCH_BLOCK = 0
-# How the engine's rounds run on the card: one CUDA-graph replay per
-# dispatch ('graph'), or eagerly ('eager', for comparisons). The CPU
-# always runs them eagerly.
-ROUNDS = ('graph', 'eager')
+# How the engine's rounds run on the card (``cuda_graphs.ROUNDS``).
+ROUNDS = cuda_graphs.ROUNDS
 # The pool's dim that tensor parallelism splits (the KV heads of
 # ``[L, n_blocks, block_k, Hkv, hd]`` and of its scale planes).
 _HEAD_DIM = mesh.kv_cache_spec().index(mesh.MODEL_AXIS)
@@ -687,8 +688,8 @@ class EngineShard:
                                                self.dcfg.kv_cache_dtype,
                                                dev)
         # The decode round's and spec step's static inputs, filled from
-        # the host mirrors before each dispatch; the paged prefills' are
-        # made per graph key (:meth:`_prefill_inputs`).
+        # the host mirrors before each dispatch; the prefills' are made
+        # per graph key (:meth:`_prefill_inputs`).
         self._round_in = {
             'token': torch.zeros((num_slots,), dtype=torch.int64,
                                  device=dev),
@@ -705,7 +706,7 @@ class EngineShard:
     def _run_dispatch(self, key: tuple, fills: dict) -> torch.Tensor:
         """Fill a dispatch's static inputs from host arrays (by buffer
         name) and run it (:meth:`_dispatch`): the decode round, the spec
-        step or a paged prefill, by the key's kind."""
+        step, a paged prefill or a dense insert, by the key's kind."""
         kind = key[0]
         if kind == 'decode_steps':
             buf, fn = self._round_in, self._decode_body
@@ -713,9 +714,9 @@ class EngineShard:
             buf = self._round_in
             fn = functools.partial(self._spec_body, key[1])
         else:
-            pref = fills.get('pref')
+            row, pref = fills.get('row'), fills.get('pref')
             buf = self._prefill_inputs(
-                key, fills['row'].shape[0],
+                key, None if row is None else row.shape[0],
                 None if pref is None else pref.shape[0])
             fn = functools.partial(self._prefill_body, buf)
         self._fill(buf, fills)
@@ -727,20 +728,22 @@ class EngineShard:
         they name."""
         self._staging.fill([(buf[name], a) for name, a in fills.items()])
 
-    def _prefill_inputs(self, key: tuple, n_row: int,
+    def _prefill_inputs(self, key: tuple, n_row: Optional[int],
                         n_pref: Optional[int]) -> dict:
-        """The static inputs of one paged-prefill key, made at its first
-        dispatch: tokens [1, bucket], the block row, the prefix blocks
-        (with-prefix only) and ``lens`` = [suffix length, prefix
-        length]."""
+        """The static inputs of one prefill key, made at its first
+        dispatch: tokens [1, bucket] and ``lens``, with the paged keys'
+        block row and (with-prefix only) prefix blocks. ``lens`` is
+        [suffix length, prefix length] paged and [prompt length, slot]
+        dense."""
         buf = self._prefill_in.get(key)
         if buf is None:
             dev = self.device
             buf = {'tokens': torch.zeros((1, key[1]), dtype=torch.int64,
                                          device=dev),
-                   'row': torch.zeros((n_row,), dtype=torch.int64,
-                                      device=dev),
                    'lens': torch.zeros((2,), dtype=torch.int64, device=dev)}
+            if n_row is not None:
+                buf['row'] = torch.zeros((n_row,), dtype=torch.int64,
+                                         device=dev)
             if n_pref is not None:
                 buf['pref'] = torch.zeros((n_pref,), dtype=torch.int64,
                                           device=dev)
@@ -748,7 +751,17 @@ class EngineShard:
         return buf
 
     def _prefill_body(self, buf: dict) -> torch.Tensor:
-        """One paged prefill from its static inputs (the captured body)."""
+        """One prefill from its static inputs (the captured body). The
+        dense insert returns the first token's argmax, [1], when greedy,
+        and the last logits when sampled; the paged ones the last
+        logits."""
+        if 'row' not in buf:
+            last = decode.prefill_into_slot(
+                self.params, buf['tokens'], buf['lens'][0], buf['lens'][1],
+                self.cfg, self._cache)
+            if self.dcfg.temperature == 0.0:
+                return last.argmax()[None]
+            return last
         if 'pref' not in buf:
             return decode.paged_prefill(self.params, buf['tokens'],
                                         buf['lens'][0], buf['row'],
@@ -877,7 +890,7 @@ class DecodeEngine(EngineShard):
     ``instance_id`` and ``block_store.http_store_spill``).
 
     ``rounds`` (one of :data:`ROUNDS`): on a CUDA device the decode
-    rounds, spec steps and paged prefills replay CUDA graphs
+    rounds, spec steps, prefills and dense inserts replay CUDA graphs
     (``'graph'``, the default) or run eagerly (``'eager'``); on the CPU
     they run eagerly either way. The reference has no such switch, so
     neither the CLI nor the environment sets it.
@@ -1457,10 +1470,12 @@ class DecodeEngine(EngineShard):
             self._note_compile('prefill', bucket=bucket)
             padded = np.zeros((1, bucket), np.int64)
             padded[0, :p] = request.prompt
-            last = decode.prefill_into_slot(
-                self.params, torch.as_tensor(padded, device=self.device),
-                p, slot, self.cfg, self._cache)
-            first = self._sample_first(last)
+            out = self._device_op(
+                'dispatch', key=('prefill', bucket),
+                fills={'tokens': padded,
+                       'lens': np.asarray([p, slot], np.int64)})
+            first = (int(out[0]) if self.dcfg.temperature == 0.0 else
+                     self._sample_first(out))
         self._count_admitted()
         self.telemetry.on_admit(
             request, slot, admit_ts=admit_ts,

@@ -19,13 +19,24 @@ On the CPU, with the ``debug`` config:
 * the bookkeeping itself: one capture per key; a capture's kernel
   launches recorded, not counted, and added once per replay; graphs
   dropped and captured again after ``_recover_from_crash``; a replay
-  over a reallocated pool raises.
+  over a reallocated pool raises;
+* the compiled ``decode.generate`` (``decode.GenerateProgram``, the
+  reference's ``_generate_impl``) on the stand-in capturer: the
+  reference's tokens under bf16, int8 K/V and int8 weights with an EOS
+  that stops rows mid-run, a second call on the same cache equal to a
+  fresh eager call, one capture a key, and a failed capture raising;
+* the dense insert (``('prefill', bucket)``, the reference's
+  ``_prefill_greedy_impl``) with its length and lane as 0-d tensors:
+  the reference's first tokens and lane K/V for three lengths of one
+  bucket in two lanes, the other lanes untouched, one capture.
 
 On the card (``cuda`` marker): the graph path against the eager one,
-tokens identical and pools ``torch.equal``, for dense, paged, int8 K/V,
-int8 weights, spec and chunked engines. Run there with
+tokens identical and pools ``torch.equal``, for dense (bf16 and int8
+K/V), paged, int8 K/V, int8 weights, spec and chunked engines; the
+compiled generate against the eager loop (greedy in three configs and
+sampled), launches exact; a capture that fails raises. Run there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py``;
-this file imports JAX only inside the CPU case that runs the reference.
+this file imports JAX only inside the CPU cases that run the reference.
 """
 import numpy as np
 import pytest
@@ -42,6 +53,8 @@ from skypilot_tpu_torch.ops import quant
 torch.set_num_threads(2)
 
 CFG = tllama.CONFIGS['debug']
+# Two bf16 ulps of the debug model's logits (tests/test_torch_decode.py).
+BF16_ATOL = 1.6e-2
 
 
 class _StandInGraph:
@@ -92,6 +105,18 @@ def _stand_in(eng):
 def tparams():
     gen = torch.Generator().manual_seed(0)
     return tllama.init_params(CFG, gen, 'cpu')
+
+
+@pytest.fixture(scope='module')
+def ref():
+    """The reference's debug params (seed 0) and the port's copy of
+    them; JAX is imported here, never at module import."""
+    import jax  # the reference runs on the CPU only; see the docstring
+    from skypilot_tpu.models import llama as jllama
+    from skypilot_tpu_torch.models import convert
+
+    jp = jllama.init_params(jax.random.PRNGKey(0), jllama.CONFIGS['debug'])
+    return jp, convert.params_from_numpy(jax.tree.map(np.asarray, jp), CFG)
 
 
 def _prompts(n, seed, lo=3, hi=20):
@@ -188,20 +213,17 @@ def test_paged_prefills_take_tensor_lengths_bit_for_bit(tparams, kv_dtype):
         assert torch.equal(got[0][1][name], got[1][1][name])
 
 
-def test_paged_step_chunk_4_matches_reference_engine(tparams):
+def test_paged_step_chunk_4_matches_reference_engine(ref):
     """5 requests through 2 slots (lanes evict and refill mid-run) and a
     sixth submitted mid-run: the port's compiled-round path gives the
     reference engine's tokens, request by request, with one capture a
     key and the rest replays."""
-    import jax  # the reference runs on the CPU only; see the docstring
     from skypilot_tpu.models import decode as jdecode
     from skypilot_tpu.models import engine as jengine
     from skypilot_tpu.models import llama as jllama
-    from skypilot_tpu_torch.models import convert
 
     jcfg = jllama.CONFIGS['debug']
-    jp = jllama.init_params(jax.random.PRNGKey(0), jcfg)
-    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), CFG)
+    jp, tp = ref
     # Seed 1: seed 0's sixth prompt meets an exact bf16 tie at its fourth
     # token in both packages (ROADMAP.md, faults queue, item 2).
     prompts = _prompts(6, 1)
@@ -292,6 +314,192 @@ def test_rounds_is_checked_and_eager_on_the_cpu(tparams):
     assert eng.graph_stats() == {'rounds': 'eager'}
     with pytest.raises(ValueError, match='rounds must be one of'):
         _paged(tparams, rounds='jit')
+    prompt, lens = torch.zeros((1, 4), dtype=torch.int64), torch.tensor([4])
+    with pytest.raises(ValueError, match='rounds must be one of'):
+        tdecode.generate(tparams, prompt, lens, CFG,
+                         tdecode.DecodeConfig(max_len=16), 2, rounds='jit')
+    # The CPU runs a 'graph' generate eagerly: no program is made.
+    tdecode.generate(tparams, prompt, lens, CFG,
+                     tdecode.DecodeConfig(max_len=16), 2)
+    assert tdecode.generate_programs() == []
+
+
+# Compiled generate and dense-insert cases: bf16, int8 K/V, int8 weights.
+CONFIG_CASES = {'bf16': {}, 'int8_kv': {'kv_cache_dtype': 'int8'},
+                'int8_weights': {'int8': True}}
+# 21 new tokens: the prefill's first token, one round of
+# GENERATE_ROUND (16) steps and a remainder round of 4.
+GEN_NEW = tdecode.GENERATE_ROUND + 5
+
+
+def _case_params(jp, tp, case):
+    """(reference params, port params, port DecodeConfig kwargs)."""
+    kw = dict(CONFIG_CASES[case])
+    if kw.pop('int8', False):
+        from skypilot_tpu.models import decode as jdecode
+        jp, tp = jdecode.quantize_params(jp), tdecode.quantize_params(tp)
+    return jp, tp, kw
+
+
+def _gen_prompts(seed, lens, s=8):
+    prompt = np.random.RandomState(seed).randint(
+        0, CFG.vocab_size, (len(lens), s)).astype(np.int64)
+    for row, n in enumerate(lens):
+        prompt[row, n:] = 0
+    return torch.from_numpy(prompt), torch.tensor(lens)
+
+
+def _mid_run_eos(tokens):
+    """(eos, row, step): a token that first appears at ``step`` (past
+    the second) of ``row`` of a generation without EOS, so that taken as
+    the EOS it stops the row mid-run."""
+    for row, toks in enumerate(tokens.tolist()):
+        for step in range(2, len(toks) - 2):
+            if toks[step] not in toks[:step]:
+                return toks[step], row, step
+    raise AssertionError(f'no token to stop a row mid-run: {tokens}')
+
+
+@pytest.mark.parametrize('case', sorted(CONFIG_CASES))
+def test_compiled_generate_matches_reference_and_reuses_its_cache(ref,
+                                                                   case):
+    """``GenerateProgram`` on the stand-in capturer (the bodies the card
+    captures; a replay runs its body again): tokens identical to the
+    reference's ``generate``, with an eos_id that stops a row mid-run;
+    a second call with other prompts and shorter lengths on the same
+    cache equals a fresh eager call, so no K/V of the first call reaches
+    it; one capture a key (the prefill, a round of GENERATE_ROUND steps,
+    the remainder) and replays after."""
+    import jax.numpy as jnp
+    from skypilot_tpu.models import decode as jdecode
+    from skypilot_tpu.models import llama as jllama
+
+    jp, tp, kw = _case_params(*ref, case)
+    prompt, lens = _gen_prompts(3, [8, 6, 3])
+    dcfg = tdecode.DecodeConfig(max_len=32, **kw)
+    probe = tdecode.generate(tp, prompt, lens, CFG, dcfg, GEN_NEW)
+    eos, row, stop = _mid_run_eos(probe)
+    dcfg = tdecode.DecodeConfig(max_len=32, eos_id=eos, **kw)
+    want = np.asarray(jdecode.generate(
+        jp, jnp.asarray(prompt.numpy()), jnp.asarray(lens.numpy()),
+        jllama.CONFIGS['debug'],
+        jdecode.DecodeConfig(max_len=32, eos_id=eos, decode_attention='xla',
+                             **kw), GEN_NEW))
+    program = tdecode.GenerateProgram(tp, CFG, dcfg, 3, 8, GEN_NEW, 'cpu',
+                                      StandInCapturer())
+    got = program.run(prompt, lens).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert tdecode.completed_token_counts(got, eos)[row] == stop + 1
+    assert program.graphs.captures == {'generate_prefill': 1,
+                                       'generate_steps': 2}
+    assert program.graphs.replays == 0
+    prompt2, lens2 = _gen_prompts(4, [5, 2, 7])
+    again = program.run(prompt2, lens2)
+    assert torch.equal(again, tdecode.generate(tp, prompt2, lens2, CFG, dcfg,
+                                               GEN_NEW))
+    assert program.graphs.replays == 3
+    assert sum(program.graphs.captures.values()) == 3
+
+
+def test_compiled_generate_raises_when_a_capture_fails(tparams):
+    """A capture that fails raises out of the call: nothing falls back to
+    the eager loop."""
+
+    class FailingCapturer(StandInCapturer):
+        def capture(self, fn):
+            raise RuntimeError('capture failed')
+
+    prompt, lens = _gen_prompts(1, [4, 4])
+    program = tdecode.GenerateProgram(
+        tparams, CFG, tdecode.DecodeConfig(max_len=16), 2, 8, 3, 'cpu',
+        FailingCapturer())
+    with pytest.raises(RuntimeError, match='capture failed'):
+        program.run(prompt, lens)
+    with pytest.raises(ValueError, match='exceeds max_len'):
+        tdecode.GenerateProgram(tparams, CFG,
+                                tdecode.DecodeConfig(max_len=16), 2, 8, 9,
+                                'cpu', StandInCapturer())
+
+
+def _lane_kv_close(got, want, kv):
+    """One lane's K/V [L, S, Hkv, hd] (and scales) against the
+    reference's: layer 0 bit for bit, every layer within BF16_ATOL
+    (int8: the dequantised values within two steps of the scale; later
+    layers' inputs differ by XLA's excess precision)."""
+    for name in ('k', 'v'):
+        if kv == 'int8':
+            scale = want[f'{name}_scale'][..., None]
+            deq_want = want[name].astype(np.float32) * scale
+            deq = got[name].astype(np.float32) * got[f'{name}_scale'][
+                ..., None]
+            assert (np.abs(deq - deq_want) <= 2 * scale + BF16_ATOL).all()
+            np.testing.assert_array_equal(got[f'{name}_scale'][0],
+                                          want[f'{name}_scale'][0])
+            np.testing.assert_array_equal(got[name][0], want[name][0])
+        else:
+            np.testing.assert_array_equal(got[name][0], want[name][0])
+            assert (np.abs(got[name] - want[name]) <= BF16_ATOL).all()
+
+
+def _planes_np(cache, lane, s):
+    return {name: (t[:, lane, :s].float() if t.dtype == torch.bfloat16
+                   else t[:, lane, :s]).numpy()
+            for name, t in cache.items()}
+
+
+@pytest.mark.parametrize('case', sorted(CONFIG_CASES))
+def test_dense_insert_matches_reference_greedy_prefill(ref, case):
+    """The dense engine's insert dispatch ``('prefill', 16)`` on the
+    graph bookkeeping, its prompt length and lane as 0-d tensors of the
+    key's static buffers: for lengths 9, 13 and 16 in lanes 0, 2 and 0,
+    the first token equal to the reference's ``_prefill_greedy_impl``'s,
+    the lane's K/V as ``_lane_kv_close`` holds them, every other lane
+    untouched (the cache starts from random bytes), and one capture
+    serving every length and lane."""
+    import jax.numpy as jnp
+    from skypilot_tpu.models import decode as jdecode
+    from skypilot_tpu.models import engine as jengine
+    from skypilot_tpu.models import llama as jllama
+
+    jp, tp, kw = _case_params(*ref, case)
+    kv = kw.get('kv_cache_dtype', 'bf16')
+    eng = _stand_in(engine_lib.DecodeEngine(
+        tp, CFG, tdecode.DecodeConfig(max_len=32, **kw), 3,
+        prefill_buckets=(16, 32)))
+    gen = torch.Generator().manual_seed(5)
+    for t in eng._cache.values():  # pylint: disable=protected-access
+        t.view(torch.uint8).copy_(torch.randint(
+            0, 256, t.view(torch.uint8).shape, generator=gen,
+            dtype=torch.uint8))
+    if kv == 'int8':  # finite scales, so dequantised lanes compare
+        for name in ('k_scale', 'v_scale'):
+            eng._cache[name].uniform_(0.0, 1.0, generator=gen)  # pylint: disable=protected-access
+    jcache = jdecode.init_kv_cache(jllama.CONFIGS['debug'], 3, 32, kv)
+    prompts = _prompts(3, 7, lo=16, hi=17)
+    for p, lane in ((9, 0), (13, 2), (16, 0)):
+        padded = np.zeros((1, 16), np.int64)
+        padded[0, :p] = prompts[lane][:p]
+        # Bytes, so that the random NaN patterns compare equal.
+        before = {n: t.view(torch.uint8).clone()
+                  for n, t in eng._cache.items()}  # pylint: disable=protected-access
+        out = eng._run_dispatch(  # pylint: disable=protected-access
+            ('prefill', 16),
+            {'tokens': padded, 'lens': np.asarray([p, lane], np.int64)})
+        first, jcache = jengine._prefill_greedy_impl(  # pylint: disable=protected-access
+            jp, jnp.asarray(padded, jnp.int32), jnp.int32(p),
+            jnp.int32(lane), jcache, cfg=jllama.CONFIGS['debug'])
+        assert out.shape == (1,) and int(out[0]) == int(first)
+        want = {n: np.asarray(a[:, lane, :16]).astype(
+            np.float32 if a.dtype == jnp.bfloat16 else a.dtype)
+            for n, a in jcache.items()}
+        _lane_kv_close(_planes_np(eng._cache, lane, 16), want, kv)  # pylint: disable=protected-access
+        keep = [i for i in range(3) if i != lane]
+        for name, t in eng._cache.items():  # pylint: disable=protected-access
+            t = t.view(torch.uint8)
+            assert torch.equal(t[:, keep], before[name][:, keep]), name
+            assert torch.equal(t[:, lane, 16:], before[name][:, lane, 16:])
+    assert eng.graph_stats()['captures'] == {'prefill': 1}
+    assert eng.graph_stats()['replays'] == 2
 
 
 # ------------------------------------------------------------------- cuda
@@ -306,6 +514,7 @@ def cuda():
 
 CUDA_CASES = {
     'dense': dict(paged=False),
+    'dense_int8_kv': dict(paged=False, kv_cache_dtype='int8'),
     'paged': dict(paged=True),
     'int8_kv': dict(paged=True, kv_cache_dtype='int8'),
     'int8_weights': dict(paged=True, int8=True),
@@ -354,3 +563,91 @@ def test_cuda_graph_rounds_equal_eager(cuda, case):
     assert g_n == e_n and sum(g_n) > 0
     assert g_stats['replays'] > 0
     assert g_stats['graphs'] == sum(g_stats['captures'].values())
+
+
+GEN_CUDA_CASES = dict(CONFIG_CASES, sampled={'temperature': 0.8})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(GEN_CUDA_CASES))
+def test_cuda_compiled_generate_equals_eager(cuda, case):
+    """``decode.generate`` on the card, ``rounds='graph'`` against
+    ``'eager'``: two calls of one key (the second with other prompts and
+    shorter lengths, so over the first call's cache) give the eager
+    loop's tokens (sampled: from generators in the same state); the
+    dense decode kernel launches n_layers x (N - 1) a call on both
+    paths; each of the three keys captured once, then replayed."""
+    kw = dict(GEN_CUDA_CASES[case])
+    int8 = kw.pop('int8', False)
+    params = tllama.init_params(
+        CFG, torch.Generator(device=cuda).manual_seed(0), cuda)
+    if int8:
+        params = tdecode.quantize_params(params)
+    dcfg = tdecode.DecodeConfig(max_len=32, **kw)
+    calls = [_gen_prompts(3, [8, 6, 3]), _gen_prompts(4, [5, 2, 7])]
+    if 'temperature' not in kw:
+        probe = tdecode.generate(params, calls[0][0].to(cuda),
+                                 calls[0][1].to(cuda), CFG, dcfg, GEN_NEW,
+                                 rounds='eager')
+        dcfg = tdecode.DecodeConfig(max_len=32, eos_id=_mid_run_eos(
+            probe.cpu())[0], **kw)
+    tdecode.clear_generate_programs()
+    runs = {}
+    for rounds in ('graph', 'eager'):
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        toks, launched = [], []
+        for prompt, lens in calls:
+            before = da.decode_attention_kernel.launches
+            toks.append(tdecode.generate(
+                params, prompt.to(cuda), lens.to(cuda), CFG, dcfg, GEN_NEW,
+                generator=gen, rounds=rounds).cpu())
+            launched.append(da.decode_attention_kernel.launches - before)
+        runs[rounds] = toks
+        assert launched == [CFG.n_layers * (GEN_NEW - 1)] * 2, rounds
+    for got, want in zip(runs['graph'], runs['eager']):
+        assert torch.equal(got, want)
+    (program,) = tdecode.generate_programs()
+    assert program.graphs.captures == {'generate_prefill': 1,
+                                       'generate_steps': 2}
+    assert program.graphs.replays == 3
+    tdecode.clear_generate_programs()
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_generate_raises_when_a_capture_fails(cuda,
+                                                           monkeypatch):
+    """A body that reads the device back to the host cannot be captured:
+    ``rounds='graph'`` raises, and never falls back to the eager loop."""
+    params = tllama.init_params(
+        CFG, torch.Generator(device=cuda).manual_seed(0), cuda)
+    real = tdecode.sample
+
+    def reads_back(logits, generator, temperature):
+        out = real(logits, generator, temperature)
+        out.sum().item()
+        return out
+
+    monkeypatch.setattr(tdecode, 'sample', reads_back)
+    prompt, lens = _gen_prompts(3, [8, 6, 3])
+    tdecode.clear_generate_programs()
+    with pytest.raises(RuntimeError):
+        tdecode.generate(params, prompt.to(cuda), lens.to(cuda), CFG,
+                         tdecode.DecodeConfig(max_len=32), 4)
+    tdecode.clear_generate_programs()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_sample_is_multinomials_draw(cuda):
+    """The sampled draw on the card is ``torch.multinomial``'s, bit for
+    bit, and leaves the generator in the same state."""
+    logits = torch.randn((5, 4096), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    g1 = torch.Generator(device=cuda).manual_seed(3)
+    g2 = torch.Generator(device=cuda).manual_seed(3)
+    for temperature in (0.5, 1.0, 1.7):
+        probs = torch.softmax(logits / temperature, dim=-1)
+        want = torch.multinomial(probs, 1, generator=g1)[:, 0]
+        got = tdecode.sample(logits, g2, temperature)
+        assert torch.equal(got, want)
+    assert torch.equal(g1.get_state(), g2.get_state())

@@ -117,6 +117,23 @@ def test_sampled_decode_is_finite_and_in_range(params):
     assert ((out >= 0) & (out < TCFG.vocab_size)).all()
 
 
+def test_sample_is_multinomials_draw():
+    """The sampled draw (probabilities over Exp(1) noise, the form a CUDA
+    graph can hold) is ``torch.multinomial``'s, bit for bit, and leaves
+    the generator in the same state."""
+    logits = torch.randn((7, 1000), generator=torch.Generator().manual_seed(1))
+    g1, g2 = torch.Generator(), torch.Generator()
+    g1.manual_seed(5)
+    g2.manual_seed(5)
+    for temperature in (0.5, 0.8, 1.3):
+        probs = torch.softmax(logits * 3 / temperature, dim=-1)
+        for _ in range(4):
+            want = torch.multinomial(probs, 1, generator=g1)[:, 0]
+            got = tdecode.sample(logits * 3, g2, temperature)
+            assert torch.equal(got, want)
+    assert torch.equal(g1.get_state(), g2.get_state())
+
+
 def test_generate_over_budget_raises_value_error(params):
     with pytest.raises(ValueError, match='exceeds max_len'):
         tdecode.generate(params[1], torch.from_numpy(_prompt(5, 1, 8)),

@@ -15,6 +15,7 @@ convolutions against oneDNN's): logits within 2e-5 of their largest
 of its largest |value| and each step's loss rel 2e-5 — the rules of
 ``tests/test_torch_train.py`` (its grad rule for what carries grads).
 """
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -148,22 +149,33 @@ def test_data_parallel_sync_bn_matches_reference():
     follow the reference's rules above."""
     from jax.sharding import Mesh  # pylint: disable=import-outside-toplevel
     from skypilot_tpu_torch.parallel import distributed  # pylint: disable=import-outside-toplevel
-    cases, want = [], []
     mesh = Mesh(np.asarray(jax.devices()[:2]), ('data',))
-    for bottleneck, size in CASES:
-        jcfg, _, jparams, images, labels = _setup(bottleneck, size)
-        cases.append((bottleneck, images, labels,
-                      jax.tree.map(np.asarray, jparams)))
-        jstep = jresnet.make_train_step(jcfg, mesh=mesh)
-        jmom = jresnet.zeros_momentum(jparams)
-        losses = []
-        for _ in range(2):
-            jparams, jmom, jloss = jstep(jparams, jmom, jnp.asarray(images),
-                                         jnp.asarray(labels))
-            losses.append(float(jloss))
-        want.append((losses, jparams, jmom))
-    got = distributed.local_ranks(2, _data_parallel_steps, (cases,),
-                                  platform='cpu')
+    setups = [_setup(bottleneck, size) for bottleneck, size in CASES]
+    cases = [(bottleneck, images, labels, jax.tree.map(np.asarray, jparams))
+             for (bottleneck, _), (_, _, jparams, images, labels)
+             in zip(CASES, setups)]
+
+    def reference():
+        want = []
+        for jcfg, _, jparams, images, labels in setups:
+            jstep = jresnet.make_train_step(jcfg, mesh=mesh)
+            jmom = jresnet.zeros_momentum(jparams)
+            losses = []
+            for _ in range(2):
+                jparams, jmom, jloss = jstep(jparams, jmom,
+                                             jnp.asarray(images),
+                                             jnp.asarray(labels))
+                losses.append(float(jloss))
+            want.append((losses, jparams, jmom))
+        return want
+
+    # The reference's steps (JAX, in this process) run on a thread beside
+    # the port's two ranks: neither reads the other's results.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        want = pool.submit(reference)
+        got = distributed.local_ranks(2, _data_parallel_steps, (cases,),
+                                      platform='cpu')
+        want = want.result()
     for (losses, params, mom), (jlosses, jparams, jmom) in zip(got, want):
         np.testing.assert_allclose(losses, jlosses, rtol=F32_TOL)
         for tree, ref_tree in ((params, jparams), (mom, jmom)):
@@ -219,29 +231,30 @@ def test_params_bridge_checks_shapes():
 
 
 def test_cli_on_the_cpu_and_refusals():
+    """The CLI on the CPU (one JSON line), a two-process
+    ``--distributed --data-parallel`` gang of it (rank 0 alone prints,
+    n_devices 2) and, on a host with no card, its refusal to run
+    without ``--device cpu``: the four processes run at once."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     cmd = [sys.executable, '-m', 'skypilot_tpu_torch.models.resnet',
            '--model', 'debug', '--batch-size', '2', '--image-size', '32',
            '--steps', '2']
-    out = subprocess.run(cmd + ['--device', 'cpu'], cwd=REPO_ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    line = json.loads(out.stdout.strip().splitlines()[-1])
-    assert line['metric'] == 'resnet_train_examples_per_sec'
-    assert line['model'] == 'debug' and line['unit'] == 'examples/s'
-    assert line['value'] > 0 and np.isfinite(line['loss'])
-    assert line['n_devices'] == 1
     # --distributed --data-parallel: a two-process gang (the gang's env
     # triple) splits the batch; rank 0 alone prints, n_devices 2.
     from skypilot_tpu_torch.parallel import distributed  # pylint: disable=import-outside-toplevel
     gang = dict(env, OMP_NUM_THREADS='1', JAX_NUM_PROCESSES='2',
                 JAX_COORDINATOR_ADDRESS=f'127.0.0.1:{distributed.free_port()}')
     gang.pop('SKYTPU_DISABLE_JAX_DISTRIBUTED', None)
-    procs = [subprocess.Popen(
-        cmd + ['--device', 'cpu', '--distributed', '--data-parallel'],
-        cwd=REPO_ROOT, env=dict(gang, JAX_PROCESS_ID=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(2)]
+    runs = [(cmd + ['--device', 'cpu'], env)]
+    runs += [(cmd + ['--device', 'cpu', '--distributed', '--data-parallel'],
+              dict(gang, JAX_PROCESS_ID=str(r))) for r in range(2)]
+    refusal = not torch.cuda.is_available()
+    if refusal:
+        runs.append((cmd, env))
+    procs = [subprocess.Popen(c, cwd=REPO_ROOT, env=e,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c, e in runs]
     try:
         outs = [p.communicate(timeout=300) for p in procs]
     finally:
@@ -249,14 +262,16 @@ def test_cli_on_the_cpu_and_refusals():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for p, (_, err) in zip(procs, outs):
+    for p, (_, err) in zip(procs[:3], outs):
         assert p.returncode == 0, err[-3000:]
-    dp = json.loads(outs[0][0].strip().splitlines()[-1])
+    line = json.loads(outs[0][0].strip().splitlines()[-1])
+    assert line['metric'] == 'resnet_train_examples_per_sec'
+    assert line['model'] == 'debug' and line['unit'] == 'examples/s'
+    assert line['value'] > 0 and np.isfinite(line['loss'])
+    assert line['n_devices'] == 1
+    dp = json.loads(outs[1][0].strip().splitlines()[-1])
     assert dp['n_devices'] == 2 and np.isfinite(dp['loss'])
-    assert not outs[1][0].strip()
-    if torch.cuda.is_available():
-        return
-    out = subprocess.run(cmd, cwd=REPO_ROOT, env=env, capture_output=True,
-                         text=True, timeout=300)
-    assert out.returncode != 0
-    assert "device='cpu'" in out.stderr
+    assert not outs[2][0].strip()
+    if refusal:
+        assert procs[3].returncode != 0
+        assert "device='cpu'" in outs[3][1]

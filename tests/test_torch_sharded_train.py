@@ -51,6 +51,7 @@ reference, so the ranks do not.
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -268,8 +269,6 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp('sharded_ckpt')
     dirs = {'mesh': str(tmp / 'mesh'), 'one': str(tmp / 'one'),
             'layers': str(tmp / 'layers'), 'saves': str(tmp / 'saves')}
-    unbroken = _one_rank_losses(None, 4)
-    _one_rank_losses(dirs['one'], 2)
     from skypilot_tpu.models import llama as jllama  # pylint: disable=import-outside-toplevel
     trees = {}
     for dtype in ('fp32', 'bf16'):
@@ -277,6 +276,10 @@ def runs(tmp_path_factory):
         trees[dtype] = jax.tree.map(
             lambda a: np.asarray(a, np.float32),
             jllama.init_params(jax.random.PRNGKey(0), jcfg))
+    # The unbroken run's step-2 checkpoint is the one the mesh resumes
+    # (its step-4 one goes).
+    unbroken = _one_rank_losses(dirs['one'], 4)
+    shutil.rmtree(os.path.join(dirs['one'], 'step_4'))
     port = distributed.local_ranks(4, _rank_runs, (trees, dirs),
                                    platform='cpu')
     port['unbroken'] = unbroken
@@ -599,45 +602,68 @@ def test_one_file_format_still_restores(tmp_path):
                     SAVE_MESHES)
 
 
-def _gang(n, args_of, timeout=120):
-    """Run ``n`` processes of the trainer's CLI as a gang (the env
-    triple); ``args_of(rank)`` gives each its arguments. Returns
-    [(returncode, stdout, stderr)] by process id."""
-    env = dict(os.environ, OMP_NUM_THREADS='1', **{
-        distributed.COORDINATOR_ENV: f'127.0.0.1:{distributed.free_port()}',
-        distributed.NUM_PROCESSES_ENV: str(n)})
-    env.pop(distributed.DISABLE_ENV, None)
-    env.pop('MEGASCALE_NUM_SLICES', None)
-    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.models.train',
-           '--model', 'debug', '--device', 'cpu', '--seq-len', '32',
-           '--log-every', '1']
-    procs = [subprocess.Popen(cmd + args_of(r), cwd=REPO_ROOT, env=dict(
-        env, **{distributed.PROCESS_ID_ENV: str(r)}),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(n)]
+def _run_gangs(specs, timeout=120):
+    """Run gangs of the trainer's CLI (the env triple each), every
+    process of every gang at once: ``specs`` maps a name to ``(n,
+    args_of)``, ``args_of(rank)`` giving a process its arguments.
+    Returns each gang's [(returncode, stdout, stderr)] by process id."""
+    gangs = {}
     try:
-        outs = [p.communicate(timeout=timeout) for p in procs]
+        for name, (n, args_of) in specs.items():
+            env = dict(os.environ, OMP_NUM_THREADS='1', **{
+                distributed.COORDINATOR_ENV:
+                    f'127.0.0.1:{distributed.free_port()}',
+                distributed.NUM_PROCESSES_ENV: str(n)})
+            env.pop(distributed.DISABLE_ENV, None)
+            env.pop('MEGASCALE_NUM_SLICES', None)
+            cmd = [sys.executable, '-m', 'skypilot_tpu_torch.models.train',
+                   '--model', 'debug', '--device', 'cpu', '--seq-len',
+                   '32', '--log-every', '1']
+            gangs[name] = [subprocess.Popen(
+                cmd + args_of(r), cwd=REPO_ROOT, env=dict(
+                    env, **{distributed.PROCESS_ID_ENV: str(r)}),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(n)]
+        out = {}
+        for name, procs in gangs.items():
+            outs = [p.communicate(timeout=timeout) for p in procs]
+            out[name] = [(p.returncode, o, e)
+                         for p, (o, e) in zip(procs, outs)]
+        return out
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+        for procs in gangs.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
 
 
-@pytest.mark.parametrize('args_of,error', [
-    (lambda r: ['--steps', '2'] + (['--num-slices', '2'] if r == 0 else []),
-     'disagree'),
-    (lambda r: ['--steps', '2', '--num-slices', '3'],
-     'not divisible into 3 slices'),
-    (lambda r: ['--steps', '2', '--batch-size', '3'], 'does not split'),
-], ids=['disagree', 'slices-misfit', 'batch-misfit'])
-def test_mismatched_gang_fails_on_every_process(args_of, error):
+# A gang the trainer refuses: each process's arguments by rank, and what
+# every process says.
+MISMATCHED_GANGS = {
+    'disagree': (lambda r: ['--steps', '2'] + (
+        ['--num-slices', '2'] if r == 0 else []), 'disagree'),
+    'slices-misfit': (lambda r: ['--steps', '2', '--num-slices', '3'],
+                      'not divisible into 3 slices'),
+    'batch-misfit': (lambda r: ['--steps', '2', '--batch-size', '3'],
+                     'does not split'),
+}
+
+
+@pytest.fixture(scope='module')
+def mismatched_gangs():
+    """Each MISMATCHED_GANGS gang of two processes, the three at once."""
+    return _run_gangs({name: (2, args_of) for name, (args_of, _)
+                       in MISMATCHED_GANGS.items()})
+
+
+@pytest.mark.parametrize('case', list(MISMATCHED_GANGS))
+def test_mismatched_gang_fails_on_every_process(mismatched_gangs, case):
     """A gang whose processes disagree, or whose size does not fit the
     mesh or the batch, fails on every process before the first step,
     never hanging in a collective."""
-    results = _gang(2, args_of)
-    for code, out, err in results:
+    error = MISMATCHED_GANGS[case][1]
+    for code, out, err in mismatched_gangs[case]:
         assert code != 0, out
         assert '[train] step' not in out
         assert error in err, err[-2000:]

@@ -544,39 +544,59 @@ def test_gang_processes_serve_one_tp_replica(group):
     assert got['tokens'] == want.tokens
 
 
-@pytest.mark.parametrize('args,error', [
-    (['--paged'], 'serves one replica at tp=2'),
-    (['--paged', '--tp', '1'], 'serves one replica at tp=2'),
-    (['--tp', '2'], 'requires paged=True'),
-], ids=['no-tp', 'tp-1', 'tp-2-dense'])
-def test_gang_fails_together_instead_of_hanging(args, error):
+# A gang the server refuses: its arguments and what process 0 says.
+GANG_FAILURES = {
+    'no-tp': (['--paged'], 'serves one replica at tp=2'),
+    'tp-1': (['--paged', '--tp', '1'], 'serves one replica at tp=2'),
+    'tp-2-dense': (['--tp', '2'], 'requires paged=True'),
+}
+
+
+@pytest.fixture(scope='module')
+def failed_gangs():
+    """Each GANG_FAILURES gang's return codes and stderr, [worker,
+    process 0]; the three gangs (six processes) run at once."""
+    import subprocess  # pylint: disable=import-outside-toplevel
+    import sys  # pylint: disable=import-outside-toplevel
+    gangs = {}
+    try:
+        for case, (args, _) in GANG_FAILURES.items():
+            env = dict(os.environ, **{
+                distributed.COORDINATOR_ENV: f'127.0.0.1:{_free_port()}',
+                distributed.NUM_PROCESSES_ENV: '2'})
+            env.pop(model_server.SERVE_TP_ENV, None)
+            env.pop(distributed.DISABLE_ENV, None)
+            cmd = [sys.executable, '-m',
+                   'skypilot_tpu_torch.serve.model_server', '--model',
+                   'debug', '--device', 'cpu', '--block-k', '8',
+                   '--max-len', '64', '--port', str(_free_port())] + args
+            gangs[case] = [subprocess.Popen(cmd, env=dict(env, **{
+                distributed.PROCESS_ID_ENV: str(r)}),
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+                for r in (1, 0)]
+        out = {}
+        for case, procs in gangs.items():
+            errs = [p.communicate(timeout=60)[1].decode() for p in procs]
+            out[case] = ([p.returncode for p in procs], errs)
+        return out
+    finally:
+        for procs in gangs.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+@pytest.mark.parametrize('case', list(GANG_FAILURES))
+def test_gang_fails_together_instead_of_hanging(failed_gangs, case):
     """A gang is one TP replica. A degree other than its process count
     (none given is 1) fails every process before any serves; a replica
     that process 0 refuses to build (tp > 1 needs paged) fails the
     worker too, which never waits on a peer that is gone."""
-    import subprocess  # pylint: disable=import-outside-toplevel
-    import sys  # pylint: disable=import-outside-toplevel
-    env = dict(os.environ, **{
-        distributed.COORDINATOR_ENV: f'127.0.0.1:{_free_port()}',
-        distributed.NUM_PROCESSES_ENV: '2'})
-    env.pop(model_server.SERVE_TP_ENV, None)
-    env.pop(distributed.DISABLE_ENV, None)
-    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.serve.model_server',
-           '--model', 'debug', '--device', 'cpu', '--block-k', '8',
-           '--max-len', '64', '--port', str(_free_port())] + args
-    procs = [subprocess.Popen(cmd, env=dict(env, **{
-        distributed.PROCESS_ID_ENV: str(r)}), stdout=subprocess.DEVNULL,
-        stderr=subprocess.PIPE) for r in (1, 0)]
-    try:
-        errs = [p.communicate(timeout=60)[1].decode() for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert procs[0].returncode != 0 and procs[1].returncode != 0
-    # Process 0 (procs[1]) names the cause.
-    assert error in errs[1], errs[1][-2000:]
+    codes, errs = failed_gangs[case]
+    assert codes[0] != 0 and codes[1] != 0
+    # Process 0 names the cause.
+    assert GANG_FAILURES[case][1] in errs[1], errs[1][-2000:]
 
 
 # --------------------------------------------------------------- card

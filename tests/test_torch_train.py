@@ -277,6 +277,33 @@ def test_token_dataset_copy_matches_reference(tmp_path):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize('vocab_size', [32768, 65536, 65537, 128256])
+def test_encode_text_writes_the_reference_bytes(tmp_path, monkeypatch,
+                                                vocab_size):
+    """The port's token-file tool (through its ``encode`` command line)
+    and the reference's ``encode_text`` write the same token file and
+    the same sidecar, uint16 up to a vocabulary of 65,536 and uint32
+    past it."""
+    text = tmp_path / 'corpus.txt'
+    text.write_text('the quick brown fox\n\njumps  over the lazy dog\n'
+                    'naïve café 42 §\n' * 7, encoding='utf-8')
+    for side in ('ours', 'theirs'):
+        (tmp_path / side).mkdir()
+    n = jdata.encode_text(str(text), str(tmp_path / 'theirs' / 'c.bin'),
+                          vocab_size)
+    monkeypatch.setattr(sys, 'argv', [
+        'data', 'encode', str(text), str(tmp_path / 'ours' / 'c.bin'),
+        '--vocab-size', str(vocab_size)])
+    tdata.main()
+    for name in ('c.bin', 'c.json'):
+        assert ((tmp_path / 'ours' / name).read_bytes() ==
+                (tmp_path / 'theirs' / name).read_bytes()), name
+    tokens = tdata.TokenDataset.open(str(tmp_path / 'ours' / 'c.bin'))
+    assert tokens.tokens.size == n and tokens.vocab_size == vocab_size
+    assert tokens.tokens.dtype == (np.uint16 if vocab_size <= 65536
+                                   else np.uint32)
+
+
 def test_flash_prefill_matches_reference():
     """With ``flash_attention`` set, prefill runs the flash path (the
     plain twins here, the dense fallback in the reference) and agrees
